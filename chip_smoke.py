@@ -1,0 +1,649 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
+runs five phases; any failure exits non-zero:
+
+1. environment: the card, its power limit, torch and CUDA versions, the
+   kernel build (seconds and each kernel's registers and spills);
+2. every kernel against its plain PyTorch version on the card, at the main
+   path's shapes and at edge shapes, with the tolerance stated per case;
+3. the main path at full width: Delphi-2M (12 layers, d_model 120) from
+   ``init_params(seed)`` in bf16, served by the ring-cache ``BatchedEngine``
+   through ``repro_torch.launch.serve`` (32 synthetic patient prompts, 16
+   slots, ``max_new`` 48).  Every request must finish, the engine must make
+   exactly one device->host copy per tick and per admission batch, and every
+   kernel must have launched on this path (launch counts are zeroed just
+   before it and read just after it);
+4. end-to-end parity in fp32: the same weights and injected uniforms through
+   the engine on the card (kernels) and on the CPU (plain versions); the
+   card's trajectories are held step by step against the CPU model
+   (``repro_torch.core.parity``);
+5. times at the main path's shapes: each kernel, its plain version, one
+   PyTorch library call where one computes the same function (a yardstick
+   the port never calls), and the bound from bytes and operations; device
+   time per call from ``torch.profiler`` and per-call time from CUDA events
+   (the ``kernels`` line's ``ms`` is the device time); then the main path
+   once more under the profiler (device busy time, idle share, top kernels).
+
+The last lines are the ``kernels`` JSON line, the card's name and power limit
+(``nvidia-smi``), and the result line ``{"ok": true, "device": ...}``.  A copy
+of all numbers goes to ``chiprun_out/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
+PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rates of the H100 SXM
+              "float32": 495e12}   # (TF32 for fp32 inputs)
+SEED = 0
+DEVICE = "cuda"
+
+REPLACES = {
+    "tte_sample": "src/repro/kernels/tte_sample.py:64",
+    "flash_attention": "src/repro/kernels/flash_attention.py:86",
+    "paged_decode_attention": "src/repro/kernels/paged_attention.py:82",
+}
+SOURCES = {
+    "tte_sample": "src/repro_torch/kernels/csrc/tte_sample.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "paged_decode_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
+}
+
+
+def log(msg: str = "") -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+def _tol(dtype) -> float:
+    import torch
+    return 2e-5 if dtype == torch.float32 else 2e-2
+
+
+def check_tte(gen) -> float:
+    """Events equal except at near-ties (best and second-best t within
+    1e-6 relative); t_min within 1e-6 relative.  Returns the largest
+    relative t_min error at the main path's shape."""
+    import torch
+    from repro_torch.core.sampler import sample_waiting_times
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tte_sample as k
+    dev = DEVICE
+    main_err = 0.0
+    for B, V, kind in [(16, 1289, "main"), (3, 256206, "large V"),
+                       (2, 100, "ragged V"), (1, 5, "tiny V"),
+                       (4, 1289, "ties")]:
+        logits = torch.randn((B, V), generator=gen, device=dev) * 3 - 4
+        u = torch.rand((B, V), generator=gen, device=dev)
+        if kind == "ties":      # every t equal: the lowest index must win
+            logits = torch.zeros_like(logits)
+            u = torch.full_like(u, 0.3)
+            u[1, 7:] = 1.0        # t = -0 from index 7 on
+        e1, t1 = k.tte_sample_cuda(logits, u)
+        e2, t2 = ref.tte_sample_ref(logits, u)
+        torch.cuda.synchronize()
+        t_all = sample_waiting_times(logits, u)
+        bad = (e1 != e2).nonzero().flatten().tolist()
+        for b in bad:
+            g1 = float(t_all[b, e1[b].long()])
+            g2 = float(t_all[b, e2[b].long()])
+            if abs(g1 - g2) > 1e-6 * abs(g2):
+                raise AssertionError(
+                    f"tte_sample {kind} row {b}: event {int(e1[b])} vs "
+                    f"{int(e2[b])}, t {g1} vs {g2}")
+        if kind == "ties" and e1.tolist() != [0, 7, 0, 0]:
+            raise AssertionError(f"tte_sample ties: {e1.tolist()}")
+        rel = float(((t1 - t2).abs() / t2.abs().clamp_min(1e-30)).max())
+        if rel > 1e-6:
+            raise AssertionError(f"tte_sample {kind}: t_min rel err {rel}")
+        if kind == "main":
+            main_err = rel
+        log(f"  tte_sample B={B} V={V} ({kind}): events differ at "
+            f"{len(bad)} near-ties, t_min rel err {rel:.3g} (tol 1e-6)")
+    return main_err
+
+
+FLASH_CASES = [
+    # (B, Hq, Hkv, S, hd, window, causal, dtype name, note)
+    (16, 12, 12, 8, 10, None, True, "bfloat16", "main S=8"),
+    (16, 12, 12, 32, 10, None, True, "bfloat16", "main S=32"),
+    (16, 12, 12, 64, 10, None, True, "bfloat16", "main S=64"),
+    (4, 12, 12, 256, 10, None, True, "bfloat16", "main S=256"),
+    (16, 12, 12, 64, 10, None, True, "float32", "fp32 S=64"),
+    (2, 12, 12, 256, 10, 100, True, "float32", "window"),
+    (2, 12, 12, 200, 10, None, True, "float32", "ragged S"),
+    (2, 4, 2, 256, 64, None, True, "float32", "GQA hd=64"),
+    (1, 2, 2, 384, 64, 100, True, "float32", "window hd=64"),
+    (2, 8, 2, 77, 64, 16, True, "bfloat16", "ragged window GQA bf16"),
+    (1, 2, 2, 130, 128, None, True, "float32", "hd=128 ragged"),
+    (1, 2, 2, 128, 64, None, False, "float32", "bidirectional"),
+]
+
+
+def check_flash(gen) -> float:
+    """fp32 atol 2e-5, bf16 atol 2e-2 against the plain version in fp32 on
+    the same (rounded) inputs.  q/k/v are transposed views of (B, S, H, hd)
+    tensors, as the model passes them.  Returns the largest error over the
+    bf16 cases at the main path's widths."""
+    import torch
+    from repro_torch.kernels import flash_attention as k
+    from repro_torch.kernels import ref
+    main_err = 0.0
+    for B, Hq, Hkv, S, hd, window, causal, dt, note in FLASH_CASES:
+        dtype = getattr(torch, dt)
+
+        def rnd(h):
+            return torch.randn((B, S, h, hd), generator=gen, device=DEVICE
+                               ).to(dtype).transpose(1, 2)
+        q, kk, v = rnd(Hq), rnd(Hkv), rnd(Hkv)
+        out = k.flash_attention_cuda(q, kk, v, causal=causal, window=window)
+        r = ref.flash_attention_ref(q.float(), kk.float(), v.float(),
+                                    causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = float((out.float() - r).abs().max())
+        tol = _tol(dtype)
+        if not err <= tol:
+            raise AssertionError(f"flash_attention {note}: err {err} > {tol}")
+        if note.startswith("main"):
+            main_err = max(main_err, err)
+        log(f"  flash_attention {note} (B={B} Hq={Hq} Hkv={Hkv} S={S} "
+            f"hd={hd} window={window} causal={causal} {dt}): max abs err "
+            f"{err:.3g} (tol {tol})")
+    return main_err
+
+
+def ring_inputs(gen, B, Hkv, G, hd, W, dtype, steps):
+    """A ring cache as the engine holds it, viewed as a pool of one block
+    per slot: slot b has written positions 0..steps[b] at ring slot p % W;
+    slot 0 also has its last two prompt positions masked (pos -1, as after
+    a right-padded prefill)."""
+    import torch
+    k = torch.randn((B, Hkv, W, hd), generator=gen, device=DEVICE).to(dtype)
+    v = torch.randn((B, Hkv, W, hd), generator=gen, device=DEVICE).to(dtype)
+    q = torch.randn((B, Hkv * G, hd), generator=gen, device=DEVICE).to(dtype)
+    pos = torch.full((B, W), -1, dtype=torch.int32)
+    for b, s in enumerate(steps):
+        for p in range(max(0, s - W + 1), s + 1):
+            pos[b, p % W] = p
+    pos[0, 1:3] = -1
+    table = torch.arange(B, dtype=torch.int32)[:, None]
+    step = torch.tensor(steps, dtype=torch.int32)
+    return q, k, v, table.to(DEVICE), pos.to(DEVICE), step.to(DEVICE)
+
+
+def paged_inputs(gen, B, Hkv, G, hd, bs, nbs, dtype, *, wrap=False,
+                 empty_slot=False):
+    """A true paged pool: each slot's blocks are scattered over the pool in
+    random order, unallocated table entries are -1, and with ``wrap`` the
+    positions have wrapped past the ring width, with every other one left
+    stale (evicted: at or below step - W)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(int(torch.randint(0, 2**31 - 1, (1,),
+                                                  generator=gen,
+                                                  device=DEVICE)))
+    W = nbs * bs
+    NB = 1 + B * nbs
+    perm = rng.permutation(np.arange(1, NB))
+    table = np.full((B, nbs), -1, np.int32)
+    pos = np.full((NB, bs), -1, np.int32)
+    step = np.zeros((B,), np.int32)
+    nxt = 0
+    for b in range(B):
+        if empty_slot and b == B - 1:
+            break
+        n_tok = int(rng.integers(1, W))
+        off = W if wrap else 0
+        step[b] = n_tok - 1 + off
+        for jb in range(-(-n_tok // bs)):
+            blk = int(perm[nxt])
+            nxt += 1
+            table[b, jb] = blk
+            for o in range(bs):
+                p = jb * bs + o
+                if p < n_tok:
+                    pos[blk, o] = p + off
+                    if wrap and o % 2 == 0:
+                        pos[blk, o] -= W
+    q = torch.from_numpy(rng.standard_normal((B, Hkv * G, hd))).to(dtype)
+    k = torch.from_numpy(rng.standard_normal((NB, Hkv, bs, hd))).to(dtype)
+    v = torch.from_numpy(rng.standard_normal((NB, Hkv, bs, hd))).to(dtype)
+    return tuple(t.to(DEVICE) for t in (
+        q, k, v, torch.from_numpy(table), torch.from_numpy(pos),
+        torch.from_numpy(step)))
+
+
+def check_paged(gen) -> float:
+    """fp32 atol 2e-5, bf16 atol 2e-2 against the plain version in fp32 on
+    the same (rounded) inputs.  Returns the largest error of the ring-as-
+    pool cases at the main path's widths (bf16)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ("main: ring as pool, bs=256", ring_inputs(
+            gen, 16, 12, 1, 10, 256, bf16,
+            [40, 300, 255, 256, 1000, 3, 0, 511] + [20 + 9 * i for i in range(8)]),
+         None),
+        ("ring as pool fp32", ring_inputs(
+            gen, 16, 12, 1, 10, 256, f32, [17 * i + 5 for i in range(16)]),
+         None),
+        ("paged bs=4 G=4 hd=64", paged_inputs(gen, 3, 2, 4, 64, 4, 8, f32),
+         None),
+        ("paged bs=16 wrapped stale G=2 window", paged_inputs(
+            gen, 4, 2, 2, 32, 16, 4, f32, wrap=True), 20),
+        ("paged bs=16 wrapped bf16 G=8 hd=128", paged_inputs(
+            gen, 2, 2, 8, 128, 16, 4, bf16, wrap=True), None),
+        ("paged bs=4 empty slot", paged_inputs(
+            gen, 3, 2, 2, 16, 4, 4, f32, empty_slot=True), None),
+    ]
+    main_err = 0.0
+    for note, (q, k, v, table, pos, step), window in cases:
+        B, Hq, hd = q.shape
+        Hkv = k.shape[1]
+        out = ops.paged_decode_attention(q, k, v, table, pos, step,
+                                         window=window)
+        r = ref.paged_decode_attention_ref(
+            q.float().reshape(B, Hkv, Hq // Hkv, hd), k.float(), v.float(),
+            table, pos, step, window=window).reshape(B, Hq, hd)
+        torch.cuda.synchronize()
+        err = float((out.float() - r).abs().max())
+        tol = _tol(q.dtype)
+        if not err <= tol:
+            raise AssertionError(f"paged_decode_attention {note}: err {err}"
+                                 f" > {tol}")
+        if "empty" in note and float(out[-1].abs().max()) != 0.0:
+            raise AssertionError("paged_decode_attention: an empty slot "
+                                 "must give zeros")
+        if note.startswith("main"):
+            main_err = err
+        log(f"  paged_decode_attention {note} (B={B} Hkv={Hkv} "
+            f"G={Hq // Hkv} hd={hd} bs={k.shape[2]} nbs={table.shape[1]} "
+            f"{str(q.dtype)[6:]}): max abs err {err:.3g} (tol {tol})")
+    return main_err
+
+
+# ---------------------------------------------------------------------------
+# phase 3 / 4: the serving path
+# ---------------------------------------------------------------------------
+def serve_args(requests: int, max_new: int):
+    from repro_torch.launch import serve as launch
+    return launch.parse_args(["--arch", "delphi-2m", "--requests",
+                              str(requests), "--slots", "16", "--max-new",
+                              str(max_new), "--seed", str(SEED),
+                              "--device", DEVICE])
+
+
+def main_path() -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+    cfg_v = 1289
+    # first use of cuBLAS and the allocator, through the same entry point
+    launch.serve(serve_args(4, 4))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = launch.serve(serve_args(32, 48))
+    counts = ops.launch_counts()
+    eng, done = out["engine"], out["done"]
+    if len(done) != 32 or not all(r.done and r.error is None for r in done):
+        raise AssertionError(f"{len(done)} of 32 requests completed")
+    if eng.host_syncs != eng.ticks + eng.admit_batches:
+        raise AssertionError(f"host_syncs {eng.host_syncs} != ticks "
+                             f"{eng.ticks} + admit_batches "
+                             f"{eng.admit_batches}")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"{name} never launched on the main path")
+    for r in done:
+        toks = np.asarray(r.out_tokens)
+        ages = np.asarray(r.out_ages, np.float64)
+        if len(toks) > 48 or (len(toks) and (toks.min() < 0
+                                             or toks.max() >= cfg_v)):
+            raise AssertionError(f"bad tokens {toks}")
+        if not (np.isfinite(ages).all() and (ages <= 85.0).all()
+                and (np.diff(ages) >= 0).all()):
+            raise AssertionError(f"bad ages {ages}")
+    return {"engine": eng, "done": done, "seconds": out["seconds"],
+            "events": out["events"], "launches": counts}
+
+
+def parity() -> dict:
+    """fp32 engine on the card (kernels) and on the CPU (plain versions)
+    with the same weights and uniforms."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import parity as par
+    from repro_torch.data import SimulatorConfig, generate_dataset
+    from repro_torch.models import init_params
+    from repro_torch.serve import BatchedEngine, Request
+    cfg = get_config("delphi-2m").replace(dtype="float32")
+    n_req, max_new, W = 24, 48, cfg.max_seq_len
+    trajs, _ = generate_dataset(SimulatorConfig(n_train=n_req, n_val=1,
+                                                seed=SEED + 17))
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [(t[:max(len(t) // 2, 1)], a[:max(len(t) // 2, 1)])
+               for t, a in trajs]
+    us = [rng.random((max_new, cfg.vocab_size), dtype=np.float32)
+          for _ in prompts]
+    runs, params = {}, {}
+    for dev in (DEVICE, "cpu"):
+        params[dev] = init_params(cfg, seed=SEED + 1, device=dev)
+        eng = BatchedEngine(params[dev], cfg, slots=16, max_context=W,
+                            device=dev)
+        reqs = [Request(tokens=t, ages=a, max_new=max_new, uniforms=u)
+                for (t, a), u in zip(prompts, us)]
+        for r in reqs:
+            eng.submit(r)
+        t0 = time.perf_counter()
+        eng.run()
+        runs[dev] = [(r.out_tokens, r.out_ages) for r in reqs]
+        if eng.host_syncs != eng.ticks + eng.admit_batches:
+            raise AssertionError(f"{dev}: host_syncs {eng.host_syncs}")
+        log(f"  {dev}: {sum(len(t) for t, _ in runs[dev])} events, "
+            f"{eng.ticks} ticks in {time.perf_counter() - t0:.2f}s")
+    # tolerance: the card and the CPU differ in fp32 summation order and in
+    # sin/cos of the ~1e4-1e5 rad age-encoding angles; 1e-3 relative on a
+    # waiting time is ~3x the port-vs-JAX disagreement measured on the CPU
+    held = par.check_trajectories(
+        prompts, runs[DEVICE], us, par.port_logits_fn(params["cpu"], cfg),
+        margin_tol=1e-3, age_rtol=1e-3, max_age=cfg.max_age,
+        death_token=cfg.death_token, max_context=W)
+    free = par.compare_runs(runs["cpu"], runs[DEVICE], age_rtol=0.25)
+    log(f"  card trajectories held step by step against the CPU model: "
+        f"{held['steps']} steps, {len(held['near_ties'])} near-ties, largest "
+        f"age-increment rel err {held['max_age_rel_err']:.3g} (tol 1e-3)")
+    log(f"  free-running card vs CPU: {free['compared']} events equal before"
+        f" the first divergence; divergences at {free['divergences']}")
+    return {"held": held, "free": free}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: times
+# ---------------------------------------------------------------------------
+def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
+    """Per-call time by CUDA events around a warmed run of ``iters`` calls:
+    what a caller pays, host overhead included when launches are
+    host-bound."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def device_kernels(fn) -> dict:
+    """Run ``fn`` under ``torch.profiler`` and return {device activity
+    (kernel, copy, set) name: (count, device ms)}; empty if the profiler
+    saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            out[e.key] = (e.count, us / 1e3)
+    return out
+
+
+def device_ms(fn, iters: int = 50, warmup: int = 10):
+    """Device time per call of ``fn`` (all its kernels, summed), from the
+    profiler; None where the profiler sees no device activity."""
+    for _ in range(warmup):
+        fn()
+
+    def run():
+        for _ in range(iters):
+            fn()
+    total = sum(ms for _, ms in device_kernels(run).values())
+    return total / iters if total > 0 else None
+
+
+def measure(fn) -> dict:
+    return {"device_ms": device_ms(fn), "call_ms": cuda_ms(fn)}
+
+
+def bound(nbytes: float, flops: float, dtype: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def times(main: dict, gen) -> dict:
+    """Kernel, plain version and library call at the main path's shapes:
+    device time per call (profiler) and per-call time (CUDA events)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import paged_attention as pk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tte_sample as tk
+    eng = main["engine"]
+    res = {}
+
+    # tte_sample: one tick's sampling, (slots, V) fp32
+    B, V = eng.slots, eng.cfg.vocab_size
+    lg = torch.randn((B, V), generator=gen, device=DEVICE) * 3 - 8
+    u = torch.rand((B, V), generator=gen, device=DEVICE)
+    b_ms, b_by = bound(2 * B * V * 4 + B * 8, 3 * B * V, "float32")
+    res["tte_sample"] = {
+        "shape": f"B={B} V={V} fp32",
+        "kernel": measure(lambda: tk.tte_sample_cuda(lg, u)),
+        "plain": measure(lambda: ref.tte_sample_ref(lg, u)),
+        "library": None, "bound_ms": b_ms, "bound_by": b_by}
+
+    # flash_attention: the largest prefill bucket the main path ran
+    nb, sb = max(eng.prefill_shapes, key=lambda s: s[0] * s[1] * s[1])
+    H, hd = eng.cfg.n_heads, eng.cfg.head_dim
+    q, k, v = (torch.randn((nb, H, sb, hd), generator=gen, device=DEVICE
+                           ).to(torch.bfloat16) for _ in range(3))
+    nbytes = 4 * nb * H * sb * hd * 2
+    flops = 4 * nb * H * hd * sb * (sb + 1) / 2
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    res["flash_attention"] = {
+        "shape": f"B={nb} H={H} S={sb} hd={hd} causal bf16",
+        "kernel": measure(lambda: fk.flash_attention_cuda(q, k, v,
+                                                          causal=True)),
+        "plain": measure(lambda: ref.flash_attention_ref(q, k, v,
+                                                         causal=True)),
+        "library": measure(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True)),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+    # paged_decode_attention: one layer of one tick on the main path's ring
+    # (layer 0's K/V and positions as the run left them)
+    lc = eng.cache["self"]
+    kl, vl, pos = lc.k[0], lc.v[0], lc.pos[0]
+    Bs, Hkv, W, hd = kl.shape
+    step = eng._state["step"]
+    table = torch.arange(Bs, dtype=torch.int32, device=DEVICE)[:, None]
+    q4 = torch.randn((Bs, Hkv, 1, hd), generator=gen, device=DEVICE
+                     ).to(kl.dtype)
+    valid = (pos >= 0) & (pos <= step[:, None]) & (pos > step[:, None] - W)
+    n_valid = int(valid.sum())
+    nbytes = (q4.numel() * 2 * 2 + 2 * n_valid * Hkv * hd * 2 + pos.numel() * 4
+              + Bs * 8)
+    flops = 4 * n_valid * Hkv * hd
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    mask = valid[:, None, None, :]
+    res["paged_decode_attention"] = {
+        "shape": f"B={Bs} Hkv={Hkv} G=1 hd={hd} bs=W={W} nbs=1 bf16, "
+                 f"{n_valid} valid tokens",
+        "kernel": measure(lambda: pk.paged_decode_attention_cuda(
+            q4, kl, vl, table, pos, step)),
+        "plain": measure(lambda: ref.paged_decode_attention_ref(
+            q4, kl, vl, table, pos, step)),
+        "library": measure(lambda: F.scaled_dot_product_attention(
+            q4, kl, vl, attn_mask=mask)),
+        "bound_ms": b_ms, "bound_by": b_by}
+    return res
+
+
+def main_path_profile(wall: float) -> dict:
+    """The main path once more, the same requests and seed, under the
+    profiler: the device's busy time against ``wall``, the same run's time
+    without the profiler (whose host-side tracing slows the launches), and
+    the kernels that take the device time."""
+    from repro_torch.launch import serve as launch
+    box = {}
+
+    def run():
+        box["out"] = launch.serve(serve_args(32, 48))
+    kernels = device_kernels(run)
+    busy = sum(ms for _, ms in kernels.values()) / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"wall_s": wall, "profiled_wall_s": box["out"]["seconds"],
+            "device_busy_s": busy,
+            "idle_share": (1.0 - busy / wall) if busy else None,
+            "launches": sum(n for n, _ in kernels.values()),
+            "top": [{"kernel": name[:80], "launches": n, "ms": ms}
+                    for name, (n, ms) in top]}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+
+    smi = nvidia_smi()
+    log("== phase 1: environment")
+    log(f"  card: {smi}; {torch.cuda.get_device_name(0)}, "
+        f"{torch.cuda.device_count()} visible")
+    log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    build.library()
+    log(f"  kernels built in {time.perf_counter() - t0:.1f}s "
+        f"(nvcc {build.last_build.get('seconds', 0.0):.1f}s)")
+    for line in str(build.last_build.get("log", "")).splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            log("    " + line.strip())
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    log("== phase 2: kernels against their plain versions on the card")
+    errs = {"tte_sample": check_tte(gen), "flash_attention": check_flash(gen),
+            "paged_decode_attention": check_paged(gen)}
+
+    log("== phase 3: main path (Delphi-2M bf16, ring BatchedEngine, 16 slots)")
+    main_res = main_path()
+    eng, sec = main_res["engine"], main_res["seconds"]
+    log(f"  {len(main_res['done'])} requests, {main_res['events']} events, "
+        f"{eng.ticks} ticks, {eng.admit_batches} admission batches in "
+        f"{sec:.3f}s: {main_res['events'] / sec:.1f} events/s, "
+        f"{eng.ticks / sec:.1f} ticks/s; host_syncs {eng.host_syncs}; "
+        f"prefill shapes {sorted(eng.prefill_shapes)}; launches "
+        f"{main_res['launches']}")
+
+    log("== phase 4: end-to-end parity, fp32, card vs CPU")
+    par = parity()
+
+    log("== phase 5: times at the main path's shapes")
+    tm = times(main_res, gen)
+
+    def fmt(m):
+        if m is None:
+            return "n/a"
+        dev = ("not measured" if m["device_ms"] is None
+               else f"{m['device_ms']:.5f} ms")
+        return f"device {dev} / per call {m['call_ms']:.5f} ms"
+    for name, t in tm.items():
+        log(f"  {name} [{t['shape']}]: kernel {fmt(t['kernel'])}; plain "
+            f"{fmt(t['plain'])}; library {fmt(t['library'])}; bound "
+            f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+    prof = main_path_profile(sec)
+    idle = ("not measured" if prof["idle_share"] is None
+            else f"{prof['idle_share']:.3f}")
+    log(f"  main path: device busy {prof['device_busy_s']:.4f}s of "
+        f"{prof['wall_s']:.3f}s wall (phase 3), idle share {idle}; "
+        f"{prof['launches']} device activities ({prof['profiled_wall_s']:.3f}"
+        f"s wall under the profiler); top by device time:")
+    for t in prof["top"]:
+        log(f"    {t['ms']:9.3f} ms  {t['launches']:6d}x  {t['kernel']}")
+
+    def ms(m):
+        """Device time where the profiler saw it, else the per-call time."""
+        if m is None:
+            return None
+        return m["device_ms"] if m["device_ms"] is not None else m["call_ms"]
+    kernels = [{
+        "name": name, "route": "cuda", "source": SOURCES[name],
+        "replaces": REPLACES[name], "launches": main_res["launches"][name],
+        "max_abs_err": errs[name], "ms": ms(tm[name]["kernel"]),
+        "plain_ms": ms(tm[name]["plain"]), "bound_ms": tm[name]["bound_ms"],
+        "bound_by": tm[name]["bound_by"],
+        "library_ms": ms(tm[name]["library"]),
+        "call_ms": tm[name]["kernel"]["call_ms"]} for name in REPLACES]
+    record = {
+        "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+        "build_seconds": build.last_build.get("seconds"),
+        "kernel_errors": errs, "times": tm, "kernels": kernels,
+        "main_path_profile": prof,
+        "main_path": {"requests": len(main_res["done"]),
+                      "events": main_res["events"], "seconds": sec,
+                      "ticks": eng.ticks, "admit_batches": eng.admit_batches,
+                      "host_syncs": eng.host_syncs,
+                      "prefill_shapes": sorted(eng.prefill_shapes),
+                      "launches": main_res["launches"]},
+        "parity": {"steps": par["held"]["steps"],
+                   "near_ties": len(par["held"]["near_ties"]),
+                   "max_age_rel_err": par["held"]["max_age_rel_err"],
+                   "free_compared": par["free"]["compared"],
+                   "divergences": par["free"]["divergences"]}}
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+        json.dump(record, f, indent=1)
+    log(json.dumps({"kernels": kernels}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

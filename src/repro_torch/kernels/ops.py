@@ -1,0 +1,81 @@
+"""Public kernel entry points: dispatch by the tensors' device.
+
+A CPU tensor takes the plain PyTorch version (``kernels.ref``); a CUDA
+tensor launches the hand-written kernel or the call raises.  There is no
+fallback from a failed build or launch to the plain version.  Signatures
+and layouts are those of the JAX package's ``kernels/ops.py``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import ref
+from repro_torch.kernels import tte_sample as _tte
+
+KERNEL_MODULES = {"tte_sample": _tte, "flash_attention": _flash,
+                  "paged_decode_attention": _paged}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per wrapper since the last reset."""
+    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in KERNEL_MODULES.values():
+        mod.launches = 0
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {t.device}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, Hq, S, hd); k, v: (B, Hkv, T, hd) -> (B, Hq, S, hd) in q's
+    dtype.  Causality is by index (query row i sees keys j <= i)."""
+    if _on_cuda(q):
+        return _flash.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal,
+                                   window=window).to(q.dtype)
+
+
+def paged_decode_attention(q, k_pool, v_pool, table, pos, step, *,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """One-token decode over a block pool.
+
+    q: (B, Hq, hd) one query token per slot; k/v_pool: (NB, Hkv, bs, hd);
+    table: (B, nbs) pool ids (-1 = unallocated); pos: (NB, bs) absolute
+    positions (-1 = empty); step: (B,) query positions.  GQA groups the
+    query heads as ``(Hkv, Hq // Hkv)``.  Returns (B, Hq, hd) in q's dtype.
+    """
+    B, Hq, hd = q.shape
+    Hkv = k_pool.shape[1]
+    q4 = q.reshape(B, Hkv, Hq // Hkv, hd)
+    if _on_cuda(q):
+        out = _paged.paged_decode_attention_cuda(
+            q4.contiguous(), k_pool, v_pool, table.to(torch.int32),
+            pos.to(torch.int32), step.to(torch.int32), window=window)
+    else:
+        out = ref.paged_decode_attention_ref(q4, k_pool, v_pool, table, pos,
+                                             step, window=window)
+    return out.reshape(B, Hq, hd).to(q.dtype)
+
+
+def tte_sample(logits, u) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused competing-exponential sampler: (B, V) logits and uniforms ->
+    (event (B,) int32, t_min (B,) fp32), ties to the lowest index."""
+    logits = logits.float()
+    u = u.float()
+    if _on_cuda(logits):
+        return _tte.tte_sample_cuda(logits.contiguous(), u.contiguous())
+    return ref.tte_sample_ref(logits, u)

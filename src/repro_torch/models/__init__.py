@@ -1,0 +1,13 @@
+"""Delphi's transformer in PyTorch: the weight bridge, layers, ring-cache
+attention and the model entry points."""
+from repro_torch.models.attention import LayerCache
+from repro_torch.models.model import (cast_params, decode_step, forward,
+                                      make_decode_cache,
+                                      mask_padded_positions, param_count)
+from repro_torch.models.params import (from_jax_flat, init_params,
+                                       load_checkpoint, to_flat_numpy)
+
+__all__ = ["LayerCache", "cast_params", "decode_step", "forward",
+           "from_jax_flat", "init_params", "load_checkpoint",
+           "make_decode_cache", "mask_padded_positions", "param_count",
+           "to_flat_numpy"]

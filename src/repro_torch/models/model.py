@@ -1,0 +1,186 @@
+"""Delphi's dense transformer: prefill, ring-cache decode and the cache
+helpers of the serving engine (the JAX package's ``models/model.py``).
+
+Parameters are the flat dict of ``models.params``; layer ``l`` of a stacked
+leaf is ``params[key][l]``.  The stack is pre-LayerNorm attention (no RoPE:
+Delphi's continuous age encoding replaces positions) and a GELU MLP, then
+the tied head with the fp32 ``out_bias``.  Prefill attention runs the flash
+kernel; decode runs the paged decode kernel over the ring cache
+(``models.attention``).
+
+This slice serves the Delphi family only: configurations that need RoPE,
+GQA, SwiGLU, RMSNorm, a sliding window, QKV biases, an untied head or a
+non-dense architecture raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs import base as cb
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.attention import LayerCache
+from repro_torch.models.layers import (act_dtype, age_encoding, apply_mlp,
+                                       apply_norm, embed_tokens, logits_head)
+from repro_torch.models.params import Params
+
+# weights that enter a matrix product (cast to the activation dtype); norms
+# and out_bias are used in fp32
+MATMUL_KEYS = ("embed/embed", "layers/attn/wq", "layers/attn/wk",
+               "layers/attn/wv", "layers/attn/wo", "layers/mlp/w_fc",
+               "layers/mlp/b_fc", "layers/mlp/w_proj", "layers/mlp/b_proj")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what this slice does not port."""
+    gaps = []
+    if cfg.arch_type != cb.DENSE:
+        gaps.append(f"arch_type={cfg.arch_type}")
+    if not cfg.age_encoding:
+        gaps.append("RoPE (age_encoding=False)")
+    if cfg.n_kv_heads != cfg.n_heads:
+        gaps.append("GQA")
+    if cfg.activation != "gelu":
+        gaps.append(f"activation={cfg.activation}")
+    if cfg.norm != "layernorm":
+        gaps.append(f"norm={cfg.norm}")
+    if cfg.sliding_window is not None:
+        gaps.append("sliding window")
+    if cfg.qkv_bias:
+        gaps.append("qkv_bias")
+    if not cfg.tie_embeddings:
+        gaps.append("untied head")
+    if gaps:
+        raise NotImplementedError(
+            f"{cfg.name}: not ported yet: {', '.join(gaps)}")
+
+
+def cast_params(params: Params, cfg: ModelConfig) -> Params:
+    """The same parameters with the matrix-product weights cast once to the
+    activation dtype (what every forward would cast at use)."""
+    dt = act_dtype(cfg)
+    return {k: (v.to(dt) if k in MATMUL_KEYS else v)
+            for k, v in params.items()}
+
+
+def _embed(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
+    x = embed_tokens(params["embed/embed"], batch["tokens"], act_dtype(cfg))
+    return x + age_encoding(batch["ages"], cfg.d_model).to(x.dtype)
+
+
+def _mlp_block(params: Params, x: torch.Tensor, l: int) -> torch.Tensor:
+    h = apply_norm(x, params["layers/mlp_norm/scale"][l],
+                   params["layers/mlp_norm/bias"][l])
+    return x + apply_mlp(h, params["layers/mlp/w_fc"][l],
+                         params["layers/mlp/b_fc"][l],
+                         params["layers/mlp/w_proj"][l],
+                         params["layers/mlp/b_proj"][l])
+
+
+def _head(params: Params, x: torch.Tensor) -> torch.Tensor:
+    x = apply_norm(x, params["final_norm/scale"], params["final_norm/bias"])
+    return logits_head(params["embed/embed"], x, params.get("embed/out_bias"))
+
+
+def _qkv(params: Params, x: torch.Tensor, l: int):
+    h = apply_norm(x, params["layers/attn_norm/scale"][l],
+                   params["layers/attn_norm/bias"][l])
+    return attn.project_qkv(h, params["layers/attn/wq"][l],
+                            params["layers/attn/wk"][l],
+                            params["layers/attn/wv"][l])
+
+
+def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
+            mode: str = "train", cache_width: Optional[int] = None,
+            last_index: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+    """mode "train": (B, S, V) fp32 logits at every position.
+    mode "prefill": logits (B, 1, V) at ``last_index`` (B,) — each row's
+    last valid token of a right-padded batch — or at the last position,
+    plus ``cache``: {"self": LayerCache} rings of width ``cache_width``.
+
+    batch: tokens (B, S) int, ages (B, S) float years."""
+    check_supported(cfg)
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"mode must be 'train' or 'prefill': {mode!r}")
+    x = _embed(params, cfg, batch)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    out: Dict[str, Any] = {}
+    cache = None
+    if mode == "prefill":
+        W = cache_width or S
+        cache = attn.empty_cache(cfg.n_layers, B, cfg.n_kv_heads, W,
+                                 cfg.head_dim, x.dtype, x.device)
+    for l in range(cfg.n_layers):
+        q, k, v = _qkv(params, x, l)
+        o = attn.prefill_attention(q, k, v)
+        x = x + attn.output_projection(o, params["layers/attn/wo"][l])
+        x = _mlp_block(params, x, l)
+        if cache is not None:
+            ring = attn.cache_from_prefill(k, v, positions, cache.k.shape[3])
+            cache.k[l] = ring.k
+            cache.v[l] = ring.v
+            cache.pos[l] = ring.pos
+    if mode == "prefill":
+        # the decode bootstrap needs one position per row: gather before
+        # the head keeps the (B, S, V) logits out of memory
+        if last_index is not None:
+            idx = last_index.long().reshape(B, 1, 1).expand(B, 1, x.shape[2])
+            x = x.gather(1, idx)
+        else:
+            x = x[:, -1:]
+        out["cache"] = {"self": cache}
+    out["logits"] = _head(params, x)
+    return out
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
+                step) -> Dict[str, Any]:
+    """One-token decode.  batch: tokens (B, 1), ages (B, 1); ``step``: (B,)
+    absolute position of each row's new token (or one int for all rows).
+    The ring cache is updated in place (and returned as ``cache``).
+    Returns {"logits": (B, 1, V) fp32, "cache": cache}."""
+    check_supported(cfg)
+    x = _embed(params, cfg, batch)
+    B = x.shape[0]
+    step = torch.as_tensor(step, dtype=torch.int32, device=x.device)
+    if step.dim() == 0:
+        step = step.expand(B)
+    lc: LayerCache = cache["self"]
+    slot = attn.write_ring_positions(lc, step)
+    table = torch.arange(B, dtype=torch.int32, device=x.device)[:, None]
+    for l in range(cfg.n_layers):
+        q, k, v = _qkv(params, x, l)
+        o = attn.ring_decode_attention(q, k, v, lc, l, slot, step, table)
+        x = x + attn.output_projection(o, params["layers/attn/wo"][l])
+        x = _mlp_block(params, x, l)
+    return {"logits": _head(params, x), "cache": cache}
+
+
+def mask_padded_positions(cache, last_idx: torch.Tensor):
+    """Invalidate ring positions past each row's true last token (right-
+    padded batched prefill wrote garbage K/V there): pos -> -1 until decode
+    writes reclaim the slots.  last_idx: (B,) int."""
+    li = last_idx.reshape(1, -1, 1).to(torch.int32)
+    lc: LayerCache = cache["self"]
+    pos = torch.where((lc.pos >= 0) & (lc.pos <= li), lc.pos,
+                      torch.full_like(lc.pos, -1))
+    return {"self": lc._replace(pos=pos)}
+
+
+def make_decode_cache(params: Params, cfg: ModelConfig, batch: int,
+                      context_len: int):
+    """An empty ring cache for ``batch`` slots of width ``context_len``, on
+    the parameters' device, in the activation dtype."""
+    check_supported(cfg)
+    device = params["embed/embed"].device
+    return {"self": attn.empty_cache(cfg.n_layers, batch, cfg.n_kv_heads,
+                                     context_len, cfg.head_dim,
+                                     act_dtype(cfg), device)}
+
+
+def param_count(params: Params) -> int:
+    return sum(int(v.numel()) for v in params.values())

@@ -1,0 +1,140 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need a CUDA card and ``nvcc`` (the kernels are built at first
+use); without a card each one skips.  They import neither JAX nor the JAX
+package, so they run on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
+
+Tolerances are those of ``tests/test_kernels.py``: fp32 atol 2e-5, bf16
+atol 2e-2 against the plain version in fp32 on the same rounded inputs;
+the sampler's events are equal except at near-ties (waiting times within
+1e-6 relative) and t_min agrees to 1e-6 relative.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fk
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import paged_attention as pk
+from repro_torch.kernels import tte_sample as tk
+
+torch.set_num_threads(2)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    """A seeded generator on the card; skips the test where there is none
+    (decided here, at run time, never at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel runs only there")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    return g
+
+
+def _tol(dtype):
+    return 2e-5 if dtype == torch.float32 else 2e-2
+
+
+@pytest.mark.parametrize("B,V", [(16, 1289), (3, 256206), (2, 100), (1, 5)])
+def test_tte_sample_kernel_vs_plain(gen, B, V):
+    logits = torch.randn((B, V), generator=gen, device="cuda") * 3 - 4
+    u = torch.rand((B, V), generator=gen, device="cuda")
+    n0 = tk.launches
+    e1, t1 = ops.tte_sample(logits, u)
+    e2, t2 = ref.tte_sample_ref(logits, u)
+    assert tk.launches == n0 + 1
+    t_all = -torch.exp(-logits) * torch.log(u.clamp(1e-12, 1.0 - 1e-12))
+    rows = torch.arange(B, device="cuda")
+    gap = (t_all[rows, e1.long()] - t_all[rows, e2.long()]).abs()
+    assert bool(((e1 == e2) | (gap <= 1e-6 * t2.abs())).all())
+    torch.testing.assert_close(t1, t2, rtol=1e-6, atol=0)
+
+
+def test_tte_sample_kernel_ties(gen):
+    logits = torch.zeros((3, 300), device="cuda")
+    u = torch.full((3, 300), 0.3, device="cuda")
+    u[1, 37:] = 1.0
+    evt, _ = tk.tte_sample_cuda(logits, u)
+    assert evt.tolist() == [0, 37, 0]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,hd,window,causal,dtype", [
+    (16, 12, 12, 32, 10, None, True, torch.bfloat16),
+    (4, 12, 12, 256, 10, None, True, torch.bfloat16),
+    (2, 12, 12, 200, 10, 100, True, torch.float32),
+    (2, 4, 2, 256, 64, None, True, torch.float32),
+    (2, 8, 2, 77, 64, 16, True, torch.bfloat16),
+    (1, 2, 2, 130, 128, None, True, torch.float32),
+    (1, 2, 2, 128, 64, None, False, torch.float32),
+])
+def test_flash_attention_kernel_vs_plain(gen, B, Hq, Hkv, S, hd, window,
+                                         causal, dtype):
+    def rnd(h):          # transposed views of (B, S, H, hd), as the model
+        return torch.randn((B, S, h, hd), generator=gen, device="cuda"
+                           ).to(dtype).transpose(1, 2)
+    q, k, v = rnd(Hq), rnd(Hkv), rnd(Hkv)
+    n0 = fk.launches
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert fk.launches == n0 + 1 and out.dtype == dtype
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+    torch.testing.assert_close(out.float(), want, atol=_tol(dtype), rtol=0)
+
+
+@pytest.mark.parametrize("B,Hkv,G,hd,bs,nbs,window,dtype", [
+    (16, 12, 1, 10, 256, 1, None, torch.bfloat16),   # the ring as a pool
+    (3, 2, 4, 64, 4, 8, None, torch.float32),
+    (4, 2, 2, 32, 16, 4, 20, torch.float32),
+    (2, 2, 8, 128, 16, 4, None, torch.bfloat16),
+])
+def test_paged_decode_kernel_vs_plain(gen, B, Hkv, G, hd, bs, nbs, window,
+                                      dtype):
+    NB = 1 + B * nbs
+    W = nbs * bs
+    perm = torch.randperm(NB - 1, generator=gen, device="cuda") + 1
+    table = torch.full((B, nbs), -1, dtype=torch.int32, device="cuda")
+    pos = torch.full((NB, bs), -1, dtype=torch.int32, device="cuda")
+    steps = torch.randint(W // 2, 3 * W, (B,), generator=gen, device="cuda")
+    for b in range(B):                       # positions step-W+1 .. step
+        table[b] = perm[b * nbs:(b + 1) * nbs].to(torch.int32)
+        for p in range(int(steps[b]) - W + 1, int(steps[b]) + 1):
+            if p >= 0:
+                pos[table[b, (p % W) // bs], p % bs] = p
+    table[0, -1] = -1                         # an unallocated block
+    q = torch.randn((B, Hkv * G, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((NB, Hkv, bs, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((NB, Hkv, bs, hd), generator=gen, device="cuda").to(dtype)
+    step = steps.to(torch.int32)
+    n0 = pk.launches
+    out = ops.paged_decode_attention(q, k, v, table, pos, step, window=window)
+    assert pk.launches == n0 + 1 and out.dtype == dtype
+    want = ref.paged_decode_attention_ref(
+        q.float().reshape(B, Hkv, G, hd), k.float(), v.float(), table, pos,
+        step, window=window).reshape(B, Hkv * G, hd)
+    torch.testing.assert_close(out.float(), want, atol=_tol(dtype), rtol=0)
+
+
+def test_paged_decode_kernel_empty_slot_gives_zeros(gen):
+    q = torch.randn((2, 2, 16), generator=gen, device="cuda")
+    k = torch.randn((3, 2, 4, 16), generator=gen, device="cuda")
+    table = torch.tensor([[1, 2], [-1, -1]], dtype=torch.int32, device="cuda")
+    pos = torch.arange(12, dtype=torch.int32, device="cuda").reshape(3, 4)
+    step = torch.tensor([7, 7], dtype=torch.int32, device="cuda")
+    out = ops.paged_decode_attention(q, k, k.clone(), table, pos - 4, step)
+    assert float(out[1].abs().max()) == 0.0
+    assert float(out[0].abs().max()) > 0.0
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    x = torch.randn((2, 8), generator=gen, device="cuda")
+    with pytest.raises(TypeError):
+        tk.tte_sample_cuda(x.double(), x.double())
+    q = torch.randn((1, 2, 8, 130), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        fk.flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        fk.flash_attention_cuda(q.cpu(), q.cpu(), q.cpu())
