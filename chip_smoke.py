@@ -4,29 +4,37 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-runs five phases; any failure exits non-zero:
+runs these phases; any failure exits non-zero:
 
 1. environment: the card, its power limit, torch and CUDA versions, the
    kernel build (seconds and each kernel's registers and spills);
 2. every kernel against its plain PyTorch version on the card, at the main
-   path's shapes and at edge shapes, with the tolerance stated per case;
-3. the main path at full width: Delphi-2M (12 layers, d_model 120) from
+   paths' shapes and at edge shapes, with the tolerance stated per case;
+3. the Delphi path at full width: Delphi-2M (12 layers, d_model 120) from
    ``init_params(seed)`` in bf16, served by the ring-cache ``BatchedEngine``
    through ``repro_torch.launch.serve`` (32 synthetic patient prompts, 16
    slots, ``max_new`` 48).  Every request must finish, the engine must make
-   exactly one device->host copy per tick and per admission batch, and every
-   kernel must have launched on this path (launch counts are zeroed just
-   before it and read just after it);
+   exactly one device->host copy per tick and per admission batch, and each
+   of the path's three kernels must have launched on it (launch counts are
+   zeroed just before it and read just after it);
+3b. the Mamba2 path at full width: Mamba2-780M (48 layers, d_model 1536,
+   V 50280) from ``init_params(seed)`` in bf16 on ``BatchedEngine(slots=8)``
+   with generator uniforms, 16 requests of seeded random token ids (prompts
+   of 96-1024 tokens), ``max_new`` 32.  Every request must get its 32
+   tokens, one host copy per tick and per admission, every prefill shape
+   ``(1, S)``, and ``ssd_intra`` must launch once per layer per admission
+   (counts zeroed just before, read just after);
 4. end-to-end parity in fp32: the same weights and injected uniforms through
-   the engine on the card (kernels) and on the CPU (plain versions); the
-   card's trajectories are held step by step against the CPU model
+   the engine on the card (kernels) and on the CPU (plain versions), for
+   Delphi-2M and for Mamba2-780M at full width cut to 4 layers; the card's
+   trajectories are held step by step against the CPU model
    (``repro_torch.core.parity``);
-5. times at the main path's shapes: each kernel, its plain version, one
+5. times at the main paths' shapes: each kernel, its plain version, one
    PyTorch library call where one computes the same function (a yardstick
    the port never calls), and the bound from bytes and operations; device
    time per call from ``torch.profiler`` and per-call time from CUDA events
-   (the ``kernels`` line's ``ms`` is the device time); then the main path
-   once more under the profiler (device busy time, idle share, top kernels).
+   (the ``kernels`` line's ``ms`` is the device time); then each path once
+   more under the profiler (device busy time, idle share, top kernels).
 
 The last lines are the ``kernels`` JSON line, the card's name and power limit
 (``nvidia-smi``), and the result line ``{"ok": true, "device": ...}``.  A copy
@@ -45,7 +53,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rates of the H100 SXM
-              "float32": 495e12}   # (TF32 for fp32 inputs)
+              "float32": 495e12,   # (TF32 for fp32 inputs)
+              # fp32 on the CUDA cores (NVIDIA's data sheet): the rate of a
+              # kernel whose fp32 sums must not round through TF32
+              "float32_simt": 67e12}
 SEED = 0
 DEVICE = "cuda"
 
@@ -53,12 +64,16 @@ REPLACES = {
     "tte_sample": "src/repro/kernels/tte_sample.py:64",
     "flash_attention": "src/repro/kernels/flash_attention.py:86",
     "paged_decode_attention": "src/repro/kernels/paged_attention.py:82",
+    "ssd_intra": "src/repro/kernels/ssd_scan.py:50",
 }
 SOURCES = {
     "tte_sample": "src/repro_torch/kernels/csrc/tte_sample.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_decode_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "ssd_intra": "src/repro_torch/kernels/csrc/ssd_intra.cu",
 }
+DELPHI_KERNELS = ("tte_sample", "flash_attention", "paged_decode_attention")
+MAMBA_SLOTS, MAMBA_REQUESTS, MAMBA_MAX_NEW = 8, 16, 32
 
 
 def log(msg: str = "") -> None:
@@ -284,8 +299,56 @@ def check_paged(gen) -> float:
     return main_err
 
 
+SSD_CASES = [
+    # (b, C, Q, H, P, N, xdt dtype, B/C dtype, B/C shared by the heads, note)
+    (1, 1, 16, 1, 8, 8, "float32", "float32", False, "Q16 P8 N8"),
+    (4, 3, 32, 1, 16, 32, "float32", "float32", False, "Q32 P16 N32"),
+    (2, 2, 128, 1, 64, 128, "float32", "float32", False, "production tile"),
+    (2, 2, 64, 1, 32, 64, "bfloat16", "bfloat16", False, "bf16 Q64"),
+    (2, 3, 32, 16, 32, 16, "float32", "float32", True, "reduced mamba2"),
+    (1, 8, 128, 48, 64, 128, "float32", "bfloat16", True,
+     "main: 1024-token prompt"),
+]
+
+
+def check_ssd(gen) -> float:
+    """atol 1e-4 (tests/test_kernels.py's SSD tolerance) against the plain
+    version in fp32 on the same (rounded) inputs, drawn as test_kernels.py
+    draws them (N(0, 1) tiles, cum of U(0, 0.2) decrements).  Returns the
+    error at the main path's tile (48 heads sharing bf16 B/C by a 0
+    stride, fp32 xdt, as the model passes them)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as k
+    main_err = 0.0
+    for b, C, Q, H, P, N, dx, dbc, shared, note in SSD_CASES:
+        def rnd(*shape, dt):
+            return torch.randn(shape, generator=gen, device=DEVICE
+                               ).to(getattr(torch, dt))
+        hb = 1 if shared else H
+        xdt = rnd(b, C, Q, H, P, dt=dx)
+        Bm = rnd(b, C, Q, hb, N, dt=dbc).expand(b, C, Q, H, N)
+        Cm = rnd(b, C, Q, hb, N, dt=dbc).expand(b, C, Q, H, N)
+        cum = -torch.cumsum(0.2 * torch.rand((b, C, Q, H), generator=gen,
+                                             device=DEVICE), dim=2)
+        y, st = k.ssd_intra_cuda(xdt, Bm, Cm, cum)
+        yr, sr = ref.ssd_intra_ref(xdt.transpose(2, 3), Bm.transpose(2, 3),
+                                   Cm.transpose(2, 3), cum.transpose(2, 3))
+        torch.cuda.synchronize()
+        err = max(float((y - yr.transpose(2, 3)).abs().max()),
+                  float((st - sr).abs().max()))
+        if not err <= 1e-4:
+            raise AssertionError(f"ssd_intra {note}: err {err} > 1e-4")
+        if note.startswith("main"):
+            main_err = err
+        log(f"  ssd_intra {note} (b={b} C={C} Q={Q} H={H} P={P} N={N} xdt "
+            f"{dx}, B/C {dbc}{', shared' if shared else ''}): max abs err "
+            f"{err:.3g} (tol 1e-4)")
+    return main_err
+
+
 # ---------------------------------------------------------------------------
-# phase 3 / 4: the serving path
+# phase 3 / 4: the serving paths
 # ---------------------------------------------------------------------------
 def serve_args(requests: int, max_new: int):
     from repro_torch.launch import serve as launch
@@ -314,9 +377,9 @@ def main_path() -> dict:
         raise AssertionError(f"host_syncs {eng.host_syncs} != ticks "
                              f"{eng.ticks} + admit_batches "
                              f"{eng.admit_batches}")
-    for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
+    for name in DELPHI_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} never launched on the Delphi path")
     for r in done:
         toks = np.asarray(r.out_tokens)
         ages = np.asarray(r.out_ages, np.float64)
@@ -377,6 +440,123 @@ def parity() -> dict:
         f"age-increment rel err {held['max_age_rel_err']:.3g} (tol 1e-3)")
     log(f"  free-running card vs CPU: {free['compared']} events equal before"
         f" the first divergence; divergences at {free['divergences']}")
+    return {"held": held, "free": free}
+
+
+def mamba_config():
+    from repro_torch.configs import get_config
+    return get_config("mamba2-780m")
+
+
+def mamba_prompts(vocab: int):
+    """16 prompts of seeded random token ids, 96 to 1024 tokens (1024 is a
+    multiple of the 128-token chunk; the others are not), in seeded order."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 3)
+    lens = np.linspace(96, 1024, MAMBA_REQUESTS).astype(int)
+    rng.shuffle(lens)
+    return [rng.integers(0, vocab, int(S)).astype(np.int32) for S in lens]
+
+
+def mamba_serve(params, cfg, prompts, max_new: int):
+    """Serve ``prompts`` with generator uniforms; returns (engine, requests,
+    seconds of ``run()`` ending in a device synchronise)."""
+    import torch
+    from repro_torch.serve import BatchedEngine, Request
+    eng = BatchedEngine(params, cfg, slots=MAMBA_SLOTS,
+                        max_context=cfg.max_seq_len, seed=SEED, device=DEVICE)
+    reqs = [Request(tokens=t, max_new=max_new) for t in prompts]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    return eng, reqs, time.perf_counter() - t0
+
+
+def mamba_path() -> dict:
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    cfg = mamba_config()
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    prompts = mamba_prompts(cfg.vocab_size)
+    # first use of cuBLAS and the allocator at these shapes, same entry point
+    mamba_serve(params, cfg, prompts[:2], 2)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    eng, reqs, sec = mamba_serve(params, cfg, prompts, MAMBA_MAX_NEW)
+    counts = ops.launch_counts()
+    if not all(r.done and r.error is None for r in reqs):
+        raise AssertionError("a Mamba2 request did not finish")
+    for r in reqs:
+        toks = r.out_tokens
+        if len(toks) != MAMBA_MAX_NEW or r.out_ages or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"bad Mamba2 output {toks} {r.out_ages}")
+    if eng.host_syncs != eng.ticks + eng.admit_batches:
+        raise AssertionError(f"host_syncs {eng.host_syncs} != ticks "
+                             f"{eng.ticks} + admit_batches "
+                             f"{eng.admit_batches}")
+    want_shapes = {(1, len(t)) for t in prompts}
+    if eng.prefill_shapes != want_shapes:
+        raise AssertionError(f"prefill shapes {sorted(eng.prefill_shapes)}")
+    if counts["ssd_intra"] != cfg.n_layers * eng.admit_batches \
+            or eng.admit_batches != len(prompts):
+        raise AssertionError(f"ssd_intra launched {counts['ssd_intra']} "
+                             f"times for {eng.admit_batches} admissions")
+    return {"engine": eng, "seconds": sec, "tokens": len(reqs) * MAMBA_MAX_NEW,
+            "launches": counts, "params": params, "cfg": cfg,
+            "prompts": prompts}
+
+
+def mamba_parity() -> dict:
+    """fp32 Mamba2-780M at full width, cut to 4 layers: the engine on the
+    card (kernels) and on the CPU (plain versions) with the same weights
+    and injected uniforms; the card's tokens held step by step against the
+    CPU model's Gumbel scores."""
+    import numpy as np
+    from repro_torch.core import parity as par
+    from repro_torch.models import init_params
+    from repro_torch.serve import BatchedEngine, Request
+    cfg = mamba_config().replace(n_layers=4, dtype="float32")
+    max_new, V = 16, cfg.vocab_size
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(0, V, S).astype(np.int32)
+               for S in (100, 237, 384, 520)]
+    us = [rng.random((max_new, V), dtype=np.float32) for _ in prompts]
+    runs, params = {}, {}
+    for dev in (DEVICE, "cpu"):
+        params[dev] = init_params(cfg, seed=SEED + 1, device=dev)
+        eng = BatchedEngine(params[dev], cfg, slots=4,
+                            max_context=cfg.max_seq_len, device=dev)
+        reqs = [Request(tokens=t, max_new=max_new, uniforms=u)
+                for t, u in zip(prompts, us)]
+        for r in reqs:
+            eng.submit(r)
+        t0 = time.perf_counter()
+        eng.run()
+        runs[dev] = [r.out_tokens for r in reqs]
+        if eng.host_syncs != eng.ticks + eng.admit_batches or any(
+                len(t) != max_new for t in runs[dev]):
+            raise AssertionError(f"{dev}: host_syncs {eng.host_syncs}, "
+                                 f"lengths {[len(t) for t in runs[dev]]}")
+        log(f"  mamba2 {dev}: {sum(len(t) for t in runs[dev])} tokens, "
+            f"{eng.ticks} ticks in {time.perf_counter() - t0:.2f}s")
+    # tolerance: the card and the CPU sum fp32 products in other orders
+    # (cuBLAS, the SSD kernel); logits of this model are O(1), and their
+    # card-vs-CPU differences are ~1e-5, so a score gap under 1e-3 is a tie
+    held = par.check_lm_trajectories(
+        prompts, runs[DEVICE], us, par.port_logits_fn(params["cpu"], cfg),
+        margin_tol=1e-3)
+    free = par.compare_runs([(t, []) for t in runs["cpu"]],
+                            [(t, []) for t in runs[DEVICE]], age_rtol=0.0)
+    log(f"  mamba2 card tokens held step by step against the CPU model: "
+        f"{held['steps']} steps, {len(held['near_ties'])} near-ties "
+        f"(score margin 1e-3)")
+    log(f"  mamba2 free-running card vs CPU: {free['compared']} tokens equal"
+        f" before the first divergence; divergences at {free['divergences']}")
     return {"held": held, "free": free}
 
 
@@ -448,14 +628,15 @@ def bound(nbytes: float, flops: float, dtype: str):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def times(main: dict, gen) -> dict:
-    """Kernel, plain version and library call at the main path's shapes:
+def times(main: dict, mamba: dict, gen) -> dict:
+    """Kernel, plain version and library call at the main paths' shapes:
     device time per call (profiler) and per-call time (CUDA events)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as sk
     from repro_torch.kernels import tte_sample as tk
     eng = main["engine"]
     res = {}
@@ -515,23 +696,53 @@ def times(main: dict, gen) -> dict:
         "library": measure(lambda: F.scaled_dot_product_attention(
             q4, kl, vl, attn_mask=mask)),
         "bound_ms": b_ms, "bound_by": b_by}
+
+    # ssd_intra: one layer's call at a 1024-token prompt, in the model's
+    # layout (fp32 xdt; bf16 B and C sliced out of xBC and broadcast over
+    # the heads by a 0 stride)
+    mc = mamba["cfg"]
+    Q, H, P, N, di = (mc.ssm_chunk, mc.ssm_n_heads, mc.ssm_head_dim,
+                      mc.ssm_state, mc.d_inner)
+    S = 1024
+    c = S // Q
+    xBC = torch.randn((1, S, di + 2 * N), generator=gen, device=DEVICE
+                      ).to(torch.bfloat16)
+    Bm = xBC[..., di:di + N].reshape(1, c, Q, 1, N).expand(1, c, Q, H, N)
+    Cm = xBC[..., di + N:].reshape(1, c, Q, 1, N).expand(1, c, Q, H, N)
+    xdt = torch.randn((1, c, Q, H, P), generator=gen, device=DEVICE)
+    cum = -torch.cumsum(0.05 * torch.rand((1, c, Q, H), generator=gen,
+                                          device=DEVICE), dim=2)
+    nbytes = (2 * xdt.numel() * 4 + 2 * c * Q * N * 2 + cum.numel() * 4
+              + c * H * N * P * 4)
+    # L is zero above the diagonal: C.B^T and G.xdt need only the causal
+    # triangle, Q(Q+1)/2 entries a tile; the state product is a full one
+    flops = c * H * (Q * (Q + 1) * N + Q * (Q + 1) * P + 2 * Q * N * P)
+    b_ms, b_by = bound(nbytes, flops, "float32_simt")
+    res["ssd_intra"] = {
+        "shape": f"S={S}: b=1 C={c} Q={Q} H={H} P={P} N={N}, xdt fp32, "
+                 f"B/C bf16 shared by the heads",
+        "kernel": measure(lambda: sk.ssd_intra_cuda(xdt, Bm, Cm, cum)),
+        "plain": measure(lambda: ref.ssd_intra_ref(
+            xdt.transpose(2, 3), Bm[:, :, :, :1].transpose(2, 3),
+            Cm[:, :, :, :1].transpose(2, 3), cum.transpose(2, 3))),
+        "library": None, "bound_ms": b_ms, "bound_by": b_by}
     return res
 
 
-def main_path_profile(wall: float) -> dict:
-    """The main path once more, the same requests and seed, under the
-    profiler: the device's busy time against ``wall``, the same run's time
-    without the profiler (whose host-side tracing slows the launches), and
-    the kernels that take the device time."""
-    from repro_torch.launch import serve as launch
+def path_profile(run, wall: float) -> dict:
+    """A path once more, the same requests and seed, under the profiler
+    (``run()`` returns the wall seconds of its engine run): the device's
+    busy time against ``wall`` (the same run without the profiler, whose
+    host-side tracing slows the launches), and the kernels that take the
+    device time."""
     box = {}
 
-    def run():
-        box["out"] = launch.serve(serve_args(32, 48))
-    kernels = device_kernels(run)
+    def go():
+        box["seconds"] = run()
+    kernels = device_kernels(go)
     busy = sum(ms for _, ms in kernels.values()) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
-    return {"wall_s": wall, "profiled_wall_s": box["out"]["seconds"],
+    return {"wall_s": wall, "profiled_wall_s": box["seconds"],
             "device_busy_s": busy,
             "idle_share": (1.0 - busy / wall) if busy else None,
             "launches": sum(n for n, _ in kernels.values()),
@@ -566,9 +777,11 @@ def main() -> int:
     gen.manual_seed(SEED)
     log("== phase 2: kernels against their plain versions on the card")
     errs = {"tte_sample": check_tte(gen), "flash_attention": check_flash(gen),
-            "paged_decode_attention": check_paged(gen)}
+            "paged_decode_attention": check_paged(gen),
+            "ssd_intra": check_ssd(gen)}
 
-    log("== phase 3: main path (Delphi-2M bf16, ring BatchedEngine, 16 slots)")
+    log("== phase 3: Delphi path (Delphi-2M bf16, ring BatchedEngine, 16 "
+        "slots)")
     main_res = main_path()
     eng, sec = main_res["engine"], main_res["seconds"]
     log(f"  {len(main_res['done'])} requests, {main_res['events']} events, "
@@ -578,11 +791,22 @@ def main() -> int:
         f"prefill shapes {sorted(eng.prefill_shapes)}; launches "
         f"{main_res['launches']}")
 
+    log("== phase 3b: Mamba2 path (Mamba2-780M bf16, BatchedEngine, 8 "
+        "slots)")
+    mamba = mamba_path()
+    meng, msec = mamba["engine"], mamba["seconds"]
+    log(f"  {MAMBA_REQUESTS} requests, {mamba['tokens']} tokens, "
+        f"{meng.ticks} ticks, {meng.admit_batches} admissions in {msec:.3f}s"
+        f": {mamba['tokens'] / msec:.1f} tokens/s, {meng.ticks / msec:.1f} "
+        f"ticks/s; host_syncs {meng.host_syncs}; prefill shapes "
+        f"{sorted(meng.prefill_shapes)}; launches {mamba['launches']}")
+
     log("== phase 4: end-to-end parity, fp32, card vs CPU")
     par = parity()
+    mpar = mamba_parity()
 
-    log("== phase 5: times at the main path's shapes")
-    tm = times(main_res, gen)
+    log("== phase 5: times at the main paths' shapes")
+    tm = times(main_res, mamba, gen)
 
     def fmt(m):
         if m is None:
@@ -594,24 +818,33 @@ def main() -> int:
         log(f"  {name} [{t['shape']}]: kernel {fmt(t['kernel'])}; plain "
             f"{fmt(t['plain'])}; library {fmt(t['library'])}; bound "
             f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
-    prof = main_path_profile(sec)
-    idle = ("not measured" if prof["idle_share"] is None
-            else f"{prof['idle_share']:.3f}")
-    log(f"  main path: device busy {prof['device_busy_s']:.4f}s of "
-        f"{prof['wall_s']:.3f}s wall (phase 3), idle share {idle}; "
-        f"{prof['launches']} device activities ({prof['profiled_wall_s']:.3f}"
-        f"s wall under the profiler); top by device time:")
-    for t in prof["top"]:
-        log(f"    {t['ms']:9.3f} ms  {t['launches']:6d}x  {t['kernel']}")
+    from repro_torch.launch import serve as launch
+    prof = path_profile(
+        lambda: launch.serve(serve_args(32, 48))["seconds"], sec)
+    mprof = path_profile(
+        lambda: mamba_serve(mamba["params"], mamba["cfg"], mamba["prompts"],
+                            MAMBA_MAX_NEW)[2], msec)
+    for name, p, ph in (("Delphi", prof, "3"), ("Mamba2", mprof, "3b")):
+        idle = ("not measured" if p["idle_share"] is None
+                else f"{p['idle_share']:.3f}")
+        log(f"  {name} path: device busy {p['device_busy_s']:.4f}s of "
+            f"{p['wall_s']:.3f}s wall (phase {ph}), idle share {idle}; "
+            f"{p['launches']} device activities ({p['profiled_wall_s']:.3f}"
+            f"s wall under the profiler); top by device time:")
+        for t in p["top"]:
+            log(f"    {t['ms']:9.3f} ms  {t['launches']:6d}x  {t['kernel']}")
 
     def ms(m):
         """Device time where the profiler saw it, else the per-call time."""
         if m is None:
             return None
         return m["device_ms"] if m["device_ms"] is not None else m["call_ms"]
+    # each kernel's launches come from the run of its own path
+    launches = {name: (mamba["launches"][name] if name == "ssd_intra"
+                       else main_res["launches"][name]) for name in REPLACES}
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name],
-        "replaces": REPLACES[name], "launches": main_res["launches"][name],
+        "replaces": REPLACES[name], "launches": launches[name],
         "max_abs_err": errs[name], "ms": ms(tm[name]["kernel"]),
         "plain_ms": ms(tm[name]["plain"]), "bound_ms": tm[name]["bound_ms"],
         "bound_by": tm[name]["bound_by"],
@@ -621,13 +854,23 @@ def main() -> int:
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_seconds": build.last_build.get("seconds"),
         "kernel_errors": errs, "times": tm, "kernels": kernels,
-        "main_path_profile": prof,
+        "main_path_profile": prof, "mamba_path_profile": mprof,
         "main_path": {"requests": len(main_res["done"]),
                       "events": main_res["events"], "seconds": sec,
                       "ticks": eng.ticks, "admit_batches": eng.admit_batches,
                       "host_syncs": eng.host_syncs,
                       "prefill_shapes": sorted(eng.prefill_shapes),
                       "launches": main_res["launches"]},
+        "mamba_path": {"requests": MAMBA_REQUESTS, "tokens": mamba["tokens"],
+                       "seconds": msec, "ticks": meng.ticks,
+                       "admit_batches": meng.admit_batches,
+                       "host_syncs": meng.host_syncs,
+                       "prefill_shapes": sorted(meng.prefill_shapes),
+                       "launches": mamba["launches"]},
+        "mamba_parity": {"steps": mpar["held"]["steps"],
+                         "near_ties": len(mpar["held"]["near_ties"]),
+                         "free_compared": mpar["free"]["compared"],
+                         "divergences": mpar["free"]["divergences"]},
         "parity": {"steps": par["held"]["steps"],
                    "near_ties": len(par["held"]["near_ties"]),
                    "max_age_rel_err": par["held"]["max_age_rel_err"],

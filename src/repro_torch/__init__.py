@@ -1,10 +1,11 @@
-"""PyTorch/CUDA port of the Delphi serving path.
+"""PyTorch/CUDA port of the serving path: Delphi-2M and Mamba2-780M.
 
 The JAX package ``repro`` is the reference this package is held against; the
-two share no code.  Plain tensor code is PyTorch; the three kernels of the
-serving path (eq.-1 sampling, prefill attention, ring/paged decode attention)
-are CUDA C++ written for Hopper (``repro_torch.kernels``), each beside a plain
-PyTorch version that CPU tensors take.
+two share no code.  Plain tensor code is PyTorch; the four kernels of the
+JAX package (eq.-1 sampling, prefill attention, ring/paged decode attention,
+the Mamba2 SSD intra-chunk term) are CUDA C++ written for Hopper
+(``repro_torch.kernels``), each beside a plain PyTorch version that CPU
+tensors take.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU present the default raises rather than carrying on on the CPU.

@@ -9,10 +9,11 @@ from __future__ import annotations
 import importlib
 from typing import Dict
 
-from repro_torch.configs.base import DENSE, ModelConfig  # noqa: F401
+from repro_torch.configs.base import DENSE, SSM, ModelConfig  # noqa: F401
 
 _REGISTRY: Dict[str, str] = {
     "delphi-2m": "delphi_2m",
+    "mamba2-780m": "mamba2_780m",
 }
 
 ALL_ARCHS = list(_REGISTRY)

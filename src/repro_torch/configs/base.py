@@ -1,10 +1,11 @@
 """Model configuration dataclass (the port's own copy).
 
 The JAX package's configuration, cut to the fields the port reads: the
-dense transformer core and Delphi's knobs.  Field names and defaults are
-the JAX package's, so the same values describe the same model in both.
-The model code serves only the Delphi family and raises
-``NotImplementedError`` for the rest (``repro_torch.models.model``).
+dense transformer core, the Mamba2 (SSD) block and Delphi's knobs.  Field
+names and defaults are the JAX package's, so the same values describe the
+same model in both.  The model code serves the Delphi family and the pure
+SSM family (Mamba2) and raises ``NotImplementedError`` for the rest
+(``repro_torch.models.model``).
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
-# Architecture families (the port serves DENSE)
+# Architecture families (the port serves DENSE and SSM)
 DENSE = "dense"
 MOE = "moe"
 SSM = "ssm"
@@ -44,6 +45,16 @@ class ModelConfig:
     tie_embeddings: bool = False
     sliding_window: Optional[int] = None
 
+    # SSM / Mamba2 (SSD) -----------------------------------------------------
+    ssm_state: int = 0                 # N: state size per head
+    ssm_expand: int = 2                # d_inner = expand * d_model
+    ssm_head_dim: int = 64             # P: SSD head dim
+    ssm_conv: int = 4                  # depthwise conv width
+    ssm_chunk: int = 128               # SSD chunk length
+
+    # hybrid (zamba2-style): shared attention block applied every k SSM layers
+    attn_every: int = 0                # 0 = never (pure SSM)
+
     # Delphi -----------------------------------------------------------------
     dual_head: bool = False            # event+time competing-exponential head
     age_encoding: bool = False         # continuous age encoding (replaces pos enc)
@@ -63,6 +74,14 @@ class ModelConfig:
             raise ValueError("GQA requires n_heads % n_kv_heads == 0")
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_n_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
     def q_per_kv(self) -> int:
         if self.n_heads == 0:
             return 1
@@ -72,14 +91,17 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def reduced(self) -> "ModelConfig":
-        """Smoke-test variant of an attention model: 2 layers, d_model 256,
-        4 heads, vocab <= 512 (the JAX package's ``reduced()`` for the
-        families this port covers)."""
+        """Smoke-test variant: 2 layers, d_model 256, 4 heads (attention
+        models), SSM state 16 / head dim 32 / chunk 32 (SSM models), vocab
+        <= 512 (the JAX package's ``reduced()`` for the families this port
+        covers)."""
         kw = dict(n_layers=2, d_model=256, head_dim=64, d_ff=512,
                   vocab_size=min(self.vocab_size, 512), max_seq_len=256)
         if self.n_heads:
             kw["n_heads"] = 4
             kw["n_kv_heads"] = max(1, 4 // min(self.q_per_kv, 4))
+        if self.ssm_state:
+            kw.update(ssm_state=16, ssm_head_dim=32, ssm_chunk=32)
         if self.sliding_window:
             kw["sliding_window"] = 64
         return self.replace(**kw)

@@ -18,6 +18,11 @@ advance by the reference's waiting time, and the trajectory must end where
 the reference says it ends (Death, censoring at ``max_age``, the budget or
 a full context).  Two free-running runs are then compared up to their first
 divergence (:func:`compare_runs`).
+
+A generic LM (Mamba2) samples by Gumbel-argmax instead:
+:func:`check_lm_trajectories` holds each emitted token against the argmax
+of the reference's scores ``logits / temperature + g(u)`` on its own
+prefix, with the same margin rule on the scores.
 """
 from __future__ import annotations
 
@@ -49,20 +54,20 @@ def port_logits_fn(params, cfg) -> LogitsFn:
     return fn
 
 
-def teacher_forced_times(prompts: Sequence[Trajectory],
-                         trajs: Sequence[Trajectory],
-                         uniforms: Sequence[np.ndarray], logits_fn: LogitsFn,
-                         *, batch: int = 8) -> List[np.ndarray]:
-    """For each request, the reference's waiting times (n+1, V) at steps
-    0..n of its n-event trajectory (step n only where a uniform row is
-    left), each from the logits on the prompt plus the events before it."""
+def _teacher_forced_logits(prompts: Sequence[Trajectory],
+                           trajs: Sequence[Trajectory],
+                           n_rows: Sequence[int], logits_fn: LogitsFn, *,
+                           batch: int = 8) -> List[np.ndarray]:
+    """For each request, the reference's logits (k, V) at steps 0..k-1 of
+    its trajectory (k from ``n_rows``), each from the prompt plus the
+    events before it, in right-padded batches."""
     seqs = []
-    for (pt, pa), (ot, oa), u in zip(prompts, trajs, uniforms):
+    for (pt, pa), (ot, oa), k in zip(prompts, trajs, n_rows):
         seqs.append((np.concatenate([np.asarray(pt, np.int64),
                                      np.asarray(ot, np.int64)]),
                      np.concatenate([np.asarray(pa, np.float32),
                                      np.asarray(oa, np.float32)]),
-                     len(pt), min(len(ot) + 1, len(u))))
+                     len(pt), k))
     out: List[np.ndarray] = []
     for i0 in range(0, len(seqs), batch):
         chunk = seqs[i0:i0 + batch]
@@ -70,15 +75,29 @@ def teacher_forced_times(prompts: Sequence[Trajectory],
         toks = np.zeros((len(chunk), S), np.int64)
         ags = np.zeros((len(chunk), S), np.float32)
         for j, (t, a, _, _) in enumerate(chunk):
-            toks[j, :len(t)] = t          # right padding: causal attention
-            ags[j, :len(a)] = a           # keeps it out of earlier positions
+            toks[j, :len(t)] = t          # right padding: causal models
+            ags[j, :len(a)] = a           # keep it out of earlier positions
             ags[j, len(a):] = a[-1]
         lg = logits_fn(toks, ags)
-        for j, (_, _, s, k) in enumerate(chunk):
-            rows = torch.tensor(lg[j, s - 1:s - 1 + k], dtype=torch.float32)
-            u = torch.tensor(uniforms[i0 + j][:k], dtype=torch.float32)
-            out.append(sample_waiting_times(rows, u).numpy())
+        out.extend(lg[j, s - 1:s - 1 + k] for j, (_, _, s, k) in
+                   enumerate(chunk))
     return out
+
+
+def teacher_forced_times(prompts: Sequence[Trajectory],
+                         trajs: Sequence[Trajectory],
+                         uniforms: Sequence[np.ndarray], logits_fn: LogitsFn,
+                         *, batch: int = 8) -> List[np.ndarray]:
+    """For each request, the reference's waiting times (n+1, V) at steps
+    0..n of its n-event trajectory (step n only where a uniform row is
+    left), each from the logits on the prompt plus the events before it."""
+    n_rows = [min(len(ot) + 1, len(u)) for (ot, _), u in zip(trajs, uniforms)]
+    rows = _teacher_forced_logits(prompts, trajs, n_rows, logits_fn,
+                                  batch=batch)
+    return [sample_waiting_times(
+        torch.tensor(r, dtype=torch.float32),
+        torch.tensor(u[:len(r)], dtype=torch.float32)).numpy()
+        for r, u in zip(rows, uniforms)]
 
 
 def check_trajectories(prompts: Sequence[Trajectory],
@@ -162,3 +181,46 @@ def compare_runs(ref: Sequence[Trajectory], test: Sequence[Trajectory], *,
         if div is not None:
             divergences.append((r, div))
     return {"compared": compared, "divergences": divergences}
+
+
+def gumbel_scores(logits: np.ndarray, u: np.ndarray,
+                  inv_temp: float = 1.0) -> np.ndarray:
+    """The engine's generic-LM sampling scores ``logits * inv_temp + g``,
+    ``g = -log(-log(clip(u, 1e-12, 1 - 1e-12)))``, in fp32."""
+    u = np.clip(np.asarray(u, np.float32), np.float32(1e-12),
+                np.float32(1.0 - 1e-12))
+    g = -np.log(-np.log(u))
+    return (np.asarray(logits, np.float32) * np.float32(inv_temp)
+            + g).astype(np.float32)
+
+
+def check_lm_trajectories(prompts: Sequence[Sequence[int]],
+                          outs: Sequence[Sequence[int]],
+                          uniforms: Sequence[np.ndarray], logits_fn: LogitsFn,
+                          *, margin_tol: float, inv_temp: float = 1.0,
+                          batch: int = 8) -> Dict:
+    """Hold every generated token sequence step by step against the
+    reference model on its own prefix: token ``i`` must be the argmax of
+    :func:`gumbel_scores` of the reference's logits after the prompt and
+    tokens ``< i`` under uniform row ``i``, or score within ``margin_tol``
+    (absolute) of it: a near-tie.  ``logits_fn`` gets zero ages.  Raises
+    AssertionError; returns the steps held and the near-ties."""
+    rows = _teacher_forced_logits(
+        [(p, np.zeros(len(p), np.float32)) for p in prompts],
+        [(o, np.zeros(len(o), np.float32)) for o in outs],
+        [len(o) for o in outs], logits_fn, batch=batch)
+    steps, ties = 0, []
+    for r, (o, u, lg) in enumerate(zip(outs, uniforms, rows)):
+        for i, e in enumerate(o):
+            sc = gumbel_scores(lg[i], u[i], inv_temp)
+            best = int(np.argmax(sc))
+            gap = float(sc[best] - sc[e])
+            if best != e:
+                if gap > margin_tol:
+                    raise AssertionError(
+                        f"request {r} step {i}: emitted {e}, the reference "
+                        f"picks {best} by a score gap {gap:.3g} > "
+                        f"{margin_tol}")
+                ties.append((r, i, gap))
+            steps += 1
+    return {"steps": steps, "near_ties": ties}

@@ -10,7 +10,8 @@ hashes the sources and flags, so an edited source is never served by a
 stale library.
 
 No fast-math flag is passed: the sampler's ``expf``/``logf`` must stay
-accurate (events are argmins of products of them).
+accurate (events are argmins of products of them), and so must the SSD
+decays ``expf(cum_i - cum_j)``.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("runtime.cu", "tte_sample.cu", "flash_attention.cu",
-           "paged_attention.cu")
+           "paged_attention.cu", "ssd_intra.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -125,6 +126,10 @@ def library() -> ctypes.CDLL:
     lib.paged_decode_launch.argtypes = [
         _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
     lib.paged_decode_launch.restype = _I
+    lib.ssd_intra_launch.argtypes = [
+        _I, _I, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I,
+        _I, _I, _P]
+    lib.ssd_intra_launch.restype = _I
     return lib
 
 

@@ -14,10 +14,11 @@ import torch
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import tte_sample as _tte
 
 KERNEL_MODULES = {"tte_sample": _tte, "flash_attention": _flash,
-                  "paged_decode_attention": _paged}
+                  "paged_decode_attention": _paged, "ssd_intra": _ssd}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -79,3 +80,26 @@ def tte_sample(logits, u) -> Tuple[torch.Tensor, torch.Tensor]:
     if _on_cuda(logits):
         return _tte.tte_sample_cuda(logits.contiguous(), u.contiguous())
     return ref.tte_sample_ref(logits, u)
+
+
+def ssd_intra(xdt, Bm, Cm, cum) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Intra-chunk SSD in the JAX signature: xdt (BH, C, Q, P); Bm, Cm
+    (BH, C, Q, N); cum (BH, C, Q).  Returns (y_diag (BH, C, Q, P),
+    states (BH, C, N, P)), fp32.  The case H = 1 of :func:`ssd_intra_heads`."""
+    y, st = ssd_intra_heads(xdt[:, :, :, None], Bm[:, :, :, None],
+                            Cm[:, :, :, None], cum[..., None])
+    return y[:, :, :, 0], st[:, :, 0]
+
+
+def ssd_intra_heads(xdt, Bm, Cm, cum) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Intra-chunk SSD in the model's layout: xdt (b, c, Q, H, P); Bm, Cm
+    (b, c, Q, H, N), where a stride-0 head axis (``expand``) shares one
+    tile among the heads; cum (b, c, Q, H).  Returns (y_diag
+    (b, c, Q, H, P), states (b, c, H, N, P)), fp32."""
+    if _on_cuda(xdt):
+        return _ssd.ssd_intra_cuda(xdt, Bm, Cm, cum.float())
+    if Bm.stride(3) == 0 and Cm.stride(3) == 0:    # broadcast, not H copies
+        Bm, Cm = Bm[:, :, :, :1], Cm[:, :, :, :1]
+    y, st = ref.ssd_intra_ref(xdt.transpose(2, 3), Bm.transpose(2, 3),
+                              Cm.transpose(2, 3), cum.transpose(2, 3))
+    return y.transpose(2, 3), st

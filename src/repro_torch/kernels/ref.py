@@ -2,7 +2,7 @@
 
 Deliberately naive, as the JAX package's ``kernels/ref.py`` they mirror:
 quadratic attention, dense gathers, full materialisation of the sampled
-waiting times.  ``kernels.ops`` sends CPU tensors here; ``chip_smoke.py``
+waiting times and of the SSD decay matrix.  ``kernels.ops`` sends CPU tensors here; ``chip_smoke.py``
 holds each CUDA kernel against these functions on the card.
 """
 from __future__ import annotations
@@ -80,3 +80,27 @@ def tte_sample_ref(logits, u) -> Tuple[torch.Tensor, torch.Tensor]:
     idx = torch.argmin(t, dim=-1)
     tmin = t.gather(-1, idx[..., None])[..., 0]
     return idx.to(torch.int32), tmin
+
+
+def ssd_intra_ref(xdt, Bm, Cm, cum) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Intra-chunk SSD of a batch of (head, chunk) tiles, in fp32.
+
+    xdt: (..., Q, P) dt-scaled inputs; Bm, Cm: (..., Q, N); cum: (..., Q)
+    cumulative dt*A (leading axes broadcast, so one B/C tile can serve many
+    heads).  Returns (y_diag (..., Q, P), state (..., N, P)):
+
+        y_diag = (C B^T o L) xdt,   L_ij = exp(cum_i - cum_j) for i >= j
+        state  = B^T (exp(cum_last - cum) o xdt)
+
+    ``exp`` is taken only where i >= j: above the diagonal the exponent is
+    positive and could overflow (inf * 0 is NaN)."""
+    xdt, Bm, Cm, cum = (t.float() for t in (xdt, Bm, Cm, cum))
+    Q = xdt.shape[-2]
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=xdt.device).tril()
+    seg = cum[..., :, None] - cum[..., None, :]
+    L = torch.exp(seg.masked_fill(~tri, 0.0)).masked_fill(~tri, 0.0)
+    scores = Cm @ Bm.transpose(-1, -2)                     # (..., Q, Q)
+    y = (scores * L) @ xdt                                 # (..., Q, P)
+    decay = torch.exp(cum[..., -1:] - cum)                 # (..., Q)
+    state = Bm.transpose(-1, -2) @ (decay[..., None] * xdt)   # (..., N, P)
+    return y, state

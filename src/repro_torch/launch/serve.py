@@ -1,14 +1,17 @@
-"""Serving launcher of the port: batched trajectory generation through the
-ring-cache engine.
+"""Serving launcher of the port: batched generation through the engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch delphi-2m \
         [--requests 16] [--slots 8] [--max-new 48] [--ckpt DIR] [--device cuda]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m ...
 
-The same command line as ``repro.launch.serve``.  On ``cuda`` activations
-run in ``cfg.dtype`` (bf16); on the CPU in fp32.  Parameters stay fp32 and
-come from ``--ckpt`` (a JAX ``params.npz`` checkpoint) or from
-``init_params(seed)``.  ``--cache paged`` and ``--replicas > 1`` are not
-ported yet and are refused.
+The same command line as ``repro.launch.serve``: the prompts are the first
+halves of synthetic patient histories for every architecture (a generic
+LM such as Mamba2 reads their event ids as tokens and ignores the ages),
+and the engine's ``max_context`` is ``cfg.max_seq_len``.  On ``cuda``
+activations run in ``cfg.dtype`` (bf16); on the CPU in fp32.  Parameters
+stay fp32 and come from ``--ckpt`` (a JAX ``params.npz`` checkpoint) or
+from ``init_params(seed)``.  ``--cache paged`` and ``--replicas > 1`` are
+not ported yet and are refused.
 """
 from __future__ import annotations
 
@@ -47,7 +50,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def serve(args: argparse.Namespace) -> Dict[str, Any]:
     """Build the engine, serve synthetic patient prompts, and return the
-    engine, the finished requests and the wall time."""
+    engine, the finished requests, the wall time and the emitted events
+    (tokens for a generic LM)."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if device.type == "cpu":
@@ -80,14 +84,18 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     out = serve(args)
     dt, n = out["seconds"], out["events"]
     eng = out["engine"]
-    print(f"served {len(out['done'])} requests, {n} events in {dt:.2f}s "
-          f"({n / dt:.1f} events/s, {eng.ticks / dt:.1f} ticks/s) on "
+    unit = "events" if eng.is_delphi else "tokens"
+    print(f"served {len(out['done'])} requests, {n} {unit} in {dt:.2f}s "
+          f"({n / dt:.1f} {unit}/s, {eng.ticks / dt:.1f} ticks/s) on "
           f"{eng.device}")
     if out["done"]:
         r = out["done"][0]
-        names = [V.code_name(t) for t in r.out_tokens[:8]]
-        print("sample trajectory:",
-              list(zip(names, [round(a, 1) for a in r.out_ages[:8]])))
+        if eng.is_delphi:
+            names = [V.code_name(t) for t in r.out_tokens[:8]]
+            print("sample trajectory:",
+                  list(zip(names, [round(a, 1) for a in r.out_ages[:8]])))
+        else:
+            print("sample tokens:", r.out_tokens[:8])
     return out
 
 

@@ -1,5 +1,5 @@
-"""Delphi's transformer in PyTorch: the weight bridge, layers, ring-cache
-attention and the model entry points."""
+"""The port's models in PyTorch: the weight bridge, layers, ring-cache
+attention, the Mamba2 block and the model entry points."""
 from repro_torch.models.attention import LayerCache
 from repro_torch.models.model import (cast_params, decode_step, forward,
                                       make_decode_cache,

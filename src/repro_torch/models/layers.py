@@ -1,12 +1,12 @@
 """Shared layers: norms, continuous age encoding, GELU MLP, embedding and
-the tied logits head.
+the tied and untied logits heads.
 
 Compute runs in the activation dtype ``cfg.dtype``; parameters stay fp32
 and are cast at use (``.to`` is a no-op for weights already cast by
 ``models.model.cast_params``).  Numerics follow the JAX package's
 ``models/layers.py``: norms in fp32 with population variance, the tanh
-GELU, and a head whose product runs in the activation dtype before the
-fp32 ``out_bias`` is added.
+GELU, and heads whose product runs in the activation dtype before the
+logits go to fp32 (and the fp32 ``out_bias`` is added).
 """
 from __future__ import annotations
 
@@ -96,3 +96,8 @@ def logits_head(embed: torch.Tensor, h: torch.Tensor,
     if out_bias is not None:
         logits = logits + out_bias.float()
     return logits
+
+
+def untied_logits_head(lm_head: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Untied head: ``h @ lm_head`` (lm_head (d, V)) in h's dtype, then fp32."""
+    return (h @ lm_head.to(h.dtype)).float()

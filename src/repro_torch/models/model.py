@@ -1,16 +1,21 @@
-"""Delphi's dense transformer: prefill, ring-cache decode and the cache
-helpers of the serving engine (the JAX package's ``models/model.py``).
+"""Model entry points: prefill, decode and the cache helpers of the serving
+engine (the JAX package's ``models/model.py``) for two families.
 
 Parameters are the flat dict of ``models.params``; layer ``l`` of a stacked
-leaf is ``params[key][l]``.  The stack is pre-LayerNorm attention (no RoPE:
-Delphi's continuous age encoding replaces positions) and a GELU MLP, then
-the tied head with the fp32 ``out_bias``.  Prefill attention runs the flash
-kernel; decode runs the paged decode kernel over the ring cache
-(``models.attention``).
+leaf is ``params[key][l]``.
 
-This slice serves the Delphi family only: configurations that need RoPE,
-GQA, SwiGLU, RMSNorm, a sliding window, QKV biases, an untied head or a
-non-dense architecture raise ``NotImplementedError``.
+* Delphi (``arch_type="dense"``): pre-LayerNorm attention (no RoPE:
+  Delphi's continuous age encoding replaces positions) and a GELU MLP,
+  then the tied head with the fp32 ``out_bias``.  Prefill attention runs
+  the flash kernel; decode runs the paged decode kernel over the ring cache
+  (``models.attention``).  Cache: ``{"self": LayerCache}``.
+* Mamba2 (``arch_type="ssm"``): pre-RMSNorm Mamba2 blocks
+  (``models.ssm``; prefill's intra-chunk SSD runs the ``ssd_intra``
+  kernel), then the untied head.  Cache: ``{"ssm": SSMCache}``.
+
+Dense configurations that need RoPE, GQA, SwiGLU, RMSNorm, a sliding
+window, QKV biases or an untied head, and the other families (MoE, hybrid,
+enc-dec, VLM, audio), raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,20 +26,28 @@ import torch
 from repro_torch.configs import base as cb
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import LayerCache
 from repro_torch.models.layers import (act_dtype, age_encoding, apply_mlp,
-                                       apply_norm, embed_tokens, logits_head)
+                                       apply_norm, embed_tokens, logits_head,
+                                       untied_logits_head)
 from repro_torch.models.params import Params
+from repro_torch.models.ssm import SSMCache
 
-# weights that enter a matrix product (cast to the activation dtype); norms
-# and out_bias are used in fp32
-MATMUL_KEYS = ("embed/embed", "layers/attn/wq", "layers/attn/wk",
-               "layers/attn/wv", "layers/attn/wo", "layers/mlp/w_fc",
-               "layers/mlp/b_fc", "layers/mlp/w_proj", "layers/mlp/b_proj")
+# weights that enter a matrix product or the activation-dtype conv (cast to
+# the activation dtype); norms, out_bias, A_log, dt_bias, D and norm_scale
+# are used in fp32
+MATMUL_KEYS = ("embed/embed", "embed/lm_head", "layers/attn/wq",
+               "layers/attn/wk", "layers/attn/wv", "layers/attn/wo",
+               "layers/mlp/w_fc", "layers/mlp/b_fc", "layers/mlp/w_proj",
+               "layers/mlp/b_proj", "layers/ssm/in_proj", "layers/ssm/conv_w",
+               "layers/ssm/conv_b", "layers/ssm/out_proj")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
+    """Raise ``NotImplementedError`` for what this port does not serve."""
+    if cfg.arch_type == cb.SSM:
+        return
     gaps = []
     if cfg.arch_type != cb.DENSE:
         gaps.append(f"arch_type={cfg.arch_type}")
@@ -67,7 +80,9 @@ def cast_params(params: Params, cfg: ModelConfig) -> Params:
 
 def _embed(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
     x = embed_tokens(params["embed/embed"], batch["tokens"], act_dtype(cfg))
-    return x + age_encoding(batch["ages"], cfg.d_model).to(x.dtype)
+    if cfg.age_encoding:
+        x = x + age_encoding(batch["ages"], cfg.d_model).to(x.dtype)
+    return x
 
 
 def _mlp_block(params: Params, x: torch.Tensor, l: int) -> torch.Tensor:
@@ -80,8 +95,47 @@ def _mlp_block(params: Params, x: torch.Tensor, l: int) -> torch.Tensor:
 
 
 def _head(params: Params, x: torch.Tensor) -> torch.Tensor:
-    x = apply_norm(x, params["final_norm/scale"], params["final_norm/bias"])
+    x = apply_norm(x, params["final_norm/scale"], params.get("final_norm/bias"))
+    if "embed/lm_head" in params:
+        return untied_logits_head(params["embed/lm_head"], x)
     return logits_head(params["embed/embed"], x, params.get("embed/out_bias"))
+
+
+def mamba_layer(params: Params, x: torch.Tensor, cfg: ModelConfig, l: int, *,
+                mode: str, cache: Optional[SSMCache] = None):
+    """Layer ``l``: ``x + Mamba2(RMSNorm(x))``.  mode "train" returns the
+    new x; "prefill" (x, (h, conv)) of this layer; "decode" updates layer
+    ``l`` of ``cache`` in place and returns the new x."""
+    bias = params.get("layers/norm/bias")
+    h = apply_norm(x, params["layers/norm/scale"][l],
+                   None if bias is None else bias[l])
+    p = ssm_lib.layer_params(params, l)
+    if mode == "decode":
+        y, hs, conv = ssm_lib.ssm_decode_step(p, h, cache.h[l], cache.conv[l],
+                                              cfg)
+        cache.h[l] = hs
+        cache.conv[l] = conv
+        return x + y
+    if mode == "prefill":
+        y, state = ssm_lib.ssm_forward(p, h, cfg, return_state=True)
+        return x + y, state
+    return x + ssm_lib.ssm_forward(p, h, cfg)
+
+
+def _ssm_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+               mode: str):
+    """Prefill/train over the layer stack; prefill also returns the stacked
+    :class:`SSMCache`."""
+    if mode == "train":
+        for l in range(cfg.n_layers):
+            x = mamba_layer(params, x, cfg, l, mode="train")
+        return x, None
+    hs, convs = [], []
+    for l in range(cfg.n_layers):
+        x, (h, conv) = mamba_layer(params, x, cfg, l, mode="prefill")
+        hs.append(h)
+        convs.append(conv)
+    return x, SSMCache(h=torch.stack(hs), conv=torch.stack(convs))
 
 
 def _qkv(params: Params, x: torch.Tensor, l: int):
@@ -98,17 +152,26 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
     """mode "train": (B, S, V) fp32 logits at every position.
     mode "prefill": logits (B, 1, V) at ``last_index`` (B,) — each row's
     last valid token of a right-padded batch — or at the last position,
-    plus ``cache``: {"self": LayerCache} rings of width ``cache_width``.
+    plus ``cache``: {"self": LayerCache} rings of width ``cache_width``
+    (Delphi) or {"ssm": SSMCache} (Mamba2: the state after the whole
+    sequence, so its rows must not be right-padded).
 
-    batch: tokens (B, S) int, ages (B, S) float years."""
+    batch: tokens (B, S) int, and for Delphi ages (B, S) float years."""
     check_supported(cfg)
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be 'train' or 'prefill': {mode!r}")
     x = _embed(params, cfg, batch)
     B, S = x.shape[:2]
+    out: Dict[str, Any] = {}
+    if cfg.arch_type == cb.SSM:
+        x, ssm_cache = _ssm_stack(params, x, cfg, mode=mode)
+        if mode == "prefill":
+            x = _last_rows(x, last_index)
+            out["cache"] = {"ssm": ssm_cache}
+        out["logits"] = _head(params, x)
+        return out
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
-    out: Dict[str, Any] = {}
     cache = None
     if mode == "prefill":
         W = cache_width or S
@@ -125,26 +188,37 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
             cache.v[l] = ring.v
             cache.pos[l] = ring.pos
     if mode == "prefill":
-        # the decode bootstrap needs one position per row: gather before
-        # the head keeps the (B, S, V) logits out of memory
-        if last_index is not None:
-            idx = last_index.long().reshape(B, 1, 1).expand(B, 1, x.shape[2])
-            x = x.gather(1, idx)
-        else:
-            x = x[:, -1:]
+        x = _last_rows(x, last_index)
         out["cache"] = {"self": cache}
     out["logits"] = _head(params, x)
     return out
 
 
+def _last_rows(x: torch.Tensor, last_index: Optional[torch.Tensor]):
+    """(B, 1, d) rows at ``last_index`` (B,), or at the last position.  The
+    decode bootstrap needs one position per row: gathering before the head
+    keeps the (B, S, V) logits out of memory."""
+    if last_index is None:
+        return x[:, -1:]
+    B = x.shape[0]
+    idx = last_index.long().reshape(B, 1, 1).expand(B, 1, x.shape[2])
+    return x.gather(1, idx)
+
+
 def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
                 step) -> Dict[str, Any]:
-    """One-token decode.  batch: tokens (B, 1), ages (B, 1); ``step``: (B,)
-    absolute position of each row's new token (or one int for all rows).
-    The ring cache is updated in place (and returned as ``cache``).
-    Returns {"logits": (B, 1, V) fp32, "cache": cache}."""
+    """One-token decode.  batch: tokens (B, 1), and for Delphi ages (B, 1);
+    ``step``: (B,) absolute position of each row's new token (or one int
+    for all rows; the SSM state does not read it).  The cache is updated in
+    place (and returned as ``cache``).  Returns {"logits": (B, 1, V) fp32,
+    "cache": cache}."""
     check_supported(cfg)
     x = _embed(params, cfg, batch)
+    if cfg.arch_type == cb.SSM:
+        sc: SSMCache = cache["ssm"]
+        for l in range(cfg.n_layers):
+            x = mamba_layer(params, x, cfg, l, mode="decode", cache=sc)
+        return {"logits": _head(params, x), "cache": cache}
     B = x.shape[0]
     step = torch.as_tensor(step, dtype=torch.int32, device=x.device)
     if step.dim() == 0:
@@ -163,20 +237,30 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
 def mask_padded_positions(cache, last_idx: torch.Tensor):
     """Invalidate ring positions past each row's true last token (right-
     padded batched prefill wrote garbage K/V there): pos -> -1 until decode
-    writes reclaim the slots.  last_idx: (B,) int."""
+    writes reclaim the slots.  SSM state passes through unchanged (the
+    engine never right-pads a recurrent architecture).  last_idx: (B,) int."""
     li = last_idx.reshape(1, -1, 1).to(torch.int32)
-    lc: LayerCache = cache["self"]
-    pos = torch.where((lc.pos >= 0) & (lc.pos <= li), lc.pos,
-                      torch.full_like(lc.pos, -1))
-    return {"self": lc._replace(pos=pos)}
+
+    def fix(v):
+        if isinstance(v, LayerCache):
+            return v._replace(pos=torch.where((v.pos >= 0) & (v.pos <= li),
+                                              v.pos,
+                                              torch.full_like(v.pos, -1)))
+        return v
+    return {k: fix(v) for k, v in cache.items()}
 
 
 def make_decode_cache(params: Params, cfg: ModelConfig, batch: int,
                       context_len: int):
-    """An empty ring cache for ``batch`` slots of width ``context_len``, on
-    the parameters' device, in the activation dtype."""
+    """An empty decode cache for ``batch`` slots on the parameters' device:
+    Delphi's ring of width ``context_len`` in the activation dtype, or
+    Mamba2's constant-size state (fp32 ``h``, conv inputs in the activation
+    dtype), which does not depend on ``context_len``."""
     check_supported(cfg)
     device = params["embed/embed"].device
+    if cfg.arch_type == cb.SSM:
+        return {"ssm": ssm_lib.empty_ssm_cache(cfg, cfg.n_layers, batch,
+                                               act_dtype(cfg), device)}
     return {"self": attn.empty_cache(cfg.n_layers, batch, cfg.n_kv_heads,
                                      context_len, cfg.head_dim,
                                      act_dtype(cfg), device)}

@@ -2,7 +2,8 @@
 
 Parameters are a flat ``dict`` of fp32 tensors keyed by the ``/``-joined
 pytree paths that the JAX package's ``train/checkpoint.py`` writes to
-``params.npz`` (layer-stacked leaves carry a leading layer axis):
+``params.npz`` (layer-stacked leaves carry a leading layer axis).  Delphi
+(dense, LayerNorm, tied dual head):
 
     embed/embed (V, d)            embed/out_bias (V,)
     final_norm/{scale,bias} (d,)
@@ -10,6 +11,15 @@ pytree paths that the JAX package's ``train/checkpoint.py`` writes to
     layers/{attn_norm,mlp_norm}/{scale,bias} (L, d)
     layers/mlp/w_fc (L, d, ff)    layers/mlp/b_fc (L, ff)
     layers/mlp/w_proj (L, ff, d)  layers/mlp/b_proj (L, d)
+
+Mamba2 (SSM, RMSNorm, untied head; di = d_inner, ch = di + 2N):
+
+    embed/embed (V, d)            embed/lm_head (d, V)
+    final_norm/scale (d,)         layers/norm/scale (L, d)
+    layers/ssm/in_proj (L, d, 2di + 2N + H)
+    layers/ssm/conv_w (L, conv, ch)            layers/ssm/conv_b (L, ch)
+    layers/ssm/{A_log,dt_bias,D} (L, H)        layers/ssm/norm_scale (L, di)
+    layers/ssm/out_proj (L, di, d)
 
 The same weights therefore load into both packages, which is what the
 parity tests and the serving CLI's ``--ckpt`` rest on.
@@ -23,24 +33,44 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SSM, ModelConfig
 
 Params = Dict[str, torch.Tensor]
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
-    """Key -> shape of every parameter of a dense pre-LayerNorm GELU
-    transformer with a tied (dual) head — the Delphi family."""
-    d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    L, ff, V = cfg.n_layers, cfg.d_ff, cfg.vocab_size
+    """Key -> shape of every parameter: the Delphi family (a dense
+    pre-LayerNorm GELU transformer with a tied dual head) or, for
+    ``arch_type="ssm"``, a stack of Mamba2 blocks with an untied head."""
+    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab_size
+    norm_keys = ("scale",) if cfg.norm == "rmsnorm" else ("scale", "bias")
     shapes = {"embed/embed": (V, d)}
+    if not cfg.tie_embeddings:
+        shapes["embed/lm_head"] = (d, V)
     if cfg.dual_head:
         shapes["embed/out_bias"] = (V,)
-    shapes["final_norm/scale"] = (d,)
-    shapes["final_norm/bias"] = (d,)
+    for k in norm_keys:
+        shapes[f"final_norm/{k}"] = (d,)
+    if cfg.arch_type == SSM:
+        di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_n_heads
+        ch = di + 2 * N
+        for k in norm_keys:
+            shapes[f"layers/norm/{k}"] = (L, d)
+        shapes.update({
+            "layers/ssm/in_proj": (L, d, 2 * di + 2 * N + H),
+            "layers/ssm/conv_w": (L, cfg.ssm_conv, ch),
+            "layers/ssm/conv_b": (L, ch),
+            "layers/ssm/A_log": (L, H),
+            "layers/ssm/dt_bias": (L, H),
+            "layers/ssm/D": (L, H),
+            "layers/ssm/norm_scale": (L, di),
+            "layers/ssm/out_proj": (L, di, d),
+        })
+        return shapes
+    H, Hkv, hd, ff = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     for norm in ("attn_norm", "mlp_norm"):
-        shapes[f"layers/{norm}/scale"] = (L, d)
-        shapes[f"layers/{norm}/bias"] = (L, d)
+        for k in norm_keys:
+            shapes[f"layers/{norm}/{k}"] = (L, d)
     shapes.update({
         "layers/attn/wq": (L, d, H, hd),
         "layers/attn/wk": (L, d, Hkv, hd),
@@ -94,6 +124,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     d, H, hd, ff = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
+    di, Hs = cfg.d_inner, cfg.ssm_n_heads
 
     def normal(shape, scale):
         return (rng.standard_normal(shape, dtype=np.float32)
@@ -107,8 +138,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
             # logits are log-hazards (1/years): start rates low so the total
             # rate sum e^logit is O(0.1/yr), not O(vocab)
             flat[key] = np.full(shape, -8.0, np.float32)
-        elif key.endswith("/scale"):
+        elif key in ("embed/lm_head", "layers/ssm/in_proj"):
+            flat[key] = normal(shape, d ** -0.5)
+        elif key == "layers/ssm/conv_w":
+            flat[key] = normal(shape, cfg.ssm_conv ** -0.5)
+        elif key == "layers/ssm/out_proj":
+            flat[key] = normal(shape, di ** -0.5)
+        elif key == "layers/ssm/A_log":
+            a_log = np.log(np.linspace(1.0, 16.0, Hs, dtype=np.float32))
+            flat[key] = np.broadcast_to(a_log, shape).astype(np.float32)
+        elif key == "layers/ssm/dt_bias":     # softplus^-1(0.01)
+            flat[key] = np.full(shape, np.log(np.expm1(np.float32(0.01))),
+                                np.float32)
+        elif key in ("layers/ssm/D", "layers/ssm/norm_scale") \
+                or key.endswith("/scale"):
             flat[key] = np.ones(shape, np.float32)
+        elif key == "layers/ssm/conv_b":
+            flat[key] = np.zeros(shape, np.float32)
         elif key.endswith("/bias") or key.startswith("layers/mlp/b_"):
             flat[key] = np.zeros(shape, np.float32)
         elif key in ("layers/attn/wq", "layers/attn/wk", "layers/attn/wv"):

@@ -1,24 +1,29 @@
-"""Batched serving engine with a ring KV cache: device-resident continuous
-batching (the JAX package's ``serve/engine.py``, ``cache="ring"``).
+"""Batched serving engine: device-resident continuous batching over a
+per-slot decode cache (the JAX package's ``serve/engine.py``,
+``cache="ring"``), for Delphi and for generic LMs (Mamba2).
 
 * Each tick runs ONE batched ``decode_step`` over all slots, each at its own
-  absolute position, then the eq.-1 sampler (``sample_next_event``: the
-  ``tte_sample`` CUDA kernel on the card), then
-  ``advance_trajectory_state``.  Slot state (last event, age, step, emitted
-  count, budget, active) stays on the device.
+  absolute position, then samples, then ``advance_trajectory_state``.
+  Delphi samples eq. 1 (``sample_next_event``: the ``tte_sample`` CUDA
+  kernel on the card); a generic LM samples by Gumbel-argmax,
+  ``argmax(logits / temperature + g)``, with no age and no Death token.
+  Slot state (last token, age, step, emitted count, budget, active) stays
+  on the device.
 * The host sees exactly ONE packed (4, slots) device->host copy per tick and
   one per admission batch, counted in ``host_syncs``.  Nothing else in a
   tick reads device values on the host.
-* Admission runs a bucketed-padding batched prefill: prompt lengths are
-  right-padded to power-of-two buckets and admission groups to power-of-two
-  batch buckets, the prefill builds rings of width ``max_context``, padded
-  positions are invalidated (``mask_padded_positions``) and the rows are
-  inserted into the slot cache.
+* Admission of an attention model runs a bucketed-padding batched prefill:
+  prompt lengths are right-padded to power-of-two buckets and admission
+  groups to power-of-two batch buckets, the prefill builds rings of width
+  ``max_context``, padded positions are invalidated
+  (``mask_padded_positions``) and the rows are inserted into the slot
+  cache.  Recurrent state (SSM) cannot mask padding, so such a model admits
+  each prompt solo at its exact length.
 * Uniforms are injected per request (rows of inactive slots are 0.5) or
   drawn from a ``torch.Generator`` on the device.
 
 Out of scope for this slice, and refused: the paged cache, prefix caching,
-chunked prefill, hold/fork/sample_futures, and non-Delphi (Gumbel) sampling.
+chunked prefill and hold/fork/sample_futures.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs import base as cb
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sampler import (advance_trajectory_state,
                                       sample_next_event)
@@ -55,7 +61,7 @@ class RequestTimeoutError(RuntimeError):
 @dataclasses.dataclass(eq=False)        # identity, not ndarray comparison
 class Request:
     tokens: np.ndarray                  # (S,) prompt
-    ages: Optional[np.ndarray] = None   # (S,) event ages in years
+    ages: Optional[np.ndarray] = None   # (S,) event ages in years (Delphi)
     max_new: int = 64
     # optional pre-drawn U(0,1) of shape (max_new, V): row i is consumed by
     # the i-th sampled event (row 0 at admission, from the prefill logits)
@@ -64,7 +70,7 @@ class Request:
     hold: bool = False                  # prefill-only parking: not ported
     # filled by the engine:
     out_tokens: Optional[List[int]] = None
-    out_ages: Optional[List[float]] = None
+    out_ages: Optional[List[float]] = None   # Delphi only; empty otherwise
     done: bool = False
     error: Optional[BaseException] = None
     _seq: int = dataclasses.field(default=0, repr=False)
@@ -83,16 +89,36 @@ def _pack(adv) -> torch.Tensor:
                         adv["emit"].float(), adv["finished"].float()])
 
 
+def gumbel_sample(lg: torch.Tensor, u: torch.Tensor, inv_temp: float):
+    """Generic-LM sampling: ``argmax(lg * inv_temp + g)`` with Gumbel noise
+    ``g = -log(-log(clip(u, 1e-12, 1 - 1e-12)))`` from the uniforms.
+    Returns (token (B,) int32, zero waiting times (B,) fp32)."""
+    g = -torch.log(-torch.log(u.float().clamp(1e-12, 1.0 - 1e-12)))
+    evt = torch.argmax(lg * inv_temp + g, dim=-1).to(torch.int32)
+    return evt, torch.zeros(evt.shape, dtype=torch.float32, device=lg.device)
+
+
+def _insert_rows(cache, rows, ids: torch.Tensor, n: int) -> None:
+    """Write the first ``n`` prefill rows of every cache leaf into the slot
+    cache at slots ``ids`` (leaves are (L, slots, ...)), in place."""
+    for kind, big in cache.items():
+        for buf, new in zip(big, rows[kind]):
+            buf[:, ids] = new[:, :n].to(buf.dtype)
+
+
 class BatchedEngine:
-    """Slot-based continuous batching over a per-slot ring KV cache.
+    """Slot-based continuous batching over a per-slot decode cache (a ring
+    KV cache, or a Mamba2 model's SSM state).
 
     ``params`` are the fp32 flat parameters (``models.params``); they move
     to ``device`` (``cuda`` unless the caller passes another), and the
     matrix-product weights are cast once to ``cfg.dtype`` for compute.
+    ``temperature`` scales a generic LM's logits (Delphi ignores it).
     """
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 8,
-                 max_context: int = 512, seed: int = 0, cache: str = "ring",
+                 max_context: int = 512, temperature: float = 1.0,
+                 seed: int = 0, cache: str = "ring",
                  request_timeout: Optional[float] = None,
                  prefix_cache: bool = False,
                  prefill_chunk_tokens: Optional[int] = None,
@@ -104,14 +130,16 @@ class BatchedEngine:
             raise NotImplementedError("prefix_cache is not ported")
         if prefill_chunk_tokens is not None:
             raise NotImplementedError("chunked prefill is not ported")
-        if not (cfg.age_encoding and cfg.dual_head):
-            raise NotImplementedError(
-                "only Delphi (eq.-1) sampling is ported; generic-LM "
-                "(Gumbel) sampling is not")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.slots = slots
         self.max_context = max_context
+        self.inv_temp = 1.0 / max(temperature, 1e-6)
+        self.is_delphi = cfg.age_encoding
+        # right-padding a prefill is sound only where padded positions can
+        # be masked out of the state: KV-cache attention (pos = -1), not
+        # recurrent SSM state, which admits unbucketed
+        self.bucketed = cfg.arch_type in (cb.DENSE, cb.MOE, cb.VLM)
         self.request_timeout = request_timeout
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self._wparams = cast_params(self.params, cfg)
@@ -153,7 +181,7 @@ class BatchedEngine:
             raise ValueError("empty prompt")
         if req.hold:
             raise NotImplementedError("hold/fork is not ported")
-        if req.ages is None:
+        if self.is_delphi and req.ages is None:
             raise ValueError("Delphi requests need ages")
         req.out_tokens, req.out_ages = [], []
         req._seq = next(self._seq_counter)
@@ -245,8 +273,9 @@ class BatchedEngine:
 
     def _select_admission(self):
         """Pop the next admission cohort off ``pending`` (lock held): up to
-        the free slots, all injected or all generator-sampled (one tick
-        draws from one uniform source); an over-width prompt admits solo."""
+        the free slots (one for a recurrent model), all injected or all
+        generator-sampled (one tick draws from one uniform source); an
+        over-width prompt admits solo."""
         if not self.pending:
             return None
         free = [i for i, r in enumerate(self.slot_req) if r is None]
@@ -256,8 +285,9 @@ class BatchedEngine:
         occupied = [r for r in self.slot_req if r is not None]
         if occupied and (occupied[0].uniforms is not None) != injected:
             return None
-        limit = 1 if len(self.pending[0].tokens) > self.max_context \
-            else len(free)
+        limit = len(free) if self.bucketed else 1
+        if len(self.pending[0].tokens) > self.max_context:
+            limit = 1
         group: List[Request] = []
         while self.pending and len(group) < limit \
                 and (self.pending[0].uniforms is not None) == injected:
@@ -286,13 +316,14 @@ class BatchedEngine:
                      injected: bool) -> None:
         n = len(group)
         lens = [len(r.tokens) for r in group]
-        if max(lens) > self.max_context:
-            sb, nb = max(lens), n            # solo over-width admission
-        else:
+        if self.bucketed and max(lens) <= self.max_context:
             # never bucket past the ring width: a pad-rounded S > W would
             # evict valid prompt context through the S > W ring pack
             sb = min(self._seq_bucket(max(lens)), self.max_context)
             nb = min(_next_pow2(n), self.slots)
+        else:
+            # exact shape: a solo over-width prompt, or recurrent state
+            sb, nb = max(lens), n
         self.prefill_shapes.add((nb, sb))
 
         tokens = np.zeros((nb, sb), np.int32)
@@ -302,11 +333,12 @@ class BatchedEngine:
         max_new = np.full((nb,), 1, np.int32)
         for j, r in enumerate(group):
             S = lens[j]
-            ags = np.asarray(r.ages, np.float32)
             tokens[j, :S] = r.tokens
-            ages[j, :S] = ags
-            ages[j, S:] = ags[-1]
-            age0[j] = ags[-1]
+            if self.is_delphi:
+                ags = np.asarray(r.ages, np.float32)
+                ages[j, :S] = ags
+                ages[j, S:] = ags[-1]
+                age0[j] = ags[-1]
             lengths[j] = S
             max_new[j] = r.max_new
         tokens[n:] = tokens[0]       # padded admission rows: clones of row 0,
@@ -323,12 +355,12 @@ class BatchedEngine:
         dev = self.device
         lengths_t = torch.from_numpy(lengths).to(dev)
         last_t = torch.from_numpy(last_idx).to(dev)
-        out = forward(self._wparams, self.cfg,
-                      {"tokens": torch.from_numpy(tokens).to(dev),
-                       "ages": torch.from_numpy(ages).to(dev)},
-                      mode="prefill", cache_width=self.max_context,
-                      last_index=last_t)
-        rows_cache = mask_padded_positions(out["cache"], last_t)["self"]
+        batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+        if self.is_delphi:
+            batch["ages"] = torch.from_numpy(ages).to(dev)
+        out = forward(self._wparams, self.cfg, batch, mode="prefill",
+                      cache_width=self.max_context, last_index=last_t)
+        rows_cache = mask_padded_positions(out["cache"], last_t)
         lg = out["logits"][:, 0]
         active = torch.ones((nb,), dtype=torch.bool, device=dev)
         max_new_t = torch.from_numpy(max_new).to(dev)
@@ -346,10 +378,7 @@ class BatchedEngine:
         }
         # one scatter per leaf writes the admitted rows into the slot cache
         ids = torch.tensor(slot_ids, dtype=torch.long, device=dev)
-        lc = self.cache["self"]
-        lc.k[:, ids] = rows_cache.k[:, :n]
-        lc.v[:, ids] = rows_cache.v[:, :n]
-        lc.pos[:, ids] = rows_cache.pos[:, :n]
+        _insert_rows(self.cache, rows_cache, ids, n)
         for key, val in rows.items():
             self._state[key][ids] = val[:n].to(self._state[key].dtype)
 
@@ -365,17 +394,23 @@ class BatchedEngine:
                           device=self.device)
 
     def _advance(self, lg, u, age, n_emitted, max_new, next_pos, active):
-        evt, tmin = sample_next_event(lg, u)
+        if self.is_delphi:
+            evt, tmin = sample_next_event(lg, u)
+        else:
+            evt, tmin = gumbel_sample(lg, u, self.inv_temp)
         return advance_trajectory_state(
             evt, tmin, age, n_emitted, max_new, next_pos, active,
-            max_age=self.cfg.max_age, death_token=self.cfg.death_token,
+            max_age=self.cfg.max_age if self.is_delphi else float("inf"),
+            death_token=self.cfg.death_token if self.is_delphi else -1,
             max_context=self.max_context)
 
     def _tick(self, u: torch.Tensor) -> torch.Tensor:
         st = self._state
-        d = decode_step(self._wparams, self.cfg, self.cache,
-                        {"tokens": st["last"][:, None],
-                         "ages": st["age"][:, None]}, st["step"])
+        batch = {"tokens": st["last"][:, None]}
+        if self.is_delphi:
+            batch["ages"] = st["age"][:, None]
+        d = decode_step(self._wparams, self.cfg, self.cache, batch,
+                        st["step"])
         lg = d["logits"][:, 0]
         next_step = torch.where(st["active"], st["step"] + 1, st["step"])
         adv = self._advance(lg, u, st["age"], st["n_emitted"], st["max_new"],
@@ -394,7 +429,8 @@ class BatchedEngine:
         evt, age, emit, finished = col
         if emit >= 0.5:
             req.out_tokens.append(int(evt))
-            req.out_ages.append(float(age))
+            if self.is_delphi:
+                req.out_ages.append(float(age))
         if finished >= 0.5:
             self.slot_req[slot] = None
             self._finalize(req)

@@ -9,7 +9,9 @@ package, so they run on a machine that has only PyTorch:
 Tolerances are those of ``tests/test_kernels.py``: fp32 atol 2e-5, bf16
 atol 2e-2 against the plain version in fp32 on the same rounded inputs;
 the sampler's events are equal except at near-ties (waiting times within
-1e-6 relative) and t_min agrees to 1e-6 relative.
+1e-6 relative) and t_min agrees to 1e-6 relative; the SSD kernel's fp32
+sums agree with the plain version's to atol 1e-4 (``test_kernels.py``'s
+SSD tolerance) on the same (rounded) inputs.
 """
 import pytest
 import torch
@@ -17,6 +19,7 @@ import torch
 from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as pk
+from repro_torch.kernels import ssd_scan as sk
 from repro_torch.kernels import tte_sample as tk
 
 torch.set_num_threads(2)
@@ -129,6 +132,57 @@ def test_paged_decode_kernel_empty_slot_gives_zeros(gen):
     assert float(out[0].abs().max()) > 0.0
 
 
+def _ssd_inputs(gen, b, C, Q, H, P, N, dtype, *, shared_bc=False,
+                bc_dtype=None):
+    """SSD tiles as tests/test_kernels.py draws them: N(0, 1) inputs and a
+    decreasing cum (dt*A of U(0, 0.2) steps); with ``shared_bc`` B and C
+    are one tile per batch row broadcast over the heads by a 0 stride.
+    B and C are in ``bc_dtype`` (default: ``dtype``)."""
+    def rnd(*shape, dt=dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+    xdt = rnd(b, C, Q, H, P)
+    hb = 1 if shared_bc else H
+    bc = bc_dtype or dtype
+    Bm = rnd(b, C, Q, hb, N, dt=bc).expand(b, C, Q, H, N)
+    Cm = rnd(b, C, Q, hb, N, dt=bc).expand(b, C, Q, H, N)
+    cum = -torch.cumsum(0.2 * torch.rand((b, C, Q, H), generator=gen,
+                                         device="cuda"), dim=2)
+    return xdt, Bm, Cm, cum
+
+
+@pytest.mark.parametrize("BH,C,Q,P,N,dtype", [
+    (1, 1, 16, 8, 8, torch.float32),
+    (4, 3, 32, 16, 32, torch.float32),
+    (2, 2, 128, 64, 128, torch.float32),     # production tile
+    (2, 2, 64, 32, 64, torch.bfloat16),
+    (2, 3, 32, 32, 16, torch.float32),       # reduced mamba2
+])
+def test_ssd_intra_kernel_vs_plain(gen, BH, C, Q, P, N, dtype):
+    xdt, Bm, Cm, cum = (t[:, :, :, 0] for t in
+                        _ssd_inputs(gen, BH, C, Q, 1, P, N, dtype))
+    n0 = sk.launches
+    y, st = ops.ssd_intra(xdt, Bm, Cm, cum)
+    assert sk.launches == n0 + 1
+    assert y.dtype == st.dtype == torch.float32
+    yr, sr = ref.ssd_intra_ref(xdt, Bm, Cm, cum)
+    torch.testing.assert_close(y, yr, atol=1e-4, rtol=0)
+    torch.testing.assert_close(st, sr, atol=1e-4, rtol=0)
+
+
+def test_ssd_intra_kernel_main_path_tile_with_shared_bc(gen):
+    """Mamba2-780M at a 1024-token prompt: 8 chunks x 48 heads, fp32 xdt and
+    bf16 B/C read once per batch row through a stride-0 head axis."""
+    xdt, Bm, Cm, cum = _ssd_inputs(gen, 1, 8, 128, 48, 64, 128,
+                                   torch.float32, shared_bc=True,
+                                   bc_dtype=torch.bfloat16)
+    assert Bm.stride(3) == 0 and Bm.dtype == torch.bfloat16
+    y, st = ops.ssd_intra_heads(xdt, Bm, Cm, cum)
+    yr, sr = ref.ssd_intra_ref(xdt.transpose(2, 3), Bm.transpose(2, 3),
+                               Cm.transpose(2, 3), cum.transpose(2, 3))
+    torch.testing.assert_close(y, yr.transpose(2, 3), atol=1e-4, rtol=0)
+    torch.testing.assert_close(st, sr, atol=1e-4, rtol=0)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     x = torch.randn((2, 8), generator=gen, device="cuda")
     with pytest.raises(TypeError):
@@ -138,3 +192,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         fk.flash_attention_cuda(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         fk.flash_attention_cuda(q.cpu(), q.cpu(), q.cpu())
+    xdt, Bm, Cm, cum = _ssd_inputs(gen, 1, 1, 32, 2, 8, 8, torch.float32)
+    with pytest.raises(ValueError, match="Q in"):       # no 48-row tile
+        sk.ssd_intra_cuda(xdt[:, :, :24], Bm[:, :, :24], Cm[:, :, :24],
+                          cum[:, :, :24])
+    with pytest.raises(TypeError):
+        sk.ssd_intra_cuda(xdt.double(), Bm, Cm, cum)
+    with pytest.raises(TypeError):
+        sk.ssd_intra_cuda(xdt, Bm, Cm, cum.to(torch.bfloat16))
+    strided = torch.zeros((1, 1, 32, 2, 16), device="cuda")[..., ::2]
+    with pytest.raises(ValueError, match="unit stride"):
+        sk.ssd_intra_cuda(strided, Bm, Cm, cum)

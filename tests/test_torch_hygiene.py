@@ -24,6 +24,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import paged_attention as pk
+from repro_torch.kernels import ssd_scan as sk
 from repro_torch.kernels import tte_sample as tk
 from repro_torch.launch import serve as launch
 from repro_torch.models import (from_jax_flat, init_params, load_checkpoint,
@@ -98,6 +99,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             torch.zeros((2, 1, 1, 10)), pool, pool, i32,
             torch.zeros((2, 4), dtype=torch.int32),
             torch.zeros((2,), dtype=torch.int32))
+    x5 = torch.zeros((1, 1, 16, 1, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        sk.ssd_intra_cuda(x5, x5, x5, torch.zeros((1, 1, 16, 1)))
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
@@ -107,8 +111,11 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     ops.tte_sample(lg, u)
     q = torch.randn(1, 2, 8, 10)
     ops.flash_attention(q, q, q)
+    x = torch.randn(1, 2, 16, 8)
+    ops.ssd_intra(x, x, x, -torch.rand(1, 2, 16).cumsum(-1))
     assert ops.launch_counts() == {"tte_sample": 0, "flash_attention": 0,
-                                   "paged_decode_attention": 0}
+                                   "paged_decode_attention": 0,
+                                   "ssd_intra": 0}
 
 
 def test_importing_the_port_builds_nothing():

@@ -181,6 +181,7 @@ def test_make_decode_cache_shapes():
 @pytest.mark.parametrize("change", [
     dict(age_encoding=False), dict(n_kv_heads=2), dict(activation="swiglu"),
     dict(norm="rmsnorm"), dict(sliding_window=64), dict(arch_type="moe"),
+    dict(arch_type="hybrid", attn_every=1, ssm_state=16),
 ])
 def test_configs_outside_the_slice_raise(change):
     cfg = get_config("delphi-2m", reduced=True).replace(
