@@ -31,10 +31,12 @@ runs these phases; any failure exits non-zero:
    (``repro_torch.core.parity``);
 5. times at the main paths' shapes: each kernel, its plain version, one
    PyTorch library call where one computes the same function (a yardstick
-   the port never calls), and the bound from bytes and operations; device
-   time per call from ``torch.profiler`` and per-call time from CUDA events
-   (the ``kernels`` line's ``ms`` is the device time); then each path once
-   more under the profiler (device busy time, idle share, top kernels).
+   the port never calls), and the bound from bytes and operations (for
+   ``ssd_intra`` at a 1024- and a 128-token prompt, both terms printed);
+   device time per call from ``torch.profiler`` and per-call time from CUDA
+   events (the ``kernels`` line's ``ms`` is the device time); then each path
+   once more under the profiler (device busy time, idle share, top kernels,
+   and the Mamba2 path's ``ssd_intra`` total).
 
 The last lines are the ``kernels`` JSON line, the card's name and power limit
 (``nvidia-smi``), and the result line ``{"ok": true, "device": ...}``.  A copy
@@ -54,9 +56,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rates of the H100 SXM
               "float32": 495e12,   # (TF32 for fp32 inputs)
-              # fp32 on the CUDA cores (NVIDIA's data sheet): the rate of a
-              # kernel whose fp32 sums must not round through TF32
-              "float32_simt": 67e12}
+              # fp32 on the CUDA cores (NVIDIA's data sheet)
+              "float32_simt": 67e12,
+              # fp32-accurate products on the tensor cores: three TF32
+              # passes (hi*hi + hi*lo + lo*hi) per product
+              "float32_3xtf32": 495e12 / 3}
 SEED = 0
 DEVICE = "cuda"
 
@@ -300,28 +304,39 @@ def check_paged(gen) -> float:
 
 
 SSD_CASES = [
-    # (b, C, Q, H, P, N, xdt dtype, B/C dtype, B/C shared by the heads, note)
-    (1, 1, 16, 1, 8, 8, "float32", "float32", False, "Q16 P8 N8"),
-    (4, 3, 32, 1, 16, 32, "float32", "float32", False, "Q32 P16 N32"),
-    (2, 2, 128, 1, 64, 128, "float32", "float32", False, "production tile"),
-    (2, 2, 64, 1, 32, 64, "bfloat16", "bfloat16", False, "bf16 Q64"),
-    (2, 3, 32, 16, 32, 16, "float32", "float32", True, "reduced mamba2"),
-    (1, 8, 128, 48, 64, 128, "float32", "bfloat16", True,
+    # (b, C, Q, H, P, N, xdt dtype, B/C dtype, B/C shared by the heads,
+    #  largest decrement of cum per step, note)
+    (1, 1, 16, 1, 8, 8, "float32", "float32", False, 0.2, "Q16 P8 N8"),
+    (4, 3, 32, 1, 16, 32, "float32", "float32", False, 0.2, "Q32 P16 N32"),
+    (2, 2, 128, 1, 64, 128, "float32", "float32", False, 0.2,
+     "production tile"),
+    (2, 2, 64, 1, 32, 64, "bfloat16", "bfloat16", False, 0.2, "bf16 Q64"),
+    (2, 3, 32, 16, 32, 16, "float32", "float32", True, 0.2, "reduced mamba2"),
+    (1, 8, 128, 48, 64, 128, "float32", "bfloat16", True, 0.2,
      "main: 1024-token prompt"),
+    (1, 1, 128, 48, 64, 128, "float32", "bfloat16", True, 0.2,
+     "one-chunk prompt (128 tokens)"),
+    (2, 2, 128, 4, 64, 128, "float32", "bfloat16", False, 0.2,
+     "bf16 B/C per head"),
+    (1, 2, 128, 8, 64, 128, "float32", "bfloat16", True, 2.0,
+     "steep decay (L underflows to 0)"),
+    (2, 2, 128, 8, 64, 128, "float32", "float32", True, 0.2,
+     "fp32 B/C shared by the heads"),
 ]
 
 
 def check_ssd(gen) -> float:
     """atol 1e-4 (tests/test_kernels.py's SSD tolerance) against the plain
     version in fp32 on the same (rounded) inputs, drawn as test_kernels.py
-    draws them (N(0, 1) tiles, cum of U(0, 0.2) decrements).  Returns the
-    error at the main path's tile (48 heads sharing bf16 B/C by a 0
-    stride, fp32 xdt, as the model passes them)."""
+    draws them (N(0, 1) tiles, cum of U(0, 0.2) decrements; U(0, 2.0) in
+    the steep case, where L underflows to 0 and no NaN may appear).
+    Returns the error at the main path's tile (48 heads sharing bf16 B/C by
+    a 0 stride, fp32 xdt, as the model passes them)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as k
     main_err = 0.0
-    for b, C, Q, H, P, N, dx, dbc, shared, note in SSD_CASES:
+    for b, C, Q, H, P, N, dx, dbc, shared, step, note in SSD_CASES:
         def rnd(*shape, dt):
             return torch.randn(shape, generator=gen, device=DEVICE
                                ).to(getattr(torch, dt))
@@ -329,20 +344,22 @@ def check_ssd(gen) -> float:
         xdt = rnd(b, C, Q, H, P, dt=dx)
         Bm = rnd(b, C, Q, hb, N, dt=dbc).expand(b, C, Q, H, N)
         Cm = rnd(b, C, Q, hb, N, dt=dbc).expand(b, C, Q, H, N)
-        cum = -torch.cumsum(0.2 * torch.rand((b, C, Q, H), generator=gen,
-                                             device=DEVICE), dim=2)
+        cum = -torch.cumsum(step * torch.rand((b, C, Q, H), generator=gen,
+                                              device=DEVICE), dim=2)
         y, st = k.ssd_intra_cuda(xdt, Bm, Cm, cum)
         yr, sr = ref.ssd_intra_ref(xdt.transpose(2, 3), Bm.transpose(2, 3),
                                    Cm.transpose(2, 3), cum.transpose(2, 3))
         torch.cuda.synchronize()
         err = max(float((y - yr.transpose(2, 3)).abs().max()),
                   float((st - sr).abs().max()))
-        if not err <= 1e-4:
+        if not (err <= 1e-4 and bool(y.isfinite().all())
+                and bool(st.isfinite().all())):
             raise AssertionError(f"ssd_intra {note}: err {err} > 1e-4")
         if note.startswith("main"):
             main_err = err
         log(f"  ssd_intra {note} (b={b} C={C} Q={Q} H={H} P={P} N={N} xdt "
-            f"{dx}, B/C {dbc}{', shared' if shared else ''}): max abs err "
+            f"{dx}, B/C {dbc}{', shared' if shared else ''}, cum steps "
+            f"<= {step}): max abs err "
             f"{err:.3g} (tol 1e-4)")
     return main_err
 
@@ -636,7 +653,6 @@ def times(main: dict, mamba: dict, gen) -> dict:
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.kernels import ref
-    from repro_torch.kernels import ssd_scan as sk
     from repro_torch.kernels import tte_sample as tk
     eng = main["engine"]
     res = {}
@@ -697,13 +713,47 @@ def times(main: dict, mamba: dict, gen) -> dict:
             q4, kl, vl, attn_mask=mask)),
         "bound_ms": b_ms, "bound_by": b_by}
 
-    # ssd_intra: one layer's call at a 1024-token prompt, in the model's
-    # layout (fp32 xdt; bf16 B and C sliced out of xBC and broadcast over
-    # the heads by a 0 stride)
-    mc = mamba["cfg"]
+    # ssd_intra: one layer's call at a 1024-token prompt (the main row) and
+    # at a one-chunk prompt
+    for key, S in (("ssd_intra", 1024), ("ssd_intra S=128", 128)):
+        res[key] = ssd_row(gen, mamba["cfg"], S)
+    return res
+
+
+def ssd_bound(xdt, Bm, cum) -> dict:
+    """Bound of one ``ssd_intra`` call from what its inputs need: each input
+    read once (B and C once per batch row where their head stride is 0),
+    y and the states written once; C.B^T and G.xdt over their causal
+    triangle only (L is 0 above the diagonal), C.B^T once per (batch row,
+    chunk) where the heads share B/C, the state product in full.  The
+    operations term is at the fp32-accurate tensor-core rate (three TF32
+    passes); the fp32 CUDA-core term is returned beside it."""
+    b, c, Q, H, P = xdt.shape
+    N = Bm.shape[-1]
+    hb = 1 if Bm.stride(3) == 0 else H
+    nbytes = (2 * xdt.numel() * xdt.element_size()          # xdt in, y out
+              + 2 * b * c * Q * hb * N * Bm.element_size()  # B, C
+              + cum.numel() * 4 + b * c * H * N * P * 4)      # cum, states
+    flops = b * c * (hb * Q * (Q + 1) * N
+                     + H * (Q * (Q + 1) * P + 2 * Q * N * P))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32_3xtf32"] * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": t_bytes,
+            "ops_ms": t_ops,
+            "ops_simt_ms": flops / PEAK_FLOPS["float32_simt"] * 1e3,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def ssd_row(gen, mc, S: int) -> dict:
+    """``ssd_intra`` at an S-token prompt in the model's layout: fp32 xdt;
+    bf16 B and C sliced out of xBC and broadcast over the heads by a 0
+    stride."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as sk
     Q, H, P, N, di = (mc.ssm_chunk, mc.ssm_n_heads, mc.ssm_head_dim,
                       mc.ssm_state, mc.d_inner)
-    S = 1024
     c = S // Q
     xBC = torch.randn((1, S, di + 2 * N), generator=gen, device=DEVICE
                       ).to(torch.bfloat16)
@@ -712,21 +762,16 @@ def times(main: dict, mamba: dict, gen) -> dict:
     xdt = torch.randn((1, c, Q, H, P), generator=gen, device=DEVICE)
     cum = -torch.cumsum(0.05 * torch.rand((1, c, Q, H), generator=gen,
                                           device=DEVICE), dim=2)
-    nbytes = (2 * xdt.numel() * 4 + 2 * c * Q * N * 2 + cum.numel() * 4
-              + c * H * N * P * 4)
-    # L is zero above the diagonal: C.B^T and G.xdt need only the causal
-    # triangle, Q(Q+1)/2 entries a tile; the state product is a full one
-    flops = c * H * (Q * (Q + 1) * N + Q * (Q + 1) * P + 2 * Q * N * P)
-    b_ms, b_by = bound(nbytes, flops, "float32_simt")
-    res["ssd_intra"] = {
+    bd = ssd_bound(xdt, Bm, cum)
+    return {
         "shape": f"S={S}: b=1 C={c} Q={Q} H={H} P={P} N={N}, xdt fp32, "
                  f"B/C bf16 shared by the heads",
         "kernel": measure(lambda: sk.ssd_intra_cuda(xdt, Bm, Cm, cum)),
         "plain": measure(lambda: ref.ssd_intra_ref(
             xdt.transpose(2, 3), Bm[:, :, :, :1].transpose(2, 3),
             Cm[:, :, :, :1].transpose(2, 3), cum.transpose(2, 3))),
-        "library": None, "bound_ms": b_ms, "bound_by": b_by}
-    return res
+        "library": None, "bound_ms": bd["bound_ms"],
+        "bound_by": bd["bound_by"], "bound_terms": bd}
 
 
 def path_profile(run, wall: float) -> dict:
@@ -742,8 +787,11 @@ def path_profile(run, wall: float) -> dict:
     kernels = device_kernels(go)
     busy = sum(ms for _, ms in kernels.values()) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    ssd = [v for name, v in kernels.items() if "ssd_intra" in name]
     return {"wall_s": wall, "profiled_wall_s": box["seconds"],
             "device_busy_s": busy,
+            "ssd_intra": {"launches": sum(n for n, _ in ssd),
+                          "ms": sum(ms for _, ms in ssd)},
             "idle_share": (1.0 - busy / wall) if busy else None,
             "launches": sum(n for n, _ in kernels.values()),
             "top": [{"kernel": name[:80], "launches": n, "ms": ms}
@@ -818,6 +866,12 @@ def main() -> int:
         log(f"  {name} [{t['shape']}]: kernel {fmt(t['kernel'])}; plain "
             f"{fmt(t['plain'])}; library {fmt(t['library'])}; bound "
             f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+        if "bound_terms" in t:
+            bt = t["bound_terms"]
+            log(f"    bound terms: {bt['bytes'] / 1e6:.3f} MB -> "
+                f"{bt['bytes_ms']:.6f} ms at 3.35 TB/s; {bt['flops'] / 1e9:.4f}"
+                f" GFLOP -> {bt['ops_ms']:.6f} ms at 165 TFLOP/s (3xTF32), "
+                f"{bt['ops_simt_ms']:.6f} ms at 67 TFLOP/s (fp32 CUDA cores)")
     from repro_torch.launch import serve as launch
     prof = path_profile(
         lambda: launch.serve(serve_args(32, 48))["seconds"], sec)
@@ -833,6 +887,8 @@ def main() -> int:
             f"s wall under the profiler); top by device time:")
         for t in p["top"]:
             log(f"    {t['ms']:9.3f} ms  {t['launches']:6d}x  {t['kernel']}")
+    log(f"  Mamba2 path: ssd_intra kernels {mprof['ssd_intra']['ms']:.3f} ms "
+        f"of device time over {mprof['ssd_intra']['launches']} launches")
 
     def ms(m):
         """Device time where the profiler saw it, else the per-call time."""

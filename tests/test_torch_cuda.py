@@ -133,10 +133,10 @@ def test_paged_decode_kernel_empty_slot_gives_zeros(gen):
 
 
 def _ssd_inputs(gen, b, C, Q, H, P, N, dtype, *, shared_bc=False,
-                bc_dtype=None):
+                bc_dtype=None, step=0.2):
     """SSD tiles as tests/test_kernels.py draws them: N(0, 1) inputs and a
-    decreasing cum (dt*A of U(0, 0.2) steps); with ``shared_bc`` B and C
-    are one tile per batch row broadcast over the heads by a 0 stride.
+    decreasing cum (dt*A of U(0, ``step``) steps); with ``shared_bc`` B and
+    C are one tile per batch row broadcast over the heads by a 0 stride.
     B and C are in ``bc_dtype`` (default: ``dtype``)."""
     def rnd(*shape, dt=dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
@@ -145,8 +145,8 @@ def _ssd_inputs(gen, b, C, Q, H, P, N, dtype, *, shared_bc=False,
     bc = bc_dtype or dtype
     Bm = rnd(b, C, Q, hb, N, dt=bc).expand(b, C, Q, H, N)
     Cm = rnd(b, C, Q, hb, N, dt=bc).expand(b, C, Q, H, N)
-    cum = -torch.cumsum(0.2 * torch.rand((b, C, Q, H), generator=gen,
-                                         device="cuda"), dim=2)
+    cum = -torch.cumsum(step * torch.rand((b, C, Q, H), generator=gen,
+                                          device="cuda"), dim=2)
     return xdt, Bm, Cm, cum
 
 
@@ -177,6 +177,30 @@ def test_ssd_intra_kernel_main_path_tile_with_shared_bc(gen):
                                    bc_dtype=torch.bfloat16)
     assert Bm.stride(3) == 0 and Bm.dtype == torch.bfloat16
     y, st = ops.ssd_intra_heads(xdt, Bm, Cm, cum)
+    yr, sr = ref.ssd_intra_ref(xdt.transpose(2, 3), Bm.transpose(2, 3),
+                               Cm.transpose(2, 3), cum.transpose(2, 3))
+    torch.testing.assert_close(y, yr.transpose(2, 3), atol=1e-4, rtol=0)
+    torch.testing.assert_close(st, sr, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("b,C,H,bc_dtype,shared,step", [
+    (1, 1, 48, torch.bfloat16, True, 0.2),    # one-chunk main tile
+    (2, 2, 4, torch.bfloat16, False, 0.2),    # bf16 B/C per head
+    (1, 2, 8, torch.bfloat16, True, 2.0),     # steep decay: L underflows
+    (2, 2, 8, torch.float32, True, 0.2),      # fp32 B/C shared by the heads
+], ids=["one-chunk-main", "bf16-per-head", "steep-decay", "fp32-shared"])
+def test_ssd_intra_kernel_heads_layout(gen, b, C, H, bc_dtype, shared, step):
+    """Q 128, P 64, N 128 with fp32 xdt in the model's layout: each route of
+    the kernel (tensor cores for bf16 B/C, shared or per head; CUDA cores
+    for fp32 B/C) held to 1e-4, with no NaN where L underflows to 0."""
+    xdt, Bm, Cm, cum = _ssd_inputs(gen, b, C, 128, H, 64, 128, torch.float32,
+                                   shared_bc=shared, bc_dtype=bc_dtype,
+                                   step=step)
+    assert (Bm.stride(3) == 0) == shared
+    n0 = sk.launches
+    y, st = ops.ssd_intra_heads(xdt, Bm, Cm, cum)
+    assert sk.launches == n0 + 1
+    assert bool(y.isfinite().all()) and bool(st.isfinite().all())
     yr, sr = ref.ssd_intra_ref(xdt.transpose(2, 3), Bm.transpose(2, 3),
                                Cm.transpose(2, 3), cum.transpose(2, 3))
     torch.testing.assert_close(y, yr.transpose(2, 3), atol=1e-4, rtol=0)
