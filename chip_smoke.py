@@ -32,7 +32,10 @@ runs these phases; any failure exits non-zero:
 5. times at the main paths' shapes: each kernel, its plain version, one
    PyTorch library call where one computes the same function (a yardstick
    the port never calls), and the bound from bytes and operations (for
-   ``ssd_intra`` at a 1024- and a 128-token prompt, both terms printed);
+   ``ssd_intra`` at a 1024- and a 128-token prompt, both terms printed;
+   ``flash_attention`` also at B 4, S 256 and ``paged_decode_attention``
+   also on a full ring), beside the launch floor (a one-element
+   ``zero_()``, the least a launch costs on the device);
    device time per call from ``torch.profiler`` and per-call time from CUDA
    events (the ``kernels`` line's ``ms`` is the device time); then each path
    once more under the profiler (device busy time, idle share, top kernels,
@@ -146,6 +149,7 @@ def check_tte(gen) -> float:
 FLASH_CASES = [
     # (B, Hq, Hkv, S, hd, window, causal, dtype name, note)
     (16, 12, 12, 8, 10, None, True, "bfloat16", "main S=8"),
+    (16, 12, 12, 16, 10, None, True, "bfloat16", "main S=16"),
     (16, 12, 12, 32, 10, None, True, "bfloat16", "main S=32"),
     (16, 12, 12, 64, 10, None, True, "bfloat16", "main S=64"),
     (4, 12, 12, 256, 10, None, True, "bfloat16", "main S=256"),
@@ -157,6 +161,16 @@ FLASH_CASES = [
     (2, 8, 2, 77, 64, 16, True, "bfloat16", "ragged window GQA bf16"),
     (1, 2, 2, 130, 128, None, True, "float32", "hd=128 ragged"),
     (1, 2, 2, 128, 64, None, False, "float32", "bidirectional"),
+    (2, 12, 12, 256, 10, 100, True, "bfloat16", "window bf16"),
+    (2, 12, 12, 40, 10, None, False, "bfloat16", "bidirectional bf16"),
+    (2, 4, 4, 96, 32, None, True, "bfloat16", "hd=32 bf16"),
+    (2, 4, 2, 70, 40, None, True, "bfloat16", "hd=40 bf16 (padded to 64)"),
+    (2, 4, 2, 50, 12, None, True, "bfloat16", "hd=12 bf16 (8-byte staging)"),
+    (2, 4, 2, 50, 9, None, True, "bfloat16", "odd hd=9 bf16 (by element)"),
+    (2, 4, 2, 256, 64, None, True, "bfloat16", "GQA hd=64 bf16"),
+    (1, 2, 2, 384, 64, 100, True, "bfloat16", "window hd=64 bf16"),
+    (1, 2, 2, 130, 128, None, True, "bfloat16", "hd=128 ragged bf16"),
+    (1, 2, 2, 128, 64, None, False, "bfloat16", "bidirectional hd=64 bf16"),
 ]
 
 
@@ -192,11 +206,11 @@ def check_flash(gen) -> float:
     return main_err
 
 
-def ring_inputs(gen, B, Hkv, G, hd, W, dtype, steps):
+def ring_inputs(gen, B, Hkv, G, hd, W, dtype, steps, padded=True):
     """A ring cache as the engine holds it, viewed as a pool of one block
     per slot: slot b has written positions 0..steps[b] at ring slot p % W;
-    slot 0 also has its last two prompt positions masked (pos -1, as after
-    a right-padded prefill)."""
+    with ``padded`` slot 0 also has two prompt positions masked (pos -1, as
+    after a right-padded prefill)."""
     import torch
     k = torch.randn((B, Hkv, W, hd), generator=gen, device=DEVICE).to(dtype)
     v = torch.randn((B, Hkv, W, hd), generator=gen, device=DEVICE).to(dtype)
@@ -205,7 +219,8 @@ def ring_inputs(gen, B, Hkv, G, hd, W, dtype, steps):
     for b, s in enumerate(steps):
         for p in range(max(0, s - W + 1), s + 1):
             pos[b, p % W] = p
-    pos[0, 1:3] = -1
+    if padded:
+        pos[0, 1:3] = -1
     table = torch.arange(B, dtype=torch.int32)[:, None]
     step = torch.tensor(steps, dtype=torch.int32)
     return q, k, v, table.to(DEVICE), pos.to(DEVICE), step.to(DEVICE)
@@ -268,12 +283,22 @@ def check_paged(gen) -> float:
         ("ring as pool fp32", ring_inputs(
             gen, 16, 12, 1, 10, 256, f32, [17 * i + 5 for i in range(16)]),
          None),
+        ("ring, every step below 128", ring_inputs(
+            gen, 16, 12, 1, 10, 256, bf16, [8 * i + 3 for i in range(16)]),
+         None),
+        ("ring full, every step >= 255", ring_inputs(
+            gen, 16, 12, 1, 10, 256, bf16, [255 + 37 * i for i in range(16)],
+            padded=False), None),
         ("paged bs=4 G=4 hd=64", paged_inputs(gen, 3, 2, 4, 64, 4, 8, f32),
          None),
         ("paged bs=16 wrapped stale G=2 window", paged_inputs(
             gen, 4, 2, 2, 32, 16, 4, f32, wrap=True), 20),
+        ("paged bs=16 wrapped bf16 G=4 window", paged_inputs(
+            gen, 4, 2, 4, 16, 16, 4, bf16, wrap=True), 20),
         ("paged bs=16 wrapped bf16 G=8 hd=128", paged_inputs(
             gen, 2, 2, 8, 128, 16, 4, bf16, wrap=True), None),
+        ("paged bs=16 odd hd=9 bf16", paged_inputs(
+            gen, 2, 2, 2, 9, 16, 2, bf16), None),
         ("paged bs=4 empty slot", paged_inputs(
             gen, 3, 2, 2, 16, 4, 4, f32, empty_slot=True), None),
     ]
@@ -645,13 +670,67 @@ def bound(nbytes: float, flops: float, dtype: str):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def times(main: dict, mamba: dict, gen) -> dict:
-    """Kernel, plain version and library call at the main paths' shapes:
-    device time per call (profiler) and per-call time (CUDA events)."""
+def flash_row(gen, nb: int, H: int, sb: int, hd: int) -> dict:
+    """``flash_attention`` at one prefill bucket: (nb, H, sb, hd) bf16,
+    causal, against its plain version and SDPA."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ref
+    q, k, v = (torch.randn((nb, H, sb, hd), generator=gen, device=DEVICE
+                           ).to(torch.bfloat16) for _ in range(3))
+    nbytes = 4 * nb * H * sb * hd * 2
+    flops = 4 * nb * H * hd * sb * (sb + 1) / 2
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    return {
+        "shape": f"B={nb} H={H} S={sb} hd={hd} causal bf16",
+        "kernel": measure(lambda: fk.flash_attention_cuda(q, k, v,
+                                                          causal=True)),
+        "plain": measure(lambda: ref.flash_attention_ref(q, k, v,
+                                                         causal=True)),
+        "library": measure(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True)),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+
+def paged_row(gen, kl, vl, pos, step, note: str) -> dict:
+    """``paged_decode_attention`` on one layer's ring viewed as a pool of
+    one block per slot, against its plain version and SDPA with a mask.
+    The bound counts the K/V rows of the valid tokens only."""
+    import torch
+    import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pk
+    from repro_torch.kernels import ref
+    Bs, Hkv, W, hd = kl.shape
+    table = torch.arange(Bs, dtype=torch.int32, device=DEVICE)[:, None]
+    q4 = torch.randn((Bs, Hkv, 1, hd), generator=gen, device=DEVICE
+                     ).to(kl.dtype)
+    valid = (pos >= 0) & (pos <= step[:, None]) & (pos > step[:, None] - W)
+    n_valid = int(valid.sum())
+    nbytes = (q4.numel() * 2 * 2 + 2 * n_valid * Hkv * hd * 2 + pos.numel() * 4
+              + Bs * 8)
+    flops = 4 * n_valid * Hkv * hd
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    mask = valid[:, None, None, :]
+    return {
+        "shape": f"B={Bs} Hkv={Hkv} G=1 hd={hd} bs=W={W} nbs=1 bf16, "
+                 f"{n_valid} valid tokens ({note})",
+        "kernel": measure(lambda: pk.paged_decode_attention_cuda(
+            q4, kl, vl, table, pos, step)),
+        "plain": measure(lambda: ref.paged_decode_attention_ref(
+            q4, kl, vl, table, pos, step)),
+        "library": measure(lambda: F.scaled_dot_product_attention(
+            q4, kl, vl, attn_mask=mask)),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+
+def times(main: dict, mamba: dict, gen) -> dict:
+    """Kernel, plain version and library call at the main paths' shapes:
+    device time per call (profiler) and per-call time (CUDA events).  The
+    first four keys are the ``kernels`` line's rows; ``launch floor`` is
+    PyTorch's smallest kernel (a one-element ``zero_()``) timed the same
+    way, the least a launch costs, below which no bound can be seen."""
+    import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import tte_sample as tk
     eng = main["engine"]
@@ -671,52 +750,37 @@ def times(main: dict, mamba: dict, gen) -> dict:
     # flash_attention: the largest prefill bucket the main path ran
     nb, sb = max(eng.prefill_shapes, key=lambda s: s[0] * s[1] * s[1])
     H, hd = eng.cfg.n_heads, eng.cfg.head_dim
-    q, k, v = (torch.randn((nb, H, sb, hd), generator=gen, device=DEVICE
-                           ).to(torch.bfloat16) for _ in range(3))
-    nbytes = 4 * nb * H * sb * hd * 2
-    flops = 4 * nb * H * hd * sb * (sb + 1) / 2
-    b_ms, b_by = bound(nbytes, flops, "bfloat16")
-    res["flash_attention"] = {
-        "shape": f"B={nb} H={H} S={sb} hd={hd} causal bf16",
-        "kernel": measure(lambda: fk.flash_attention_cuda(q, k, v,
-                                                          causal=True)),
-        "plain": measure(lambda: ref.flash_attention_ref(q, k, v,
-                                                         causal=True)),
-        "library": measure(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True)),
-        "bound_ms": b_ms, "bound_by": b_by}
+    res["flash_attention"] = flash_row(gen, nb, H, sb, hd)
 
     # paged_decode_attention: one layer of one tick on the main path's ring
     # (layer 0's K/V and positions as the run left them)
     lc = eng.cache["self"]
     kl, vl, pos = lc.k[0], lc.v[0], lc.pos[0]
-    Bs, Hkv, W, hd = kl.shape
     step = eng._state["step"]
-    table = torch.arange(Bs, dtype=torch.int32, device=DEVICE)[:, None]
-    q4 = torch.randn((Bs, Hkv, 1, hd), generator=gen, device=DEVICE
-                     ).to(kl.dtype)
-    valid = (pos >= 0) & (pos <= step[:, None]) & (pos > step[:, None] - W)
-    n_valid = int(valid.sum())
-    nbytes = (q4.numel() * 2 * 2 + 2 * n_valid * Hkv * hd * 2 + pos.numel() * 4
-              + Bs * 8)
-    flops = 4 * n_valid * Hkv * hd
-    b_ms, b_by = bound(nbytes, flops, "bfloat16")
-    mask = valid[:, None, None, :]
-    res["paged_decode_attention"] = {
-        "shape": f"B={Bs} Hkv={Hkv} G=1 hd={hd} bs=W={W} nbs=1 bf16, "
-                 f"{n_valid} valid tokens",
-        "kernel": measure(lambda: pk.paged_decode_attention_cuda(
-            q4, kl, vl, table, pos, step)),
-        "plain": measure(lambda: ref.paged_decode_attention_ref(
-            q4, kl, vl, table, pos, step)),
-        "library": measure(lambda: F.scaled_dot_product_attention(
-            q4, kl, vl, attn_mask=mask)),
-        "bound_ms": b_ms, "bound_by": b_by}
+    res["paged_decode_attention"] = paged_row(gen, kl, vl, pos, step,
+                                              "the run's ring")
 
     # ssd_intra: one layer's call at a 1024-token prompt (the main row) and
     # at a one-chunk prompt
     for key, S in (("ssd_intra", 1024), ("ssd_intra S=128", 128)):
         res[key] = ssd_row(gen, mamba["cfg"], S)
+
+    # the longest prefill bucket the engine admits at max_context 256
+    res["flash_attention S=256"] = flash_row(gen, 4, H, eng.max_context, hd)
+    # a full ring: every slot holds W valid positions (a long history
+    # decoding near max_context), on the same K/V
+    W = kl.shape[2]
+    full_step = (W + 44 + 37 * torch.arange(kl.shape[0], device=DEVICE)
+                 ).to(torch.int32)
+    j = torch.arange(W, device=DEVICE)
+    full_pos = (full_step[:, None] - torch.remainder(
+        full_step[:, None] - j[None, :], W)).to(torch.int32)
+    res["paged_decode_attention full ring"] = paged_row(
+        gen, kl, vl, full_pos, full_step, "full ring")
+
+    z = torch.zeros(1, device=DEVICE)
+    res["launch floor"] = {"shape": "one-element zero_()",
+                           "kernel": measure(lambda: z.zero_())}
     return res
 
 
@@ -862,10 +926,16 @@ def main() -> int:
         dev = ("not measured" if m["device_ms"] is None
                else f"{m['device_ms']:.5f} ms")
         return f"device {dev} / per call {m['call_ms']:.5f} ms"
+    floor = tm.pop("launch floor")["kernel"]
+    floor_ms = floor["device_ms"]
+    log(f"  launch floor [one-element zero_()]: {fmt(floor)}")
+    floor_txt = ("not measured" if floor_ms is None
+                 else f"{floor_ms:.6f} ms")
     for name, t in tm.items():
         log(f"  {name} [{t['shape']}]: kernel {fmt(t['kernel'])}; plain "
             f"{fmt(t['plain'])}; library {fmt(t['library'])}; bound "
-            f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+            f"{t['bound_ms']:.6f} ms ({t['bound_by']}), launch floor "
+            f"{floor_txt}")
         if "bound_terms" in t:
             bt = t["bound_terms"]
             log(f"    bound terms: {bt['bytes'] / 1e6:.3f} MB -> "
@@ -909,7 +979,8 @@ def main() -> int:
     record = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_seconds": build.last_build.get("seconds"),
-        "kernel_errors": errs, "times": tm, "kernels": kernels,
+        "kernel_errors": errs, "times": tm, "launch_floor": floor,
+        "kernels": kernels,
         "main_path_profile": prof, "mamba_path_profile": mprof,
         "main_path": {"requests": len(main_res["done"]),
                       "events": main_res["events"], "seconds": sec,

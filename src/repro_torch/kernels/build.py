@@ -121,8 +121,6 @@ def library() -> ctypes.CDLL:
         _I, _P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _I, _F,
         _I, _I, _P]
     lib.flash_attention_launch.restype = _I
-    lib.paged_decode_smem_bytes.argtypes = [_I, _I]
-    lib.paged_decode_smem_bytes.restype = _LL
     lib.paged_decode_launch.argtypes = [
         _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
     lib.paged_decode_launch.restype = _I

@@ -253,18 +253,6 @@ constexpr int MMA_CS = SSD_MAX_N + 8;  // bf16 row stride of B and C
 constexpr int MMA_XS = SSD_MAX_P + 4;  // fp32 row stride of xdt
 constexpr int MMA_NK = SSD_MAX_N / 16;  // 16-wide steps over N
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
 // wait for all but the most recent committed group of this thread's copies
 __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
@@ -287,31 +275,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar) {
       "mbarrier.try_wait.parity.shared.b64 done, [%0], 0;\n"
       "@!done bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar))
       : "memory");
-}
-
-// four 8 x 8 bf16 matrices; lane l gives the row address of row l % 8 of
-// matrix l / 8 and receives (row l / 4, columns 2(l % 4), +1) of each
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// the same, transposed: lane l receives (rows 2(l % 4), +1, column l / 4)
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), d 16 x 8 fp32
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // d += a b: a 16 x 8 tf32 (row), b 8 x 8 tf32 (col), d 16 x 8 fp32
@@ -342,12 +305,6 @@ __device__ __forceinline__ void split_bf16x3(float x, __nv_bfloat16 (&p)[3]) {
   const float r1 = x - __bfloat162float(p[0]);
   p[1] = __float2bfloat16_rn(r1);
   p[2] = __float2bfloat16_rn(r1 - __bfloat162float(p[1]));
-}
-
-// two bf16 as one register: lo in the low half (the lower k index)
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
 // 8 bf16 of a row of B or C into shared memory; zeros past the row's end

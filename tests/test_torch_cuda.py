@@ -73,6 +73,18 @@ def test_tte_sample_kernel_ties(gen):
     (2, 8, 2, 77, 64, 16, True, torch.bfloat16),
     (1, 2, 2, 130, 128, None, True, torch.float32),
     (1, 2, 2, 128, 64, None, False, torch.float32),
+    # the tensor-core route (bf16) at every head-width class and mask
+    (16, 12, 12, 8, 10, None, True, torch.bfloat16),
+    (16, 12, 12, 16, 10, None, True, torch.bfloat16),
+    (2, 12, 12, 200, 10, 100, True, torch.bfloat16),
+    (2, 12, 12, 40, 10, None, False, torch.bfloat16),
+    (2, 4, 4, 96, 32, None, True, torch.bfloat16),
+    (2, 4, 2, 70, 40, None, True, torch.bfloat16),    # padded 40 -> 64
+    (2, 4, 2, 50, 12, None, True, torch.bfloat16),    # 8-byte staging
+    (2, 4, 2, 50, 9, None, True, torch.bfloat16),     # odd hd: by element
+    (2, 4, 2, 256, 64, None, True, torch.bfloat16),
+    (1, 2, 2, 130, 128, None, True, torch.bfloat16),
+    (1, 2, 2, 128, 64, None, False, torch.bfloat16),
 ])
 def test_flash_attention_kernel_vs_plain(gen, B, Hq, Hkv, S, hd, window,
                                          causal, dtype):
@@ -93,6 +105,9 @@ def test_flash_attention_kernel_vs_plain(gen, B, Hq, Hkv, S, hd, window,
     (3, 2, 4, 64, 4, 8, None, torch.float32),
     (4, 2, 2, 32, 16, 4, 20, torch.float32),
     (2, 2, 8, 128, 16, 4, None, torch.bfloat16),
+    (3, 2, 4, 16, 16, 4, 20, torch.bfloat16),
+    (16, 12, 1, 10, 256, 1, None, torch.float32),
+    (2, 2, 2, 9, 16, 2, None, torch.bfloat16),       # odd hd: by element
 ])
 def test_paged_decode_kernel_vs_plain(gen, B, Hkv, G, hd, bs, nbs, window,
                                       dtype):
@@ -119,6 +134,30 @@ def test_paged_decode_kernel_vs_plain(gen, B, Hkv, G, hd, bs, nbs, window,
         q.float().reshape(B, Hkv, G, hd), k.float(), v.float(), table, pos,
         step, window=window).reshape(B, Hkv * G, hd)
     torch.testing.assert_close(out.float(), want, atol=_tol(dtype), rtol=0)
+
+
+@pytest.mark.parametrize("first,spread", [(3, 8), (255, 37)],
+                         ids=["steps-below-128", "full-ring"])
+def test_paged_decode_kernel_ring_occupancy(gen, first, spread):
+    """The main path's ring (16 slots, 12 kv heads, hd 10, W 256, bf16)
+    with every slot's valid tokens in the ring's first half, and with
+    every slot full (all 256 positions valid, wrapped)."""
+    B, Hkv, hd, W = 16, 12, 10, 256
+    step = (first + spread * torch.arange(B, device="cuda")).to(torch.int32)
+    j = torch.arange(W, device="cuda")
+    pos = (step[:, None] - torch.remainder(step[:, None] - j, W)).to(
+        torch.int32)                          # position p at ring slot p % W
+    pos = torch.where(pos >= 0, pos, -1)
+    q = torch.randn((B, Hkv, hd), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn((B, Hkv, W, hd), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    table = torch.arange(B, dtype=torch.int32, device="cuda")[:, None]
+    out = ops.paged_decode_attention(q, k, v, table, pos, step)
+    want = ref.paged_decode_attention_ref(
+        q.float()[:, :, None], k.float(), v.float(), table, pos,
+        step)[:, :, 0]
+    torch.testing.assert_close(out.float(), want, atol=2e-2, rtol=0)
 
 
 def test_paged_decode_kernel_empty_slot_gives_zeros(gen):
