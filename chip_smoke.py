@@ -9,7 +9,10 @@ runs these phases; any failure exits non-zero:
 1. environment: the card, its power limit, torch and CUDA versions, the
    kernel build (seconds and each kernel's registers and spills);
 2. every kernel against its plain PyTorch version on the card, at the main
-   paths' shapes and at edge shapes, with the tolerance stated per case;
+   paths' shapes and at edge shapes, with the tolerance stated per case
+   (``tte_sample`` also on ties across the blocks of a row's cluster, a
+   +inf row, row-strided views and logits aligned otherwise than the
+   uniforms, each in one launch);
 3. the Delphi path at full width: Delphi-2M (12 layers, d_model 120) from
    ``init_params(seed)`` in bf16, served by the ring-cache ``BatchedEngine``
    through ``repro_torch.launch.serve`` (32 synthetic patient prompts, 16
@@ -33,8 +36,10 @@ runs these phases; any failure exits non-zero:
    PyTorch library call where one computes the same function (a yardstick
    the port never calls), and the bound from bytes and operations (for
    ``ssd_intra`` at a 1024- and a 128-token prompt, both terms printed;
-   ``flash_attention`` also at B 4, S 256 and ``paged_decode_attention``
-   also on a full ring), beside the launch floor (a one-element
+   ``flash_attention`` also at B 4, S 256, ``paged_decode_attention``
+   also on a full ring, ``tte_sample`` also at V 256,206 with a cold L2:
+   the kernel's device time alone after a 128 MB write and after a 128 MB
+   read, warm beside them), beside the launch floor (a one-element
    ``zero_()``, the least a launch costs on the device);
    device time per call from ``torch.profiler`` and per-call time from CUDA
    events (the ``kernels`` line's ``ms`` is the device time); then each path
@@ -105,26 +110,65 @@ def _tol(dtype) -> float:
 
 def check_tte(gen) -> float:
     """Events equal except at near-ties (best and second-best t within
-    1e-6 relative); t_min within 1e-6 relative.  Returns the largest
-    relative t_min error at the main path's shape."""
+    1e-6 relative); t_min within 1e-6 relative.  The ties cases must give
+    the lowest index: equal t everywhere, -0 (u = 1) from index 7 on, and
+    across the blocks of a row's cluster (V 256,206: -0 from an index j in
+    the third of eight ranks, +0 (l = 200) after it; +0 at j against -0
+    in the first rank); a +inf row (l = -100) gives event 0, t_min inf.
+    Row-strided views and logits aligned otherwise than the uniforms go
+    through the same kernel.  Returns the largest relative t_min error at
+    the main path's shape."""
     import torch
     from repro_torch.core.sampler import sample_waiting_times
     from repro_torch.kernels import ref
     from repro_torch.kernels import tte_sample as k
     dev = DEVICE
+    Vl = 256206
+    j = int(Vl * 2.5 / 8)
     main_err = 0.0
-    for B, V, kind in [(16, 1289, "main"), (3, 256206, "large V"),
+    for B, V, kind in [(16, 1289, "main"), (3, Vl, "large V"),
                        (2, 100, "ragged V"), (1, 5, "tiny V"),
-                       (4, 1289, "ties")]:
-        logits = torch.randn((B, V), generator=gen, device=dev) * 3 - 4
-        u = torch.rand((B, V), generator=gen, device=dev)
+                       (4, 1289, "ties"), (5, Vl, "ties across ranks"),
+                       (2, 1289, "+inf row"), (6, 1289, "strided rows"),
+                       (6, Vl, "strided rows"), (6, 1289, "misaligned u"),
+                       (6, Vl, "misaligned u")]:
+        logits = torch.randn((B, V + 37), generator=gen, device=dev) * 3 - 4
+        u = torch.rand((B, V + 37), generator=gen, device=dev)
+        if kind == "strided rows":       # big[:, :V] of (B, V + 37)
+            logits, u = logits[:, :V], u[:, :V]
+        elif kind == "misaligned u":     # 4-byte words, not 16-byte slots
+            logits, u = logits[:, 1:V + 1], u[:, :V]
+        else:
+            logits = logits[:, :V].contiguous()
+            u = u[:, :V].contiguous()
+        want = None
         if kind == "ties":      # every t equal: the lowest index must win
             logits = torch.zeros_like(logits)
             u = torch.full_like(u, 0.3)
             u[1, 7:] = 1.0        # t = -0 from index 7 on
+            want = [0, 7, 0, 0]
+        elif kind == "ties across ranks":
+            logits = torch.zeros_like(logits)
+            u = torch.full_like(u, 0.3)
+            u[1, j:] = 1.0
+            u[2, j:j + 5000] = 1.0
+            logits[2, j + 5000:] = 200.0
+            logits[3] = -100.0
+            logits[4, j] = 200.0
+            u[4, j + 9] = 1.0
+            u[4, j - 70000] = 1.0
+            want = [0, j, j, 0, j - 70000]
+        elif kind == "+inf row":
+            logits = torch.full_like(logits, -100.0)
+            u = u.clamp(1e-3, 0.999)
+            want = [0, 0]
+        n0 = k.launches
         e1, t1 = k.tte_sample_cuda(logits, u)
         e2, t2 = ref.tte_sample_ref(logits, u)
         torch.cuda.synchronize()
+        if k.launches != n0 + 1:
+            raise AssertionError(f"tte_sample {kind}: {k.launches - n0} "
+                                 f"launches for one call")
         t_all = sample_waiting_times(logits, u)
         bad = (e1 != e2).nonzero().flatten().tolist()
         for b in bad:
@@ -134,15 +178,25 @@ def check_tte(gen) -> float:
                 raise AssertionError(
                     f"tte_sample {kind} row {b}: event {int(e1[b])} vs "
                     f"{int(e2[b])}, t {g1} vs {g2}")
-        if kind == "ties" and e1.tolist() != [0, 7, 0, 0]:
-            raise AssertionError(f"tte_sample ties: {e1.tolist()}")
-        rel = float(((t1 - t2).abs() / t2.abs().clamp_min(1e-30)).max())
+        if want is not None and e1.tolist() != want:
+            raise AssertionError(f"tte_sample {kind}: {e1.tolist()}, "
+                                 f"want {want}")
+        if kind == "+inf row" and not bool(torch.isinf(t1).all()):
+            raise AssertionError(f"tte_sample +inf row: t_min {t1.tolist()}")
+        fin = torch.isfinite(t2)
+        if not bool((torch.isfinite(t1) == fin).all()):
+            raise AssertionError(f"tte_sample {kind}: t_min {t1.tolist()} vs"
+                                 f" {t2.tolist()}")
+        rel = float(((t1 - t2)[fin].abs()
+                     / t2[fin].abs().clamp_min(1e-30)).max()) \
+            if bool(fin.any()) else 0.0
         if rel > 1e-6:
             raise AssertionError(f"tte_sample {kind}: t_min rel err {rel}")
         if kind == "main":
             main_err = rel
-        log(f"  tte_sample B={B} V={V} ({kind}): events differ at "
-            f"{len(bad)} near-ties, t_min rel err {rel:.3g} (tol 1e-6)")
+        log(f"  tte_sample B={B} V={V} ({kind}, plan "
+            f"{k.plan(B, V)}): events differ at {len(bad)} near-ties, t_min "
+            f"rel err {rel:.3g} (tol 1e-6)")
     return main_err
 
 
@@ -664,10 +718,64 @@ def measure(fn) -> dict:
     return {"device_ms": device_ms(fn), "call_ms": cuda_ms(fn)}
 
 
+def cold_device_ms(fn, kernel: str, iters: int = 20, warmup: int = 3,
+                   flush_mb: int = 128, flush: str = "write"):
+    """Device time per launch of the kernels whose name holds ``kernel``,
+    each call of ``fn`` made after a pass over ``flush_mb`` MB (more than
+    twice the 50 MB L2), so that its inputs come from device memory.  Only
+    that kernel's activity is counted, not the flush; None where the
+    profiler sees none.  ``flush="write"`` fills the buffer, which leaves
+    the L2 full of dirty lines: the kernel's reads then also pay for their
+    write-back.  ``flush="read"`` sums it, which leaves clean lines."""
+    import torch
+    buf = torch.ones(flush_mb << 18, dtype=torch.float32, device=DEVICE)
+    sweep = (lambda: buf.fill_(1.0)) if flush == "write" else buf.sum
+
+    def run(n):
+        for _ in range(n):
+            sweep()
+            fn()
+    run(warmup)
+    acts = [v for name, v in device_kernels(lambda: run(iters)).items()
+            if kernel in name]
+    n = sum(c for c, _ in acts)
+    return sum(ms for _, ms in acts) / n if n else None
+
+
 def bound(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def tte_row(gen, B: int, V: int, cold: bool = False) -> dict:
+    """``tte_sample`` on (B, V) fp32 logits and uniforms against its plain
+    version; the bound counts each input read once and (event, t_min)
+    written once, and exp, log and a multiply an element on the CUDA
+    cores.  With ``cold`` the kernel's device time is taken after an L2
+    flush that writes 128 MB (``cold_device_ms``), and beside it after one
+    that reads 128 MB, and warm."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tte_sample as tk
+    lg = torch.randn((B, V), generator=gen, device=DEVICE) * 3 - 8
+    u = torch.rand((B, V), generator=gen, device=DEVICE)
+    b_ms, b_by = bound(2 * B * V * 4 + B * 8, 3 * B * V, "float32_simt")
+
+    def fn():
+        return tk.tte_sample_cuda(lg, u)
+    row = {"shape": f"B={B} V={V} fp32" + (", L2 cold" if cold else ""),
+           "plan": tk.plan(B, V), "kernel": measure(fn),
+           "plain": measure(lambda: ref.tte_sample_ref(lg, u)),
+           "library": None, "bound_ms": b_ms, "bound_by": b_by}
+    if cold:
+        row["kernel warm"] = row["kernel"]
+        row["kernel"] = {"device_ms": cold_device_ms(fn, "tte_sample"),
+                         "call_ms": None}
+        row["kernel cold, read flush"] = {
+            "device_ms": cold_device_ms(fn, "tte_sample", flush="read"),
+            "call_ms": None}
+    return row
 
 
 def flash_row(gen, nb: int, H: int, sb: int, hd: int) -> dict:
@@ -731,21 +839,13 @@ def times(main: dict, mamba: dict, gen) -> dict:
     PyTorch's smallest kernel (a one-element ``zero_()``) timed the same
     way, the least a launch costs, below which no bound can be seen."""
     import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import tte_sample as tk
     eng = main["engine"]
     res = {}
 
-    # tte_sample: one tick's sampling, (slots, V) fp32
+    # tte_sample: one tick's sampling, (slots, V) fp32, L2-warm as on the
+    # path (the head's logits were just written)
     B, V = eng.slots, eng.cfg.vocab_size
-    lg = torch.randn((B, V), generator=gen, device=DEVICE) * 3 - 8
-    u = torch.rand((B, V), generator=gen, device=DEVICE)
-    b_ms, b_by = bound(2 * B * V * 4 + B * 8, 3 * B * V, "float32")
-    res["tte_sample"] = {
-        "shape": f"B={B} V={V} fp32",
-        "kernel": measure(lambda: tk.tte_sample_cuda(lg, u)),
-        "plain": measure(lambda: ref.tte_sample_ref(lg, u)),
-        "library": None, "bound_ms": b_ms, "bound_by": b_by}
+    res["tte_sample"] = tte_row(gen, B, V)
 
     # flash_attention: the largest prefill bucket the main path ran
     nb, sb = max(eng.prefill_shapes, key=lambda s: s[0] * s[1] * s[1])
@@ -777,6 +877,10 @@ def times(main: dict, mamba: dict, gen) -> dict:
         full_step[:, None] - j[None, :], W)).to(torch.int32)
     res["paged_decode_attention full ring"] = paged_row(
         gen, kl, vl, full_pos, full_step, "full ring")
+
+    # the zoo's largest vocabulary (seamless, 256,206 tokens) at the same
+    # slots: device time with a cold L2, kernel only; warm beside it
+    res["tte_sample V=256206"] = tte_row(gen, B, 256206, cold=True)
 
     z = torch.zeros(1, device=DEVICE)
     res["launch floor"] = {"shape": "one-element zero_()",
@@ -925,6 +1029,8 @@ def main() -> int:
             return "n/a"
         dev = ("not measured" if m["device_ms"] is None
                else f"{m['device_ms']:.5f} ms")
+        if m["call_ms"] is None:
+            return f"device {dev}"
         return f"device {dev} / per call {m['call_ms']:.5f} ms"
     floor = tm.pop("launch floor")["kernel"]
     floor_ms = floor["device_ms"]
@@ -932,8 +1038,12 @@ def main() -> int:
     floor_txt = ("not measured" if floor_ms is None
                  else f"{floor_ms:.6f} ms")
     for name, t in tm.items():
-        log(f"  {name} [{t['shape']}]: kernel {fmt(t['kernel'])}; plain "
-            f"{fmt(t['plain'])}; library {fmt(t['library'])}; bound "
+        warm = (f" (after a read flush: {fmt(t['kernel cold, read flush'])};"
+                f" warm: {fmt(t['kernel warm'])})" if "kernel warm" in t
+                else "")
+        plan = f" {t['plan']}" if "plan" in t else ""
+        log(f"  {name} [{t['shape']}]{plan}: kernel {fmt(t['kernel'])}{warm};"
+            f" plain {fmt(t['plain'])}; library {fmt(t['library'])}; bound "
             f"{t['bound_ms']:.6f} ms ({t['bound_by']}), launch floor "
             f"{floor_txt}")
         if "bound_terms" in t:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Two trees' attention kernels on one card, in turns.
+"""Two trees' attention and sampler kernels on one card, in turns.
 
     python3 scripts/torch_attention_ab.py --other DIR [--out FILE]
 
@@ -7,14 +7,18 @@
 commit unpacked by ``git archive`` into a git-ignored directory).  The
 script runs one worker process per turn, in the order other, this, this,
 other; each builds its tree's kernels from that tree's sources and times
-``flash_attention`` and ``paged_decode_attention`` on the same seeded
-inputs:
+``flash_attention``, ``paged_decode_attention`` and ``tte_sample`` on the
+same seeded inputs:
 
 - flash: B 16, H 12, S 32, hd 10, causal, bf16 (the Delphi path's main
   prefill bucket) and B 4, S 256 (the longest bucket at max_context 256);
 - paged: the ring viewed as a pool (B 16, Hkv 12, G 1, hd 10, W 256, bf16)
   with 576 valid tokens (slot b holds positions 0 .. 5 + 4b, about as many
   as the Delphi path's ring holds), and full (every slot 256 valid tokens);
+- tte: 16 x 1289 fp32 (the Delphi path's tick, L2-warm) and 16 x 256,206
+  (the zoo's largest vocabulary), warm and with a cold L2 (the kernel's
+  device time alone, each call after a 128 MB write, or a 128 MB read that
+  leaves no dirty lines to write back: ``chip_smoke``'s ``cold_device_ms``);
 - the launch floor: PyTorch's one-element ``zero_()``.
 
 Device time per call comes from ``torch.profiler`` and per-call time from
@@ -66,6 +70,7 @@ def worker(tree: str) -> dict:
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import paged_attention as pk
+    from repro_torch.kernels import tte_sample as tk
     if not repro_torch.__file__.startswith(os.path.abspath(tree)):
         raise RuntimeError(f"imported {repro_torch.__file__}, not {tree}")
     if not torch.cuda.is_available():
@@ -93,6 +98,16 @@ def worker(tree: str) -> dict:
         pos = torch.where(pos >= 0, pos, -1).to(torch.int32)
         res[f"paged {note}"] = timed(cs, lambda: pk.paged_decode_attention_cuda(
             q, k, v, table, pos, step))
+    for V in (1289, 256206):
+        lg = torch.randn((16, V), generator=gen, device="cuda") * 3 - 8
+        u = torch.rand((16, V), generator=gen, device="cuda")
+        res[f"tte V={V}"] = timed(cs, lambda: tk.tte_sample_cuda(lg, u))
+        for flush in ("write", "read") if V > 1289 else ():
+            res[f"tte V={V} cold, {flush}"] = {
+                "device_ms": cs.cold_device_ms(
+                    lambda: tk.tte_sample_cuda(lg, u), "tte_sample",
+                    flush=flush),
+                "call_ms": None, "host_ms": None}
     z = torch.zeros(1, device="cuda")
     res["launch floor"] = timed(cs, lambda: z.zero_())
     return {"tree": os.path.abspath(tree), "card": cs.nvidia_smi(),
@@ -130,9 +145,9 @@ def main() -> int:
         cells = []
         for r in runs:
             m = r["times"][name]
-            dev = ("not measured" if m["device_ms"] is None
-                   else f"{m['device_ms']:.5f}")
-            cells.append(f"{dev} / {m['call_ms']:.5f} / {m['host_ms']:.5f}")
+            cells.append(" / ".join(
+                "not measured" if m[key] is None else f"{m[key]:.5f}"
+                for key in ("device_ms", "call_ms", "host_ms")))
         print(f"{name:24s}" + "".join(f"{c:>40s}" for c in cells))
     record = {"runs": runs}
     if args.out:

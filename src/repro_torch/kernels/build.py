@@ -115,8 +115,11 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     lib.repro_cuda_error_string.argtypes = [_I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    lib.tte_sample_launch.argtypes = [_P, _P, _LL, _LL, _I, _I, _P, _P, _P]
+    lib.tte_sample_launch.argtypes = [_P, _P, _LL, _LL, _I, _I, _P, _P, _I,
+                                      _I, _P]
     lib.tte_sample_launch.restype = _I
+    lib.tte_sample_plan.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+    lib.tte_sample_plan.restype = _I
     lib.flash_attention_launch.argtypes = [
         _I, _P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _I, _F,
         _I, _I, _P]

@@ -6,7 +6,8 @@ process; nothing else changes it.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -15,10 +16,15 @@ from repro_torch.kernels import build
 launches = 0
 
 
-def tte_sample_cuda(logits: torch.Tensor, u: torch.Tensor
+def tte_sample_cuda(logits: torch.Tensor, u: torch.Tensor, *,
+                    cluster: int = 0, per_thread: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """logits, u: (B, V) fp32 CUDA tensors with unit stride along V ->
-    (event (B,) int32, t_min (B,) fp32)."""
+    (event (B,) int32, t_min (B,) fp32).
+
+    ``cluster`` (blocks per row, 1-8) and ``per_thread`` (elements a
+    thread takes per round, 4 or 8) force the kernel's plan, for
+    measurement; 0 lets the kernel pick by B and V (:func:`plan`)."""
     global launches
     if not (logits.is_cuda and u.is_cuda):
         raise ValueError("tte_sample_cuda takes CUDA tensors")
@@ -32,11 +38,26 @@ def tte_sample_cuda(logits: torch.Tensor, u: torch.Tensor
     B, V = logits.shape
     if V == 0:
         raise ValueError("tte_sample_cuda needs a non-empty vocabulary")
-    evt = torch.empty((B,), dtype=torch.int32, device=logits.device)
-    tmin = torch.empty((B,), dtype=torch.float32, device=logits.device)
+    # event and t_min in one allocation: row 1 holds t_min's fp32 bits
+    buf = torch.empty((2, B), dtype=torch.int32, device=logits.device)
+    evt, tmin = buf[0], buf[1].view(torch.float32)
     rc = build.library().tte_sample_launch(
         logits.data_ptr(), u.data_ptr(), logits.stride(0), u.stride(0), B, V,
-        evt.data_ptr(), tmin.data_ptr(), build.stream_ptr(logits))
+        evt.data_ptr(), tmin.data_ptr(), cluster, per_thread,
+        build.stream_ptr(logits))
     build.check(rc, "tte_sample")
     launches += 1
     return evt, tmin
+
+
+def plan(B: int, V: int, *, cluster: int = 0, per_thread: int = 0
+         ) -> Dict[str, int]:
+    """The kernel's plan for (B, V) rows (logits and uniforms aligned
+    alike) under the given overrides: blocks per row, elements a thread
+    takes per round, threads a block, and how many such clusters the card
+    holds at once (``cudaOccupancyMaxActiveClusters``).  Needs the card."""
+    out = (ctypes.c_int * 4)()
+    rc = build.library().tte_sample_plan(B, V, cluster, per_thread, out)
+    build.check(rc, "tte_sample plan")
+    return {"cluster": out[0], "per_thread": out[1], "threads": out[2],
+            "resident_clusters": out[3]}

@@ -42,7 +42,30 @@ def _tol(dtype):
     return 2e-5 if dtype == torch.float32 else 2e-2
 
 
-@pytest.mark.parametrize("B,V", [(16, 1289), (3, 256206), (2, 100), (1, 5)])
+TTE_VS = (1, 31, 32, 33, 1023, 1024, 1025, 1289, 8191, 8192, 8193, 50280,
+          256206)
+TTE_SHAPES = sorted({(B, V) for V in TTE_VS for B in (1, 16)}
+                    | {(64, 1289), (3, 256206), (2, 100), (1, 5)})
+
+
+def _tte_vs_plain(logits, u, **plan):
+    """Launch the kernel once on (logits, u) and hold it against the plain
+    version: events equal except at near-ties (t within 1e-6 relative),
+    t_min within 1e-6 relative.  Returns the events."""
+    B = logits.shape[0]
+    n0 = tk.launches
+    e1, t1 = tk.tte_sample_cuda(logits, u, **plan)
+    e2, t2 = ref.tte_sample_ref(logits, u)
+    assert tk.launches == n0 + 1
+    t_all = -torch.exp(-logits) * torch.log(u.clamp(1e-12, 1.0 - 1e-12))
+    rows = torch.arange(B, device="cuda")
+    gap = (t_all[rows, e1.long()] - t_all[rows, e2.long()]).abs()
+    assert bool(((e1 == e2) | (gap <= 1e-6 * t2.abs())).all())
+    torch.testing.assert_close(t1, t2, rtol=1e-6, atol=0)
+    return e1
+
+
+@pytest.mark.parametrize("B,V", TTE_SHAPES)
 def test_tte_sample_kernel_vs_plain(gen, B, V):
     logits = torch.randn((B, V), generator=gen, device="cuda") * 3 - 4
     u = torch.rand((B, V), generator=gen, device="cuda")
@@ -57,12 +80,88 @@ def test_tte_sample_kernel_vs_plain(gen, B, V):
     torch.testing.assert_close(t1, t2, rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("V", [1289, 50280, 256206])
+@pytest.mark.parametrize("cluster,per_thread", [
+    (1, 4), (1, 8), (2, 8), (3, 8), (4, 4), (4, 8), (5, 4), (6, 8), (7, 8),
+    (8, 4), (8, 8)])
+def test_tte_sample_kernel_every_plan(gen, V, cluster, per_thread):
+    """Each cluster size and elements-per-thread instance the measurements
+    try agrees with the plain version, rows misaligned (odd V) included."""
+    logits = torch.randn((5, V), generator=gen, device="cuda") * 3 - 4
+    u = torch.rand((5, V), generator=gen, device="cuda")
+    _tte_vs_plain(logits, u, cluster=cluster, per_thread=per_thread)
+
+
+@pytest.mark.parametrize("plan", [{"cluster": 9}, {"cluster": -1},
+                                  {"per_thread": 16}, {"per_thread": 6}])
+def test_tte_sample_kernel_refuses_a_bad_plan(gen, plan):
+    logits = torch.randn((2, 8192), generator=gen, device="cuda")
+    n0 = tk.launches
+    with pytest.raises(RuntimeError, match="tte_sample"):
+        tk.tte_sample_cuda(logits, torch.rand_like(logits), **plan)
+    assert tk.launches == n0
+
+
 def test_tte_sample_kernel_ties(gen):
     logits = torch.zeros((3, 300), device="cuda")
     u = torch.full((3, 300), 0.3, device="cuda")
     u[1, 37:] = 1.0
     evt, _ = tk.tte_sample_cuda(logits, u)
     assert evt.tolist() == [0, 37, 0]
+
+
+@pytest.mark.parametrize("cluster", [0, 4, 8])
+def test_tte_sample_kernel_ties_across_cluster_ranks(cluster):
+    """Equal t everywhere goes to index 0.  -0 (u = 1) and +0 (l = 200)
+    are equal: a run of -0 from an index j inside the third of eight ranks
+    goes to j, with +0 after it in later ranks; +0 at j loses to -0 at an
+    index in the first rank.  A +inf row (l = -100) gives event 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel runs only there")
+    V = 256206
+    j = int(V * 2.5 / 8)
+    logits = torch.zeros((5, V), device="cuda")
+    u = torch.full((5, V), 0.3, device="cuda")
+    u[1, j:] = 1.0
+    u[2, j:j + 5000] = 1.0
+    logits[2, j + 5000:] = 200.0
+    logits[3] = -100.0
+    logits[4, j] = 200.0
+    u[4, j + 9] = 1.0
+    u[4, j - 70000] = 1.0
+    n0 = tk.launches
+    evt, tmin = tk.tte_sample_cuda(logits, u, cluster=cluster)
+    assert tk.launches == n0 + 1
+    assert evt.tolist() == [0, j, j, 0, j - 70000]
+    assert tmin[1:3].tolist() == [0.0, 0.0] and tmin[4].item() == 0.0
+    assert tmin[3].item() == float("inf")
+    torch.testing.assert_close(tmin, ref.tte_sample_ref(logits, u)[1],
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("V", [5, 1289, 256206])
+def test_tte_sample_kernel_inf_row(V):
+    """l = -100 gives t = +inf everywhere: event 0, t_min inf."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel runs only there")
+    logits = torch.full((2, V), -100.0, device="cuda")
+    u = torch.rand((2, V), device="cuda").clamp(1e-3, 0.999)
+    n0 = tk.launches
+    evt, tmin = tk.tte_sample_cuda(logits, u)
+    assert tk.launches == n0 + 1
+    assert evt.tolist() == [0, 0]
+    assert tmin.tolist() == [float("inf")] * 2
+
+
+@pytest.mark.parametrize("V", [1289, 50280, 256206])
+def test_tte_sample_kernel_strided_and_misaligned_rows(gen, V):
+    """Row-strided views (``big[:, :V]`` of a (B, V + 37) buffer), and
+    logits and uniforms aligned differently (read by 4-byte words)."""
+    big_l = torch.randn((6, V + 37), generator=gen, device="cuda") * 3 - 4
+    big_u = torch.rand((6, V + 37), generator=gen, device="cuda")
+    _tte_vs_plain(big_l[:, :V], big_u[:, :V])
+    _tte_vs_plain(big_l[:, 1:V + 1], big_u[:, :V])
+    _tte_vs_plain(big_l[:, 3:V + 3], big_u[:, 2:V + 2])
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,S,hd,window,causal,dtype", [
