@@ -27,24 +27,45 @@ runs these phases; any failure exits non-zero:
    tokens, one host copy per tick and per admission, every prefill shape
    ``(1, S)``, and ``ssd_intra`` must launch once per layer per admission
    (counts zeroed just before, read just after);
+3c. the paged Delphi path at full width: the same model, prompts and seed
+   served through ``repro_torch.launch.serve --cache paged`` (16 slots,
+   ``max_context`` 256, 16-token blocks, the dense-equivalent pool of 257
+   blocks).  Every request must finish, one host copy per tick and per
+   admission batch, ``paged_decode_attention`` 12 launches a tick, flash
+   and ``tte_sample`` launched, the pool drained to no used block; the
+   trajectories must equal phase 3's bit for bit (the same generator
+   draws through the same arithmetic);
+3d. futures at full width: a prefix-cached paged engine (16 slots)
+   ``sample_futures`` 16 futures of each of 4 synthetic patients
+   (``max_new`` 48, generator uniforms), each patient twice; the second
+   time the parent admits by reference with no prefill.  Forks, copies on
+   write, shared blocks and prefix hits are printed; no block or refcount
+   may be left after ``drop_prefix_cache()``;
 4. end-to-end parity in fp32: the same weights and injected uniforms through
    the engine on the card (kernels) and on the CPU (plain versions), for
    Delphi-2M and for Mamba2-780M at full width cut to 4 layers; the card's
    trajectories are held step by step against the CPU model
-   (``repro_torch.core.parity``);
+   (``repro_torch.core.parity``).  Then, on the card alone with injected
+   uniforms, in fp32 and in bf16: ring == paged bit for bit (tokens and
+   fp32 ages, an over-width prompt included), and ``sample_futures`` on
+   the ring, the paged and the prefix-cached paged engine == the port's
+   ``ring_reference_futures`` bit for bit;
 5. times at the main paths' shapes: each kernel, its plain version, one
    PyTorch library call where one computes the same function (a yardstick
    the port never calls), and the bound from bytes and operations (for
    ``ssd_intra`` at a 1024- and a 128-token prompt, both terms printed;
    ``flash_attention`` also at B 4, S 256, ``paged_decode_attention``
-   also on a full ring, ``tte_sample`` also at V 256,206 with a cold L2:
-   the kernel's device time alone after a 128 MB write and after a 128 MB
+   also on a full ring and on the paged pool (the ring's tokens in 16-token
+   blocks scattered over 257, unused table columns -1), ``tte_sample``
+   also at V 256,206 with a cold L2: the kernel's device time alone after
+   a 128 MB write and after a 128 MB
    read, warm beside them), beside the launch floor (a one-element
    ``zero_()``, the least a launch costs on the device);
    device time per call from ``torch.profiler`` and per-call time from CUDA
    events (the ``kernels`` line's ``ms`` is the device time); then each path
    once more under the profiler (device busy time, idle share, top kernels,
-   and the Mamba2 path's ``ssd_intra`` total).
+   and the Mamba2 path's ``ssd_intra`` total), the paged and futures paths
+   included.
 
 The last lines are the ``kernels`` JSON line, the card's name and power limit
 (``nvidia-smi``), and the result line ``{"ok": true, "device": ...}``.  A copy
@@ -446,25 +467,25 @@ def check_ssd(gen) -> float:
 # ---------------------------------------------------------------------------
 # phase 3 / 4: the serving paths
 # ---------------------------------------------------------------------------
-def serve_args(requests: int, max_new: int):
+def serve_args(requests: int, max_new: int, cache: str = "ring"):
     from repro_torch.launch import serve as launch
     return launch.parse_args(["--arch", "delphi-2m", "--requests",
                               str(requests), "--slots", "16", "--max-new",
                               str(max_new), "--seed", str(SEED),
-                              "--device", DEVICE])
+                              "--cache", cache, "--device", DEVICE])
 
 
-def main_path() -> dict:
+def main_path(cache: str = "ring") -> dict:
     import numpy as np
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as launch
     cfg_v = 1289
     # first use of cuBLAS and the allocator, through the same entry point
-    launch.serve(serve_args(4, 4))
+    launch.serve(serve_args(4, 4, cache))
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    out = launch.serve(serve_args(32, 48))
+    out = launch.serve(serve_args(32, 48, cache))
     counts = ops.launch_counts()
     eng, done = out["engine"], out["done"]
     if len(done) != 32 or not all(r.done and r.error is None for r in done):
@@ -485,8 +506,95 @@ def main_path() -> dict:
         if not (np.isfinite(ages).all() and (ages <= 85.0).all()
                 and (np.diff(ages) >= 0).all()):
             raise AssertionError(f"bad ages {ages}")
+    if cache == "paged":
+        if counts["paged_decode_attention"] != 12 * eng.ticks:
+            raise AssertionError(
+                f"paged_decode_attention launched "
+                f"{counts['paged_decode_attention']} times in {eng.ticks} "
+                f"ticks (12 a tick)")
+        if eng.allocator.used or eng.pool._refs or eng.preemptions:
+            raise AssertionError(f"pool not drained: {eng.pool_stats()}")
     return {"engine": eng, "done": done, "seconds": out["seconds"],
             "events": out["events"], "launches": counts}
+
+
+FUTURES_PATIENTS, FUTURES_N, FUTURES_MAX_NEW = 4, 16, 48
+
+
+def futures_patients():
+    """The first halves of 4 synthetic patient histories (seeded)."""
+    from repro_torch.data import SimulatorConfig, generate_dataset
+    trajs, _ = generate_dataset(SimulatorConfig(
+        n_train=FUTURES_PATIENTS, n_val=1, seed=SEED + 23))
+    return [(t[:max(len(t) // 2, 1)], a[:max(len(t) // 2, 1)])
+            for t, a in trajs]
+
+
+def futures_run(params, cfg, patients):
+    """16 futures of each patient, each patient twice, on one
+    prefix-cached paged engine with generator uniforms; returns (engine,
+    children by call, seconds ending in a device synchronise)."""
+    import torch
+    from repro_torch.serve import BatchedEngine
+    eng = BatchedEngine(params, cfg, slots=16, max_context=cfg.max_seq_len,
+                        cache="paged", block_size=16, prefix_cache=True,
+                        seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calls = [eng.sample_futures(t, a, n=FUTURES_N, max_new=FUTURES_MAX_NEW)
+             for _ in range(2) for t, a in patients]
+    torch.cuda.synchronize()
+    return eng, calls, time.perf_counter() - t0
+
+
+def futures_path() -> dict:
+    """Phase 3d: futures at full width (counts zeroed just before the run
+    and read just after)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    cfg = get_config("delphi-2m")
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    patients = futures_patients()
+    ops.reset_launch_counts()
+    eng, calls, sec = futures_run(params, cfg, patients)
+    counts = ops.launch_counts()
+    kids = [k for c in calls for k in c]
+    if len(kids) != 2 * FUTURES_PATIENTS * FUTURES_N or not all(
+            k.done and k.error is None for k in kids):
+        raise AssertionError("a future did not finish")
+    for k in kids:
+        ages = np.asarray(k.out_ages, np.float64)
+        if not (len(k.out_tokens) <= FUTURES_MAX_NEW
+                and np.isfinite(ages).all() and (np.diff(ages) >= 0).all()):
+            raise AssertionError(f"bad future {k.out_tokens} {k.out_ages}")
+    st = eng.pool_stats()
+    pfx = st["prefix_cache"]
+    if eng.host_syncs != eng.ticks + eng.admit_batches:
+        raise AssertionError(f"host_syncs {eng.host_syncs} != ticks "
+                             f"{eng.ticks} + admit_batches "
+                             f"{eng.admit_batches}")
+    if (st["forks"] != 2 * FUTURES_PATIENTS or pfx["hits"] != FUTURES_PATIENTS
+            or len(eng.prefill_shapes) > FUTURES_PATIENTS
+            or counts["flash_attention"] != 12 * FUTURES_PATIENTS
+            or counts["paged_decode_attention"] != 12 * eng.ticks
+            or counts["tte_sample"] == 0):
+        raise AssertionError(f"futures path: {st}, launches {counts}, "
+                             f"prefill shapes {eng.prefill_shapes}")
+    bs = eng.block_size
+    unshared = FUTURES_N * sum(-(-len(t) // bs) for t, _ in patients)
+    events = sum(len(k.out_tokens) for k in kids)
+    freed = eng.drop_prefix_cache()
+    if eng.allocator.used or eng.pool._refs or (eng._table != -1).any():
+        raise AssertionError(f"leaked blocks after drop_prefix_cache: "
+                             f"{eng.allocator.used} used, refs "
+                             f"{eng.pool._refs}")
+    return {"engine": eng, "seconds": sec, "events": events,
+            "launches": counts, "stats": st, "unshared_blocks": unshared,
+            "index_blocks_freed": freed, "params": params, "cfg": cfg,
+            "patients": patients,
+            "prompt_lengths": [len(t) for t, _ in patients]}
 
 
 def parity() -> dict:
@@ -537,6 +645,85 @@ def parity() -> dict:
     log(f"  free-running card vs CPU: {free['compared']} events equal before"
         f" the first divergence; divergences at {free['divergences']}")
     return {"held": held, "free": free}
+
+
+def paged_parity() -> dict:
+    """On the card with injected uniforms, full-width Delphi-2M in fp32 and
+    in bf16: the ring and the paged engine (16-token blocks) give the same
+    tokens and fp32 ages bit for bit over phase 4's prompts plus one
+    over-width prompt (300 events > max_context 256); and sample_futures
+    (16 futures, 48 events) on the ring, the paged and the prefix-cached
+    paged engine (twice) equals the port's ring_reference_futures bit for
+    bit."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import SimulatorConfig, generate_dataset
+    from repro_torch.models import init_params
+    from repro_torch.serve import (BatchedEngine, Request,
+                                   ring_reference_futures)
+    base = get_config("delphi-2m")
+    W, V, max_new = base.max_seq_len, base.vocab_size, 48
+    trajs, _ = generate_dataset(SimulatorConfig(n_train=24, n_val=1,
+                                                seed=SEED + 17))
+    prompts = [(t[:max(len(t) // 2, 1)], a[:max(len(t) // 2, 1)])
+               for t, a in trajs]
+    rng = np.random.default_rng(SEED + 7)
+    prompts.append((rng.integers(3, V, 300).astype(np.int32),
+                    np.sort(rng.uniform(20, 70, 300)).astype(np.float32)))
+    us = [rng.random((max_new, V), dtype=np.float32) for _ in prompts]
+    fut_u = rng.random((FUTURES_N, max_new, V), dtype=np.float32)
+    ftoks, fages = prompts[0]
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = base.replace(dtype=dt)
+        params = init_params(cfg, seed=SEED + 1, device=DEVICE)
+        runs = {}
+        for kind in ("ring", "paged"):
+            eng = BatchedEngine(params, cfg, slots=16, max_context=W,
+                                cache=kind, device=DEVICE)
+            reqs = [Request(tokens=t, ages=a, max_new=max_new, uniforms=u)
+                    for (t, a), u in zip(prompts, us)]
+            for r in reqs:
+                eng.submit(r)
+            eng.run()
+            if not all(r.done and r.error is None for r in reqs):
+                raise AssertionError(f"{dt} {kind}: a request failed")
+            runs[kind] = [(r.out_tokens, r.out_ages) for r in reqs]
+        if runs["ring"] != runs["paged"]:
+            bad = [i for i, (x, y) in enumerate(zip(runs["ring"],
+                                                    runs["paged"])) if x != y]
+            raise AssertionError(f"{dt}: ring != paged at requests {bad}")
+        if eng.allocator.used:
+            raise AssertionError(f"{dt}: {eng.allocator.used} blocks leaked")
+        ora = ring_reference_futures(params, cfg, ftoks, fages, n=FUTURES_N,
+                                     max_new=max_new, uniforms=fut_u,
+                                     slots=16, max_context=W, device=DEVICE)
+        for kind, kw, rounds in (
+                ("ring", {}, 1), ("paged", {"cache": "paged"}, 1),
+                ("prefix-cached paged", {"cache": "paged",
+                                         "prefix_cache": True}, 2)):
+            eng = BatchedEngine(params, cfg, slots=16, max_context=W,
+                                device=DEVICE, **kw)
+            for rnd in range(rounds):
+                kids = eng.sample_futures(ftoks, fages, n=FUTURES_N,
+                                          max_new=max_new, uniforms=fut_u)
+                got = [(k.out_tokens, k.out_ages) for k in kids]
+                if got != ora:
+                    raise AssertionError(f"{dt} {kind} round {rnd}: fork "
+                                         f"!= ring_reference_futures")
+            if eng.paged:
+                eng.drop_prefix_cache()
+                if eng.allocator.used or eng.pool._refs:
+                    raise AssertionError(f"{dt} {kind}: leaked blocks")
+        ev = sum(len(t) for t, _ in runs["ring"])
+        fev = sum(len(t) for t, _ in ora)
+        log(f"  {dt}: ring == paged bit for bit ({len(prompts)} requests, "
+            f"{ev} events, one prompt of 300 > {W}); fork == "
+            f"ring_reference_futures bit for bit on ring, paged, "
+            f"prefix-cached paged x2 ({FUTURES_N} futures, {fev} events)")
+        out[dt] = {"requests": len(prompts), "events": ev,
+                   "futures_events": fev}
+    return out
 
 
 def mamba_config():
@@ -832,6 +1019,78 @@ def paged_row(gen, kl, vl, pos, step, note: str) -> dict:
         "bound_ms": b_ms, "bound_by": b_by}
 
 
+def paged_pool_row(gen, eng) -> dict:
+    """``paged_decode_attention`` at the paged Delphi path's pool: the
+    tokens of layer 0 of the ring run's cache (phase 3, whose tokens the
+    paged run of phase 3c reproduces) laid out in 16-token blocks scattered
+    at random over a 257-block pool, table columns of blocks with no valid
+    token -1, and the trash block 0 holding positions that no table points
+    at.  Held against the plain version and, bit for bit, against the
+    kernel on the ring.  The bound counts q in and out, the valid tokens'
+    K/V rows, the table, the allocated blocks' positions and the steps.
+    The library call is the pool gathered through the table and SDPA with
+    the mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pk
+    from repro_torch.kernels import ref
+    lc = eng.cache["self"]
+    kl, vl, rpos = lc.k[0], lc.v[0], lc.pos[0]
+    step = eng._state["step"]
+    B, Hkv, W, hd = kl.shape
+    bs = 16
+    nbs, NB = W // bs, 1 + B * (W // bs)
+    valid = (rpos >= 0) & (rpos <= step[:, None]) & (rpos > step[:, None] - W)
+    used = valid.reshape(B, nbs, bs).any(-1)
+    perm = (torch.randperm(NB - 1, generator=gen, device=DEVICE) + 1
+            ).reshape(B, nbs).to(torch.int32)
+    table = torch.where(used, perm, torch.full_like(perm, -1))
+    kp = torch.randn((NB, Hkv, bs, hd), generator=gen, device=DEVICE
+                     ).to(kl.dtype)
+    vp = torch.randn_like(kp)
+    pp = torch.full((NB, bs), -1, dtype=torch.int32, device=DEVICE)
+    ids = table[used].long()
+    kp[ids] = kl.reshape(B, Hkv, nbs, bs, hd).permute(0, 2, 1, 3, 4)[used]
+    vp[ids] = vl.reshape(B, Hkv, nbs, bs, hd).permute(0, 2, 1, 3, 4)[used]
+    pp[ids] = rpos.reshape(B, nbs, bs)[used]
+    pp[0] = step[0] - torch.arange(bs, dtype=torch.int32, device=DEVICE)
+    q4 = torch.randn((B, Hkv, 1, hd), generator=gen, device=DEVICE
+                     ).to(kl.dtype)
+    n_valid, n_alloc = int(valid.sum()), int(used.sum())
+    nbytes = (q4.numel() * 2 * 2 + 2 * n_valid * Hkv * hd * 2
+              + table.numel() * 4 + n_alloc * bs * 4 + B * 4)
+    b_ms, b_by = bound(nbytes, 4 * n_valid * Hkv * hd, "bfloat16")
+    out = pk.paged_decode_attention_cuda(q4, kp, vp, table, pp, step)
+    ring = pk.paged_decode_attention_cuda(
+        q4, kl, vl, torch.arange(B, dtype=torch.int32, device=DEVICE)[:, None],
+        rpos, step)
+    want = ref.paged_decode_attention_ref(q4, kp, vp, table, pp, step)
+    torch.cuda.synchronize()
+    err = float((out.float() - want).abs().max())
+    if not (err <= 2e-2 and torch.equal(out, ring)):
+        raise AssertionError(f"paged pool: err {err} (tol 2e-2), equal to "
+                             f"the ring's: {torch.equal(out, ring)}")
+
+    def library():
+        safe = table.clamp(min=0).long()
+        kk = kp[safe].permute(0, 2, 1, 3, 4).reshape(B, Hkv, W, hd)
+        vv = vp[safe].permute(0, 2, 1, 3, 4).reshape(B, Hkv, W, hd)
+        p = torch.where(table[:, :, None] >= 0, pp[safe], -1).reshape(B, W)
+        m = (p >= 0) & (p <= step[:, None]) & (p > step[:, None] - W)
+        return F.scaled_dot_product_attention(q4, kk, vv,
+                                              attn_mask=m[:, None, None, :])
+    return {
+        "shape": f"B={B} Hkv={Hkv} G=1 hd={hd} bs={bs} nbs={nbs} NB={NB} "
+                 f"bf16, {n_valid} valid tokens in {n_alloc} blocks (the "
+                 f"run's tokens, paged)",
+        "kernel": measure(lambda: pk.paged_decode_attention_cuda(
+            q4, kp, vp, table, pp, step)),
+        "plain": measure(lambda: ref.paged_decode_attention_ref(
+            q4, kp, vp, table, pp, step)),
+        "library": measure(library), "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": err}
+
+
 def times(main: dict, mamba: dict, gen) -> dict:
     """Kernel, plain version and library call at the main paths' shapes:
     device time per call (profiler) and per-call time (CUDA events).  The
@@ -859,6 +1118,8 @@ def times(main: dict, mamba: dict, gen) -> dict:
     step = eng._state["step"]
     res["paged_decode_attention"] = paged_row(gen, kl, vl, pos, step,
                                               "the run's ring")
+    # the same tokens in the paged path's pool (phase 3c)
+    res["paged_decode_attention paged pool"] = paged_pool_row(gen, eng)
 
     # ssd_intra: one layer's call at a 1024-token prompt (the main row) and
     # at a one-chunk prompt
@@ -1007,6 +1268,53 @@ def main() -> int:
         f"prefill shapes {sorted(eng.prefill_shapes)}; launches "
         f"{main_res['launches']}")
 
+    log("== phase 3c: paged Delphi path (Delphi-2M bf16, paged "
+        "BatchedEngine, 16 slots, 16-token blocks, 257 blocks)")
+    paged = main_path("paged")
+    peng, psec = paged["engine"], paged["seconds"]
+    if [(r.out_tokens, r.out_ages) for r in paged["done"]] != \
+            [(r.out_tokens, r.out_ages) for r in main_res["done"]]:
+        raise AssertionError("the paged path's trajectories differ from the "
+                             "ring path's")
+    pst = peng.pool_stats()
+    log(f"  {len(paged['done'])} requests, {paged['events']} events, "
+        f"{peng.ticks} ticks, {peng.admit_batches} admission batches in "
+        f"{psec:.3f}s: {paged['events'] / psec:.1f} events/s, "
+        f"{peng.ticks / psec:.1f} ticks/s (ring, phase 3: "
+        f"{main_res['events'] / sec:.1f} events/s, {eng.ticks / sec:.1f} "
+        f"ticks/s); host_syncs {peng.host_syncs}; paged_decode_attention "
+        f"{paged['launches']['paged_decode_attention'] / peng.ticks:.1f} "
+        f"launches a tick; blocks_peak_used {pst['blocks_peak_used']} of "
+        f"{pst['blocks'] - 1}; cache_bytes {pst['cache_bytes']} (ring "
+        f"{eng.cache_bytes}); trajectories equal phase 3's; launches "
+        f"{paged['launches']}")
+    # wall time varies with the host: ring and paged in turns, one call
+    from repro_torch.launch import serve as launch
+    turns = []
+    for cache in ("ring", "paged", "paged", "ring"):
+        o = launch.serve(serve_args(32, 48, cache))
+        turns.append((cache, o["events"] / o["seconds"]))
+    log("  in turns, events/s: " + ", ".join(f"{c} {r:.1f}"
+                                             for c, r in turns))
+
+    log("== phase 3d: futures (Delphi-2M bf16, prefix-cached paged "
+        f"BatchedEngine, 16 slots): {FUTURES_PATIENTS} patients x "
+        f"{FUTURES_N} futures x {FUTURES_MAX_NEW} events, each patient twice")
+    fut = futures_path()
+    feng, fsec, fst = fut["engine"], fut["seconds"], fut["stats"]
+    log(f"  {len(fut['prompt_lengths'])} patients (prompts "
+        f"{fut['prompt_lengths']} events), {fut['events']} future events, "
+        f"{feng.ticks} ticks, {feng.admit_batches} admission batches in "
+        f"{fsec:.3f}s: {fut['events'] / fsec:.1f} events/s, "
+        f"{feng.ticks / fsec:.1f} ticks/s; host_syncs {feng.host_syncs}; "
+        f"forks {fst['forks']}, cow_copies {fst['cow_copies']}, "
+        f"shared_blocks_peak {fst['shared_blocks_peak']}, blocks_peak_used "
+        f"{fst['blocks_peak_used']} (64 unshared admissions: "
+        f"{fut['unshared_blocks']} blocks for their prompts alone); prefix "
+        f"hits {fst['prefix_cache']['hits']} of 8 parents, prefill shapes "
+        f"{sorted(feng.prefill_shapes)}; launches {fut['launches']}; no "
+        f"block or refcount left after drop_prefix_cache()")
+
     log("== phase 3b: Mamba2 path (Mamba2-780M bf16, BatchedEngine, 8 "
         "slots)")
     mamba = mamba_path()
@@ -1020,6 +1328,9 @@ def main() -> int:
     log("== phase 4: end-to-end parity, fp32, card vs CPU")
     par = parity()
     mpar = mamba_parity()
+    log("== phase 4 (paged): ring == paged and fork == oracle on the card, "
+        "injected uniforms")
+    ppar = paged_parity()
 
     log("== phase 5: times at the main paths' shapes")
     tm = times(main_res, mamba, gen)
@@ -1052,13 +1363,18 @@ def main() -> int:
                 f"{bt['bytes_ms']:.6f} ms at 3.35 TB/s; {bt['flops'] / 1e9:.4f}"
                 f" GFLOP -> {bt['ops_ms']:.6f} ms at 165 TFLOP/s (3xTF32), "
                 f"{bt['ops_simt_ms']:.6f} ms at 67 TFLOP/s (fp32 CUDA cores)")
-    from repro_torch.launch import serve as launch
     prof = path_profile(
         lambda: launch.serve(serve_args(32, 48))["seconds"], sec)
+    pprof = path_profile(
+        lambda: launch.serve(serve_args(32, 48, "paged"))["seconds"], psec)
+    fprof = path_profile(
+        lambda: futures_run(fut["params"], fut["cfg"], fut["patients"])[2],
+        fsec)
     mprof = path_profile(
         lambda: mamba_serve(mamba["params"], mamba["cfg"], mamba["prompts"],
                             MAMBA_MAX_NEW)[2], msec)
-    for name, p, ph in (("Delphi", prof, "3"), ("Mamba2", mprof, "3b")):
+    for name, p, ph in (("Delphi", prof, "3"), ("paged Delphi", pprof, "3c"),
+                        ("futures", fprof, "3d"), ("Mamba2", mprof, "3b")):
         idle = ("not measured" if p["idle_share"] is None
                 else f"{p['idle_share']:.3f}")
         log(f"  {name} path: device busy {p['device_busy_s']:.4f}s of "
@@ -1075,23 +1391,51 @@ def main() -> int:
         if m is None:
             return None
         return m["device_ms"] if m["device_ms"] is not None else m["call_ms"]
-    # each kernel's launches come from the run of its own path
+    # each kernel's launches come from the run of its own path: this
+    # slice's paged Delphi path (phase 3c) for the Delphi kernels, with the
+    # paged kernel timed at the paged pool; the Mamba2 path for ssd_intra
+    rows = dict(tm)
+    rows["paged_decode_attention"] = tm["paged_decode_attention paged pool"]
+    errs["paged_decode_attention"] = rows["paged_decode_attention"][
+        "max_abs_err"]
     launches = {name: (mamba["launches"][name] if name == "ssd_intra"
-                       else main_res["launches"][name]) for name in REPLACES}
+                       else paged["launches"][name]) for name in REPLACES}
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": launches[name],
-        "max_abs_err": errs[name], "ms": ms(tm[name]["kernel"]),
-        "plain_ms": ms(tm[name]["plain"]), "bound_ms": tm[name]["bound_ms"],
-        "bound_by": tm[name]["bound_by"],
-        "library_ms": ms(tm[name]["library"]),
-        "call_ms": tm[name]["kernel"]["call_ms"]} for name in REPLACES]
+        "path": "3b" if name == "ssd_intra" else "3c",
+        "max_abs_err": errs[name], "ms": ms(rows[name]["kernel"]),
+        "plain_ms": ms(rows[name]["plain"]),
+        "bound_ms": rows[name]["bound_ms"],
+        "bound_by": rows[name]["bound_by"],
+        "library_ms": ms(rows[name]["library"]),
+        "call_ms": rows[name]["kernel"]["call_ms"]} for name in REPLACES]
     record = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_seconds": build.last_build.get("seconds"),
         "kernel_errors": errs, "times": tm, "launch_floor": floor,
         "kernels": kernels,
         "main_path_profile": prof, "mamba_path_profile": mprof,
+        "paged_path_profile": pprof, "futures_path_profile": fprof,
+        "paged_path": {"requests": len(paged["done"]),
+                       "events": paged["events"], "seconds": psec,
+                       "ticks": peng.ticks,
+                       "admit_batches": peng.admit_batches,
+                       "host_syncs": peng.host_syncs,
+                       "prefill_shapes": sorted(peng.prefill_shapes),
+                       "launches": paged["launches"], "pool": pst,
+                       "ring_cache_bytes": eng.cache_bytes,
+                       "events_per_s_in_turns": turns},
+        "futures_path": {"events": fut["events"], "seconds": fsec,
+                         "ticks": feng.ticks,
+                         "admit_batches": feng.admit_batches,
+                         "host_syncs": feng.host_syncs,
+                         "prompt_lengths": fut["prompt_lengths"],
+                         "prefill_shapes": sorted(feng.prefill_shapes),
+                         "launches": fut["launches"], "pool": fst,
+                         "unshared_prompt_blocks": fut["unshared_blocks"],
+                         "index_blocks_freed": fut["index_blocks_freed"]},
+        "paged_parity": ppar,
         "main_path": {"requests": len(main_res["done"]),
                       "events": main_res["events"], "seconds": sec,
                       "ticks": eng.ticks, "admit_batches": eng.admit_batches,

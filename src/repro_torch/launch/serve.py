@@ -1,7 +1,8 @@
 """Serving launcher of the port: batched generation through the engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch delphi-2m \
-        [--requests 16] [--slots 8] [--max-new 48] [--ckpt DIR] [--device cuda]
+        [--requests 16] [--slots 8] [--max-new 48] [--cache ring|paged] \
+        [--ckpt DIR] [--device cuda]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m ...
 
 The same command line as ``repro.launch.serve``: the prompts are the first
@@ -10,8 +11,9 @@ LM such as Mamba2 reads their event ids as tokens and ignores the ages),
 and the engine's ``max_context`` is ``cfg.max_seq_len``.  On ``cuda``
 activations run in ``cfg.dtype`` (bf16); on the CPU in fp32.  Parameters
 stay fp32 and come from ``--ckpt`` (a JAX ``params.npz`` checkpoint) or
-from ``init_params(seed)``.  ``--cache paged`` and ``--replicas > 1`` are
-not ported yet and are refused.
+from ``init_params(seed)``.  ``--cache paged`` serves from a pool of
+16-token blocks with the ring's bytes (an attention model only).
+``--replicas > 1`` is not ported yet and is refused.
 """
 from __future__ import annotations
 
@@ -41,8 +43,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--cache", choices=("ring", "paged"), default="ring")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.cache != "ring":
-        ap.error("--cache paged is not ported yet (ring only)")
     if args.replicas != 1:
         ap.error("--replicas > 1 is not ported yet")
     return args
@@ -62,7 +62,7 @@ def serve(args: argparse.Namespace) -> Dict[str, Any]:
         params = init_params(cfg, args.seed, device)
     engine = BatchedEngine(params, cfg, slots=args.slots,
                            max_context=cfg.max_seq_len, seed=args.seed,
-                           device=device)
+                           cache=args.cache, device=device)
     # prompts: the first half of fresh synthetic patients (known history)
     trajs, _ = generate_dataset(SimulatorConfig(
         n_train=args.requests, n_val=1, seed=args.seed + 17))

@@ -1,4 +1,5 @@
-"""Attention of the serving path: prefill, the ring cache and ring decode.
+"""Attention of the serving path: prefill, the ring and paged caches and
+their decode.
 
 One ring cache of width ``W`` per layer holds, for every slot, the K/V of
 the most recent token at each ring position ``p % W`` and that token's
@@ -14,6 +15,15 @@ cache), and the kernel's mask ``pos <= step & pos > step - W`` then sees the
 same token set as the JAX decode's deferred-write merge: the slot's
 previous occupant (position ``step - W``) has been overwritten, and the
 new token is present.
+
+The paged cache (:class:`PagedCache`) factors the same ring through one
+indirection: a pool of ``bs``-token blocks shared by all slots and a table
+per slot, so that the token at absolute position ``p`` of slot ``b`` lives
+at ``pool[table[b, (p % W) // bs], p % bs]``.  Its decode also writes
+before it attends (:func:`write_paged_positions`,
+:func:`paged_decode_layer_attention`), and the kernel walks the logical
+positions in the same order whatever ``bs`` is, so a paged slot and a ring
+slot holding the same tokens give the same bits.
 """
 from __future__ import annotations
 
@@ -120,5 +130,70 @@ def ring_decode_attention(q, k_new, v_new, cache: LayerCache, layer: int,
     kl[rows, :, slot] = k_new[:, 0].to(kl.dtype)
     vl[rows, :, slot] = v_new[:, 0].to(vl.dtype)
     o = ops.paged_decode_attention(q[:, 0], kl, vl, table, cache.pos[layer],
+                                   step)
+    return o[:, None]
+
+
+class PagedCache(NamedTuple):
+    """Paged decode cache: one block pool shared by the slots, and a table
+    of pool ids per slot (the JAX package's ``PagedCache``).
+
+    k, v: (L, NB, Hkv, bs, hd).  Block 0 is the trash block: the writes of
+    slots with no block for their position land there, and no table points
+    at it.  pos: (NB, bs) int32 absolute positions, -1 = empty, shared by
+    all layers.  table: (B, W // bs) int32 pool ids, -1 = unallocated."""
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+    table: torch.Tensor
+
+
+def empty_paged_cache(n_layers: int, num_blocks: int, slots: int,
+                      n_kv_heads: int, width: int, block_size: int,
+                      head_dim: int, dtype, device) -> PagedCache:
+    """A zeroed pool with every position empty and every table entry
+    unallocated.  ``width`` (each slot's ring) must be a block multiple."""
+    if width % block_size != 0:
+        raise ValueError(f"paged cache width {width} must be a multiple of "
+                         f"block_size {block_size}")
+    shape = (n_layers, num_blocks, n_kv_heads, block_size, head_dim)
+    return PagedCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        pos=torch.full((num_blocks, block_size), -1, dtype=torch.int32,
+                       device=device),
+        table=torch.full((slots, width // block_size), -1, dtype=torch.int32,
+                         device=device))
+
+
+def write_paged_positions(cache: PagedCache, step: torch.Tensor):
+    """Record each slot's new token position ``step`` (B,) in the pool's
+    position plane, in place, once for all layers: at block
+    ``table[b, (step % W) // bs]``, offset ``step % bs``, or in the trash
+    block where that table entry is -1.  Returns the (B,) destination
+    blocks and offsets for :func:`paged_decode_layer_attention`."""
+    bs = cache.pos.shape[1]
+    W = cache.table.shape[1] * bs
+    s = step.long()
+    blk = cache.table.gather(1, (torch.remainder(s, W) // bs)[:, None])[:, 0]
+    dst = torch.where(blk >= 0, blk, torch.zeros_like(blk)).long()
+    off = torch.remainder(s, bs)
+    cache.pos[dst, off] = step.to(torch.int32)
+    return dst, off
+
+
+def paged_decode_layer_attention(q, k_new, v_new, cache: PagedCache,
+                                 layer: int, dst: torch.Tensor,
+                                 off: torch.Tensor,
+                                 step: torch.Tensor) -> torch.Tensor:
+    """One layer's decode attention against the pool: writes the new K/V at
+    (``dst``, ``off``) from :func:`write_paged_positions`, in place, then
+    attends through the paged decode kernel with the slots' tables.
+    q: (B, 1, Hq, hd); k_new, v_new: (B, 1, Hkv, hd).  Returns
+    (B, 1, Hq, hd)."""
+    kl, vl = cache.k[layer], cache.v[layer]
+    kl[dst, :, off] = k_new[:, 0].to(kl.dtype)
+    vl[dst, :, off] = v_new[:, 0].to(vl.dtype)
+    o = ops.paged_decode_attention(q[:, 0], kl, vl, cache.table, cache.pos,
                                    step)
     return o[:, None]

@@ -27,7 +27,7 @@ from repro_torch.configs import base as cb
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.attention import LayerCache
+from repro_torch.models.attention import LayerCache, PagedCache
 from repro_torch.models.layers import (act_dtype, age_encoding, apply_mlp,
                                        apply_norm, embed_tokens, logits_head,
                                        untied_logits_head)
@@ -223,12 +223,25 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
     step = torch.as_tensor(step, dtype=torch.int32, device=x.device)
     if step.dim() == 0:
         step = step.expand(B)
-    lc: LayerCache = cache["self"]
-    slot = attn.write_ring_positions(lc, step)
-    table = torch.arange(B, dtype=torch.int32, device=x.device)[:, None]
+    lc = cache["self"]
+    if isinstance(lc, PagedCache):
+        # one position write a tick for all layers; per layer the pool
+        # write, then the kernel through the slots' tables
+        dst, off = attn.write_paged_positions(lc, step)
+
+        def attend(q, k, v, l):
+            return attn.paged_decode_layer_attention(q, k, v, lc, l, dst,
+                                                     off, step)
+    else:
+        slot = attn.write_ring_positions(lc, step)
+        table = torch.arange(B, dtype=torch.int32, device=x.device)[:, None]
+
+        def attend(q, k, v, l):
+            return attn.ring_decode_attention(q, k, v, lc, l, slot, step,
+                                              table)
     for l in range(cfg.n_layers):
         q, k, v = _qkv(params, x, l)
-        o = attn.ring_decode_attention(q, k, v, lc, l, slot, step, table)
+        o = attend(q, k, v, l)
         x = x + attn.output_projection(o, params["layers/attn/wo"][l])
         x = _mlp_block(params, x, l)
     return {"logits": _head(params, x), "cache": cache}
@@ -264,6 +277,25 @@ def make_decode_cache(params: Params, cfg: ModelConfig, batch: int,
     return {"self": attn.empty_cache(cfg.n_layers, batch, cfg.n_kv_heads,
                                      context_len, cfg.head_dim,
                                      act_dtype(cfg), device)}
+
+
+def make_paged_decode_cache(params: Params, cfg: ModelConfig, batch: int,
+                            context_len: int, *, num_blocks: int,
+                            block_size: int):
+    """The paged twin of :func:`make_decode_cache`: a pool of
+    ``num_blocks`` blocks of ``block_size`` tokens (block 0 is the trash
+    block) and all-unallocated tables of ``context_len / block_size``
+    entries for ``batch`` slots.  Attention caches only: a recurrent
+    state has nothing to page."""
+    if cfg.arch_type not in (cb.DENSE, cb.MOE, cb.VLM):
+        raise ValueError(f"paged KV cache supports attention-cache "
+                         f"architectures (dense/moe/vlm), not "
+                         f"{cfg.arch_type}")
+    check_supported(cfg)
+    return {"self": attn.empty_paged_cache(
+        cfg.n_layers, num_blocks, batch, cfg.n_kv_heads, context_len,
+        block_size, cfg.head_dim, act_dtype(cfg),
+        params["embed/embed"].device)}
 
 
 def param_count(params: Params) -> int:

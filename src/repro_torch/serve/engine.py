@@ -1,29 +1,54 @@
 """Batched serving engine: device-resident continuous batching over a
-per-slot decode cache (the JAX package's ``serve/engine.py``,
-``cache="ring"``), for Delphi and for generic LMs (Mamba2).
+per-slot ring KV cache or a paged block pool (the JAX package's
+``serve/engine.py``), for Delphi and for generic LMs (Mamba2).
 
 * Each tick runs ONE batched ``decode_step`` over all slots, each at its own
-  absolute position, then samples, then ``advance_trajectory_state``.
-  Delphi samples eq. 1 (``sample_next_event``: the ``tte_sample`` CUDA
-  kernel on the card); a generic LM samples by Gumbel-argmax,
-  ``argmax(logits / temperature + g)``, with no age and no Death token.
-  Slot state (last token, age, step, emitted count, budget, active) stays
-  on the device.
+  absolute position, then samples, then ``advance_trajectory_state``
+  (:func:`_tick_core`).  Delphi samples eq. 1 (``sample_next_event``: the
+  ``tte_sample`` CUDA kernel on the card); a generic LM samples by
+  Gumbel-argmax, ``argmax(logits / temperature + g)``, with no age and no
+  Death token.  Slot state (last token, age, step, emitted count, budget,
+  active) stays on the device.
 * The host sees exactly ONE packed (4, slots) device->host copy per tick and
-  one per admission batch, counted in ``host_syncs``.  Nothing else in a
-  tick reads device values on the host.
-* Admission of an attention model runs a bucketed-padding batched prefill:
-  prompt lengths are right-padded to power-of-two buckets and admission
-  groups to power-of-two batch buckets, the prefill builds rings of width
-  ``max_context``, padded positions are invalidated
-  (``mask_padded_positions``) and the rows are inserted into the slot
-  cache.  Recurrent state (SSM) cannot mask padding, so such a model admits
-  each prompt solo at its exact length.
+  one per admission batch (a fork wave is one), counted in ``host_syncs``.
+  Nothing else reads device values on the host: the paged scheduler works
+  on host mirrors (block tables, refcounts, each slot's next position), and
+  table uploads are host->device copies.
+* Admission of an attention model runs a bucketed-padding batched prefill
+  (:func:`_prefill_core`): prompt lengths are right-padded to power-of-two
+  buckets and admission groups to power-of-two batch buckets, the prefill
+  builds rings of width ``max_context``, padded positions are invalidated
+  (``mask_padded_positions``) and the rows are inserted into the slot ring
+  or copied into pool blocks.  Recurrent state (SSM) cannot mask padding,
+  so such a model admits each prompt solo at its exact length.
+* ``cache="paged"``: a shared pool of ``block_size``-token blocks with a
+  table per slot.  Admission is budgeted by free blocks, decode grows a
+  slot a block at a time, a write into a block shared with another owner
+  copies it first (copy-on-write), and pool exhaustion preempts the
+  youngest request, which is requeued and resumes by re-prefilling its
+  prompt and the events it had emitted.  ``prefix_cache=True`` indexes
+  admitted prompts (``serve.prefix``) so that a request with an indexed
+  history shares its blocks by reference.  Under injected uniforms the
+  paged engine's trajectories equal the ring engine's bit for bit.
+* ``hold``/``fork``/``sample_futures``: a held request is prefilled and
+  parked; ``fork`` clones it into N decode slots that share its blocks
+  (paged) or copy its ring row (ring), each sampling its own first event
+  from the parent's prefill logits (:func:`_fork_rows_core`).  A recurrent
+  model's parent keeps its state as admitted, which the fork copies: the
+  batched tick advances every row's state, a parked one's too.
 * Uniforms are injected per request (rows of inactive slots are 0.5) or
   drawn from a ``torch.Generator`` on the device.
 
-Out of scope for this slice, and refused: the paged cache, prefix caching,
-chunked prefill and hold/fork/sample_futures.
+The decode writes each new token into the cache before the layer attends
+(``models.attention``), so everything a tick's write depends on is issued
+on the tick's stream before it: copy-on-write copies, the position reset
+of freshly allocated blocks and the table upload (``_ensure_blocks``,
+``_flush_slot_updates``).  A held slot still rides the batched tick: its
+table column for the write is -1 in the device copy, so the discarded write
+lands in the trash block.
+
+Not ported yet, and refused: chunked prefill, the background loop and
+per-request callbacks.
 """
 from __future__ import annotations
 
@@ -31,7 +56,7 @@ import dataclasses
 import itertools
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +67,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sampler import (advance_trajectory_state,
                                       sample_next_event)
 from repro_torch.models import (cast_params, decode_step, forward,
-                                make_decode_cache, mask_padded_positions)
+                                make_decode_cache, make_paged_decode_cache,
+                                mask_padded_positions)
+from repro_torch.serve.prefix import PrefixIndex, SharedBlockPool
 
 
 def _to_host(x: torch.Tensor) -> np.ndarray:
@@ -58,23 +85,81 @@ class RequestTimeoutError(RuntimeError):
     """The request passed the engine's ``request_timeout``."""
 
 
+class InvalidRequestError(ValueError):
+    """A request the engine cannot take: a duplicate id, a fork of an
+    unknown or unheld parent, malformed fork uniforms."""
+
+
 @dataclasses.dataclass(eq=False)        # identity, not ndarray comparison
 class Request:
     tokens: np.ndarray                  # (S,) prompt
     ages: Optional[np.ndarray] = None   # (S,) event ages in years (Delphi)
     max_new: int = 64
     # optional pre-drawn U(0,1) of shape (max_new, V): row i is consumed by
-    # the i-th sampled event (row 0 at admission, from the prefill logits)
+    # the i-th sampled event (row 0 at admission, from the prefill logits;
+    # a preempted request resumes on row len(out_tokens))
     uniforms: Optional[np.ndarray] = None
     request_id: Optional[str] = None    # autogenerated at submit when unset
-    hold: bool = False                  # prefill-only parking: not ported
+    # prefill-only parking: the request is admitted (prompt KV in the cache,
+    # bootstrap logits kept) but samples nothing and holds its slot until
+    # ``BatchedEngine.fork`` clones it into N decode slots
+    hold: bool = False
     # filled by the engine:
     out_tokens: Optional[List[int]] = None
     out_ages: Optional[List[float]] = None   # Delphi only; empty otherwise
     done: bool = False
     error: Optional[BaseException] = None
+    # admission order (preemption takes the youngest) and the deadline
+    # stamped at submit when the engine enforces request timeouts
     _seq: int = dataclasses.field(default=0, repr=False)
     _deadline: Optional[float] = dataclasses.field(default=None, repr=False)
+    # memoized prefix-index digests of the effective prompt, keyed by its
+    # length (it grows when a preempted request resumes)
+    _pfx: Optional[tuple] = dataclasses.field(default=None, repr=False)
+
+
+class BlockAllocator:
+    """Host-side free list over the paged pool.
+
+    Block 0 is the trash block: the destination of the writes of slots with
+    no block for their position, never handed out.  ``used`` returns to 0
+    whenever the engine drains (the zero-leak invariant)."""
+
+    def __init__(self, num_blocks: int):
+        if num_blocks < 2:
+            raise ValueError("paged pool needs >= 2 blocks "
+                             "(block 0 is the reserved trash block)")
+        self.num_blocks = num_blocks
+        self._free = list(range(num_blocks - 1, 0, -1))
+        self.peak_used = 0
+
+    @property
+    def capacity(self) -> int:
+        return self.num_blocks - 1
+
+    @property
+    def free(self) -> int:
+        return len(self._free)
+
+    @property
+    def used(self) -> int:
+        return self.capacity - len(self._free)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """n block ids, or None (never partial) when the pool can't serve."""
+        if n > len(self._free):
+            return None
+        ids = [self._free.pop() for _ in range(n)]
+        self.peak_used = max(self.peak_used, self.used)
+        return ids
+
+    def release(self, ids: List[int]) -> None:
+        for i in ids:
+            if not 0 < i < self.num_blocks:
+                raise ValueError(f"release of invalid block id {i}")
+        self._free.extend(ids)
+        if len(self._free) > self.capacity:
+            raise RuntimeError("double free in the paged block allocator")
 
 
 MIN_SEQ_BUCKET = 8       # smallest padded prompt width of a prefill
@@ -84,9 +169,32 @@ def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 1).bit_length() if n > 1 else 1
 
 
-def _pack(adv) -> torch.Tensor:
-    return torch.stack([adv["evt"].float(), adv["age"],
-                        adv["emit"].float(), adv["finished"].float()])
+def _seq_bucket(n: int) -> int:
+    return max(_next_pow2(n), MIN_SEQ_BUCKET)
+
+
+# ---------------------------------------------------------------------------
+# Device math of a tick, an admission and a fork.  Module-level, so that the
+# fork oracle (``serve.prefix.ring_reference_futures``) runs the same code.
+# ---------------------------------------------------------------------------
+class _Knobs(NamedTuple):
+    """The engine's static sampling and termination parameters."""
+    slots: int
+    max_context: int
+    is_delphi: bool
+    inv_temp: float
+    max_age: float
+    death_token: int
+    vocab: int
+
+    @classmethod
+    def of(cls, cfg: ModelConfig, slots: int, max_context: int,
+           temperature: float) -> "_Knobs":
+        return cls(slots=slots, max_context=max_context,
+                   is_delphi=cfg.age_encoding,
+                   inv_temp=1.0 / max(temperature, 1e-6),
+                   max_age=cfg.max_age, death_token=cfg.death_token,
+                   vocab=cfg.vocab_size)
 
 
 def gumbel_sample(lg: torch.Tensor, u: torch.Tensor, inv_temp: float):
@@ -98,6 +206,88 @@ def gumbel_sample(lg: torch.Tensor, u: torch.Tensor, inv_temp: float):
     return evt, torch.zeros(evt.shape, dtype=torch.float32, device=lg.device)
 
 
+def _advance(lg, u, age, n_emitted, max_new, next_pos, active, kn: _Knobs):
+    if kn.is_delphi:
+        evt, tmin = sample_next_event(lg, u)
+    else:
+        evt, tmin = gumbel_sample(lg, u, kn.inv_temp)
+    return advance_trajectory_state(
+        evt, tmin, age, n_emitted, max_new, next_pos, active,
+        max_age=kn.max_age if kn.is_delphi else float("inf"),
+        death_token=kn.death_token if kn.is_delphi else -1,
+        max_context=kn.max_context)
+
+
+def _pack(adv) -> torch.Tensor:
+    return torch.stack([adv["evt"].float(), adv["age"],
+                        adv["emit"].float(), adv["finished"].float()])
+
+
+def _tick_core(params, cache, state, u, cfg: ModelConfig, kn: _Knobs):
+    """One decode tick over every slot: the cache is updated in place.
+    Returns (new state, packed (4, slots))."""
+    batch = {"tokens": state["last"][:, None]}
+    if cfg.age_encoding:
+        batch["ages"] = state["age"][:, None]
+    d = decode_step(params, cfg, cache, batch, state["step"])
+    lg = d["logits"][:, 0]
+    next_step = torch.where(state["active"], state["step"] + 1, state["step"])
+    adv = _advance(lg, u, state["age"], state["n_emitted"], state["max_new"],
+                   next_step, state["active"], kn)
+    new_state = {
+        "last": torch.where(adv["emit"], adv["evt"], state["last"]),
+        "age": adv["age"],
+        "step": next_step,
+        "n_emitted": adv["n_emitted"],
+        "max_new": state["max_new"],
+        "active": state["active"] & ~adv["finished"],
+    }
+    return new_state, _pack(adv)
+
+
+def _prefill_core(params, tokens, ages, last_idx, age0, lengths, max_new, u,
+                  cfg: ModelConfig, kn: _Knobs):
+    """Batched prefill of right-padded prompts and each row's first event
+    from the logits at its last token.  Returns (cache rows, slot-state
+    rows, packed (4, nb), the (nb, V) fp32 bootstrap logits)."""
+    batch = {"tokens": tokens}
+    if cfg.age_encoding:
+        batch["ages"] = ages
+    out = forward(params, cfg, batch, mode="prefill",
+                  cache_width=kn.max_context, last_index=last_idx)
+    cache_rows = mask_padded_positions(out["cache"], last_idx)
+    lg = out["logits"][:, 0]
+    rows, packed = _fork_rows_core(lg, u, age0, lengths, max_new, kn)
+    return cache_rows, rows, packed, lg
+
+
+def _fork_rows_core(lg, u, age0, lengths, max_new, kn: _Knobs):
+    """Slot-state rows of rows that sample their FIRST event from logits
+    ``lg`` (nb, V): the tail of :func:`_prefill_core`, and forked futures
+    from their parent's prefill logits.  Returns (rows, packed (4, nb))."""
+    nb = u.shape[0]
+    active = torch.ones((nb,), dtype=torch.bool, device=u.device)
+    adv = _advance(lg, u, age0,
+                   torch.zeros((nb,), dtype=torch.int32, device=u.device),
+                   max_new, lengths, active, kn)
+    rows = {
+        "last": torch.where(adv["emit"], adv["evt"],
+                            torch.zeros_like(adv["evt"])),
+        "age": adv["age"],
+        "step": lengths,
+        "n_emitted": adv["n_emitted"],
+        "max_new": max_new,
+        "active": active & ~adv["finished"],
+    }
+    return rows, _pack(adv)
+
+
+def _commit(state, ids: torch.Tensor, rows, n: int) -> None:
+    """Write the first ``n`` slot-state rows at slots ``ids``, in place."""
+    for key, val in rows.items():
+        state[key][ids] = val[:n].to(state[key].dtype)
+
+
 def _insert_rows(cache, rows, ids: torch.Tensor, n: int) -> None:
     """Write the first ``n`` prefill rows of every cache leaf into the slot
     cache at slots ``ids`` (leaves are (L, slots, ...)), in place."""
@@ -106,44 +296,140 @@ def _insert_rows(cache, rows, ids: torch.Tensor, n: int) -> None:
             buf[:, ids] = new[:, :n].to(buf.dtype)
 
 
+def _fork_copy_rows(cache, src: int, dst: List[int], max_pos: int) -> None:
+    """Ring fork: copy slot ``src``'s cache row into slots ``dst``, in
+    place.  Ring positions past ``max_pos`` (the prompt's last index) are
+    invalidated in the copies: a held parent's parked ticks wrote a
+    discarded token at its next position."""
+    for kind, c in cache.items():
+        ids = torch.tensor(dst, dtype=torch.long, device=c[0].device)
+        for buf in c:
+            row = buf[:, src:src + 1].clone()
+            if kind == "self" and buf is c.pos:
+                row = torch.where((row >= 0) & (row <= max_pos), row,
+                                  torch.full_like(row, -1))
+            buf[:, ids] = row
+
+
+def _cow_block(cache, src: int, dst: int) -> None:
+    """Copy-on-write: duplicate pool block ``src`` (K/V of every layer and
+    its positions) into ``dst`` before a slot writes into it."""
+    pc = cache["self"]
+    pc.k[:, dst].copy_(pc.k[:, src])
+    pc.v[:, dst].copy_(pc.v[:, src])
+    pc.pos[dst].copy_(pc.pos[src])
+
+
+def _insert_blocks(cache, rows_cache, dst: torch.Tensor, n: int,
+                   nblk: int) -> None:
+    """Copy-on-admit: the first ``nblk`` blocks of the first ``n`` prefill
+    ring rows (L, ., Hkv, W, hd) go to pool ids ``dst`` (n, nblk).  The
+    blocks a row does not need point at the trash block 0.  Positions are
+    the same in every layer's ring, so layer 0's are copied."""
+    pc = cache["self"]
+    rows = rows_cache["self"]
+    bs = pc.k.shape[3]
+    d = dst.reshape(-1)
+
+    def blocks(a):          # (L, n, Hkv, W, hd) -> (L, n*nblk, Hkv, bs, hd)
+        L, _, Hkv, _, hd = a.shape
+        a = a[:, :n, :, :nblk * bs].reshape(L, n, Hkv, nblk, bs, hd)
+        return a.permute(0, 1, 3, 2, 4, 5).reshape(L, n * nblk, Hkv, bs, hd)
+    pc.k[:, d] = blocks(rows.k).to(pc.k.dtype)
+    pc.v[:, d] = blocks(rows.v).to(pc.v.dtype)
+    pc.pos[d] = rows.pos[0, :n, :nblk * bs].reshape(n * nblk, bs)
+
+
+def _reset_pos(cache, ids: List[int]) -> None:
+    """Invalidate the positions of freshly allocated growth blocks: a reused
+    block still holds its previous owner's, which would read as valid
+    context for the new slot."""
+    pc = cache["self"]
+    pc.pos[torch.tensor(ids, dtype=torch.long, device=pc.pos.device)] = -1
+
+
 class BatchedEngine:
     """Slot-based continuous batching over a per-slot decode cache (a ring
-    KV cache, or a Mamba2 model's SSM state).
+    KV cache, a paged block pool, or a Mamba2 model's SSM state).
 
     ``params`` are the fp32 flat parameters (``models.params``); they move
     to ``device`` (``cuda`` unless the caller passes another), and the
     matrix-product weights are cast once to ``cfg.dtype`` for compute.
     ``temperature`` scales a generic LM's logits (Delphi ignores it).
+    ``cache="paged"`` takes ``blocks`` (default: the ring's bytes,
+    ``slots * max_context / block_size + 1`` with the trash block),
+    ``block_size`` and ``prefix_cache``.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 8,
                  max_context: int = 512, temperature: float = 1.0,
                  seed: int = 0, cache: str = "ring",
+                 blocks: Optional[int] = None, block_size: int = 16,
                  request_timeout: Optional[float] = None,
                  prefix_cache: bool = False,
                  prefill_chunk_tokens: Optional[int] = None,
                  device="cuda"):
-        if cache != "ring":
-            raise NotImplementedError(
-                f"cache={cache!r}: only the ring cache is ported")
-        if prefix_cache:
-            raise NotImplementedError("prefix_cache is not ported")
+        if cache not in ("ring", "paged"):
+            raise ValueError(f"cache must be 'ring' or 'paged': {cache!r}")
         if prefill_chunk_tokens is not None:
             raise NotImplementedError("chunked prefill is not ported")
+        if prefix_cache and cache != "paged":
+            raise ValueError(
+                "prefix_cache requires the paged KV cache: the ring layout "
+                "has no shareable blocks — build with cache='paged'")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.slots = slots
         self.max_context = max_context
-        self.inv_temp = 1.0 / max(temperature, 1e-6)
         self.is_delphi = cfg.age_encoding
         # right-padding a prefill is sound only where padded positions can
         # be masked out of the state: KV-cache attention (pos = -1), not
         # recurrent SSM state, which admits unbucketed
         self.bucketed = cfg.arch_type in (cb.DENSE, cb.MOE, cb.VLM)
+        self.paged = cache == "paged"
+        self.block_size = block_size
+        if self.paged:
+            if not self.bucketed:
+                raise ValueError("paged KV cache needs an attention-cache "
+                                 "architecture (dense/moe/vlm)")
+            if max_context % block_size != 0:
+                raise ValueError(f"max_context={max_context} must be a "
+                                 f"multiple of block_size={block_size}")
+            self.blocks_per_slot = max_context // block_size
+            if blocks is None:
+                # dense-equivalent pool: the ring's bytes
+                blocks = slots * self.blocks_per_slot + 1
+            if blocks < self.blocks_per_slot + 1:
+                raise ValueError(
+                    f"pool of {blocks} blocks cannot hold one full slot "
+                    f"(needs >= {self.blocks_per_slot + 1} including the "
+                    f"trash block)")
         self.request_timeout = request_timeout
+        self._kn = _Knobs.of(cfg, slots, max_context, temperature)
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self._wparams = cast_params(self.params, cfg)
-        self.cache = make_decode_cache(self._wparams, cfg, slots, max_context)
+        if self.paged:
+            self.allocator: Optional[BlockAllocator] = BlockAllocator(blocks)
+            self.pool: Optional[SharedBlockPool] = \
+                SharedBlockPool(self.allocator)
+            self.prefix: Optional[PrefixIndex] = (
+                PrefixIndex(self.pool, block_size) if prefix_cache else None)
+            self.cache = make_paged_decode_cache(
+                self._wparams, cfg, slots, max_context, num_blocks=blocks,
+                block_size=block_size)
+            self._table = np.full((slots, self.blocks_per_slot), -1, np.int32)
+            self._table_dirty = False
+            self._fresh_blocks: List[int] = []
+            self._slot_blocks: List[List[int]] = [[] for _ in range(slots)]
+        else:
+            self.allocator = None
+            self.pool = None
+            self.prefix = None
+            self.cache = make_decode_cache(self._wparams, cfg, slots,
+                                           max_context)
+        # host mirror of each slot's next decode-write position (the paged
+        # scheduler allocates that block BEFORE the tick writes it)
+        self._slot_pos = np.zeros(slots, np.int64)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         dev = self.device
@@ -160,13 +446,24 @@ class BatchedEngine:
         self.completed: List[Request] = []
         self._by_id: Dict[str, Request] = {}           # guarded-by: _lock
         self._cancel_ids: set = set()                  # guarded-by: _lock
+        # queued fork ops (parent, children), applied between ticks
+        self._fork_ops: List[Tuple[Request, List[Request]]] = []  # _lock
         self._deactivate: List[int] = []
+        # slot -> (V,) bootstrap logits of a parked (held) parent
+        self._held_logits: Dict[int, torch.Tensor] = {}
+        # slot -> a parked parent's recurrent state after its prompt: the
+        # batched tick advances every row's SSM state, so the fork copies
+        # this, not the row the parked ticks went on updating
+        self._held_state: Dict[int, dict] = {}
         self._seq_counter = itertools.count(1)
         self._lock = threading.Lock()
         # instrumentation (asserted on by tests and chip_smoke.py)
         self.ticks = 0
         self.host_syncs = 0
         self.admit_batches = 0
+        self.preemptions = 0
+        self.peak_active = 0
+        self.forks = 0
         self.prefill_shapes: set = set()
 
     # -- device->host boundary (the only one) -------------------------------
@@ -174,13 +471,15 @@ class BatchedEngine:
         self.host_syncs += 1
         return _to_host(x)
 
+    def _dev(self, x) -> torch.Tensor:
+        """A host array as a tensor on the engine's device (host->device)."""
+        return torch.from_numpy(np.asarray(x)).to(self.device)
+
     # -- public API ----------------------------------------------------------
     def submit(self, req: Request) -> None:
         """Thread-safe enqueue."""
         if len(req.tokens) == 0:
             raise ValueError("empty prompt")
-        if req.hold:
-            raise NotImplementedError("hold/fork is not ported")
         if self.is_delphi and req.ages is None:
             raise ValueError("Delphi requests need ages")
         req.out_tokens, req.out_ages = [], []
@@ -191,15 +490,17 @@ class BatchedEngine:
             req._deadline = time.monotonic() + self.request_timeout
         with self._lock:
             if req.request_id in self._by_id:
-                raise ValueError(f"request_id {req.request_id!r} is already "
-                                 f"in flight on this engine")
+                raise InvalidRequestError(
+                    f"request_id {req.request_id!r} is already in flight "
+                    f"on this engine")
             self._by_id[req.request_id] = req
             self.pending.append(req)
 
     def cancel(self, request_id: str) -> bool:
-        """Flag a pending or in-flight request for cancellation; the next
-        tick drops it and it finishes with ``RequestCancelledError``.
-        Returns False for unknown or finished ids."""
+        """Flag a pending, parked or in-flight request (or a fork child not
+        yet landed) for cancellation; the next tick drops it, frees its
+        blocks, and it finishes with ``RequestCancelledError``.  Returns
+        False for unknown or finished ids."""
         with self._lock:
             req = self._by_id.get(request_id)
             if req is None or req.done:
@@ -207,11 +508,149 @@ class BatchedEngine:
             self._cancel_ids.add(request_id)
         return True
 
-    def fork(self, *args, **kwargs):
-        raise NotImplementedError("fork is not ported")
+    # -- fork: the Monte-Carlo futures primitive ------------------------------
+    def fork(self, request_id: str, n: Optional[int] = None, *,
+             uniforms=None, max_new: Optional[int] = None,
+             children: Optional[List[Request]] = None) -> List[Request]:
+        """Clone a held (``Request.hold=True``) parent into N decode slots.
+        The op is queued and applied between ticks.
 
-    def sample_futures(self, *args, **kwargs):
-        raise NotImplementedError("sample_futures is not ported")
+        Each child shares all of the parent's blocks by reference (paged:
+        refcounts, the first write into the shared tail block copies it;
+        ring: one row copy with positions past the prompt masked) and
+        samples its OWN first event from the parent's prefill logits.
+        Children beyond the free slots queue as pending requests (they
+        re-acquire the prefix through the index when it is on).  The parent
+        is consumed.  Pass ``children`` or ``n`` [+ per-child ``uniforms``
+        (n, max_new, V)]; returns the child requests."""
+        with self._lock:
+            parent = self._by_id.get(request_id)
+        if parent is None or parent.done:
+            raise InvalidRequestError(
+                f"fork of unknown or finished request {request_id!r}")
+        if not parent.hold:
+            raise InvalidRequestError(
+                "fork requires a hold=True parent (prefill-only parked "
+                "request): submit(Request(..., hold=True)) first")
+        if children is None:
+            children = self._build_fork_children(parent, n, uniforms,
+                                                 max_new)
+        if not children:
+            raise InvalidRequestError("fork of zero children")
+        injected = children[0].uniforms is not None
+        if any((c.uniforms is not None) != injected for c in children):
+            raise InvalidRequestError(
+                "fork children must be uniformly injected or uniformly "
+                "generator-sampled (one tick draws from one uniform source)")
+        for c in children:
+            c.out_tokens, c.out_ages = [], []
+            c._seq = next(self._seq_counter)
+            if c.request_id is None:
+                c.request_id = f"req-{id(self):x}-{c._seq}"
+            if self.request_timeout is not None and c._deadline is None:
+                c._deadline = time.monotonic() + self.request_timeout
+        with self._lock:
+            # validate every id before registering any
+            ids = [c.request_id for c in children]
+            clashes = [i for i in ids if i in self._by_id]
+            if clashes or len(set(ids)) != len(ids):
+                raise InvalidRequestError(
+                    f"fork child request_id(s) already in flight or "
+                    f"duplicated: {clashes or ids!r}")
+            for c in children:
+                self._by_id[c.request_id] = c
+            self._fork_ops.append((parent, list(children)))
+        return children
+
+    def _build_fork_children(self, parent: Request, n: Optional[int],
+                             uniforms, max_new: Optional[int]
+                             ) -> List[Request]:
+        """The one construction of fork children (``fork`` and
+        ``sample_futures``): shapes are checked before any state changes."""
+        if n is None or n < 1:
+            raise InvalidRequestError("fork needs n >= 1 or children=[...]")
+        mn = parent.max_new if max_new is None else max_new
+        if uniforms is not None:
+            uniforms = np.asarray(uniforms)
+            if uniforms.ndim != 3 or uniforms.shape[0] < n:
+                raise InvalidRequestError(
+                    f"fork uniforms must be (>= n, max_new, V); got "
+                    f"{tuple(uniforms.shape)}")
+        return [
+            Request(tokens=np.asarray(parent.tokens),
+                    ages=(np.asarray(parent.ages)
+                          if parent.ages is not None else None),
+                    max_new=mn,
+                    uniforms=(None if uniforms is None
+                              else np.asarray(uniforms[i])),
+                    request_id=f"{parent.request_id}/fork-{i}")
+            for i in range(n)]
+
+    def sample_futures(self, tokens, ages=None, *, n: int,
+                       max_new: int = 48, uniforms=None,
+                       request_id: Optional[str] = None) -> List[Request]:
+        """N stochastic futures of one history through hold + fork: submit
+        a held parent, fork it into ``n`` children sharing its KV, and run
+        the engine in the foreground until everything submitted finishes.
+        Returns the child requests in fork order; check ``Request.error``
+        per child."""
+        parent = Request(tokens=np.asarray(tokens),
+                         ages=(np.asarray(ages) if ages is not None
+                               else None),
+                         max_new=max_new, hold=True, request_id=request_id)
+        # check the children's shapes before the parent parks in a slot;
+        # with an autogenerated parent id, rebuild them from the real id
+        children = self._build_fork_children(parent, n, uniforms, max_new)
+        self.submit(parent)
+        if request_id is None:
+            children = self._build_fork_children(parent, n, uniforms,
+                                                 max_new)
+        self.fork(parent.request_id, children=children)
+        self.run()
+        return children
+
+    def drop_prefix_cache(self) -> int:
+        """Evict every prefix-index entry; returns the blocks freed.  On a
+        drained engine this restores ``allocator.used == 0``."""
+        if self.prefix is None:
+            return 0
+        return self.prefix.clear()
+
+    @property
+    def cache_bytes(self) -> int:
+        """Resident decode-cache bytes (block pool and tables, or rings)."""
+        return sum(t.numel() * t.element_size()
+                   for leaf in self.cache.values() for t in leaf)
+
+    def pool_stats(self) -> Dict[str, object]:
+        """Allocator watermarks and scheduler counters.  Every block count
+        is of physical blocks: a block shared by k owners counts once, and
+        sharing is reported on its own.  The chunked-prefill fields are
+        ``None``/0: chunked prefill is not ported."""
+        with self._lock:
+            stats: Dict[str, object] = {
+                "cache": "paged" if self.paged else "ring",
+                "cache_bytes": self.cache_bytes,
+                "peak_active": self.peak_active,
+                "preemptions": self.preemptions,
+                "forks": self.forks,
+            }
+            if self.paged:
+                a = self.allocator
+                stats.update(
+                    block_size=self.block_size, blocks=a.num_blocks,
+                    blocks_free=a.free, blocks_used=a.used,
+                    blocks_peak_used=a.peak_used,
+                    utilization=a.used / max(a.capacity, 1),
+                    shared_blocks=self.pool.shared_blocks,
+                    shared_blocks_peak=self.pool.peak_shared,
+                    cow_copies=self.pool.cow_copies,
+                    prefill_chunk_tokens=None, chunked_prefills=0,
+                    prefill_chunks=0, prefill_in_progress=0,
+                    suffix_tokens_saved=0)
+                stats["prefix_cache"] = (self.prefix.stats()
+                                         if self.prefix is not None else None)
+        return stats
 
     # -- request lifecycle ----------------------------------------------------
     def _finalize(self, req: Request,
@@ -225,15 +664,39 @@ class BatchedEngine:
         if req.error is None:
             self.completed.append(req)
 
-    def _evict(self, slot: int, error: BaseException) -> None:
-        req = self.slot_req[slot]
+    def _release_slot(self, slot: int) -> None:
+        """Detach the slot's request and drop its block references (a block
+        frees only when no other owner holds it)."""
         self.slot_req[slot] = None
+        self._held_logits.pop(slot, None)
+        self._held_state.pop(slot, None)
+        if self.paged:
+            ids = self._slot_blocks[slot]
+            if ids:
+                self.pool.release(ids)
+            self._slot_blocks[slot] = []
+            self._table[slot, :] = -1
+            self._table_dirty = True
+
+    def _evict(self, slot: int, *, requeue: bool,
+               error: Optional[BaseException] = None) -> None:
+        """Take an in-flight request out of its slot: free its blocks, queue
+        the device row's deactivation, and either requeue it at the front
+        (preemption: it resumes by re-prefilling what it had) or finish it
+        with ``error`` (cancel, timeout)."""
+        req = self.slot_req[slot]
+        self._release_slot(slot)
         self._deactivate.append(slot)
-        self._finalize(req, error)
+        if requeue:
+            self.preemptions += 1
+            with self._lock:
+                self.pending.insert(0, req)
+        else:
+            self._finalize(req, error)
 
     def _apply_control(self) -> None:
         """Tick-start pass: apply cancellations and expire deadlines, for
-        queued and in-flight requests."""
+        queued, parked, in-flight and not yet landed fork children."""
         if not self._cancel_ids and self.request_timeout is None:
             return
         now = time.monotonic()
@@ -245,56 +708,246 @@ class BatchedEngine:
                 return RequestTimeoutError("request exceeded its deadline")
             return None
 
+        drop = []
         with self._lock:
             ids = set(self._cancel_ids)
-            drop = [(r, why(r)) for r in self.pending]
-            self.pending[:] = [r for r, e in drop if e is None]
+            for queue in [self.pending] + [k for _, k in self._fork_ops]:
+                errs = [(r, why(r)) for r in queue]
+                queue[:] = [r for r, e in errs if e is None]
+                drop += [(r, e) for r, e in errs if e is not None]
         for r, err in drop:
-            if err is not None:
-                self._finalize(r, err)
+            self._finalize(r, err)
         for slot, r in enumerate(self.slot_req):
             if r is not None:
                 err = why(r)
                 if err is not None:
-                    self._evict(slot, err)
+                    self._evict(slot, requeue=False, error=err)
         with self._lock:
             self._cancel_ids -= ids
 
-    def _flush_deactivations(self) -> None:
+    # -- paged-pool scheduling ------------------------------------------------
+    def _eff_len(self, r: Request) -> int:
+        """Effective prompt length: the history plus the events emitted
+        before a preemption (a resume re-prefills both)."""
+        return len(r.tokens) + len(r.out_tokens or ())
+
+    def _prompt_state(self, r: Request):
+        """(tokens, ages, remaining max_new) for admission: the request as
+        submitted, or its history plus its events when it resumes after a
+        preemption."""
+        if not r.out_tokens:
+            return np.asarray(r.tokens), r.ages, r.max_new
+        toks = np.concatenate([np.asarray(r.tokens, np.int64),
+                               np.asarray(r.out_tokens, np.int64)])
+        ages = None
+        if r.ages is not None:
+            ages = np.concatenate([np.asarray(r.ages, np.float64),
+                                   np.asarray(r.out_ages, np.float64)])
+        return toks, ages, r.max_new - len(r.out_tokens)
+
+    def _prompt_digests(self, r: Request):
+        """Memoized index digests of the effective prompt; None when the
+        index is off or the prompt wraps the ring (an over-width history's
+        blocks hold the wrapped window, not the prompt's chunks)."""
+        if self.prefix is None or self._eff_len(r) > self.max_context:
+            return None
+        n = self._eff_len(r)
+        if r._pfx is None or r._pfx[0] != n:
+            toks, ags, _ = self._prompt_state(r)
+            full, key = self.prefix.digests(toks, ags)
+            r._pfx = (n, full, key)
+        return r._pfx
+
+    def _prefix_hits_for(self, r: Request) -> List[int]:
+        """The resident run of full blocks the index can lend this request."""
+        pfx = self._prompt_digests(r)
+        return [] if pfx is None else self.prefix.match_run(pfx[1])
+
+    def _full_entry_for(self, r: Request):
+        """A complete index entry matching this request's whole effective
+        prompt: admission then needs no prefill at all."""
+        pfx = self._prompt_digests(r)
+        return None if pfx is None else self.prefix.lookup_key(pfx[2])
+
+    def _fresh_need(self, m: int) -> int:
+        """Blocks an m-token prompt takes, plus the growth block its first
+        decode write needs when it ends on a block edge (and does not wrap):
+        admitting without it could preempt the request on its first tick."""
+        return -(-m // self.block_size) + (
+            1 if m % self.block_size == 0 and m < self.max_context else 0)
+
+    def _admission_plan(self, r: Request) -> Tuple[str, int, List[int]]:
+        """(kind, fresh blocks needed, index blocks this admission would pin
+        by sharing).  Blocks lent by the index cost nothing from the free
+        list but stop being evictable once shared.  A complete-entry
+        ("ref") admission reserves one block for its first COW or growth."""
+        if not self.paged:
+            return "prefill", 0, []
+        entry = self._full_entry_for(r)
+        if entry is not None:
+            return "ref", 1, list(entry.blocks)
+        m = min(self._eff_len(r), self.max_context)
+        hits = self._prefix_hits_for(r)
+        return "prefill", self._fresh_need(m) - len(hits), hits
+
+    def _ensure_blocks(self) -> None:
+        """Every decoding slot must own, alone, the block its next write
+        lands in: an unallocated destination gets a fresh block (its stale
+        positions reset before the tick), and a destination shared with
+        other owners (forked siblings, the index) is copied first.  On pool
+        exhaustion the youngest request is preempted until the rest fit.
+        Held parents never write real data and are skipped."""
+        W, bs = self.max_context, self.block_size
+        while True:
+            needy = []
+            for slot, r in enumerate(self.slot_req):
+                if r is None or r.hold:
+                    continue
+                jb = int(self._slot_pos[slot] % W) // bs
+                bid = int(self._table[slot, jb])
+                if bid < 0:
+                    needy.append((slot, jb, None))
+                elif self.pool.refcount(bid) > 1:
+                    needy.append((slot, jb, bid))        # COW before write
+            if not needy:
+                return
+            exhausted = False
+            for slot, jb, old in needy:
+                if old is not None and self.pool.refcount(old) == 1:
+                    # the other sharers copied away earlier in this pass:
+                    # this slot owns the block alone now
+                    continue
+                got = self.pool.alloc(1)
+                if got is None:
+                    exhausted = True
+                    break
+                new = got[0]
+                if old is None:
+                    self._slot_blocks[slot].append(new)
+                    self._fresh_blocks.append(new)
+                else:
+                    try:       # the copy carries valid positions: no reset
+                        _cow_block(self.cache, old, new)
+                    except BaseException:
+                        self.pool.release([new])   # the copy never landed
+                        raise
+                    blocks = self._slot_blocks[slot]
+                    blocks[blocks.index(old)] = new
+                    self.pool.release([old])
+                    self.pool.cow_copies += 1
+                self._table[slot, jb] = new
+                self._table_dirty = True
+            if not exhausted:
+                return
+            victims = [i for i, r in enumerate(self.slot_req)
+                       if r is not None and not r.hold]
+            victim = max(victims, key=lambda s: self.slot_req[s]._seq)
+            self._evict(victim, requeue=True)
+
+    def _flush_slot_updates(self) -> None:
+        """Push queued host bookkeeping to the device before the tick:
+        evicted and parked slots deactivate, fresh growth blocks lose their
+        stale positions, and the block table uploads (host->device copies,
+        on the tick's stream)."""
         if self._deactivate:
             keep = np.ones(self.slots, bool)
             keep[self._deactivate] = False
-            self._state["active"] &= torch.from_numpy(keep).to(self.device)
+            self._state["active"] &= self._dev(keep)
             self._deactivate.clear()
+        if not self.paged:
+            return
+        if self._fresh_blocks:
+            _reset_pos(self.cache, self._fresh_blocks)
+            self._fresh_blocks.clear()
+        if self._table_dirty:
+            tab = self._table
+            if self._held_logits:
+                # a held slot still rides the tick: its discarded write must
+                # not land in its (shared) tail block, so that column is -1
+                # in the device copy and the write goes to the trash block
+                tab = tab.copy()
+                W, bs = self.max_context, self.block_size
+                for slot in self._held_logits:
+                    tab[slot, int(self._slot_pos[slot] % W) // bs] = -1
+            self.cache["self"].table.copy_(torch.from_numpy(tab))
+            self._table_dirty = False
 
     # -- admission: bucketed batched prefill --------------------------------
-    def _seq_bucket(self, n: int) -> int:
-        return max(_next_pow2(n), MIN_SEQ_BUCKET)
-
     def _select_admission(self):
-        """Pop the next admission cohort off ``pending`` (lock held): up to
-        the free slots (one for a recurrent model), all injected or all
-        generator-sampled (one tick draws from one uniform source); an
-        over-width prompt admits solo."""
+        """Pop the next admission off ``pending`` (lock held).  Returns
+        (kind, group, slots, injected) or None:
+
+        * ``"ref"``: the head's whole prompt hit a complete index entry;
+          it admits alone by reference, with no prefill.
+        * ``"prefill"``: a bucketed prefill cohort, up to the free slots
+          (one for a recurrent model), all injected or all generator-
+          sampled, budgeted in paged mode by available blocks (free plus
+          index-evictable; blocks the cohort will share are not counted
+          as evictable).  Held parents and over-width prompts admit alone.
+
+        Admission is FIFO: a large request waits for blocks rather than
+        being passed by later small ones."""
         if not self.pending:
             return None
         free = [i for i, r in enumerate(self.slot_req) if r is None]
         if not free:
             return None
-        injected = self.pending[0].uniforms is not None
-        occupied = [r for r in self.slot_req if r is not None]
-        if occupied and (occupied[0].uniforms is not None) != injected:
+        head = self.pending[0]
+        injected = head.uniforms is not None
+        # one tick samples every slot from ONE uniform source; held parents
+        # sample nothing and go with either
+        occupied = [r for r in self.slot_req if r is not None and not r.hold]
+        if occupied and (occupied[0].uniforms is not None) != injected \
+                and not head.hold:
             return None
-        limit = len(free) if self.bucketed else 1
-        if len(self.pending[0].tokens) > self.max_context:
-            limit = 1
+        pinned: set = set()
+        fresh_taken = 0
+
+        def fits(needed: int, pins: List[int]) -> bool:
+            if not self.paged:
+                return True
+            if self.pool.free - fresh_taken >= needed:
+                return True
+            return (self.pool.available(pinned | set(pins)) - fresh_taken
+                    >= needed)
+
+        def admissible(r: Request):
+            """The request's plan, or a fully fresh plan when its pins do
+            not fit (eviction may then take the hit blocks), or None."""
+            kind, needed, pins = self._admission_plan(r)
+            if fits(needed, pins):
+                return kind, needed, pins
+            if self.paged and pins:
+                fresh = self._fresh_need(min(self._eff_len(r),
+                                             self.max_context))
+                if fits(fresh, []):
+                    return "prefill", fresh, []
+            return None
+
+        plan = admissible(head)
+        if plan is None:
+            return None
+        if plan[0] == "ref":
+            return "ref", [self.pending.pop(0)], free[:1], injected
         group: List[Request] = []
+        limit = len(free) if self.bucketed else 1
+        if head.hold or self._eff_len(head) > self.max_context:
+            limit = 1
         while self.pending and len(group) < limit \
                 and (self.pending[0].uniforms is not None) == injected:
-            if group and len(self.pending[0].tokens) > self.max_context:
+            cand = self.pending[0]
+            if group and (self._eff_len(cand) > self.max_context
+                          or cand.hold):
                 break
+            plan = admissible(cand)
+            if plan is None or (group and plan[0] == "ref"):
+                break                      # complete hits admit alone next
+            pinned |= set(plan[2])
+            fresh_taken += plan[1]
             group.append(self.pending.pop(0))
-        return group, free[:len(group)], injected
+        if not group:
+            return None
+        return "prefill", group, free[:len(group)], injected
 
     def _admit(self) -> None:
         while True:
@@ -302,24 +955,37 @@ class BatchedEngine:
                 sel = self._select_admission()
             if sel is None:
                 return
-            group, slot_ids, injected = sel
-            try:
+            kind, group, slot_ids, injected = sel
+            if kind == "ref":
+                self._admit_ref(group[0], slot_ids[0], injected)
+            else:
                 self._admit_group(group, slot_ids, injected)
-            except Exception:
-                # a failed admission puts its un-slotted cohort back first
-                with self._lock:
-                    self.pending[:0] = [r for r in group
-                                        if r not in self.slot_req]
-                raise
 
     def _admit_group(self, group: List[Request], slot_ids: List[int],
                      injected: bool) -> None:
+        try:
+            self._admit_group_inner(group, slot_ids, injected)
+        except Exception:
+            # a failed admission returns the blocks it took and puts its
+            # un-slotted cohort back at the front of the queue
+            if self.paged:
+                for slot in slot_ids:
+                    if self.slot_req[slot] is None and self._slot_blocks[slot]:
+                        self._release_slot(slot)
+            with self._lock:
+                self.pending[:0] = [r for r in group
+                                    if not r.done and r not in self.slot_req]
+            raise
+
+    def _admit_group_inner(self, group: List[Request], slot_ids: List[int],
+                           injected: bool) -> None:
         n = len(group)
-        lens = [len(r.tokens) for r in group]
+        prompts = [self._prompt_state(r) for r in group]
+        lens = [len(p[0]) for p in prompts]
         if self.bucketed and max(lens) <= self.max_context:
             # never bucket past the ring width: a pad-rounded S > W would
             # evict valid prompt context through the S > W ring pack
-            sb = min(self._seq_bucket(max(lens)), self.max_context)
+            sb = min(_seq_bucket(max(lens)), self.max_context)
             nb = min(_next_pow2(n), self.slots)
         else:
             # exact shape: a solo over-width prompt, or recurrent state
@@ -331,99 +997,266 @@ class BatchedEngine:
         age0 = np.zeros((nb,), np.float32)
         lengths = np.full((nb,), lens[0], np.int32)
         max_new = np.full((nb,), 1, np.int32)
-        for j, r in enumerate(group):
+        for j, (toks, ags, remaining) in enumerate(prompts):
             S = lens[j]
-            tokens[j, :S] = r.tokens
-            if self.is_delphi:
-                ags = np.asarray(r.ages, np.float32)
+            tokens[j, :S] = toks
+            if ags is not None:
                 ages[j, :S] = ags
                 ages[j, S:] = ags[-1]
-                age0[j] = ags[-1]
+                age0[j] = np.float32(ags[-1])
             lengths[j] = S
-            max_new[j] = r.max_new
+            max_new[j] = remaining
         tokens[n:] = tokens[0]       # padded admission rows: clones of row 0,
         ages[n:] = ages[0]           # computed and discarded
-        last_idx = lengths - 1
-        if injected:
+        hold = group[0].hold         # hold parents admit alone
+        if injected or hold:
+            # a hold admission samples nothing: filler uniforms, row unused
             u = np.full((nb, self.cfg.vocab_size), 0.5, np.float32)
-            for j, r in enumerate(group):
-                u[j] = r.uniforms[0]
-            u_t = torch.from_numpy(u).to(self.device)
+            if not hold:
+                for j, r in enumerate(group):
+                    # a resumed (preempted) request has consumed its first
+                    # len(out_tokens) rows already
+                    u[j] = r.uniforms[len(r.out_tokens)]
+            u_t = self._dev(u)
         else:
             u_t = self._rand(nb)
+        cache_rows, rows, packed, lg = _prefill_core(
+            self._wparams, self._dev(tokens), self._dev(ages),
+            self._dev(lengths - 1), self._dev(age0), self._dev(lengths),
+            self._dev(max_new), u_t, self.cfg, self._kn)
 
-        dev = self.device
-        lengths_t = torch.from_numpy(lengths).to(dev)
-        last_t = torch.from_numpy(last_idx).to(dev)
-        batch = {"tokens": torch.from_numpy(tokens).to(dev)}
-        if self.is_delphi:
-            batch["ages"] = torch.from_numpy(ages).to(dev)
-        out = forward(self._wparams, self.cfg, batch, mode="prefill",
-                      cache_width=self.max_context, last_index=last_t)
-        rows_cache = mask_padded_positions(out["cache"], last_t)
-        lg = out["logits"][:, 0]
-        active = torch.ones((nb,), dtype=torch.bool, device=dev)
-        max_new_t = torch.from_numpy(max_new).to(dev)
-        adv = self._advance(lg, u_t, torch.from_numpy(age0).to(dev),
-                            torch.zeros((nb,), dtype=torch.int32, device=dev),
-                            max_new_t, lengths_t, active)
-        rows = {
-            "last": torch.where(adv["emit"], adv["evt"],
-                                torch.zeros_like(adv["evt"])),
-            "age": adv["age"],
-            "step": lengths_t,
-            "n_emitted": adv["n_emitted"],
-            "max_new": max_new_t,
-            "active": active & ~adv["finished"],
-        }
-        # one scatter per leaf writes the admitted rows into the slot cache
-        ids = torch.tensor(slot_ids, dtype=torch.long, device=dev)
-        _insert_rows(self.cache, rows_cache, ids, n)
-        for key, val in rows.items():
-            self._state[key][ids] = val[:n].to(self._state[key].dtype)
+        ids = self._dev(np.asarray(slot_ids, np.int64))
+        if self.paged:
+            W, bs = self.max_context, self.block_size
+            nblk = -(-min(sb, W) // bs)
+            dst = np.zeros((n, nblk), np.int64)      # unneeded tail -> trash
+            for j, (req, slot) in enumerate(zip(group, slot_ids)):
+                nb_j = -(-min(lens[j], W) // bs)
+                # index hits are taken by REFERENCE: their prefill rows go
+                # to the trash and only the suffix gets fresh blocks.  The
+                # shares come before the alloc (which may evict index
+                # entries), and park on the slot at once so that a failed
+                # alloc releases them with the rest of the cohort.
+                hits = self._prefix_hits_for(req)[:nb_j]
+                if hits:
+                    self.pool.share(hits)
+                    self.prefix.partial_hits += 1
+                    self._slot_blocks[slot] = list(hits)
+                alloc = self.pool.alloc(nb_j - len(hits))
+                if alloc is None:                    # _select budgeted this
+                    raise RuntimeError("admission outran the block budget")
+                self._slot_blocks[slot] = hits + alloc
+                self._table[slot, :] = -1
+                self._table[slot, :nb_j] = self._slot_blocks[slot]
+                dst[j, len(hits):nb_j] = alloc
+            self._table_dirty = True
+            _insert_blocks(self.cache, cache_rows, self._dev(dst), n, nblk)
+            self._flush_slot_updates()
+        else:
+            _insert_rows(self.cache, cache_rows, ids, n)
+        _commit(self._state, ids, rows, n)
 
         self.admit_batches += 1
-        arr = self._fetch(_pack(adv))    # ONE sync per admission batch
+        arr = self._fetch(packed)    # ONE sync per admission batch
         for j, (req, slot) in enumerate(zip(group, slot_ids)):
             self.slot_req[slot] = req
-            self._apply_host(req, slot, arr[:, j])
+            self._slot_pos[slot] = lens[j]
+            if self.prefix is not None and lens[j] <= self.max_context \
+                    and not req.out_tokens:
+                self._register_prefix(req, prompts[j], slot, lens[j],
+                                      float(age0[j]), lg[j])
+            if req.hold:
+                # park: keep the bootstrap logits, deactivate the device row
+                # (its discarded tick writes go to the trash block), emit
+                # nothing until the fork
+                self._held_logits[slot] = lg[j]
+                if "ssm" in cache_rows:
+                    self._held_state[slot] = {"ssm": tuple(
+                        t[:, j:j + 1].clone() for t in cache_rows["ssm"])}
+                self._deactivate.append(slot)
+            else:
+                self._apply_host(req, slot, arr[:, j])
 
-    # -- device math of a tick / an admission --------------------------------
+    def _register_prefix(self, req: Request, prompt, slot: int, S: int,
+                         age0: float, logits: torch.Tensor) -> None:
+        """Index an admitted prompt's blocks.  A hold parent registers a
+        complete entry (its partial tail block and bootstrap logits too):
+        an identical later prompt admits with no prefill.  A decoding
+        request registers its full blocks only: sharing the tail it writes
+        into would cost a copy per admission."""
+        full = S // self.block_size
+        pfx = self._prompt_digests(req)          # memoized: no re-hash
+        toks, ags, _ = prompt
+        if req.hold:
+            self.prefix.register(toks, ags, list(self._slot_blocks[slot]),
+                                 S=S, age0=age0, logits=logits,
+                                 digests=(pfx[1], pfx[2]))
+        elif full:
+            cut = full * self.block_size
+            self.prefix.register(
+                toks[:cut], None if ags is None else ags[:cut],
+                self._slot_blocks[slot][:full], S=cut, age0=age0,
+                digests=(pfx[1][:full], self.prefix.aligned_key(pfx[1], full)))
+        self.prefix.misses += 1
+
+    def _admit_ref(self, req: Request, slot: int, injected: bool) -> None:
+        """Admission by reference: the whole prompt matched a complete index
+        entry, so the request shares the entry's blocks and samples its
+        first event from the entry's bootstrap logits; no prefill runs.  A
+        hold parent parks on the shared blocks the same way."""
+        entry = self._full_entry_for(req)
+        if entry is None:               # evicted since selection: requeue
+            with self._lock:
+                self.pending.insert(0, req)
+            return
+        self.prefix.hits += 1
+        self.prefix.touch(entry)
+        self.pool.share(entry.blocks)
+        self._slot_blocks[slot] = list(entry.blocks)
+        self._table[slot, :] = -1
+        self._table[slot, :len(entry.blocks)] = entry.blocks
+        self._table_dirty = True
+        self.slot_req[slot] = req
+        self._slot_pos[slot] = entry.S
+        if req.hold:
+            self._held_logits[slot] = entry.logits
+            self._deactivate.append(slot)
+            return
+        if injected:
+            u = self._dev(req.uniforms[len(req.out_tokens)][None])
+        else:
+            u = self._rand(1)
+        rows, packed = _fork_rows_core(
+            entry.logits[None], u, self._dev(np.float32([entry.age0])),
+            self._dev(np.int32([entry.S])),
+            self._dev(np.int32([req.max_new - len(req.out_tokens)])),
+            self._kn)
+        _commit(self._state, self._dev(np.int64([slot])), rows, 1)
+        self.admit_batches += 1
+        arr = self._fetch(packed)       # ONE sync, like any admission batch
+        self._apply_host(req, slot, arr[:, 0])
+
+    # -- fork application -----------------------------------------------------
+    def _apply_forks(self) -> bool:
+        """Apply the queued fork ops whose parent is parked in a slot.  A
+        parent that finished (cancelled, expired) fails its children; one
+        still pending, or whose uniform source differs from the decoding
+        cohort's, waits."""
+        with self._lock:
+            ops = self._fork_ops[:]
+            self._fork_ops.clear()
+        if not ops:
+            return False
+        deferred: List[Tuple[Request, List[Request]]] = []
+        progressed = False
+        for parent, kids in ops:
+            if parent.done:
+                err = (parent.error if parent.error is not None else
+                       InvalidRequestError(
+                           f"fork parent {parent.request_id!r} is gone "
+                           f"(cancelled, expired or failed before the fork "
+                           f"applied)"))
+                for c in kids:
+                    self._finalize(c, err)
+                progressed = True
+                continue
+            if parent not in self.slot_req:
+                deferred.append((parent, kids))     # parent still pending
+                continue
+            pslot = self.slot_req.index(parent)
+            injected = bool(kids) and kids[0].uniforms is not None
+            occupied = [r for r in self.slot_req
+                        if r is not None and not r.hold]
+            if kids and occupied \
+                    and (occupied[0].uniforms is not None) != injected:
+                deferred.append((parent, kids))     # uniform-source mismatch
+                continue
+            # the temporary reference keeps the parent's blocks alive across
+            # its release, and is dropped on every way out
+            blocks: List[int] = []
+            tab = None
+            if self.paged:
+                blocks = list(self._slot_blocks[pslot])
+                tab = self._table[pslot].copy()
+                self.pool.share(blocks)
+            try:
+                self._apply_one_fork(parent, kids, pslot, blocks, tab,
+                                     injected)
+            finally:
+                if self.paged:
+                    self.pool.release(blocks)
+            progressed = True
+        if deferred:
+            with self._lock:
+                self._fork_ops[:0] = deferred
+        return progressed
+
+    def _apply_one_fork(self, parent: Request, kids: List[Request],
+                        pslot: int, blocks: List[int], tab,
+                        injected: bool) -> None:
+        """Consume one held parent: release its slot, land as many children
+        as there are free slots (shared blocks or a copied ring row, then
+        one bootstrap), and queue the rest."""
+        logits = self._held_logits[pslot]
+        state = self._held_state.get(pslot)
+        S = int(self._slot_pos[pslot])
+        age0 = float(parent.ages[-1]) if parent.ages is not None else 0.0
+        self._release_slot(pslot)
+        self._finalize(parent)
+        self.forks += 1
+        free = [i for i, r in enumerate(self.slot_req) if r is None]
+        k = min(len(kids), len(free))
+        wave, rest = kids[:k], kids[k:]
+        if rest:
+            with self._lock:
+                self.pending[:0] = rest
+        if not wave:
+            return
+        wave_slots = free[:k]
+        # a hold admitted in this step may have queued its slot for
+        # deactivation: a child landing there must stay active
+        self._deactivate = [s for s in self._deactivate
+                            if s not in wave_slots]
+        if self.paged:
+            for s in wave_slots:
+                self.pool.share(blocks)
+                self._slot_blocks[s] = list(blocks)
+                self._table[s] = tab
+            self._table_dirty = True
+        else:
+            if state is not None:       # the parent's state as admitted
+                _insert_rows(self.cache, state, self._dev(np.int64([pslot])),
+                             1)
+            _fork_copy_rows(self.cache, pslot, wave_slots, S - 1)
+        kb = _next_pow2(k)
+        V = self.cfg.vocab_size
+        mn = np.full((kb,), 1, np.int32)
+        for j, c in enumerate(wave):
+            mn[j] = c.max_new
+        if injected:
+            u = np.full((kb, V), 0.5, np.float32)
+            for j, c in enumerate(wave):
+                u[j] = c.uniforms[0]
+            u_t = self._dev(u)
+        else:
+            u_t = self._rand(kb)
+        rows, packed = _fork_rows_core(
+            logits[None].expand(kb, V), u_t,
+            self._dev(np.full((kb,), age0, np.float32)),
+            self._dev(np.full((kb,), S, np.int32)), self._dev(mn), self._kn)
+        _commit(self._state, self._dev(np.asarray(wave_slots, np.int64)),
+                rows, k)
+        self.admit_batches += 1
+        arr = self._fetch(packed)       # ONE sync per fork wave
+        for j, (c, s) in enumerate(zip(wave, wave_slots)):
+            self.slot_req[s] = c
+            self._slot_pos[s] = S
+            self._apply_host(c, s, arr[:, j])
+
+    # -- the tick ------------------------------------------------------------
     def _rand(self, rows: int) -> torch.Tensor:
         return torch.rand((rows, self.cfg.vocab_size), generator=self._gen,
                           device=self.device)
-
-    def _advance(self, lg, u, age, n_emitted, max_new, next_pos, active):
-        if self.is_delphi:
-            evt, tmin = sample_next_event(lg, u)
-        else:
-            evt, tmin = gumbel_sample(lg, u, self.inv_temp)
-        return advance_trajectory_state(
-            evt, tmin, age, n_emitted, max_new, next_pos, active,
-            max_age=self.cfg.max_age if self.is_delphi else float("inf"),
-            death_token=self.cfg.death_token if self.is_delphi else -1,
-            max_context=self.max_context)
-
-    def _tick(self, u: torch.Tensor) -> torch.Tensor:
-        st = self._state
-        batch = {"tokens": st["last"][:, None]}
-        if self.is_delphi:
-            batch["ages"] = st["age"][:, None]
-        d = decode_step(self._wparams, self.cfg, self.cache, batch,
-                        st["step"])
-        lg = d["logits"][:, 0]
-        next_step = torch.where(st["active"], st["step"] + 1, st["step"])
-        adv = self._advance(lg, u, st["age"], st["n_emitted"], st["max_new"],
-                            next_step, st["active"])
-        self._state = {
-            "last": torch.where(adv["emit"], adv["evt"], st["last"]),
-            "age": adv["age"],
-            "step": next_step,
-            "n_emitted": adv["n_emitted"],
-            "max_new": st["max_new"],
-            "active": st["active"] & ~adv["finished"],
-        }
-        return _pack(adv)
 
     def _apply_host(self, req: Request, slot: int, col: np.ndarray) -> None:
         evt, age, emit, finished = col
@@ -432,21 +1265,26 @@ class BatchedEngine:
             if self.is_delphi:
                 req.out_ages.append(float(age))
         if finished >= 0.5:
-            self.slot_req[slot] = None
+            self._release_slot(slot)     # returns paged blocks to the pool
             self._finalize(req)
 
-    # -- the tick ------------------------------------------------------------
     def step(self) -> bool:
-        """One engine tick: control pass (cancel/timeout), admit pending,
-        then decode + sample every active slot on the device."""
+        """One engine tick: control pass (cancel/timeout), admission, fork
+        ops, paged block growth/COW/preemption, then decode + sample every
+        decoding slot on the device."""
         self._apply_control()
-        self._flush_deactivations()   # deactivations BEFORE slots are reused
+        self._flush_slot_updates()   # deactivations BEFORE slots are reused
         self._admit()
-        self._flush_deactivations()
-        active = [i for i, r in enumerate(self.slot_req) if r is not None]
+        forked = self._apply_forks()
+        if self.paged:
+            self._ensure_blocks()
+        self._flush_slot_updates()
+        active = [i for i, r in enumerate(self.slot_req)
+                  if r is not None and not r.hold]
         if not active:
-            return False
+            return forked
         self.ticks += 1
+        self.peak_active = max(self.peak_active, len(active))
         injected = [i for i in active if self.slot_req[i].uniforms is not None]
         if injected and len(injected) != len(active):
             raise ValueError("cannot mix uniform-injected and generator-"
@@ -456,10 +1294,13 @@ class BatchedEngine:
             for i in active:
                 r = self.slot_req[i]
                 u[i] = r.uniforms[len(r.out_tokens)]
-            u_t = torch.from_numpy(u).to(self.device)
+            u_t = self._dev(u)
         else:
             u_t = self._rand(self.slots)
-        arr = self._fetch(self._tick(u_t))    # ONE sync per tick
+        self._state, packed = _tick_core(self._wparams, self.cache,
+                                         self._state, u_t, self.cfg, self._kn)
+        self._slot_pos[active] += 1     # mirror the device's step advance
+        arr = self._fetch(packed)       # ONE sync per tick
         for slot in active:
             self._apply_host(self.slot_req[slot], slot, arr[:, slot])
         return True
@@ -467,7 +1308,8 @@ class BatchedEngine:
     def run(self, max_ticks: int = 10_000) -> List[Request]:
         """Tick until every submitted request has finished."""
         ticks = 0
-        while (self.pending or any(r is not None for r in self.slot_req)) \
+        while (self.pending or self._fork_ops
+               or any(r is not None for r in self.slot_req)) \
                 and ticks < max_ticks:
             self.step()
             ticks += 1

@@ -270,6 +270,118 @@ def test_paged_decode_kernel_empty_slot_gives_zeros(gen):
     assert float(out[0].abs().max()) > 0.0
 
 
+def test_paged_decode_kernel_paged_pool_with_holes(gen):
+    """The paged Delphi path's pool (16 slots, 12 kv heads, hd 10, bs 16,
+    nbs 16, 257 blocks, bf16): unallocated (-1) table columns between
+    allocated ones, and the trash block 0 written with positions that would
+    be valid (as idle slots' discarded writes leave it) but that no table
+    points at.  Against the plain version, and bit for bit against the
+    same tokens laid out as a ring (bs 256, nbs 1): the kernel walks the
+    logical positions in the same order whatever the block size."""
+    B, Hkv, hd, bs, nbs = 16, 12, 10, 16, 16
+    W, NB = bs * nbs, 1 + B * nbs
+    dt = torch.bfloat16
+    step = (40 + 29 * torch.arange(B, device="cuda")).to(torch.int32)
+    perm = torch.randperm(NB - 1, generator=gen, device="cuda") + 1
+    table = perm.reshape(B, nbs).to(torch.int32)
+    j = torch.arange(W, device="cuda")
+    ring_pos = (step[:, None] - torch.remainder(step[:, None] - j, W))
+    ring_pos = torch.where(ring_pos >= 0, ring_pos, -1).to(torch.int32)
+    holes = torch.rand((B, nbs), generator=gen, device="cuda") < 0.3
+    holes[:, 0] = False
+    table = torch.where(holes, -1, table)
+    ring_pos = torch.where(holes.repeat_interleave(bs, 1), -1, ring_pos)
+    ring_k, ring_v = (torch.randn((B, Hkv, W, hd), generator=gen,
+                                  device="cuda").to(dt) for _ in range(2))
+    k = torch.randn((NB, Hkv, bs, hd), generator=gen, device="cuda").to(dt)
+    v = torch.randn((NB, Hkv, bs, hd), generator=gen, device="cuda").to(dt)
+    pos = torch.full((NB, bs), -1, dtype=torch.int32, device="cuda")
+    for b in range(B):
+        for jb in range(nbs):
+            blk = int(table[b, jb])
+            if blk > 0:
+                sl = slice(jb * bs, (jb + 1) * bs)
+                k[blk] = ring_k[b, :, sl]
+                v[blk] = ring_v[b, :, sl]
+                pos[blk] = ring_pos[b, sl]
+    pos[0] = step[0] - torch.arange(bs, device="cuda", dtype=torch.int32)
+    q = torch.randn((B, Hkv, hd), generator=gen, device="cuda").to(dt)
+    out = ops.paged_decode_attention(q, k, v, table, pos, step)
+    want = ref.paged_decode_attention_ref(
+        q.float()[:, :, None], k.float(), v.float(), table, pos,
+        step)[:, :, 0]
+    torch.testing.assert_close(out.float(), want, atol=2e-2, rtol=0)
+    ring = ops.paged_decode_attention(
+        q, ring_k, ring_v, torch.arange(B, dtype=torch.int32,
+                                        device="cuda")[:, None],
+        ring_pos, step)
+    assert torch.equal(out, ring)
+
+
+def _delphi_bf16():
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config("delphi-2m", reduced=True).replace(
+        vocab_size=96, max_seq_len=48, max_age=1e9)
+    return init_params(cfg, seed=7, device="cuda"), cfg
+
+
+def test_paged_engine_bit_identical_to_ring_on_card(gen):
+    """bf16 on the card, injected uniforms: the paged engine's tokens and
+    fp32 ages equal the ring engine's bit for bit, an over-width prompt
+    (S > W, solo admission of the wrapped ring) included."""
+    import numpy as np
+    from repro_torch.serve import BatchedEngine, Request
+    params, cfg = _delphi_bf16()
+    rng = np.random.default_rng(0)
+    prompts = [(S, rng.random((8, cfg.vocab_size), dtype=np.float32))
+               for S in (3, 5, 9, 17, 30, 70)]
+    outs = []
+    for kw in ({}, {"cache": "paged", "block_size": 16}):
+        eng = BatchedEngine(params, cfg, slots=4, max_context=64,
+                            device="cuda", **kw)
+        reqs = [Request(tokens=(np.arange(3, 3 + S) % 90).astype(np.int32),
+                        ages=np.linspace(0.0, 30.0, S).astype(np.float32),
+                        max_new=8, uniforms=u) for S, u in prompts]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        assert all(r.done and r.error is None for r in reqs)
+        outs.append([(r.out_tokens, r.out_ages) for r in reqs])
+    assert outs[0] == outs[1]
+    assert eng.allocator.used == 0
+
+
+def test_fork_bit_identical_to_oracle_on_card(gen):
+    """bf16 on the card: ``sample_futures`` on the ring, on the paged
+    engine and twice on the prefix-cached paged engine equals the port's
+    ``ring_reference_futures`` bit for bit."""
+    import numpy as np
+    from repro_torch.serve import BatchedEngine, ring_reference_futures
+    params, cfg = _delphi_bf16()
+    toks = np.asarray([3, 10, 20, 30, 41, 7, 9, 11, 13, 17, 19, 23, 29, 31,
+                       37, 43, 47, 53], np.int32)
+    ages = np.linspace(0.0, 30.0, len(toks)).astype(np.float32)
+    n, max_new = 4, 6
+    u = np.random.default_rng(1).random((n, max_new, cfg.vocab_size),
+                                        dtype=np.float32)
+    ora = ring_reference_futures(params, cfg, toks, ages, n=n,
+                                 max_new=max_new, uniforms=u, slots=4,
+                                 max_context=64, device="cuda")
+    for kw, rounds in (({}, 1), ({"cache": "paged", "block_size": 16}, 1),
+                       ({"cache": "paged", "block_size": 16,
+                         "prefix_cache": True}, 2)):
+        eng = BatchedEngine(params, cfg, slots=4, max_context=64,
+                            device="cuda", **kw)
+        for _ in range(rounds):
+            kids = eng.sample_futures(toks, ages, n=n, max_new=max_new,
+                                      uniforms=u)
+            assert [(k.out_tokens, k.out_ages) for k in kids] == ora
+        if eng.paged:
+            eng.drop_prefix_cache()
+            assert eng.allocator.used == 0 and not eng.pool._refs
+
+
 def _ssd_inputs(gen, b, C, Q, H, P, N, dtype, *, shared_bc=False,
                 bc_dtype=None, step=0.2):
     """SSD tiles as tests/test_kernels.py draws them: N(0, 1) inputs and a

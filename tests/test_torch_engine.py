@@ -176,26 +176,38 @@ def test_cancel_and_request_timeout():
     assert isinstance(r.error, RequestTimeoutError)
 
 
-@pytest.mark.parametrize("kw", [dict(cache="paged"), dict(prefix_cache=True),
-                                dict(prefill_chunk_tokens=32)])
-def test_engine_refuses_what_is_not_ported(kw):
+def _mamba_reduced():
+    return get_config("mamba2-780m", reduced=True).replace(dtype="float32")
+
+
+@pytest.mark.parametrize("kw,error", [
+    (dict(prefill_chunk_tokens=32), NotImplementedError),
+    (dict(prefix_cache=True), ValueError),             # on the ring
+    (dict(cache="paged", max_context=50, block_size=16), ValueError),
+    (dict(cache="paged", block_size=16, blocks=4), ValueError),
+    (dict(cache="paged", arch="mamba2"), ValueError),
+])
+def test_engine_refuses_what_is_not_ported(kw, error):
+    """What the engine still refuses: chunked prefill (not ported), and the
+    configurations the JAX package's engine refuses too: a prefix cache on
+    the ring, a context that is not a block multiple, a pool smaller than
+    one slot, and the paged cache on a recurrent model."""
     cfg, _, params, _ = _setup()
-    with pytest.raises(NotImplementedError):
-        BatchedEngine(params, cfg, slots=2, max_context=W, device="cpu", **kw)
+    kw = dict(kw)
+    if kw.pop("arch", None) == "mamba2":
+        cfg = _mamba_reduced()
+        params = init_params(cfg, seed=0, device="cpu")
+    kw.setdefault("max_context", W)
+    with pytest.raises(error):
+        BatchedEngine(params, cfg, slots=2, device="cpu", **kw)
 
 
 def test_engine_refuses_hold_fork_and_generic_sampling():
+    """Hold, fork and ``sample_futures`` are ported (tests/test_torch_prefix
+    .py); generic (Gumbel) sampling is ported for Mamba2, but a generic
+    dense LM still needs RoPE, and MoE is not ported: the engine refuses
+    both."""
     cfg, _, params, _ = _setup()
-    eng = BatchedEngine(params, cfg, slots=2, max_context=W, device="cpu")
-    toks, ages, _ = _requests(cfg, 1)[0]
-    with pytest.raises(NotImplementedError):
-        eng.submit(Request(tokens=toks, ages=ages, hold=True))
-    with pytest.raises(NotImplementedError):
-        eng.fork("x", 2)
-    with pytest.raises(NotImplementedError):
-        eng.sample_futures(toks, ages, n=2)
-    # generic (Gumbel) sampling is ported for Mamba2; a generic dense LM
-    # still needs RoPE, and MoE is not ported: the engine refuses both
     for change in (dict(age_encoding=False, dual_head=False),
                    dict(arch_type="moe")):
         with pytest.raises(NotImplementedError):
@@ -210,6 +222,7 @@ def test_serve_cli_on_cpu(capsys):
     assert len(out["done"]) == 3
     assert eng.host_syncs == eng.ticks + eng.admit_batches
     assert "served 3 requests" in capsys.readouterr().out
-    for bad in (["--cache", "paged"], ["--replicas", "2"]):
+    assert launch.parse_args(["--cache", "paged"]).cache == "paged"
+    for bad in (["--cache", "dense"], ["--replicas", "2"]):
         with pytest.raises(SystemExit):
             launch.parse_args(bad)
