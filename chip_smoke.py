@@ -12,7 +12,11 @@ runs these phases; any failure exits non-zero:
    paths' shapes and at edge shapes, with the tolerance stated per case
    (``tte_sample`` also on ties across the blocks of a row's cluster, a
    +inf row, row-strided views and logits aligned otherwise than the
-   uniforms, each in one launch);
+   uniforms, each in one launch; ``flash_attention`` also with position
+   masks in fp32 and bf16 against ``suffix_prefill_attention_ref`` at
+   ``tests/test_kernels.py``'s suffix cases and Delphi-2M's chunk, the
+   padded rows exact zeros, and its index route bit-equal to the position
+   route at a head chunk);
 3. the Delphi path at full width: Delphi-2M (12 layers, d_model 120) from
    ``init_params(seed)`` in bf16, served by the ring-cache ``BatchedEngine``
    through ``repro_torch.launch.serve`` (32 synthetic patient prompts, 16
@@ -41,6 +45,19 @@ runs these phases; any failure exits non-zero:
    time the parent admits by reference with no prefill.  Forks, copies on
    write, shared blocks and prefix hits are printed; no block or refcount
    may be left after ``drop_prefix_cache()``;
+3e. mixed long/short traffic at full width (``benchmarks/run.py``'s
+   ``bench_chunked_prefill``): Delphi-2M bf16 on a paged engine (12 slots,
+   ``max_context`` 256, 192 blocks), 6 short requests (6-event prompts, 48
+   new events) and 6 long ones (200-event prompts, 4 new), one long every 8
+   steps from step 3; monolithic and chunked prefill (64 tokens a step) in
+   turns, twice each.  Events/s and the short requests' p50/p95 per-event
+   latency per run; every request finishes, the pool drains, host copies =
+   ticks + admission batches; the chunked run launches the position-masked
+   flash 12 times a chunk;
+3f. partial-hit suffix prefill: a prefix-cached chunked engine serves a
+   200-event prompt, then a 240-event prompt extending it, which must
+   prefill only its suffix (``suffix_tokens_saved`` = the 192 matched
+   tokens);
 4. end-to-end parity in fp32: the same weights and injected uniforms through
    the engine on the card (kernels) and on the CPU (plain versions), for
    Delphi-2M and for Mamba2-780M at full width cut to 4 layers; the card's
@@ -49,7 +66,13 @@ runs these phases; any failure exits non-zero:
    uniforms, in fp32 and in bf16: ring == paged bit for bit (tokens and
    fp32 ages, an over-width prompt included), and ``sample_futures`` on
    the ring, the paged and the prefix-cached paged engine == the port's
-   ``ring_reference_futures`` bit for bit;
+   ``ring_reference_futures`` bit for bit; the paged engine == the port's
+   ``chunked_reference_trajectory`` bit for bit unchunked (an unbounded
+   budget), chunked at one block and at 64 tokens, on a partial prefix hit
+   (``matched_tokens``), futures forked from a parent prefilled in one
+   chunk == the unchunked fork's and from one prefilled in 7 chunks == the
+   oracle per future; ``monte_carlo_risk`` over phase 3d's futures equals the
+   host aggregation exactly, and analytic risk on the card the CPU's;
 5. times at the main paths' shapes: each kernel, its plain version, one
    PyTorch library call where one computes the same function (a yardstick
    the port never calls), and the bound from bytes and operations (for
@@ -64,12 +87,17 @@ runs these phases; any failure exits non-zero:
    device time per call from ``torch.profiler`` and per-call time from CUDA
    events (the ``kernels`` line's ``ms`` is the device time); then each path
    once more under the profiler (device busy time, idle share, top kernels,
-   and the Mamba2 path's ``ssd_intra`` total), the paged and futures paths
-   included.
+   and the Mamba2 path's ``ssd_intra`` total), the paged, futures and both
+   mixed-traffic paths included; ``flash_attention`` also with position
+   masks at phase 3e's chunk (64 queries over 128 + 64 keys), its library
+   call SDPA with the boolean mask built from the positions.
 
-The last lines are the ``kernels`` JSON line, the card's name and power limit
-(``nvidia-smi``), and the result line ``{"ok": true, "device": ...}``.  A copy
-of all numbers goes to ``chiprun_out/chip_smoke.json``.
+The ``kernels`` line holds the four kernels and, as a fifth row, the flash
+kernel's position-masked route with its launches on the chunked drive of
+phase 3e.  The last lines are the ``kernels`` JSON line, the card's name
+and power limit (``nvidia-smi``), and the result line ``{"ok": true,
+"device": ...}``.  A copy of all numbers goes to
+``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -278,6 +306,85 @@ def check_flash(gen) -> float:
         log(f"  flash_attention {note} (B={B} Hq={Hq} Hkv={Hkv} S={S} "
             f"hd={hd} window={window} causal={causal} {dt}): max abs err "
             f"{err:.3g} (tol {tol})")
+    return main_err
+
+
+SUFFIX_CASES = [
+    # (B, Sc, C, Hkv, G, hd, window, note): tests/test_kernels.py's
+    # SUFFIX_CASES, then Delphi-2M's chunk of phase 3e
+    (1, 16, 0, 1, 1, 32, None, "chunk at the prompt head"),
+    (2, 16, 32, 2, 2, 32, None, "GQA mid-prompt chunk"),
+    (1, 8, 24, 1, 4, 64, None, "strong GQA"),
+    (2, 16, 16, 2, 1, 16, 12, "sliding window"),
+    (1, 16, 32, 2, 2, 32, None, "GQA hd=32"),
+    (1, 64, 128, 12, 1, 10, None, "main: Delphi-2M chunk, 64 over 128"),
+]
+
+
+def check_flash_positions(gen) -> float:
+    """The position-masked routes (``ops.suffix_prefill_attention``: the
+    context and the chunk concatenated, the flash kernel with q_pos/k_pos)
+    in fp32 and bf16 against ``suffix_prefill_attention_ref`` in fp32 on
+    the same (rounded) inputs, fp32 atol 2e-5, bf16 atol 2e-2: context
+    padded with trash positions (-1) and the chunk's padded tail (-1),
+    whose rows must come out as exact zeros.  Then the index route against
+    the position route at a head chunk with no context (Delphi's heads, the
+    main path's buckets): bit for bit on the valid rows.  Returns the
+    largest error at Delphi-2M's chunk in bf16."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    main_err = 0.0
+    for B, Sc, C, Hkv, G, hd, window, note in SUFFIX_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            def rnd(*shape):
+                return torch.randn(shape, generator=gen, device=DEVICE
+                                   ).to(dtype)
+            q = rnd(B, Sc, Hkv * G, hd)
+            k, v = rnd(B, Sc, Hkv, hd), rnd(B, Sc, Hkv, hd)
+            ck, cv = rnd(B, C, Hkv, hd), rnd(B, C, Hkv, hd)
+            n_ctx, n_q = max(C - 3, 0), Sc - 2
+            cpos = torch.full((B, C), -1, dtype=torch.int32, device=DEVICE)
+            cpos[:, :n_ctx] = torch.arange(n_ctx, device=DEVICE)
+            qpos = torch.full((B, Sc), -1, dtype=torch.int32, device=DEVICE)
+            qpos[:, :n_q] = n_ctx + torch.arange(n_q, device=DEVICE)
+            out = ops.suffix_prefill_attention(q, k, v, ck, cv, qpos, cpos,
+                                               window=window, q_per_kv=G)
+            r = ref.suffix_prefill_attention_ref(
+                q.float(), k.float(), v.float(), ck.float(), cv.float(),
+                qpos, cpos, window=window)
+            torch.cuda.synchronize()
+            err = float((out[:, :n_q].float() - r[:, :n_q]).abs().max())
+            tol = _tol(dtype)
+            if not err <= tol:
+                raise AssertionError(f"flash_attention positions {note}: err "
+                                     f"{err} > {tol}")
+            if bool(out[:, n_q:].any()):
+                raise AssertionError(f"flash_attention positions {note}: a "
+                                     f"padded row is not zeros")
+            if note.startswith("main") and dtype == torch.bfloat16:
+                main_err = err
+            log(f"  flash_attention positions {note} (B={B} Sc={Sc} C={C} "
+                f"Hkv={Hkv} G={G} hd={hd} window={window} "
+                f"{str(dtype)[6:]}): max abs err {err:.3g} (tol {tol}); "
+                f"{Sc - n_q} padded rows exact zeros")
+    for dtype in (torch.float32, torch.bfloat16):
+        for S, n in ((8, 5), (16, 16), (32, 21), (64, 64), (256, 200)):
+            q, k, v = (torch.randn((1, S, 12, 10), generator=gen,
+                                   device=DEVICE).to(dtype) for _ in range(3))
+            pos = torch.full((1, S), -1, dtype=torch.int32, device=DEVICE)
+            pos[:, :n] = torch.arange(n, device=DEVICE)
+            empty = q.new_zeros((1, 0, 12, 10))
+            by_pos = ops.suffix_prefill_attention(q, k, v, empty, empty, pos,
+                                                  pos[:, :0])
+            by_index = ops.flash_attention(
+                q.transpose(1, 2), k.transpose(1, 2),
+                v.transpose(1, 2)).transpose(1, 2)
+            if not torch.equal(by_pos[:, :n], by_index[:, :n]):
+                raise AssertionError(f"flash_attention: the position route "
+                                     f"differs from the index route at S={S} "
+                                     f"{dtype}")
+    log("  flash_attention: index route == position route bit for bit at a "
+        "head chunk (Hkv 12, hd 10, S 8/16/32/64/256, fp32 and bf16)")
     return main_err
 
 
@@ -593,8 +700,177 @@ def futures_path() -> dict:
     return {"engine": eng, "seconds": sec, "events": events,
             "launches": counts, "stats": st, "unshared_blocks": unshared,
             "index_blocks_freed": freed, "params": params, "cfg": cfg,
-            "patients": patients,
+            "patients": patients, "calls": calls,
             "prompt_lengths": [len(t) for t, _ in patients]}
+
+
+# phase 3e: mixed long/short traffic (benchmarks/run.py's
+# bench_chunked_prefill at Delphi-2M's full width and max_seq_len)
+MIXED_SLOTS, MIXED_SHORT, MIXED_LONG = 12, 6, 6
+MIXED_S_LONG, MIXED_CHUNK, MIXED_BLOCKS = 200, 64, 192
+
+
+def mixed_requests():
+    """6 short requests (6-event prompts, 48 new events), then 6 long ones
+    (200-event prompts, 4 new events), generator-sampled."""
+    import numpy as np
+    from repro_torch.serve import Request
+    shorts = [Request(tokens=((np.arange(3, 9) + 7 * i) % 90).astype(np.int32),
+                      ages=np.linspace(0.0, 30.0, 6).astype(np.float32),
+                      max_new=48) for i in range(MIXED_SHORT)]
+    longs = [Request(
+        tokens=((np.arange(3, 3 + MIXED_S_LONG) + 11 * i) % 90).astype(
+            np.int32),
+        ages=np.linspace(0.0, 60.0, MIXED_S_LONG).astype(np.float32),
+        max_new=4) for i in range(MIXED_LONG)]
+    return shorts, longs
+
+
+def mixed_engine(params, cfg, chunk):
+    from repro_torch.serve import BatchedEngine
+    return BatchedEngine(params, cfg, slots=MIXED_SLOTS,
+                         max_context=cfg.max_seq_len, cache="paged",
+                         block_size=16, blocks=MIXED_BLOCKS,
+                         prefill_chunk_tokens=chunk, seed=SEED,
+                         device=DEVICE)
+
+
+def mixed_drive(eng) -> dict:
+    """The short requests first; one long request arrives every 8 steps
+    from step 3 while they decode.  Each short request's per-event latency
+    is the host time between the steps that gave it events, over the events
+    given.  Every request must finish, the pool must drain, and the step's
+    host copies must be one per tick and per admission batch."""
+    import numpy as np
+    import torch
+    shorts, longs = mixed_requests()
+    syncs0, ticks0, adm0 = eng.host_syncs, eng.ticks, eng.admit_batches
+    chunks0 = eng.prefill_chunks
+    for r in shorts:
+        eng.submit(r)
+    pending = list(longs)
+    lat, seen = [], [0] * len(shorts)
+    torch.cuda.synchronize()
+    now = time.perf_counter()
+    last = [now] * len(shorts)
+    step, t0 = 0, now
+    while not all(r.done for r in shorts + longs):
+        if pending and step % 8 == 3:
+            eng.submit(pending.pop(0))
+        eng.step()
+        step += 1
+        now = time.perf_counter()
+        for i, r in enumerate(shorts):
+            k = len(r.out_tokens)
+            if k > seen[i]:
+                lat.extend([(now - last[i]) / (k - seen[i])] * (k - seen[i]))
+                seen[i], last[i] = k, now
+        if step > 5000:
+            raise AssertionError("mixed traffic did not finish")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not all(r.error is None for r in shorts + longs):
+        raise AssertionError("a mixed-traffic request failed")
+    if eng.allocator.used or eng.pool._refs or eng._prefills:
+        raise AssertionError(f"mixed traffic: pool not drained "
+                             f"{eng.pool_stats()}")
+    ticks, adm = eng.ticks - ticks0, eng.admit_batches - adm0
+    if eng.host_syncs - syncs0 != ticks + adm:
+        raise AssertionError(f"mixed traffic: host_syncs "
+                             f"{eng.host_syncs - syncs0} != ticks {ticks} + "
+                             f"admission batches {adm}")
+    lat = np.asarray(lat)
+    events = sum(len(r.out_tokens) for r in shorts + longs)
+    return {"wall_s": wall, "events": events, "events_per_s": events / wall,
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p95_ms": float(np.percentile(lat, 95)) * 1e3,
+            "short_events": int(lat.size), "steps": step, "ticks": ticks,
+            "admit_batches": adm, "host_syncs": ticks + adm,
+            "chunks": eng.prefill_chunks - chunks0}
+
+
+def mixed_path() -> dict:
+    """Phase 3e: monolithic and chunked prefill (64 tokens a step) on one
+    model, a warm-up drive each, then timed drives in turns (monolithic,
+    chunked, chunked, monolithic).  Launch counts are zeroed just before
+    the first timed chunked drive and read just after it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    cfg = get_config("delphi-2m")
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    engs = {"monolithic": mixed_engine(params, cfg, None),
+            "chunked": mixed_engine(params, cfg, MIXED_CHUNK)}
+    for eng in engs.values():
+        mixed_drive(eng)                        # first use of these shapes
+    runs, counts = [], None
+    for mode in ("monolithic", "chunked", "chunked", "monolithic"):
+        torch.cuda.synchronize()
+        first_chunked = mode == "chunked" and counts is None
+        if first_chunked:
+            ops.reset_launch_counts()
+        r = mixed_drive(engs[mode])
+        if first_chunked:
+            counts = dict(ops.launch_counts(),
+                          flash_positions=fk.position_launches)
+            if (counts["flash_positions"] != 12 * r["chunks"]
+                    or counts["flash_attention"] != counts["flash_positions"]
+                    or counts["paged_decode_attention"] != 12 * r["ticks"]
+                    or counts["tte_sample"] == 0):
+                raise AssertionError(f"chunked drive: launches {counts}, "
+                                     f"{r['chunks']} chunks, {r['ticks']} "
+                                     f"ticks")
+        runs.append((mode, r))
+    ceng = engs["chunked"]
+    st = ceng.pool_stats()
+    if st["chunked_prefills"] != 3 * (MIXED_SHORT + MIXED_LONG):
+        raise AssertionError(f"chunked prefills {st['chunked_prefills']}")
+    return {"runs": runs, "launches": counts, "stats": st,
+            "chunk_shapes": sorted(ceng.prefill_shapes),
+            "monolithic_shapes": sorted(engs["monolithic"].prefill_shapes),
+            "engines": engs}
+
+
+def suffix_path(params, cfg) -> dict:
+    """Phase 3f: a prefix-cached chunked engine (64 tokens a step) serves a
+    200-event prompt, then a 240-event prompt that extends it: the second
+    shares the first's 12 full blocks by reference and prefills only its
+    48-token suffix, in one chunk."""
+    import numpy as np
+    from repro_torch.serve import BatchedEngine, Request
+    rng = np.random.default_rng(SEED + 31)
+    toks = rng.integers(3, cfg.vocab_size, 240).astype(np.int32)
+    ages = np.sort(rng.uniform(20, 70, 240)).astype(np.float32)
+    eng = BatchedEngine(params, cfg, slots=MIXED_SLOTS,
+                        max_context=cfg.max_seq_len, cache="paged",
+                        block_size=16, prefix_cache=True,
+                        prefill_chunk_tokens=MIXED_CHUNK, seed=SEED,
+                        device=DEVICE)
+    first = Request(tokens=toks[:200], ages=ages[:200], max_new=8)
+    eng.submit(first)
+    eng.run()
+    chunks0 = eng.prefill_chunks
+    second = Request(tokens=toks, ages=ages, max_new=8)
+    eng.submit(second)
+    eng.run()
+    st = eng.pool_stats()
+    matched = (200 // 16) * 16
+    if not (first.done and second.done and first.error is None
+            and second.error is None):
+        raise AssertionError("phase 3f: a request failed")
+    if (st["suffix_tokens_saved"] != matched
+            or st["prefix_cache"]["partial_hits"] != 1
+            or eng.prefill_chunks - chunks0 != 1
+            or eng.host_syncs != eng.ticks + eng.admit_batches):
+        raise AssertionError(f"phase 3f: {st}")
+    eng.drop_prefix_cache()
+    if eng.allocator.used or eng.pool._refs:
+        raise AssertionError("phase 3f: leaked blocks")
+    return {"stats": st, "matched": matched,
+            "suffix_chunks": eng.prefill_chunks - chunks0,
+            "shapes": sorted(eng.prefill_shapes)}
 
 
 def parity() -> dict:
@@ -724,6 +1000,168 @@ def paged_parity() -> dict:
         out[dt] = {"requests": len(prompts), "events": ev,
                    "futures_events": fev}
     return out
+
+
+def chunked_parity() -> dict:
+    """On the card with injected uniforms, full-width Delphi-2M in fp32 and
+    in bf16, each request alone on a fresh paged engine (16-token blocks,
+    max_context 256) and held bit for bit against the port's
+    ``chunked_reference_trajectory``: the unchunked engine against the
+    oracle at an unbounded budget (the engine == straight-line oracle gate
+    of the paged engine), the chunked engine at one block and at 64 tokens
+    against the oracle at that budget, a partial prefix hit (a 160-event
+    registrant, then its 200-event extension) against the oracle with
+    ``matched_tokens``; ``sample_futures`` from a parent prefilled in one
+    chunk against the unchunked engine's, and from one prefilled in 7
+    chunks against the oracle on each future's uniforms (a multi-chunk
+    prefill is not bit-equal to the monolithic one: its softmax runs over
+    other key widths)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import (BatchedEngine, Request,
+                                   chunked_reference_trajectory)
+    base = get_config("delphi-2m")
+    W, V, max_new = base.max_seq_len, base.vocab_size, 24
+    rng = np.random.default_rng(SEED + 29)
+    prompts = [(rng.integers(3, V, S).astype(np.int32),
+                np.sort(rng.uniform(20, 70, S)).astype(np.float32))
+               for S in (5, 21, 100, 200)]
+    us = [rng.random((max_new, V), dtype=np.float32) for _ in prompts]
+    fut_u = rng.random((4, max_new, V), dtype=np.float32)
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = base.replace(dtype=dt)
+        params = init_params(cfg, seed=SEED + 1, device=DEVICE)
+
+        def engine(**kw):
+            return BatchedEngine(params, cfg, slots=4, max_context=W,
+                                 cache="paged", block_size=16, device=DEVICE,
+                                 **kw)
+
+        def serve(eng, toks, ages, u):
+            r = Request(tokens=toks, ages=ages, max_new=max_new, uniforms=u)
+            eng.submit(r)
+            eng.run()
+            leaked = eng.prefix is None and eng.allocator.used
+            if r.error is not None or leaked:
+                raise AssertionError(f"{dt}: a request failed or leaked")
+            return (r.out_tokens, r.out_ages)
+
+        def oracle(toks, ages, u, chunk, matched=0):
+            return chunked_reference_trajectory(
+                params, cfg, toks, ages, max_new=max_new, uniforms=u,
+                chunk_tokens=chunk, matched_tokens=matched, slots=4,
+                max_context=W, block_size=16, device=DEVICE)
+        checks = 0
+        for (toks, ages), u in zip(prompts, us):
+            S = len(toks)
+            if serve(engine(), toks, ages, u) != oracle(toks, ages, u, W):
+                raise AssertionError(f"{dt} S={S}: the paged engine != "
+                                     f"chunked_reference_trajectory")
+            for budget in (16, 64):
+                got = serve(engine(prefill_chunk_tokens=budget), toks, ages,
+                            u)
+                if got != oracle(toks, ages, u, budget):
+                    raise AssertionError(f"{dt} S={S}: the chunked engine "
+                                         f"({budget}) != the oracle")
+            checks += 3
+        toks, ages = prompts[-1]
+        eng = engine(prefix_cache=True, prefill_chunk_tokens=64)
+        serve(eng, toks[:160], ages[:160], us[0])
+        got = serve(eng, toks, ages, us[-1])
+        if eng.pool_stats()["suffix_tokens_saved"] != 160 or \
+                got != oracle(toks, ages, us[-1], 64, matched=160):
+            raise AssertionError(f"{dt}: the partial hit != the oracle with "
+                                 f"matched_tokens=160 "
+                                 f"({eng.pool_stats()['suffix_tokens_saved']}"
+                                 f" tokens saved)")
+        def futures(ftoks, fages, **kw):
+            feng = engine(**kw)
+            kids = feng.sample_futures(ftoks, fages, n=4, max_new=max_new,
+                                       uniforms=fut_u)
+            if feng.allocator.used or feng.pool_stats()["chunked_prefills"] \
+                    != (1 if kw else 0):
+                raise AssertionError(f"{dt}: fork: {feng.pool_stats()}")
+            return [(k.out_tokens, k.out_ages) for k in kids]
+        # a parent prefilled in one chunk (64 >= 21 events): the unchunked
+        # fork's bits; one prefilled in 7 chunks (16 a step, 100 events):
+        # each future == the oracle on its uniforms
+        ftoks, fages = prompts[1]
+        if futures(ftoks, fages, prefill_chunk_tokens=64) != \
+                futures(ftoks, fages):
+            raise AssertionError(f"{dt}: the fork from a one-chunk parent "
+                                 f"!= the unchunked fork")
+        ftoks, fages = prompts[2]
+        want = [oracle(ftoks, fages, fut_u[j], 16) for j in range(4)]
+        if futures(ftoks, fages, prefill_chunk_tokens=16) != want:
+            raise AssertionError(f"{dt}: the fork from a 7-chunk parent != "
+                                 f"the oracle per future")
+        log(f"  {dt}: unchunked paged == chunked_reference_trajectory "
+            f"(unbounded budget) and chunked (16, 64) == the oracle, bit for "
+            f"bit, at prompts of {[len(t) for t, _ in prompts]} events; "
+            f"partial hit (160 of 200 matched) == the oracle; 4 futures "
+            f"forked from a parent prefilled in one chunk == the unchunked "
+            f"fork, and from one prefilled in 7 chunks == the oracle per "
+            f"future")
+        out[dt] = {"checks": checks + 3, "prompt_lengths":
+                   [len(t) for t, _ in prompts]}
+    return out
+
+
+def risk_checks(fut: dict) -> dict:
+    """Risk on the card: ``monte_carlo_risk`` over phase 3d's first 16
+    futures (patient 0) equals the host-side ``futures_risk_items`` and
+    ``futures_chapter_risk`` on the same futures exactly; analytic
+    next-event risk from the card's logits on the 4 patients' histories,
+    on the card and on the CPU, within 1e-6 (fp32 logsumexp, softmax and
+    exp in two libraries; the port-vs-JAX difference on the CPU was below
+    2.4e-7)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import risk
+    from repro_torch.models import forward
+    params, cfg = fut["params"], fut["cfg"]
+    V = cfg.vocab_size
+    toks, ages = fut["patients"][0]
+    kids = fut["calls"][0]
+    futs = [(k.out_tokens, k.out_ages) for k in kids]
+    packed = risk.pack_futures_trajectories(toks, ages, futs,
+                                            max_new=FUTURES_MAX_NEW,
+                                            device=DEVICE)
+    mc = risk.monte_carlo_risk(
+        params, cfg, torch.as_tensor(toks, device=DEVICE),
+        torch.as_tensor(np.asarray(ages, np.float32), device=DEVICE),
+        horizon=5.0, chapter_of=risk.disease_chapter_map(V, DEVICE),
+        trajectories=packed)
+    age0 = float(np.float32(ages[-1]))
+    items = dict(risk.futures_risk_items(futs, age0, 5.0, V, top=V))
+    want = np.asarray([items[i] for i in range(V)], np.float32)
+    chap = risk.futures_chapter_risk(futs, age0, 5.0, V).astype(np.float32)
+    if not (np.array_equal(mc["code_risk"].cpu().numpy(), want)
+            and np.array_equal(mc["chapter_risk"].cpu().numpy(), chap)):
+        raise AssertionError("monte_carlo_risk on the card != the host "
+                             "aggregation of the same futures")
+    lgs = []
+    for t, a in fut["patients"]:
+        o = forward(params, cfg, {
+            "tokens": torch.as_tensor(t[None], device=DEVICE),
+            "ages": torch.as_tensor(np.asarray(a, np.float32)[None],
+                                    device=DEVICE)}, mode="prefill")
+        lgs.append(o["logits"][:, 0].float())
+    lg = torch.cat(lgs)
+    card = risk.analytic_next_event_risk(lg, 5.0)
+    cpu = risk.analytic_next_event_risk(lg.cpu(), 5.0)
+    err = float((card.cpu() - cpu).abs().max())
+    if not (err <= 1e-6 and bool(torch.isfinite(card).all())):
+        raise AssertionError(f"analytic risk card vs CPU: err {err} > 1e-6")
+    top = mc["code_risk"].argsort(descending=True)[:3].tolist()
+    log(f"  monte_carlo_risk over phase 3d's 16 futures of patient 0 == the "
+        f"host aggregation (codes and chapters, exactly); death risk "
+        f"{float(mc['death_risk']):.4f}, top codes {top}; analytic risk "
+        f"card vs CPU on {lg.shape[0]} patients: max abs err {err:.3g} "
+        f"(tol 1e-6)")
+    return {"death_risk": float(mc["death_risk"]), "analytic_err": err}
 
 
 def mamba_config():
@@ -988,6 +1426,56 @@ def flash_row(gen, nb: int, H: int, sb: int, hd: int) -> dict:
         "bound_ms": b_ms, "bound_by": b_by}
 
 
+def flash_pos_row(gen, B: int = 1, Sc: int = 64, C: int = 128, H: int = 12,
+                  hd: int = 10) -> dict:
+    """``flash_attention`` with position masks at phase 3e's chunk: B 1, 64
+    queries at positions 128..191 over 128 context keys and the chunk's 64
+    (192 keys), 12 heads, hd 10, bf16, on the concatenated K/V that
+    ``ops.suffix_prefill_attention`` hands the kernel.  The bound counts
+    q, k, v and the output once, both position arrays, and the products of
+    the valid (query, key) pairs only (each query sees the context and the
+    chunk up to itself).  The plain version is
+    ``ref.flash_attention_ref`` with the positions; the library call builds
+    the boolean mask from the positions and runs SDPA with it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ref
+    T = C + Sc
+    q = torch.randn((B, Sc, H, hd), generator=gen, device=DEVICE
+                    ).to(torch.bfloat16).transpose(1, 2)
+    k, v = (torch.randn((B, T, H, hd), generator=gen, device=DEVICE
+                        ).to(torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    kpos = torch.arange(T, dtype=torch.int32, device=DEVICE)[None].expand(
+        B, T).contiguous()
+    qpos = kpos[:, C:].contiguous()
+    pairs = B * sum(C + i + 1 for i in range(Sc))
+    nbytes = 2 * (2 * B * H * Sc * hd + 2 * B * H * T * hd) + 4 * B * (Sc + T)
+    b_ms, b_by = bound(nbytes, 4 * H * hd * pairs, "bfloat16")
+
+    def library():
+        m = (kpos[:, None, :] <= qpos[:, :, None]) & (kpos[:, None, :] >= 0)
+        return F.scaled_dot_product_attention(q, k, v,
+                                              attn_mask=m[:, None])
+    out = fk.flash_attention_cuda(q, k, v, q_pos=qpos, k_pos=kpos)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   q_pos=qpos, k_pos=kpos)
+    torch.cuda.synchronize()
+    err = float((out.float() - want).abs().max())
+    if not err <= 2e-2:
+        raise AssertionError(f"flash_attention positions row: err {err}")
+    return {
+        "shape": f"B={B} H={H} Sc={Sc} keys={C}+{Sc} hd={hd} bf16, by "
+                 f"position, {pairs} valid pairs a head",
+        "kernel": measure(lambda: fk.flash_attention_cuda(
+            q, k, v, q_pos=qpos, k_pos=kpos)),
+        "plain": measure(lambda: ref.flash_attention_ref(
+            q, k, v, q_pos=qpos, k_pos=kpos)),
+        "library": measure(library), "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": err}
+
+
 def paged_row(gen, kl, vl, pos, step, note: str) -> dict:
     """``paged_decode_attention`` on one layer's ring viewed as a pool of
     one block per slot, against its plain version and SDPA with a mask.
@@ -1128,6 +1616,8 @@ def times(main: dict, mamba: dict, gen) -> dict:
 
     # the longest prefill bucket the engine admits at max_context 256
     res["flash_attention S=256"] = flash_row(gen, 4, H, eng.max_context, hd)
+    # the position-masked route at phase 3e's chunk
+    res["flash_attention positions"] = flash_pos_row(gen, H=H, hd=hd)
     # a full ring: every slot holds W valid positions (a long history
     # decoding near max_context), on the same K/V
     W = kl.shape[2]
@@ -1254,6 +1744,7 @@ def main() -> int:
     gen.manual_seed(SEED)
     log("== phase 2: kernels against their plain versions on the card")
     errs = {"tte_sample": check_tte(gen), "flash_attention": check_flash(gen),
+            "flash_attention positions": check_flash_positions(gen),
             "paged_decode_attention": check_paged(gen),
             "ssd_intra": check_ssd(gen)}
 
@@ -1315,6 +1806,39 @@ def main() -> int:
         f"{sorted(feng.prefill_shapes)}; launches {fut['launches']}; no "
         f"block or refcount left after drop_prefix_cache()")
 
+    log(f"== phase 3e: mixed long/short traffic (Delphi-2M bf16, paged "
+        f"BatchedEngine, {MIXED_SLOTS} slots, max_context 256, 16-token "
+        f"blocks, {MIXED_BLOCKS} blocks): {MIXED_SHORT} short requests "
+        f"(6-event prompts, 48 new) and {MIXED_LONG} long ones "
+        f"({MIXED_S_LONG}-event prompts, 4 new), one long every 8 steps from "
+        f"step 3; monolithic and chunked ({MIXED_CHUNK} tokens a step) in "
+        f"turns")
+    mixed = mixed_path()
+    for mode, r in mixed["runs"]:
+        log(f"  {mode}: {r['events']} events in {r['wall_s']:.3f}s: "
+            f"{r['events_per_s']:.1f} events/s; short requests' per-event "
+            f"latency p50 {r['p50_ms']:.3f} ms, p95 {r['p95_ms']:.3f} ms "
+            f"({r['short_events']} events); {r['ticks']} ticks, "
+            f"{r['admit_batches']} admission batches, host_syncs "
+            f"{r['host_syncs']} (= ticks + admission batches); chunks "
+            f"{r['chunks']}; pool drained")
+    mst = mixed["stats"]
+    log(f"  chunked engine over its 3 drives: chunked_prefills "
+        f"{mst['chunked_prefills']}, prefill_chunks {mst['prefill_chunks']}, "
+        f"chunk shapes (kind, context blocks, width) "
+        f"{mixed['chunk_shapes']}; monolithic prefill shapes "
+        f"{mixed['monolithic_shapes']}; launches of the first timed chunked "
+        f"drive {mixed['launches']}")
+
+    log("== phase 3f: partial-hit suffix prefill (prefix-cached chunked "
+        "engine): a 200-event prompt, then a 240-event prompt extending it")
+    sfx = suffix_path(fut["params"], fut["cfg"])
+    log(f"  suffix_tokens_saved {sfx['stats']['suffix_tokens_saved']} (the "
+        f"matched block-aligned prefix: {sfx['matched']}), the suffix in "
+        f"{sfx['suffix_chunks']} chunk; prefix partial hits "
+        f"{sfx['stats']['prefix_cache']['partial_hits']}; shapes "
+        f"{sfx['shapes']}; no block left after drop_prefix_cache()")
+
     log("== phase 3b: Mamba2 path (Mamba2-780M bf16, BatchedEngine, 8 "
         "slots)")
     mamba = mamba_path()
@@ -1331,6 +1855,11 @@ def main() -> int:
     log("== phase 4 (paged): ring == paged and fork == oracle on the card, "
         "injected uniforms")
     ppar = paged_parity()
+    log("== phase 4 (chunked): the paged engine == chunked_reference_"
+        "trajectory on the card, injected uniforms")
+    cpar = chunked_parity()
+    log("== phase 4 (risk): risk on the card")
+    rsk = risk_checks(fut)
 
     log("== phase 5: times at the main paths' shapes")
     tm = times(main_res, mamba, gen)
@@ -1373,8 +1902,15 @@ def main() -> int:
     mprof = path_profile(
         lambda: mamba_serve(mamba["params"], mamba["cfg"], mamba["prompts"],
                             MAMBA_MAX_NEW)[2], msec)
+    xwall = {m: r["wall_s"] for m, r in mixed["runs"]}
+    xprof = {m: path_profile(
+        lambda m=m: mixed_drive(mixed["engines"][m])["wall_s"], xwall[m])
+        for m in ("monolithic", "chunked")}
     for name, p, ph in (("Delphi", prof, "3"), ("paged Delphi", pprof, "3c"),
-                        ("futures", fprof, "3d"), ("Mamba2", mprof, "3b")):
+                        ("futures", fprof, "3d"),
+                        ("mixed monolithic", xprof["monolithic"], "3e"),
+                        ("mixed chunked", xprof["chunked"], "3e"),
+                        ("Mamba2", mprof, "3b")):
         idle = ("not measured" if p["idle_share"] is None
                 else f"{p['idle_share']:.3f}")
         log(f"  {name} path: device busy {p['device_busy_s']:.4f}s of "
@@ -1410,6 +1946,18 @@ def main() -> int:
         "bound_by": rows[name]["bound_by"],
         "library_ms": ms(rows[name]["library"]),
         "call_ms": rows[name]["kernel"]["call_ms"]} for name in REPLACES]
+    # the flash kernel's position-masked route, on the chunked path (3e)
+    prow = rows["flash_attention positions"]
+    kernels.append({
+        "name": "flash_attention positions", "route": "cuda",
+        "source": SOURCES["flash_attention"],
+        "replaces": REPLACES["flash_attention"],
+        "launches": mixed["launches"]["flash_positions"], "path": "3e",
+        "max_abs_err": errs["flash_attention positions"],
+        "ms": ms(prow["kernel"]), "plain_ms": ms(prow["plain"]),
+        "bound_ms": prow["bound_ms"], "bound_by": prow["bound_by"],
+        "library_ms": ms(prow["library"]),
+        "call_ms": prow["kernel"]["call_ms"]})
     record = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_seconds": build.last_build.get("seconds"),
@@ -1435,7 +1983,13 @@ def main() -> int:
                          "launches": fut["launches"], "pool": fst,
                          "unshared_prompt_blocks": fut["unshared_blocks"],
                          "index_blocks_freed": fut["index_blocks_freed"]},
-        "paged_parity": ppar,
+        "paged_parity": ppar, "chunked_parity": cpar, "risk": rsk,
+        "mixed_path": {"runs": mixed["runs"], "launches": mixed["launches"],
+                       "pool": mst, "chunk_shapes": mixed["chunk_shapes"],
+                       "monolithic_shapes": mixed["monolithic_shapes"],
+                       "profiles": xprof},
+        "suffix_path": {"pool": sfx["stats"], "matched": sfx["matched"],
+                        "suffix_chunks": sfx["suffix_chunks"]},
         "main_path": {"requests": len(main_res["done"]),
                       "events": main_res["events"], "seconds": sec,
                       "ticks": eng.ticks, "admit_batches": eng.admit_batches,

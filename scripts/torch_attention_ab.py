@@ -24,8 +24,11 @@ same seeded inputs:
 Device time per call comes from ``torch.profiler`` and per-call time from
 CUDA events, both as ``chip_smoke.py`` measures them; the host's time per
 call (``host_ms``: the wrapper's Python and the launch, on the host clock
-over 2,000 calls with no synchronise inside) is timed beside them.  Prints
-one table and one JSON line; with ``--out`` the JSON also goes to FILE.
+over 2,000 calls with no synchronise inside) is timed beside them.  Each
+worker also hashes the flash kernel's outputs (index masks, no positions)
+on seeded inputs at ``chip_smoke.py``'s FLASH_CASES, and the script says
+whether the two trees' outputs are equal bit for bit.  Prints one table
+and one JSON line; with ``--out`` the JSON also goes to FILE.
 """
 from __future__ import annotations
 
@@ -111,7 +114,29 @@ def worker(tree: str) -> dict:
     z = torch.zeros(1, device="cuda")
     res["launch floor"] = timed(cs, lambda: z.zero_())
     return {"tree": os.path.abspath(tree), "card": cs.nvidia_smi(),
-            "times": res}
+            "times": res, "flash_digests": flash_digests(cs, fk)}
+
+
+def flash_digests(cs, fk) -> list:
+    """sha256 of the flash kernel's output bytes at each of FLASH_CASES,
+    on inputs drawn from a generator seeded per case."""
+    import hashlib
+
+    import torch
+    out = []
+    for i, (B, Hq, Hkv, S, hd, window, causal, dt, _note) in enumerate(
+            cs.FLASH_CASES):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1000 + i)
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn((B, S, h, hd), generator=gen, device="cuda"
+                               ).to(dtype).transpose(1, 2)
+                   for h in (Hq, Hkv, Hkv))
+        o = fk.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        raw = o.contiguous().view(torch.int16 if dt == "bfloat16"
+                                  else torch.int32)
+        out.append(hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest())
+    return out
 
 
 def main() -> int:
@@ -149,7 +174,10 @@ def main() -> int:
                 "not measured" if m[key] is None else f"{m[key]:.5f}"
                 for key in ("device_ms", "call_ms", "host_ms")))
         print(f"{name:24s}" + "".join(f"{c:>40s}" for c in cells))
-    record = {"runs": runs}
+    equal = all(r["flash_digests"] == runs[0]["flash_digests"] for r in runs)
+    print(f"flash outputs at {len(runs[0]['flash_digests'])} cases bit-equal "
+          f"across the trees: {equal}")
+    record = {"runs": runs, "flash_bit_equal": equal}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -121,8 +121,8 @@ def library() -> ctypes.CDLL:
     lib.tte_sample_plan.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
     lib.tte_sample_plan.restype = _I
     lib.flash_attention_launch.argtypes = [
-        _I, _P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _I, _F,
-        _I, _I, _P]
+        _I, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _I,
+        _I, _F, _I, _I, _P]
     lib.flash_attention_launch.restype = _I
     lib.paged_decode_launch.argtypes = [
         _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]

@@ -33,6 +33,20 @@
 // its fp32 accumulator and its (m, l) in registers, the K/V tile staged in
 // shared memory as fp32 and read by all 64 threads as broadcasts.
 //
+// Position masks (both routes, a template flag, so that the index route's
+// code is unchanged): with q_pos (B, S) and k_pos (B, T) int32, key j is
+// valid for query i iff k_pos[j] >= 0, q_pos[i] >= 0 and, when causal,
+// k_pos[j] <= q_pos[i] and q_pos[i] - k_pos[j] < window.  This is the
+// suffix prefill of chunked admission (replacing the JAX package's
+// kernels/ops.py:86 suffix_prefill_attention, whose jnp route has no Pallas
+// body): the chunk's queries over the gathered context plus the chunk.  A
+// key's position comes from shared memory, staged with its K/V row; no key
+// tile is skipped (index skipping is unsound when a key's index is not its
+// position), and a key that the mask drops adds an exact 0 to the sums, so
+// a chunk at the prompt head with no context gives the index route's bits.
+// A query row with no valid key (q_pos -1: a chunk's padded tail) writes
+// zeros.
+//
 // Bound on the card: at Delphi-2M's prefill shapes (hd = 10, S <= 256) the
 // work is tiny (B 16, H 12, S 32: 0.5 MB, 0.15 us at 3.35 TB/s) and a call
 // is its launch plus a chain of dependent steps in one warp: the staging
@@ -110,11 +124,24 @@ __device__ __forceinline__ void stage_kv(__nv_bfloat16* k_s, __nv_bfloat16* v_s,
     stage_kv_pieces<LDS, 0>(k_s, v_s, kp, vp, krs, vrs, k0, n, T, hd);
 }
 
-template <int HDP>
+// stage the positions of keys [k0, k0 + n) into kp_s (-1 past T)
+__device__ __forceinline__ void stage_pos(int* kp_s, const int* kp, int k0, int n, int T) {
+  for (int r = threadIdx.x; r < n; r += blockDim.x) kp_s[r] = k0 + r < T ? kp[k0 + r] : -1;
+}
+
+// key at position kp valid for a query at position qp (position masks)
+__device__ __forceinline__ bool pos_valid(int qp, int kp, int causal, int window) {
+  bool ok = (kp >= 0) & (qp >= 0);
+  if (causal) ok = ok & (kp <= qp) & ((window <= 0) | (qp - kp < window));
+  return ok;
+}
+
+template <int HDP, bool POS>
 __global__ void __launch_bounds__(FM_MAX_WARPS * 32)
     flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                const __nv_bfloat16* __restrict__ k,
                                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                               const int* __restrict__ qpos, const int* __restrict__ kpos,
                                Strides sq, Strides sk, Strides sv, Strides so, int G, int S, int T,
                                int hd, float scale, int causal, int window, int cpb) {
   constexpr int LDS = HDP + 8;  // row stride: ldmatrix's 8 rows on 8 bank groups
@@ -126,6 +153,7 @@ __global__ void __launch_bounds__(FM_MAX_WARPS * 32)
   constexpr int BKS = HDP <= 32 ? 256 : HDP == 64 ? 128 : 64;
   __shared__ __align__(16) __nv_bfloat16 k_s[BKS * LDS];
   __shared__ __align__(16) __nv_bfloat16 v_s[BKS * LDS];
+  __shared__ int kp_s[POS ? BKS : 1];  // the staged keys' positions
 
   const int nw = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -140,7 +168,7 @@ __global__ void __launch_bounds__(FM_MAX_WARPS * 32)
 
   // keys the block stages: [kb, ke16); the warp's rows see keys [wlo, whi)
   int kb = 0, ke = T, wlo = 0, whi = T;
-  if (causal) {
+  if (causal && !POS) {
     ke = min(T, q0 + nw * 16);
     whi = min(T, r0 + 16);
     if (window > 0) {
@@ -154,6 +182,7 @@ __global__ void __launch_bounds__(FM_MAX_WARPS * 32)
   const __nv_bfloat16* kp = k + b * sk.b + hk * sk.h;
   const __nv_bfloat16* vp = v + b * sv.b + hk * sv.h;
   stage_kv<LDS>(k_s, v_s, kp, vp, sk.s, sv.s, kb, min(BKS, ke16 - kb), T, hd, cpb);
+  if constexpr (POS) stage_pos(kp_s, kpos + (long long)b * T, kb, min(BKS, ke16 - kb), T);
 
   // K's columns past hd hold whatever shared memory held (cp.async writes
   // only the first hd): their B fragments are masked to zeros in registers,
@@ -169,13 +198,15 @@ __global__ void __launch_bounds__(FM_MAX_WARPS * 32)
       kmask[kc][hf] = (d < hd ? 0xffffu : 0u) | (d + 1 < hd ? 0xffff0000u : 0u);
     }
   const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units: p = 2^(s - m)
-  // the keys rows r0 + gr and r0 + gr + 8 see: [klo, khi)
-  int klo[2], khi[2];
+  // the keys rows r0 + gr and r0 + gr + 8 see: [klo, khi) by index, or
+  // by position against the rows' positions qp (-1 past S)
+  int klo[2], khi[2], qp[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + gr + 8 * i;
     khi[i] = causal ? min(T, row + 1) : T;
     klo[i] = causal && window > 0 ? row - window + 1 : 0;
+    if constexpr (POS) qp[i] = row < S ? qpos[(long long)b * S + row] : -1;
   }
 
   // Q as A fragments, rows r0 + gr and r0 + gr + 8, zeros past S and hd
@@ -206,7 +237,10 @@ __global__ void __launch_bounds__(FM_MAX_WARPS * 32)
 
   for (int k0 = kb; k0 < ke16; k0 += BKS) {
     const int n = min(BKS, ke16 - k0);
-    if (k0 != kb) stage_kv<LDS>(k_s, v_s, kp, vp, sk.s, sv.s, k0, n, T, hd, cpb);
+    if (k0 != kb) {
+      stage_kv<LDS>(k_s, v_s, kp, vp, sk.s, sv.s, k0, n, T, hd, cpb);
+      if constexpr (POS) stage_pos(kp_s, kpos + (long long)b * T, k0, n, T);
+    }
     cp_async_wait_all();
     __syncthreads();
 
@@ -253,7 +287,12 @@ __global__ void __launch_bounds__(FM_MAX_WARPS * 32)
           for (int e = 0; e < 4; ++e) {
             const int key = ks + 8 * t + 2 * tq + (e & 1);
             const int i = e >> 1;
-            const float x = (key >= klo[i]) & (key < khi[i]) ? sc[j][t][e] * sl2 : -INFINITY;
+            bool ok;
+            if constexpr (POS)
+              ok = pos_valid(qp[i], kp_s[key - k0], causal, window);
+            else
+              ok = (key >= klo[i]) & (key < khi[i]);
+            const float x = ok ? sc[j][t][e] * sl2 : -INFINITY;
             sc[j][t][e] = x;
             mx[i] = fmaxf(mx[i], x);
           }
@@ -336,15 +375,24 @@ static int copy_bytes(const void* p, const Strides& st, int hd) {
 
 template <int HDP>
 static int launch_flash_mma(const void* q, const void* k, const void* v, void* o,
-                            const Strides* st, int B, int Hq, int G, int S, int T, int hd,
-                            float scale, int causal, int window, cudaStream_t stream) {
+                            const int* qpos, const int* kpos, const Strides* st, int B, int Hq,
+                            int G, int S, int T, int hd, float scale, int causal, int window,
+                            cudaStream_t stream) {
   const int nw = std::min(FM_MAX_WARPS, (S + 15) / 16);
   const dim3 grid((S + 16 * nw - 1) / (16 * nw), Hq, B);
   const int cpb = std::min(copy_bytes(k, st[1], hd), copy_bytes(v, st[2], hd));
-  flash_attention_mma_kernel<HDP><<<grid, 32 * nw, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), st[0], st[1], st[2],
-      st[3], G, S, T, hd, scale, causal, window, cpb);
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kb = static_cast<const __nv_bfloat16*>(k);
+  const auto* vb = static_cast<const __nv_bfloat16*>(v);
+  auto* ob = static_cast<__nv_bfloat16*>(o);
+  if (qpos)
+    flash_attention_mma_kernel<HDP, true><<<grid, 32 * nw, 0, stream>>>(
+        qb, kb, vb, ob, qpos, kpos, st[0], st[1], st[2], st[3], G, S, T, hd, scale, causal,
+        window, cpb);
+  else
+    flash_attention_mma_kernel<HDP, false><<<grid, 32 * nw, 0, stream>>>(
+        qb, kb, vb, ob, nullptr, nullptr, st[0], st[1], st[2], st[3], G, S, T, hd, scale, causal,
+        window, cpb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -352,14 +400,16 @@ static int launch_flash_mma(const void* q, const void* k, const void* v, void* o
 // CUDA-core route: fp32.
 // ---------------------------------------------------------------------------
 
-template <int HDP, int BK>
+template <int HDP, int BK, bool POS>
 __global__ void __launch_bounds__(FA_BQ)
     flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ o, Strides sq,
-                           Strides sk, Strides sv, Strides so, int G, int S, int T, int hd,
-                           float scale, int causal, int window) {
+                           const float* __restrict__ v, float* __restrict__ o,
+                           const int* __restrict__ qpos, const int* __restrict__ kpos,
+                           Strides sq, Strides sk, Strides sv, Strides so, int G, int S, int T,
+                           int hd, float scale, int causal, int window) {
   __shared__ float k_s[BK][HDP];
   __shared__ float v_s[BK][HDP];
+  __shared__ int kp_s[POS ? BK : 1];
   const int q0 = blockIdx.x * FA_BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -376,10 +426,13 @@ __global__ void __launch_bounds__(FA_BQ)
     acc[d] = 0.f;
   }
 
+  const int qp = POS && row_ok ? qpos[(long long)b * S + row] : -1;
+
   // key range this query tile can see; whole tiles outside it are skipped
+  // (by index: with positions every tile is visited)
   int k_begin = 0;
   int k_end = T;
-  if (causal) {
+  if (causal && !POS) {
     k_end = min(T, q0 + FA_BQ);
     if (window > 0) k_begin = max(0, q0 - window + 1);
   }
@@ -398,6 +451,7 @@ __global__ void __launch_bounds__(FA_BQ)
       k_s[j][d] = ok ? k[kb + (long long)kj * sk.s + d] : 0.f;
       v_s[j][d] = ok ? v[vb + (long long)kj * sv.s + d] : 0.f;
     }
+    if constexpr (POS) stage_pos(kp_s, kpos + (long long)b * T, k0, BK, T);
     __syncthreads();
 
     float s[BK];
@@ -406,7 +460,9 @@ __global__ void __launch_bounds__(FA_BQ)
     for (int j = 0; j < BK; ++j) {
       const int kj = k0 + j;
       bool valid = kj < T;
-      if (causal) {
+      if constexpr (POS) {
+        valid = pos_valid(qp, kp_s[j], causal, window);
+      } else if (causal) {
         const int rel = row - kj;
         valid = valid && rel >= 0 && (window <= 0 || rel < window);
       }
@@ -445,52 +501,69 @@ __global__ void __launch_bounds__(FA_BQ)
 }
 
 template <int HDP, int BK>
-static int launch_flash(const void* q, const void* k, const void* v, void* o, const Strides* st,
-                        int B, int Hq, int G, int S, int T, int hd, float scale, int causal,
-                        int window, cudaStream_t stream) {
+static int launch_flash(const void* q, const void* k, const void* v, void* o, const int* qpos,
+                        const int* kpos, const Strides* st, int B, int Hq, int G, int S, int T,
+                        int hd, float scale, int causal, int window, cudaStream_t stream) {
   const dim3 grid((S + FA_BQ - 1) / FA_BQ, Hq, B);
-  flash_attention_kernel<HDP, BK><<<grid, FA_BQ, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), st[0], st[1], st[2], st[3], G, S, T, hd, scale, causal, window);
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  auto* of = static_cast<float*>(o);
+  if (qpos)
+    flash_attention_kernel<HDP, BK, true><<<grid, FA_BQ, 0, stream>>>(
+        qf, kf, vf, of, qpos, kpos, st[0], st[1], st[2], st[3], G, S, T, hd, scale, causal,
+        window);
+  else
+    flash_attention_kernel<HDP, BK, false><<<grid, FA_BQ, 0, stream>>>(
+        qf, kf, vf, of, nullptr, nullptr, st[0], st[1], st[2], st[3], G, S, T, hd, scale, causal,
+        window);
   return static_cast<int>(cudaGetLastError());
 }
 
 // q: (B, Hq, S, hd), k/v: (B, Hkv, T, hd), o: (B, Hq, S, hd), all of one
 // dtype (REPRO_F32 or REPRO_BF16), any batch/head/row strides with unit
 // stride along hd.  strides: 12 element strides (b, h, s) of q, k, v, o.
-// window <= 0 means no sliding window.  Returns cudaGetLastError().
+// window <= 0 means no sliding window.  qpos (B, S) and kpos (B, T):
+// contiguous int32 positions (-1 = invalid) that mask by position, or both
+// null to mask by index.  Returns cudaGetLastError().
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k, const void* v,
-                                      void* o, const long long* strides, int B, int Hq,
-                                      int Hkv, int S, int T, int hd, float scale, int causal,
-                                      int window, void* stream) {
+                                      void* o, const int* qpos, const int* kpos,
+                                      const long long* strides, int B, int Hq, int Hkv, int S,
+                                      int T, int hd, float scale, int causal, int window,
+                                      void* stream) {
   if (B == 0 || S == 0) return 0;
   if (dtype != REPRO_F32 && dtype != REPRO_BF16) return static_cast<int>(cudaErrorInvalidValue);
+  if ((qpos == nullptr) != (kpos == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   Strides st[4];
   for (int i = 0; i < 4; ++i) st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const int G = Hq / Hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == REPRO_BF16) {
     if (hd <= 16)
-      return launch_flash_mma<16>(q, k, v, o, st, B, Hq, G, S, T, hd, scale, causal, window, s);
+      return launch_flash_mma<16>(q, k, v, o, qpos, kpos, st, B, Hq, G, S, T, hd, scale, causal,
+                                  window, s);
     if (hd <= 32)
-      return launch_flash_mma<32>(q, k, v, o, st, B, Hq, G, S, T, hd, scale, causal, window, s);
+      return launch_flash_mma<32>(q, k, v, o, qpos, kpos, st, B, Hq, G, S, T, hd, scale, causal,
+                                  window, s);
     if (hd <= 64)
-      return launch_flash_mma<64>(q, k, v, o, st, B, Hq, G, S, T, hd, scale, causal, window, s);
+      return launch_flash_mma<64>(q, k, v, o, qpos, kpos, st, B, Hq, G, S, T, hd, scale, causal,
+                                  window, s);
     if (hd <= 128)
-      return launch_flash_mma<128>(q, k, v, o, st, B, Hq, G, S, T, hd, scale, causal, window, s);
+      return launch_flash_mma<128>(q, k, v, o, qpos, kpos, st, B, Hq, G, S, T, hd, scale, causal,
+                                   window, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (hd <= 16)
-    return launch_flash<16, 32>(q, k, v, o, st, B, Hq, G, S, T, hd, scale, causal,
+    return launch_flash<16, 32>(q, k, v, o, qpos, kpos, st, B, Hq, G, S, T, hd, scale, causal,
                                 window, s);
   if (hd <= 32)
-    return launch_flash<32, 32>(q, k, v, o, st, B, Hq, G, S, T, hd, scale, causal,
+    return launch_flash<32, 32>(q, k, v, o, qpos, kpos, st, B, Hq, G, S, T, hd, scale, causal,
                                 window, s);
   if (hd <= 64)
-    return launch_flash<64, 16>(q, k, v, o, st, B, Hq, G, S, T, hd, scale, causal,
+    return launch_flash<64, 16>(q, k, v, o, qpos, kpos, st, B, Hq, G, S, T, hd, scale, causal,
                                 window, s);
   if (hd <= 128)
-    return launch_flash<128, 8>(q, k, v, o, st, B, Hq, G, S, T, hd, scale, causal,
+    return launch_flash<128, 8>(q, k, v, o, qpos, kpos, st, B, Hq, G, S, T, hd, scale, causal,
                                 window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,7 +5,10 @@ Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:86``
 and row strides, so the model passes transposed views of its
 ``(B, S, H, hd)`` projections without copies, and the output is allocated
 with q's strides (``empty_like``) so the caller's transpose back is free.
-``launches`` counts the kernel's launches in this process.
+With ``q_pos``/``k_pos`` the kernel masks by absolute position (the suffix
+prefill of chunked admission, ``ops.suffix_prefill_attention``).
+``launches`` counts the kernel's launches in this process, and
+``position_launches`` those of them made with position masks.
 """
 from __future__ import annotations
 
@@ -17,16 +20,22 @@ import torch
 from repro_torch.kernels import build
 
 launches = 0
+position_launches = 0
 MAX_HEAD_DIM = 128
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
-                         window: Optional[int] = None) -> torch.Tensor:
+                         window: Optional[int] = None,
+                         q_pos: Optional[torch.Tensor] = None,
+                         k_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, Hq, S, hd); k, v: (B, Hkv, T, hd) CUDA tensors of one dtype
-    (fp32 or bf16), unit stride along hd.  Returns (B, Hq, S, hd) in q's
-    dtype."""
-    global launches
+    (fp32 or bf16), unit stride along hd.  Causality is by index, or, with
+    ``q_pos`` (B, S) and ``k_pos`` (B, T) int positions (-1 = invalid), by
+    position: key j is valid for query i iff both positions are >= 0 and,
+    when causal, ``q_pos - window < k_pos <= q_pos``; a query with no valid
+    key gets zeros.  Returns (B, Hq, S, hd) in q's dtype."""
+    global launches, position_launches
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention_cuda takes CUDA tensors")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -44,6 +53,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_cuda needs unit stride along hd")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
+    if (q_pos is None) != (k_pos is None):
+        raise ValueError("pass both q_pos and k_pos, or neither")
+    if q_pos is not None:
+        if q_pos.shape != (B, S) or k_pos.shape != (B, T):
+            raise ValueError(f"q_pos must be {(B, S)} and k_pos {(B, T)}, got "
+                             f"{tuple(q_pos.shape)}, {tuple(k_pos.shape)}")
+        if not (q_pos.is_cuda and k_pos.is_cuda):
+            raise ValueError("flash_attention_cuda takes CUDA positions")
+        q_pos = q_pos.to(torch.int32).contiguous()
+        k_pos = k_pos.to(torch.int32).contiguous()
     code = build.dtype_code(q, "flash_attention")
     o = torch.empty_like(q)
     if o.stride(3) != 1:
@@ -53,9 +72,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         strides += [t.stride(0), t.stride(1), t.stride(2)]
     arr = (ctypes.c_longlong * 12)(*strides)
     rc = build.library().flash_attention_launch(
-        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), arr,
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if q_pos is None else q_pos.data_ptr(),
+        None if k_pos is None else k_pos.data_ptr(), arr,
         B, Hq, Hkv, S, T, hd, float(hd ** -0.5), int(causal),
         int(window or 0), build.stream_ptr(q))
     build.check(rc, "flash_attention")
     launches += 1
+    if q_pos is not None:
+        position_launches += 1
     return o

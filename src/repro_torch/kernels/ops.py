@@ -29,6 +29,7 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in KERNEL_MODULES.values():
         mod.launches = 0
+    _flash.position_launches = 0
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -48,6 +49,36 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                            window=window)
     return ref.flash_attention_ref(q, k, v, causal=causal,
                                    window=window).to(q.dtype)
+
+
+def suffix_prefill_attention(q, k, v, ctx_k, ctx_v, q_pos, ctx_pos, *,
+                             causal: bool = True,
+                             window: Optional[int] = None,
+                             q_per_kv: int = 1) -> torch.Tensor:
+    """Suffix prefill (chunked admission): the chunk's queries attend over
+    the cached context followed by the chunk itself, masked by absolute
+    position.  q/k/v: (B, Sc, Hq|Hkv, hd) the chunk's projected heads;
+    ctx_k/ctx_v: (B, C, Hkv, hd) the context gathered from the pool;
+    q_pos (B, Sc) and ctx_pos (B, C) int positions, -1 = invalid (a chunk's
+    padded tail, trash-block context).  Context and chunk are concatenated
+    along the keys and go through the flash kernel with position masks (a
+    CUDA tensor) or its plain version (a CPU tensor).  A query with no
+    valid key gets zeros.  Returns (B, Sc, Hq, hd) in q's dtype."""
+    if q.shape[2] != k.shape[2] * q_per_kv:
+        raise ValueError(f"{q.shape[2]} query heads != {k.shape[2]} kv heads "
+                         f"x q_per_kv {q_per_kv}")
+    if _on_cuda(q):
+        kc = torch.cat([ctx_k.to(k.dtype), k], dim=1)
+        vc = torch.cat([ctx_v.to(v.dtype), v], dim=1)
+        kp = torch.cat([ctx_pos.to(torch.int32), q_pos.to(torch.int32)],
+                       dim=1)
+        o = _flash.flash_attention_cuda(
+            q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+            causal=causal, window=window, q_pos=q_pos, k_pos=kp)
+        return o.transpose(1, 2)
+    return ref.suffix_prefill_attention_ref(
+        q, k, v, ctx_k, ctx_v, q_pos, ctx_pos, causal=causal,
+        window=window).to(q.dtype)
 
 
 def paged_decode_attention(q, k_pool, v_pool, table, pos, step, *,

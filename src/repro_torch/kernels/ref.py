@@ -15,9 +15,14 @@ NEG_INF = -1e30
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None) -> torch.Tensor:
+                        window: Optional[int] = None, q_pos=None,
+                        k_pos=None) -> torch.Tensor:
     """q: (B, Hq, S, hd); k, v: (B, Hkv, T, hd).  GQA by head repetition;
-    causality by index (query i sees keys j <= i, and j > i - window).
+    causality by index (query i sees keys j <= i, and j > i - window), or,
+    with ``q_pos`` (B, S) and ``k_pos`` (B, T) (-1 = invalid), by position
+    as the kernel's position masks: key j is valid for query i iff both
+    positions are >= 0 and, when causal, ``q_pos - window < k_pos <=
+    q_pos``; a query with no valid key returns zeros.
     Returns (B, Hq, S, hd) in v's dtype."""
     B, Hq, S, hd = q.shape
     Hkv, T = k.shape[1], k.shape[2]
@@ -25,6 +30,18 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     k = k.repeat_interleave(G, dim=1)
     v = v.repeat_interleave(G, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * hd ** -0.5
+    if q_pos is not None:
+        qp = q_pos.long()[:, None, :, None]
+        kp = k_pos.long()[:, None, None, :]
+        valid = (kp >= 0) & (qp >= 0)
+        if causal:
+            valid &= kp <= qp
+            if window is not None:
+                valid &= qp - kp < window
+        s = s.masked_fill(~valid, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+        return out * valid.any(dim=-1, keepdim=True)
     if causal:
         rel = (torch.arange(S, device=q.device)[:, None]
                - torch.arange(T, device=q.device)[None, :])
@@ -34,6 +51,26 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
         s = s.masked_fill(~valid, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+
+
+def suffix_prefill_attention_ref(q, k, v, ctx_k, ctx_v, q_pos, ctx_pos, *,
+                                 causal: bool = True,
+                                 window: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """Suffix prefill in the JAX layout: a chunk's queries q (B, Sc, Hq, hd)
+    over the context ctx_k/ctx_v (B, C, Hkv, hd) followed by the chunk's
+    own k/v (B, Sc, Hkv, hd), masked by absolute position (q_pos (B, Sc),
+    ctx_pos (B, C), -1 = invalid): a dense masked softmax, as the JAX
+    package's ``chunked_attention`` takes small problems, except that a
+    query with no valid key (a chunk's padded tail) returns zeros.
+    Returns (B, Sc, Hq, hd) in v's dtype."""
+    kc = torch.cat([ctx_k.to(k.dtype), k], dim=1)
+    vc = torch.cat([ctx_v.to(v.dtype), v], dim=1)
+    kp = torch.cat([ctx_pos.to(q_pos.dtype), q_pos], dim=1)
+    o = flash_attention_ref(q.transpose(1, 2), kc.transpose(1, 2),
+                            vc.transpose(1, 2), causal=causal, window=window,
+                            q_pos=q_pos, k_pos=kp)
+    return o.transpose(1, 2)
 
 
 def paged_decode_attention_ref(q, k_pool, v_pool, table, pos, step,

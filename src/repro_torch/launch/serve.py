@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch delphi-2m \
         [--requests 16] [--slots 8] [--max-new 48] [--cache ring|paged] \
-        [--ckpt DIR] [--device cuda]
+        [--prefill-chunk-tokens N] [--ckpt DIR] [--device cuda]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m ...
 
 The same command line as ``repro.launch.serve``: the prompts are the first
@@ -12,7 +12,10 @@ and the engine's ``max_context`` is ``cfg.max_seq_len``.  On ``cuda``
 activations run in ``cfg.dtype`` (bf16); on the CPU in fp32.  Parameters
 stay fp32 and come from ``--ckpt`` (a JAX ``params.npz`` checkpoint) or
 from ``init_params(seed)``.  ``--cache paged`` serves from a pool of
-16-token blocks with the ring's bytes (an attention model only).
+16-token blocks with the ring's bytes (an attention model only), and
+``--prefill-chunk-tokens N`` prefills its prompts in chunks of at most N
+tokens a step between decode ticks (a multiple of the block size; refused
+without ``--cache paged``).
 ``--replicas > 1`` is not ported yet and is refused.
 """
 from __future__ import annotations
@@ -41,10 +44,17 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--cache", choices=("ring", "paged"), default="ring")
+    ap.add_argument("--prefill-chunk-tokens", type=int, default=None,
+                    metavar="N",
+                    help="--cache paged: prefill in N-token chunks "
+                         "interleaved with decode ticks (multiple of the "
+                         "16-token block size)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.replicas != 1:
         ap.error("--replicas > 1 is not ported yet")
+    if args.prefill_chunk_tokens is not None and args.cache != "paged":
+        ap.error("--prefill-chunk-tokens requires --cache paged")
     return args
 
 
@@ -62,7 +72,9 @@ def serve(args: argparse.Namespace) -> Dict[str, Any]:
         params = init_params(cfg, args.seed, device)
     engine = BatchedEngine(params, cfg, slots=args.slots,
                            max_context=cfg.max_seq_len, seed=args.seed,
-                           cache=args.cache, device=device)
+                           cache=args.cache,
+                           prefill_chunk_tokens=args.prefill_chunk_tokens,
+                           device=device)
     # prompts: the first half of fresh synthetic patients (known history)
     trajs, _ = generate_dataset(SimulatorConfig(
         n_train=args.requests, n_val=1, seed=args.seed + 17))

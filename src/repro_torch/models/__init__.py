@@ -2,13 +2,13 @@
 paged-cache attention, the Mamba2 block and the model entry points."""
 from repro_torch.models.attention import LayerCache, PagedCache
 from repro_torch.models.model import (cast_params, decode_step, forward,
-                                      make_decode_cache,
+                                      forward_suffix, make_decode_cache,
                                       make_paged_decode_cache,
                                       mask_padded_positions, param_count)
 from repro_torch.models.params import (from_jax_flat, init_params,
                                        load_checkpoint, to_flat_numpy)
 
 __all__ = ["LayerCache", "PagedCache", "cast_params", "decode_step",
-           "forward", "from_jax_flat", "init_params", "load_checkpoint",
-           "make_decode_cache", "make_paged_decode_cache",
+           "forward", "forward_suffix", "from_jax_flat", "init_params",
+           "load_checkpoint", "make_decode_cache", "make_paged_decode_cache",
            "mask_padded_positions", "param_count", "to_flat_numpy"]

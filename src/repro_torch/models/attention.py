@@ -24,6 +24,11 @@ before it attends (:func:`write_paged_positions`,
 :func:`paged_decode_layer_attention`), and the kernel walks the logical
 positions in the same order whatever ``bs`` is, so a paged slot and a ring
 slot holding the same tokens give the same bits.
+
+Chunked prefill writes a prompt into the pool a chunk at a time: a chunk's
+queries attend over the slot's context blocks, gathered from the pool
+(:func:`gather_context`), and the chunk itself, by absolute position
+(:func:`suffix_attention`, the flash kernel with position masks).
 """
 from __future__ import annotations
 
@@ -64,6 +69,20 @@ def prefill_attention(q, k, v) -> torch.Tensor:
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=True)
     return o.transpose(1, 2)
+
+
+def suffix_attention(q, k, v, ctx_k, ctx_v, positions,
+                     ctx_pos) -> torch.Tensor:
+    """One layer's suffix-prefill attention (mode "suffix" of the JAX
+    package's attention; Delphi takes no RoPE): the chunk's projected heads
+    q (B, Sc, Hq, hd) and k, v (B, Sc, Hkv, hd) at ``positions`` (B, Sc)
+    attend over the context ``ctx_k``/``ctx_v`` (B, C, Hkv, hd) at
+    ``ctx_pos`` (B, C) followed by the chunk, causal by position (-1 =
+    invalid).  Returns (B, Sc, Hq, hd); the caller keeps k and v for its
+    block write."""
+    return ops.suffix_prefill_attention(q, k, v, ctx_k, ctx_v, positions,
+                                        ctx_pos, causal=True,
+                                        q_per_kv=q.shape[2] // k.shape[2])
 
 
 def ring_slots(S: int, width: int, device):
@@ -197,3 +216,23 @@ def paged_decode_layer_attention(q, k_new, v_new, cache: PagedCache,
     o = ops.paged_decode_attention(q[:, 0], kl, vl, cache.table, cache.pos,
                                    step)
     return o[:, None]
+
+
+def gather_context(cache: PagedCache, ctx_ids: torch.Tensor):
+    """The context of a chunk from the pool: blocks ``ctx_ids`` (B, C) in
+    order (0 pads with the trash block) as k, v (L, B, C*bs, Hkv, hd) and
+    their positions (B, C*bs).  The positions of padding are -1 whatever the
+    pool holds: the trash block's position plane receives real positions
+    from idle slots' discarded tick writes, so it is masked by
+    ``ctx_ids > 0``, never read."""
+    B, C = ctx_ids.shape
+    bs = cache.pos.shape[1]
+    safe = ctx_ids.clamp(min=0).long()
+
+    def gather(pool):       # (L, NB, Hkv, bs, hd) -> (L, B, C*bs, Hkv, hd)
+        g = pool[:, safe]   # (L, B, C, Hkv, bs, hd)
+        L, _, _, Hkv, _, hd = g.shape
+        return g.permute(0, 1, 2, 4, 3, 5).reshape(L, B, C * bs, Hkv, hd)
+    pos = torch.where(ctx_ids[:, :, None] > 0, cache.pos[safe],
+                      torch.full_like(cache.pos[safe], -1))
+    return gather(cache.k), gather(cache.v), pos.reshape(B, C * bs)

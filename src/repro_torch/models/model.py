@@ -8,7 +8,9 @@ leaf is ``params[key][l]``.
   Delphi's continuous age encoding replaces positions) and a GELU MLP,
   then the tied head with the fp32 ``out_bias``.  Prefill attention runs
   the flash kernel; decode runs the paged decode kernel over the ring cache
-  (``models.attention``).  Cache: ``{"self": LayerCache}``.
+  (``models.attention``).  Cache: ``{"self": LayerCache}``.  The suffix
+  prefill of chunked admission (:func:`forward_suffix`) runs the flash
+  kernel with position masks over context gathered from a paged pool.
 * Mamba2 (``arch_type="ssm"``): pre-RMSNorm Mamba2 blocks
   (``models.ssm``; prefill's intra-chunk SSD runs the ``ssd_intra``
   kernel), then the untied head.  Cache: ``{"ssm": SSMCache}``.
@@ -192,6 +194,44 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
         out["cache"] = {"self": cache}
     out["logits"] = _head(params, x)
     return out
+
+
+def forward_suffix(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
+                   ctx: Dict[str, torch.Tensor], *,
+                   last_index: torch.Tensor) -> Dict[str, Any]:
+    """Chunked-prefill forward over a prompt suffix: the chunk's tokens
+    attend over context already in the cache (earlier chunks, or blocks
+    lent by the prefix index) and over themselves, by absolute position.
+
+    batch: tokens (B, Sc) int, for Delphi ages (B, Sc), positions (B, Sc)
+    int32 absolute positions (-1 = right padding).  ctx: "k"/"v"
+    (L, B, C, Hkv, hd) the context K/V per layer and "pos" (B, C) their
+    positions (-1 = invalid), as ``attention.gather_context`` returns them.
+    ``last_index`` (B,): each row's last valid chunk token, where the
+    logits are read.
+
+    Returns {"logits": (B, 1, V) fp32, "k"/"v": (L, B, Sc, Hkv, hd)}: the
+    chunk's K/V for the caller's block write.  Attention-cache
+    architectures only, as :func:`make_paged_decode_cache`."""
+    if cfg.arch_type not in (cb.DENSE, cb.MOE, cb.VLM):
+        raise ValueError(f"suffix prefill supports attention-cache "
+                         f"architectures (dense/moe/vlm), not "
+                         f"{cfg.arch_type}")
+    check_supported(cfg)
+    x = _embed(params, cfg, batch)
+    positions = batch["positions"]
+    ks, vs = [], []
+    for l in range(cfg.n_layers):
+        q, k, v = _qkv(params, x, l)
+        o = attn.suffix_attention(q, k, v, ctx["k"][l], ctx["v"][l],
+                                  positions, ctx["pos"])
+        x = x + attn.output_projection(o, params["layers/attn/wo"][l])
+        x = _mlp_block(params, x, l)
+        ks.append(k)
+        vs.append(v)
+    x = _last_rows(x, last_index)
+    return {"logits": _head(params, x), "k": torch.stack(ks),
+            "v": torch.stack(vs)}
 
 
 def _last_rows(x: torch.Tensor, last_index: Optional[torch.Tensor]):

@@ -36,6 +36,16 @@ per-slot ring KV cache or a paged block pool (the JAX package's
   from the parent's prefill logits (:func:`_fork_rows_core`).  A recurrent
   model's parent keeps its state as admitted, which the fork copies: the
   batched tick advances every row's state, a parked one's too.
+* ``prefill_chunk_tokens`` (paged only): chunked prefill.  Admission
+  stages a prompt (its blocks allocated, any indexed prefix shared by
+  reference) and the prompt's unmatched suffix is prefilled between decode
+  ticks, at most ``prefill_chunk_tokens`` tokens a step over all staged
+  prompts, oldest first (:func:`_suffix_chunk_core`: the chunk attends over
+  its context blocks gathered from the pool, by position).  So a long
+  prompt no longer stalls the slots that decode, and a prompt that extends
+  an indexed prefix prefills only its suffix.  The final chunk's logits
+  bootstrap the first event (one host copy, like any admission batch); a
+  chunk before it makes none.
 * Uniforms are injected per request (rows of inactive slots are 0.5) or
   drawn from a ``torch.Generator`` on the device.
 
@@ -45,10 +55,12 @@ on the tick's stream before it: copy-on-write copies, the position reset
 of freshly allocated blocks and the table upload (``_ensure_blocks``,
 ``_flush_slot_updates``).  A held slot still rides the batched tick: its
 table column for the write is -1 in the device copy, so the discarded write
-lands in the trash block.
+lands in the trash block.  A slot whose prompt is still chunking rides it
+too, inactive, with its whole table row -1 in the device copy until its
+last chunk lands: nothing reads or writes its half-written blocks.
 
-Not ported yet, and refused: chunked prefill, the background loop and
-per-request callbacks.
+Not ported yet, and refused: the background loop and per-request
+callbacks.
 """
 from __future__ import annotations
 
@@ -67,8 +79,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sampler import (advance_trajectory_state,
                                       sample_next_event)
 from repro_torch.models import (cast_params, decode_step, forward,
-                                make_decode_cache, make_paged_decode_cache,
+                                forward_suffix, make_decode_cache,
+                                make_paged_decode_cache,
                                 mask_padded_positions)
+from repro_torch.models.attention import gather_context
 from repro_torch.serve.prefix import PrefixIndex, SharedBlockPool
 
 
@@ -116,6 +130,23 @@ class Request:
     # memoized prefix-index digests of the effective prompt, keyed by its
     # length (it grows when a preempted request resumes)
     _pfx: Optional[tuple] = dataclasses.field(default=None, repr=False)
+
+
+@dataclasses.dataclass(eq=False)
+class _PrefillProgress:
+    """Host state of one chunked prefill in progress.  While a slot is
+    here its device table row stays -1: the tick's discarded write goes to
+    the trash block and nothing reads its half-written blocks.  ``cursor``
+    counts the prompt tokens already in the pool; it starts at the matched
+    prefix (full blocks lent by the index), so only the suffix is
+    computed."""
+    req: Request
+    tokens: np.ndarray                  # effective prompt (history + resumed)
+    ages: Optional[np.ndarray]
+    max_new: int                        # remaining budget after a resume
+    age0: float
+    S: int                              # effective prompt length
+    cursor: int                         # block-aligned, or S when done
 
 
 class BlockAllocator:
@@ -340,6 +371,98 @@ def _insert_blocks(cache, rows_cache, dst: torch.Tensor, n: int,
     pc.pos[d] = rows.pos[0, :n, :nblk * bs].reshape(n * nblk, bs)
 
 
+def _chunk_len(S: int, cursor: int, budget: int, bs: int) -> int:
+    """Tokens the budget scheduler prefills next for one slot: the whole
+    remaining suffix when it fits the budget, otherwise the largest
+    block-aligned chunk the budget covers (chunk boundaries stay on block
+    edges so every chunk scatter writes whole pool blocks)."""
+    n = min(budget, S - cursor)
+    if cursor + n < S:
+        n = (n // bs) * bs
+    return n
+
+
+def _chunk_arrays(toks, ags, start: int, n: int, bs: int, table_row):
+    """Bucketed host arrays for ONE suffix-prefill chunk.
+
+    Shared by the engine tick and the straight-line oracle
+    (``repro_torch.serve.prefix.chunked_reference_trajectory``): identical
+    shapes mean identical arithmetic, which is what makes chunked engine
+    trajectories bit-equal to the oracle's.  ``start`` is block-aligned
+    (chunks advance in whole blocks; only the final chunk may end
+    unaligned).  Token/position tails past ``n`` pad with pos = -1 (masked
+    everywhere), context ids pad with the trash block 0.
+    """
+    nblk = -(-n // bs)
+    nblk_pad = _next_pow2(nblk)
+    sc = nblk_pad * bs
+    tokens = np.zeros((1, sc), np.int32)
+    tokens[0, :n] = toks[start:start + n]
+    ages = np.zeros((1, sc), np.float32)
+    if ags is not None:
+        ages[0, :n] = ags[start:start + n]
+        ages[0, n:] = ags[start + n - 1]
+    positions = np.full((1, sc), -1, np.int32)
+    positions[0, :n] = np.arange(start, start + n, dtype=np.int32)
+    # a chunk starting at the prompt head carries a zero-width context:
+    # beyond saving work, identical KV widths keep the budget-infinity
+    # chunk bit-identical to the monolithic prefill (a masked-out pad
+    # block would reassociate the softmax reductions)
+    first = start // bs
+    nctx = _next_pow2(first) if first else 0
+    ctx_ids = np.zeros((1, nctx), np.int32)
+    ctx_ids[0, :first] = table_row[:first]
+    dst = np.zeros((1, nblk_pad), np.int32)
+    dst[0, :nblk] = table_row[first:first + nblk]
+    last_idx = np.asarray([n - 1], np.int32)
+    return tokens, ages, positions, ctx_ids, dst, last_idx
+
+
+def _chunk_width(n: int, sc: int, max_context: int) -> int:
+    """Columns of an ``sc``-wide chunk of ``n`` tokens that the forward
+    computes: the monolithic prefill's bucket where it is narrower (a chunk
+    shorter than a block), so that a whole prompt in one chunk runs every
+    product at the monolithic prefill's shapes and gives its bits."""
+    return min(sc, _seq_bucket(n), max_context)
+
+
+def _suffix_chunk_core(params, cache, tokens, ages, positions, ctx_ids, dst,
+                       last_idx, cfg: ModelConfig,
+                       width: Optional[int] = None) -> torch.Tensor:
+    """One chunked-prefill step, the pool updated in place: gather the
+    slot's context blocks ``ctx_ids`` (B, C) (0 = trash padding, its
+    positions masked), run :func:`forward_suffix` over the first ``width``
+    (default all) chunk columns (tokens/ages/positions (B, Sc), pos -1 =
+    padding), then write the chunk's K/V (zeros past ``width``) and its
+    full position planes into blocks ``dst`` (B, nblk) (0 = trash
+    padding): the padded tail of a partial final block carries -1, so a
+    block's previous positions never leak.  Returns the (B, V) fp32 logits
+    at ``last_idx``: the final chunk's bootstrap logits."""
+    pc = cache["self"]
+    bs = pc.k.shape[3]
+    B, Sc = tokens.shape
+    w = Sc if width is None else width
+    ck, cv, cpos = gather_context(pc, ctx_ids)
+    batch = {"tokens": tokens[:, :w], "positions": positions[:, :w]}
+    if cfg.age_encoding:
+        batch["ages"] = ages[:, :w]
+    out = forward_suffix(params, cfg, batch, {"k": ck, "v": cv, "pos": cpos},
+                         last_index=last_idx)
+    nblk = Sc // bs
+    d = dst.reshape(-1).long()
+
+    def blocks(a):          # (L, B, w, Hkv, hd) -> (L, B*nblk, Hkv, bs, hd)
+        L, _, _, Hkv, hd = a.shape
+        if w < Sc:
+            a = torch.cat([a, a.new_zeros((L, B, Sc - w, Hkv, hd))], dim=2)
+        a = a.reshape(L, B, nblk, bs, Hkv, hd).permute(0, 1, 2, 4, 3, 5)
+        return a.reshape(L, B * nblk, Hkv, bs, hd)
+    pc.k[:, d] = blocks(out["k"]).to(pc.k.dtype)
+    pc.v[:, d] = blocks(out["v"]).to(pc.v.dtype)
+    pc.pos[d] = positions.reshape(B * nblk, bs).to(torch.int32)
+    return out["logits"][:, 0].float()
+
+
 def _reset_pos(cache, ids: List[int]) -> None:
     """Invalidate the positions of freshly allocated growth blocks: a reused
     block still holds its previous owner's, which would read as valid
@@ -358,7 +481,9 @@ class BatchedEngine:
     ``temperature`` scales a generic LM's logits (Delphi ignores it).
     ``cache="paged"`` takes ``blocks`` (default: the ring's bytes,
     ``slots * max_context / block_size + 1`` with the trash block),
-    ``block_size`` and ``prefix_cache``.
+    ``block_size``, ``prefix_cache`` and ``prefill_chunk_tokens`` (the
+    per-step token budget of chunked prefill, a multiple of
+    ``block_size``; None prefills each admission whole).
     """
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 8,
@@ -372,7 +497,17 @@ class BatchedEngine:
         if cache not in ("ring", "paged"):
             raise ValueError(f"cache must be 'ring' or 'paged': {cache!r}")
         if prefill_chunk_tokens is not None:
-            raise NotImplementedError("chunked prefill is not ported")
+            if cache != "paged":
+                raise ValueError(
+                    "prefill_chunk_tokens requires the paged KV cache: "
+                    "chunked prefill writes prompt KV through the paged "
+                    "insert path — build with cache='paged'")
+            if (prefill_chunk_tokens < block_size
+                    or prefill_chunk_tokens % block_size != 0):
+                raise ValueError(
+                    f"prefill_chunk_tokens={prefill_chunk_tokens} must be a "
+                    f"positive multiple of block_size={block_size}")
+        self.prefill_chunk_tokens = prefill_chunk_tokens
         if prefix_cache and cache != "paged":
             raise ValueError(
                 "prefix_cache requires the paged KV cache: the ring layout "
@@ -455,6 +590,9 @@ class BatchedEngine:
         # batched tick advances every row's SSM state, so the fork copies
         # this, not the row the parked ticks went on updating
         self._held_state: Dict[int, dict] = {}
+        # chunked prefill: slot -> its prompt's progress; such a slot holds
+        # a table row but does not tick until its last chunk lands
+        self._prefills: Dict[int, _PrefillProgress] = {}
         self._seq_counter = itertools.count(1)
         self._lock = threading.Lock()
         # instrumentation (asserted on by tests and chip_smoke.py)
@@ -464,6 +602,9 @@ class BatchedEngine:
         self.preemptions = 0
         self.peak_active = 0
         self.forks = 0
+        self.chunked_prefills = 0
+        self.prefill_chunks = 0
+        self.suffix_tokens_saved = 0
         self.prefill_shapes: set = set()
 
     # -- device->host boundary (the only one) -------------------------------
@@ -625,8 +766,7 @@ class BatchedEngine:
     def pool_stats(self) -> Dict[str, object]:
         """Allocator watermarks and scheduler counters.  Every block count
         is of physical blocks: a block shared by k owners counts once, and
-        sharing is reported on its own.  The chunked-prefill fields are
-        ``None``/0: chunked prefill is not ported."""
+        sharing is reported on its own."""
         with self._lock:
             stats: Dict[str, object] = {
                 "cache": "paged" if self.paged else "ring",
@@ -645,9 +785,11 @@ class BatchedEngine:
                     shared_blocks=self.pool.shared_blocks,
                     shared_blocks_peak=self.pool.peak_shared,
                     cow_copies=self.pool.cow_copies,
-                    prefill_chunk_tokens=None, chunked_prefills=0,
-                    prefill_chunks=0, prefill_in_progress=0,
-                    suffix_tokens_saved=0)
+                    prefill_chunk_tokens=self.prefill_chunk_tokens,
+                    chunked_prefills=self.chunked_prefills,
+                    prefill_chunks=self.prefill_chunks,
+                    prefill_in_progress=len(self._prefills),
+                    suffix_tokens_saved=self.suffix_tokens_saved)
                 stats["prefix_cache"] = (self.prefix.stats()
                                          if self.prefix is not None else None)
         return stats
@@ -670,6 +812,8 @@ class BatchedEngine:
         self.slot_req[slot] = None
         self._held_logits.pop(slot, None)
         self._held_state.pop(slot, None)
+        # a slot evicted mid-prefill drops its progress with its blocks
+        self._prefills.pop(slot, None)
         if self.paged:
             ids = self._slot_blocks[slot]
             if ids:
@@ -776,6 +920,13 @@ class BatchedEngine:
         return -(-m // self.block_size) + (
             1 if m % self.block_size == 0 and m < self.max_context else 0)
 
+    def _chunked_for(self, r: Request) -> bool:
+        """Whether this request admits through chunked prefill.  An
+        over-width prompt keeps the monolithic prefill: its blocks hold the
+        wrapped window, which chunks cannot build one after another."""
+        return (self.prefill_chunk_tokens is not None
+                and self._eff_len(r) <= self.max_context)
+
     def _admission_plan(self, r: Request) -> Tuple[str, int, List[int]]:
         """(kind, fresh blocks needed, index blocks this admission would pin
         by sharing).  Blocks lent by the index cost nothing from the free
@@ -788,6 +939,10 @@ class BatchedEngine:
             return "ref", 1, list(entry.blocks)
         m = min(self._eff_len(r), self.max_context)
         hits = self._prefix_hits_for(r)
+        if self._chunked_for(r) and len(hits) * self.block_size >= m:
+            # a chunked admission keeps >= 1 suffix token for its bootstrap
+            # logits (_admit_chunked trims the same way)
+            hits = hits[:(m - 1) // self.block_size]
         return "prefill", self._fresh_need(m) - len(hits), hits
 
     def _ensure_blocks(self) -> None:
@@ -796,12 +951,14 @@ class BatchedEngine:
         positions reset before the tick), and a destination shared with
         other owners (forked siblings, the index) is copied first.  On pool
         exhaustion the youngest request is preempted until the rest fit.
-        Held parents never write real data and are skipped."""
+        Held parents never write real data and are skipped, and so are slots
+        mid-prefill (their blocks were allocated whole at admission); both
+        still hold blocks, so a mid-prefill slot can be preempted."""
         W, bs = self.max_context, self.block_size
         while True:
             needy = []
             for slot, r in enumerate(self.slot_req):
-                if r is None or r.hold:
+                if r is None or r.hold or slot in self._prefills:
                     continue
                 jb = int(self._slot_pos[slot] % W) // bs
                 bid = int(self._table[slot, jb])
@@ -861,7 +1018,7 @@ class BatchedEngine:
             self._fresh_blocks.clear()
         if self._table_dirty:
             tab = self._table
-            if self._held_logits:
+            if self._held_logits or self._prefills:
                 # a held slot still rides the tick: its discarded write must
                 # not land in its (shared) tail block, so that column is -1
                 # in the device copy and the write goes to the trash block
@@ -869,6 +1026,9 @@ class BatchedEngine:
                 W, bs = self.max_context, self.block_size
                 for slot in self._held_logits:
                     tab[slot, int(self._slot_pos[slot] % W) // bs] = -1
+                # a slot mid-prefill: its whole row, until the last chunk
+                for slot in self._prefills:
+                    tab[slot, :] = -1
             self.cache["self"].table.copy_(torch.from_numpy(tab))
             self._table_dirty = False
 
@@ -958,6 +1118,17 @@ class BatchedEngine:
             kind, group, slot_ids, injected = sel
             if kind == "ref":
                 self._admit_ref(group[0], slot_ids[0], injected)
+            elif self._chunked_for(group[0]):
+                # chunked admissions only stage their prompts: the chunks
+                # run in _run_prefill_chunks.  An over-width prompt admits
+                # alone, so a chunk-eligible head means an eligible group
+                for j, (req, slot) in enumerate(zip(group, slot_ids)):
+                    try:
+                        self._admit_chunked(req, slot)
+                    except Exception:
+                        with self._lock:
+                            self.pending[:0] = group[j + 1:]
+                        raise
             else:
                 self._admit_group(group, slot_ids, injected)
 
@@ -1136,12 +1307,120 @@ class BatchedEngine:
         arr = self._fetch(packed)       # ONE sync, like any admission batch
         self._apply_host(req, slot, arr[:, 0])
 
+    # -- chunked prefill --------------------------------------------------------
+    def _admit_chunked(self, req: Request, slot: int) -> None:
+        """Stage a chunked prefill: allocate the prompt's blocks, share any
+        indexed prefix run by reference, and set the cursor at the matched
+        boundary.  No forward runs here: :meth:`_run_prefill_chunks` meters
+        the suffix through ``prefill_chunk_tokens`` between ticks."""
+        toks, ags, remaining = self._prompt_state(req)
+        S = len(toks)
+        bs = self.block_size
+        nb = -(-S // bs)
+        hits = self._prefix_hits_for(req)[:nb]
+        if len(hits) * bs >= S:
+            # keep >= 1 suffix token: the final chunk's logits bootstrap the
+            # first event (a complete-entry hit admits by reference instead)
+            hits = hits[:(S - 1) // bs]
+        try:
+            if hits:
+                self.pool.share(hits)
+                self.prefix.partial_hits += 1
+                # parked on the slot at once, so that a failed alloc below
+                # releases them with the rest
+                self._slot_blocks[slot] = list(hits)
+            alloc = self.pool.alloc(nb - len(hits))
+            if alloc is None:                    # _select budgeted this
+                raise RuntimeError("admission outran the block budget")
+        except Exception:
+            if self._slot_blocks[slot]:
+                self._release_slot(slot)
+            with self._lock:
+                if not req.done:
+                    self.pending.insert(0, req)
+            raise
+        self._slot_blocks[slot] = hits + alloc
+        self._table[slot, :] = -1
+        self._table[slot, :nb] = self._slot_blocks[slot]
+        self._table_dirty = True
+        self.slot_req[slot] = req
+        self._slot_pos[slot] = 0
+        cursor = len(hits) * bs
+        self.suffix_tokens_saved += cursor
+        self.chunked_prefills += 1
+        self._prefills[slot] = _PrefillProgress(
+            req=req, tokens=np.asarray(toks), ages=ags, max_new=remaining,
+            age0=float(ags[-1]) if ags is not None else 0.0, S=S,
+            cursor=cursor)
+
+    def _run_prefill_chunks(self) -> bool:
+        """Spend this step's chunk budget over the prefills in progress,
+        oldest request first.  A prefill whose last chunk lands bootstraps
+        its first event at once (or parks, for a hold parent) and ticks in
+        this very step."""
+        budget = self.prefill_chunk_tokens
+        bs = self.block_size
+        progressed = False
+        for slot in sorted(self._prefills,
+                           key=lambda s: self._prefills[s].req._seq):
+            st = self._prefills[slot]
+            if budget < min(bs, st.S - st.cursor):
+                break                   # budget spent: FIFO, no backfill
+            n = _chunk_len(st.S, st.cursor, budget, bs)
+            self._run_one_chunk(slot, st, n)
+            budget -= n
+            progressed = True
+        return progressed
+
+    def _run_one_chunk(self, slot: int, st: _PrefillProgress, n: int) -> None:
+        arrays = _chunk_arrays(st.tokens, st.ages, st.cursor, n,
+                               self.block_size, self._table[slot])
+        tokens, _, _, ctx_ids = arrays[:4]
+        width = _chunk_width(n, tokens.shape[1], self.max_context)
+        self.prefill_shapes.add(("chunk", ctx_ids.shape[1], width))
+        lg = _suffix_chunk_core(self._wparams, self.cache,
+                                *(self._dev(a) for a in arrays), self.cfg,
+                                width)
+        st.cursor += n
+        self.prefill_chunks += 1
+        if st.cursor >= st.S:
+            self._finish_prefill(slot, st, lg[0])
+
+    def _finish_prefill(self, slot: int, st: _PrefillProgress,
+                        logits: torch.Tensor) -> None:
+        """The last chunk landed: unmask the slot's table row, index the
+        prompt, then park (a hold parent) or sample the first event from
+        the final chunk's logits, the tail of a monolithic admission."""
+        req = st.req
+        del self._prefills[slot]
+        self._slot_pos[slot] = st.S
+        self._table_dirty = True        # unmask: the row is written
+        if self.prefix is not None and not req.out_tokens:
+            self._register_prefix(req, (st.tokens, st.ages, st.max_new),
+                                  slot, st.S, st.age0, logits)
+        if req.hold:
+            # park on the written blocks; the device row was never active
+            self._held_logits[slot] = logits
+            return
+        if req.uniforms is not None:
+            u = self._dev(req.uniforms[len(req.out_tokens)][None])
+        else:
+            u = self._rand(1)
+        rows, packed = _fork_rows_core(
+            logits[None], u, self._dev(np.float32([st.age0])),
+            self._dev(np.int32([st.S])), self._dev(np.int32([st.max_new])),
+            self._kn)
+        _commit(self._state, self._dev(np.int64([slot])), rows, 1)
+        self.admit_batches += 1
+        arr = self._fetch(packed)       # ONE sync, like any admission batch
+        self._apply_host(req, slot, arr[:, 0])
+
     # -- fork application -----------------------------------------------------
     def _apply_forks(self) -> bool:
         """Apply the queued fork ops whose parent is parked in a slot.  A
         parent that finished (cancelled, expired) fails its children; one
-        still pending, or whose uniform source differs from the decoding
-        cohort's, waits."""
+        still pending or mid-chunked-prefill, or whose uniform source
+        differs from the decoding cohort's, waits."""
         with self._lock:
             ops = self._fork_ops[:]
             self._fork_ops.clear()
@@ -1164,6 +1443,11 @@ class BatchedEngine:
                 deferred.append((parent, kids))     # parent still pending
                 continue
             pslot = self.slot_req.index(parent)
+            if pslot in self._prefills:
+                # no bootstrap logits yet: the fork applies once the
+                # parent's last chunk lands
+                deferred.append((parent, kids))
+                continue
             injected = bool(kids) and kids[0].uniforms is not None
             occupied = [r for r in self.slot_req
                         if r is not None and not r.hold]
@@ -1270,19 +1554,20 @@ class BatchedEngine:
 
     def step(self) -> bool:
         """One engine tick: control pass (cancel/timeout), admission, fork
-        ops, paged block growth/COW/preemption, then decode + sample every
-        decoding slot on the device."""
+        ops, the chunk budget, paged block growth/COW/preemption, then
+        decode + sample every decoding slot on the device."""
         self._apply_control()
         self._flush_slot_updates()   # deactivations BEFORE slots are reused
         self._admit()
         forked = self._apply_forks()
+        chunked = bool(self._prefills) and self._run_prefill_chunks()
         if self.paged:
             self._ensure_blocks()
         self._flush_slot_updates()
         active = [i for i, r in enumerate(self.slot_req)
-                  if r is not None and not r.hold]
+                  if r is not None and not r.hold and i not in self._prefills]
         if not active:
-            return forked
+            return forked or chunked
         self.ticks += 1
         self.peak_active = max(self.peak_active, len(active))
         injected = [i for i in active if self.slot_req[i].uniforms is not None]

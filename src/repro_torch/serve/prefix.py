@@ -20,6 +20,9 @@ with a common history can share the KV blocks of that history:
   the decode tick, run through the engine's own module-level functions, so
   that the engine's fork (ring, paged, prefix-cached) must reproduce it bit
   for bit under injected uniforms.
+* :func:`chunked_reference_trajectory`: the scheduler-free oracle of the
+  paged engine, chunked or not: one request's prompt suffix through the
+  engine's own chunk step, bootstrap and tick, in a straight line.
 
 Zero leaks: after the engine drains and the index is dropped
 (``BatchedEngine.drop_prefix_cache``), ``allocator.used == 0`` and no
@@ -33,8 +36,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["SharedBlockPool", "PrefixIndex", "prompt_digests",
-           "ring_reference_futures"]
+__all__ = ["SharedBlockPool", "PrefixIndex", "chunked_reference_trajectory",
+           "prompt_digests", "ring_reference_futures"]
 
 
 class SharedBlockPool:
@@ -533,3 +536,166 @@ def ring_reference_futures(params, cfg, tokens, ages=None, *, n: int,
             if live[j]:
                 apply(j, arr[:, j])
     return [(out_t[j], out_a[j]) for j in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# Bit-parity oracle for chunked / suffix prefill
+# ---------------------------------------------------------------------------
+def chunked_reference_trajectory(params, cfg, tokens, ages=None, *,
+                                 max_new: int, uniforms, chunk_tokens: int,
+                                 slots: int = 4, max_context: int = 512,
+                                 block_size: int = 16,
+                                 matched_tokens: int = 0,
+                                 blocks: Optional[int] = None,
+                                 temperature: float = 1.0, device="cuda"
+                                 ) -> Tuple[List[int], List[float]]:
+    """Scheduler-free trajectory of one request on a paged pool through
+    chunked suffix prefill: the oracle that the paged engine must match
+    bit for bit, chunked (``prefill_chunk_tokens=chunk_tokens``) or, with
+    ``chunk_tokens >= len(tokens)``, not chunked at all.
+
+    It bypasses what is under test (admission budgeting, the per-step
+    budget walk, preemption, the prefix index) and runs the engine's own
+    module-level functions in a straight line: one ``_suffix_chunk_core``
+    per ``_chunk_len``-sized chunk (shapes from the shared
+    ``_chunk_arrays`` and ``_chunk_width``), a ``_fork_rows_core`` bootstrap from the final
+    chunk's logits, then ``_tick_core`` decode ticks with block growth,
+    position resets and table uploads in the engine's order.
+
+    ``matched_tokens`` models a partial prefix-index hit: a warm pass
+    chunk-prefills ``tokens[:matched_tokens]`` (block-aligned, < S) into
+    blocks of its own, standing in for the indexed registrant's blocks that
+    the engine's request shares by reference, and the request's cursor
+    starts at that boundary.  The engine's registrant must have prefilled
+    that prefix with the same ``chunk_tokens`` for the lent bytes to agree.
+
+    Bit-parity contract: injected ``uniforms`` (max_new, V), row 0 the
+    bootstrap event; the engine serves the request alone on a fresh engine
+    with the same ``slots``/``max_context``/``block_size``/``temperature``
+    on the same device; and ``S + max_new <= max_context`` (no ring wrap:
+    the oracle never copies on write).  ``params`` are the fp32 flat
+    parameters.  Returns ``(tokens, fp32 ages)``.
+    """
+    import torch
+
+    from repro_torch import resolve_device
+    from repro_torch.models import cast_params, make_paged_decode_cache
+    from repro_torch.serve.engine import (_chunk_arrays, _chunk_len,
+                                          _chunk_width, _commit,
+                                          _fork_rows_core, _Knobs, _reset_pos,
+                                          _suffix_chunk_core, _tick_core)
+    uniforms = np.asarray(uniforms, np.float32)
+    toks = np.asarray(tokens, np.int64)
+    ags = None if ages is None else np.asarray(ages)
+    S = len(toks)
+    bs = block_size
+    W = max_context
+    V = cfg.vocab_size
+    if uniforms.shape != (max_new, V):
+        raise ValueError(f"uniforms must be (max_new={max_new}, V={V}); "
+                         f"got {uniforms.shape}")
+    if S + max_new > W:
+        raise ValueError(
+            f"S + max_new = {S + max_new} > max_context={W}: the oracle "
+            f"forbids ring wrap (a wrapped slot copies on write, which this "
+            f"straight line does not model)")
+    if matched_tokens % bs or not 0 <= matched_tokens < S:
+        raise ValueError(f"matched_tokens={matched_tokens} must be a "
+                         f"block-aligned length in [0, S)")
+    if chunk_tokens < bs:
+        raise ValueError(f"chunk_tokens={chunk_tokens} must be >= "
+                         f"block_size={bs}")
+    dev = resolve_device(device)
+    kn = _Knobs.of(cfg, slots, W, temperature)
+    wparams = cast_params({k: v.to(dev) for k, v in params.items()}, cfg)
+    nb = -(-S // bs)
+    nb_warm = matched_tokens // bs
+    if blocks is None:
+        blocks = nb_warm + -(-(S + max_new) // bs) + 2
+    cache = make_paged_decode_cache(wparams, cfg, slots, W,
+                                    num_blocks=blocks, block_size=bs)
+    nbs = W // bs
+    next_id = 1
+
+    def dv(x):
+        return torch.from_numpy(np.asarray(x)).to(dev)
+
+    def take(k: int) -> List[int]:
+        nonlocal next_id
+        ids = list(range(next_id, next_id + k))
+        next_id += k
+        if next_id > blocks:
+            raise ValueError(f"oracle pool of {blocks} blocks exhausted")
+        return ids
+
+    def run_chunks(row, start: int, end: int):
+        lg = None
+        cur = start
+        while cur < end:
+            n = _chunk_len(end, cur, chunk_tokens, bs)
+            arrays = _chunk_arrays(toks, ags, cur, n, bs, row)
+            lg = _suffix_chunk_core(wparams, cache,
+                                    *(dv(a) for a in arrays), cfg,
+                                    _chunk_width(n, arrays[0].shape[1], W))
+            cur += n
+        return lg
+
+    # warm pass: the indexed registrant's aligned prefix, in its own blocks
+    warm = take(nb_warm)
+    if nb_warm:
+        wrow = np.full((nbs,), -1, np.int32)
+        wrow[:nb_warm] = warm
+        run_chunks(wrow, 0, matched_tokens)
+
+    # the request: lent blocks + fresh suffix blocks, cursor at the match
+    row = np.full((nbs,), -1, np.int32)
+    row[:nb] = warm + take(nb - nb_warm)
+    lg = run_chunks(row, matched_tokens, S)
+
+    age0 = float(ags[-1]) if ags is not None else 0.0
+    state = {
+        "last": torch.zeros((slots,), dtype=torch.int32, device=dev),
+        "age": torch.zeros((slots,), dtype=torch.float32, device=dev),
+        "step": torch.zeros((slots,), dtype=torch.int32, device=dev),
+        "n_emitted": torch.zeros((slots,), dtype=torch.int32, device=dev),
+        "max_new": torch.ones((slots,), dtype=torch.int32, device=dev),
+        "active": torch.zeros((slots,), dtype=torch.bool, device=dev),
+    }
+    rows, packed = _fork_rows_core(
+        lg[0][None], dv(uniforms[0][None]), dv(np.float32([age0])),
+        dv(np.int32([S])), dv(np.int32([max_new])), kn)
+    _commit(state, dv(np.int64([0])), rows, 1)
+
+    out_t: List[int] = []
+    out_a: List[float] = []
+    live = [True]
+
+    def apply(col):
+        evt, age, emit, finished = col
+        if emit >= 0.5:
+            out_t.append(int(evt))
+            if cfg.age_encoding:
+                out_a.append(float(age))
+        if finished >= 0.5:
+            live[0] = False
+
+    apply(packed.cpu().numpy()[:, 0])
+    pos = S
+    tab = np.full((slots, nbs), -1, np.int32)
+    table_dirty = True
+    while live[0]:
+        jb = (pos % W) // bs
+        if row[jb] < 0:                    # decode growth, engine order:
+            row[jb] = take(1)[0]           # reset positions, then the table
+            _reset_pos(cache, [int(row[jb])])
+            table_dirty = True
+        if table_dirty:
+            tab[0] = row
+            cache["self"].table.copy_(torch.from_numpy(tab))
+            table_dirty = False
+        u = np.full((slots, V), 0.5, np.float32)
+        u[0] = uniforms[len(out_t)]
+        state, packed = _tick_core(wparams, cache, state, dv(u), cfg, kn)
+        apply(packed.cpu().numpy()[:, 0])
+        pos += 1
+    return out_t, out_a

@@ -199,6 +199,71 @@ def test_flash_attention_kernel_vs_plain(gen, B, Hq, Hkv, S, hd, window,
     torch.testing.assert_close(out.float(), want, atol=_tol(dtype), rtol=0)
 
 
+SUFFIX_SHAPES = [
+    # (B, Sc, C, Hkv, G, hd, window): tests/test_kernels.py's SUFFIX_CASES,
+    # then Delphi-2M's chunk (64 tokens over 128 context keys)
+    (1, 16, 0, 1, 1, 32, None),
+    (2, 16, 32, 2, 2, 32, None),
+    (1, 8, 24, 1, 4, 64, None),
+    (2, 16, 16, 2, 1, 16, 12),
+    (1, 16, 32, 2, 2, 32, None),
+    (1, 64, 128, 12, 1, 10, None),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sc,C,Hkv,G,hd,window", SUFFIX_SHAPES)
+def test_flash_position_masks_vs_plain(gen, B, Sc, C, Hkv, G, hd, window,
+                                       dtype):
+    """The position-masked routes through ``ops.suffix_prefill_attention``
+    against ``suffix_prefill_attention_ref`` in fp32 on the same rounded
+    inputs: context padded with trash positions (-1), the chunk's tail
+    padded (-1); the padded rows come out as exact zeros."""
+    Hq = Hkv * G
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    q, k, v = rnd(B, Sc, Hq, hd), rnd(B, Sc, Hkv, hd), rnd(B, Sc, Hkv, hd)
+    ck, cv = rnd(B, C, Hkv, hd), rnd(B, C, Hkv, hd)
+    n_ctx, n_q = max(C - 3, 0), Sc - 2
+    cpos = torch.full((B, C), -1, dtype=torch.int32, device="cuda")
+    cpos[:, :n_ctx] = torch.arange(n_ctx, dtype=torch.int32, device="cuda")
+    qpos = torch.full((B, Sc), -1, dtype=torch.int32, device="cuda")
+    qpos[:, :n_q] = n_ctx + torch.arange(n_q, dtype=torch.int32,
+                                         device="cuda")
+    n0, p0 = fk.launches, fk.position_launches
+    out = ops.suffix_prefill_attention(q, k, v, ck, cv, qpos, cpos,
+                                       window=window, q_per_kv=G)
+    assert fk.launches == n0 + 1 and fk.position_launches == p0 + 1
+    want = ref.suffix_prefill_attention_ref(
+        q.float(), k.float(), v.float(), ck.float(), cv.float(), qpos, cpos,
+        window=window)
+    torch.testing.assert_close(out[:, :n_q].float(), want[:, :n_q],
+                               atol=_tol(dtype), rtol=0)
+    assert not out[:, n_q:].any(), "padded rows must be exact zeros"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,n", [(8, 5), (32, 21), (64, 64), (256, 200)])
+def test_head_chunk_by_position_equals_index_route(gen, S, n, dtype):
+    """A chunk at the prompt head with no context, masked by position,
+    gives the index-masked route's bits on its valid rows (Delphi's heads:
+    12 x hd 10): what keeps an unbounded chunk budget bit-equal to the
+    monolithic prefill on the card."""
+    def rnd(h):
+        return torch.randn((1, S, h, 10), generator=gen, device="cuda"
+                           ).to(dtype)
+    q, k, v = rnd(12), rnd(12), rnd(12)
+    pos = torch.full((1, S), -1, dtype=torch.int32, device="cuda")
+    pos[:, :n] = torch.arange(n, dtype=torch.int32, device="cuda")
+    empty = q.new_zeros((1, 0, 12, 10))
+    by_pos = ops.suffix_prefill_attention(
+        q, k, v, empty, empty, pos, pos[:, :0])
+    by_index = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2)).transpose(1, 2)
+    assert torch.equal(by_pos[:, :n], by_index[:, :n])
+
+
 @pytest.mark.parametrize("B,Hkv,G,hd,bs,nbs,window,dtype", [
     (16, 12, 1, 10, 256, 1, None, torch.bfloat16),   # the ring as a pool
     (3, 2, 4, 64, 4, 8, None, torch.float32),
@@ -380,6 +445,69 @@ def test_fork_bit_identical_to_oracle_on_card(gen):
         if eng.paged:
             eng.drop_prefix_cache()
             assert eng.allocator.used == 0 and not eng.pool._refs
+
+
+def test_chunked_engine_bit_identical_to_oracle_on_card(gen):
+    """bf16 on the card, injected uniforms: the unchunked paged engine ==
+    ``chunked_reference_trajectory`` at an unbounded budget, the chunked
+    engine at one block and at 64 tokens == the oracle at that budget, a
+    partial prefix hit == the oracle with ``matched_tokens``; a fork from
+    a parent prefilled in one chunk == the unchunked fork, and each future
+    of a fork from a parent prefilled in three chunks == the oracle on its
+    uniforms, bit for bit."""
+    import numpy as np
+    from repro_torch.serve import (BatchedEngine, Request,
+                                   chunked_reference_trajectory)
+    params, cfg = _delphi_bf16()
+    rng = np.random.default_rng(2)
+    geo = dict(slots=4, max_context=64, block_size=16)
+
+    def serve(toks, ages, u, max_new, eng=None, **kw):
+        eng = eng or BatchedEngine(params, cfg, cache="paged", device="cuda",
+                                   **geo, **kw)
+        r = Request(tokens=toks, ages=ages, max_new=max_new, uniforms=u)
+        eng.submit(r)
+        eng.run()
+        assert r.done and r.error is None
+        assert eng.host_syncs == eng.ticks + eng.admit_batches
+        return (r.out_tokens, r.out_ages), eng
+
+    def oracle(toks, ages, u, max_new, chunk, matched=0):
+        return chunked_reference_trajectory(
+            params, cfg, toks, ages, max_new=max_new, uniforms=u,
+            chunk_tokens=chunk, matched_tokens=matched, device="cuda", **geo)
+
+    for S in (5, 21, 40):
+        toks = (np.arange(3, 3 + S) % 90).astype(np.int32)
+        ages = np.linspace(0.0, 30.0, S).astype(np.float32)
+        u = rng.random((8, cfg.vocab_size), dtype=np.float32)
+        assert serve(toks, ages, u, 8)[0] == oracle(toks, ages, u, 8, 64)
+        for budget in (16, 64):
+            got, eng = serve(toks, ages, u, 8, prefill_chunk_tokens=budget)
+            assert got == oracle(toks, ages, u, 8, budget), (S, budget)
+            assert eng.allocator.used == 0
+    # a partial hit: a registrant of one block, then a prompt extending it
+    toks = (np.arange(3, 43) % 90).astype(np.int32)
+    ages = np.linspace(0.0, 30.0, 40).astype(np.float32)
+    u = rng.random((2, 8, cfg.vocab_size), dtype=np.float32)
+    _, eng = serve(toks[:16], ages[:16], u[0], 8, prefix_cache=True,
+                   prefill_chunk_tokens=16)
+    got, eng = serve(toks, ages, u[1], 8, eng=eng)
+    assert eng.pool_stats()["suffix_tokens_saved"] == 16
+    assert got == oracle(toks, ages, u[1], 8, 16, matched=16)
+    # forks from chunk-prefilled parents: one chunk (64 >= 40), three (16)
+    fu = rng.random((3, 6, cfg.vocab_size), dtype=np.float32)
+
+    def futures(**kw):
+        eng = BatchedEngine(params, cfg, cache="paged", device="cuda",
+                            **geo, **kw)
+        kids = eng.sample_futures(toks, ages, n=3, max_new=6, uniforms=fu)
+        return [(k.out_tokens, k.out_ages) for k in kids]
+    assert futures(prefill_chunk_tokens=64) == futures()
+    want = [chunked_reference_trajectory(
+        params, cfg, toks, ages, max_new=6, uniforms=fu[j], chunk_tokens=16,
+        device="cuda", **geo) for j in range(3)]
+    assert futures(prefill_chunk_tokens=16) == want
 
 
 def _ssd_inputs(gen, b, C, Q, H, P, N, dtype, *, shared_bc=False,

@@ -181,17 +181,17 @@ def _mamba_reduced():
 
 
 @pytest.mark.parametrize("kw,error", [
-    (dict(prefill_chunk_tokens=32), NotImplementedError),
+    (dict(prefill_chunk_tokens=32), ValueError),       # on the ring
     (dict(prefix_cache=True), ValueError),             # on the ring
     (dict(cache="paged", max_context=50, block_size=16), ValueError),
     (dict(cache="paged", block_size=16, blocks=4), ValueError),
     (dict(cache="paged", arch="mamba2"), ValueError),
 ])
 def test_engine_refuses_what_is_not_ported(kw, error):
-    """What the engine still refuses: chunked prefill (not ported), and the
-    configurations the JAX package's engine refuses too: a prefix cache on
-    the ring, a context that is not a block multiple, a pool smaller than
-    one slot, and the paged cache on a recurrent model."""
+    """What the engine refuses, as the JAX package's engine does: chunked
+    prefill or a prefix cache on the ring, a context that is not a block
+    multiple, a pool smaller than one slot, and the paged cache on a
+    recurrent model."""
     cfg, _, params, _ = _setup()
     kw = dict(kw)
     if kw.pop("arch", None) == "mamba2":
