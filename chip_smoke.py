@@ -58,6 +58,31 @@ runs these phases; any failure exits non-zero:
    200-event prompt, then a 240-event prompt extending it, which must
    prefill only its suffix (``suffix_tokens_saved`` = the 192 matched
    tokens);
+3g. HTTP serving at full width: Delphi-2M bf16 on ``EngineBackend`` (phase
+   3d's knobs: 16 slots, ``max_context`` 256, paged, prefix cache) behind
+   ``InferenceServer``, the engine on its background loop.  Phase 3's 32
+   prompts over ``/v1/generate`` from 8 concurrent ``RemoteBackend``
+   clients with generator uniforms (48 new events), 8 ``/v1/stream``
+   calls, phase 3d's 4 patients x 16 futures over ``/v1/futures`` and 4
+   ``/v1/risk`` calls.  Every request answered with no error, host copies
+   = ticks + admission batches, the three Delphi kernels launched on the
+   HTTP run; events/s in turns (HTTP, in-process background twice, HTTP),
+   the SSE time to first event (p50, p95) and the device idle share of one
+   HTTP run; the streams' time to first event also against a server with
+   the stdlib's listen backlog of 5 (the JAX package's), in turns.  On a
+   fresh server and a fresh twin engine, one request at a
+   time under injected uniforms: ``/v1/generate`` == the twin's generate
+   bit for bit, ``/v1/stream`` == it, ``/v1/futures`` ==
+   ``ring_reference_futures``; ``/v1/risk`` == ``core/risk.py`` on the
+   card's logits.  Then the server's CLI boots as a subprocess (fp32 on
+   the card), answers ``/v1/healthz`` and a generate, and exits 0 on
+   SIGINT;
+3h. the router on one card: ``RouterServer`` over 2 in-process paged
+   replicas; each of phase 3d's patients asked for futures twice, the
+   second visit routed by affinity to the replica holding its prefix
+   (whose prefix hits rise); one replica drained under 16 concurrent
+   requests, every one answered; on a fresh router and a fresh direct
+   server, router ``/v1/generate`` == the direct server's bit for bit;
 4. end-to-end parity in fp32: the same weights and injected uniforms through
    the engine on the card (kernels) and on the CPU (plain versions), for
    Delphi-2M and for Mamba2-780M at full width cut to 4 layers; the card's
@@ -1282,6 +1307,464 @@ def mamba_parity() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3g / 3h: the serving surface on the card (HTTP server, router)
+# ---------------------------------------------------------------------------
+HTTP_CLIENTS, HTTP_REQUESTS, HTTP_MAX_NEW = 8, 32, 48
+HTTP_STREAMS, HTTP_RISKS, HTTP_EXACT = 8, 4, 4
+HTTP_KNOBS = dict(slots=16, max_context=256, cache="paged", prefix_cache=True)
+
+
+def http_prompts():
+    """Phase 3's 32 prompts: the first halves of the same synthetic
+    patients (``repro_torch.launch.serve``), as JSON-ready lists."""
+    from repro_torch.data import SimulatorConfig, generate_dataset
+    trajs, _ = generate_dataset(SimulatorConfig(
+        n_train=HTTP_REQUESTS, n_val=1, seed=SEED + 17))
+    out = []
+    for t, a in trajs:
+        half = max(len(t) // 2, 1)
+        out.append(([int(x) for x in t[:half]],
+                    [float(x) for x in a[:half]]))
+    return out
+
+
+def serving_backend(params, cfg):
+    """Phase 3d's knobs: a prefix-cached paged engine, 16 slots."""
+    from repro_torch.api.client import EngineBackend
+    return EngineBackend.create(params, cfg, seed=SEED, device=DEVICE,
+                                **HTTP_KNOBS)
+
+
+def check_result(r, cfg, max_new: int) -> None:
+    import numpy as np
+    toks = np.asarray(r.tokens)
+    ages = np.asarray(r.ages, np.float64)
+    if len(toks) > max_new or len(ages) != len(toks) or (
+            len(toks) and (toks.min() < 0 or toks.max() >= cfg.vocab_size)):
+        raise AssertionError(f"bad result {r.tokens} {r.ages}")
+    if not (np.isfinite(ages).all() and (np.diff(ages) >= 0).all()):
+        raise AssertionError(f"bad ages {r.ages}")
+
+
+def concurrent(make_client, jobs, fn, threads: int = HTTP_CLIENTS):
+    """``fn(client, job)`` over ``jobs`` from ``threads`` threads, each
+    with its own client from ``make_client()``, job i on thread i % threads.
+    Returns (results in job order, wall seconds ending in a device
+    synchronise); any error is raised."""
+    import threading
+    import torch
+    results = [None] * len(jobs)
+    errors = []
+
+    def worker(k):
+        try:
+            client = make_client()
+            for i in range(k, len(jobs), threads):
+                results[i] = fn(client, jobs[i])
+        except Exception as e:                  # noqa: BLE001
+            errors.append(e)
+    ts = [threading.Thread(target=worker, args=(k,)) for k in range(threads)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in ts) or any(r is None for r in results):
+        raise AssertionError("a request was not answered")
+    return results, wall
+
+
+def generate_traffic(make_client, prompts, cfg) -> dict:
+    """Phase 3's 32 prompts with generator uniforms, 48 new events each,
+    from 8 concurrent clients."""
+    from repro_torch.api import GenerateRequest
+
+    def gen(client, p):
+        return client.generate(GenerateRequest(tokens=p[0], ages=p[1],
+                                               max_new=HTTP_MAX_NEW))
+    results, wall = concurrent(make_client, prompts, gen)
+    for r in results:
+        check_result(r, cfg, HTTP_MAX_NEW)
+    events = sum(len(r.tokens) for r in results)
+    return {"wall_s": wall, "events": events, "events_per_s": events / wall}
+
+
+def stream_traffic(url, prompts, cfg) -> dict:
+    """``/v1/stream`` for 8 prompts from 8 concurrent clients: each
+    stream's time from its POST to its first event."""
+    from repro_torch.api import GenerateRequest, RemoteBackend
+
+    def stream(client, p):
+        t0 = time.perf_counter()
+        it = client.stream(GenerateRequest(tokens=p[0], ages=p[1],
+                                           max_new=HTTP_MAX_NEW))
+        first = next(it, None)
+        ttfe = time.perf_counter() - t0
+        evs = ([first] if first is not None else []) + list(it)
+        return ttfe, evs
+    out, wall = concurrent(lambda: RemoteBackend(url), prompts, stream)
+    for _, evs in out:
+        if [e.index for e in evs] != list(range(len(evs))) or any(
+                e.age is None or not 0 <= e.token < cfg.vocab_size
+                for e in evs):
+            raise AssertionError("bad stream")
+    return {"ttfe_s": [t for t, _ in out],
+            "events": sum(len(e) for _, e in out), "wall_s": wall}
+
+
+def pct(xs, q: float) -> float:
+    import numpy as np
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def http_exact(params, cfg, prompts, patients) -> dict:
+    """On a fresh server and a fresh twin engine with the same knobs, one
+    request at a time under injected uniforms: ``/v1/generate`` == the
+    twin's generate bit for bit (tokens and ages), ``/v1/stream`` == that
+    generate, and ``/v1/futures`` == ``ring_reference_futures``."""
+    import numpy as np
+    from repro_torch.api import Client, FuturesRequest
+    from repro_torch.serve import ring_reference_futures
+    from repro_torch.serve.server import InferenceServer
+    V = cfg.vocab_size
+    rng = np.random.default_rng(SEED + 41)
+    server = InferenceServer(serving_backend(params, cfg), port=0).start()
+    try:
+        remote = Client.connect(server.address)
+        twin = Client.from_engine(serving_backend(params, cfg).engine)
+        events = 0
+        for t, a in prompts[:HTTP_EXACT]:
+            u = rng.random((HTTP_MAX_NEW, V), dtype=np.float32)
+            r = remote.generate(tokens=t, ages=a, max_new=HTTP_MAX_NEW,
+                                uniforms=u)
+            w = twin.generate(tokens=t, ages=a, max_new=HTTP_MAX_NEW,
+                              uniforms=u)
+            if not r.tokens or (r.tokens, r.ages) != (w.tokens, w.ages):
+                raise AssertionError(f"/v1/generate {r.tokens} != the twin "
+                                     f"engine's {w.tokens}")
+            evs = list(remote.stream(tokens=t, ages=a, max_new=HTTP_MAX_NEW,
+                                     uniforms=u))
+            if [(e.token, e.age) for e in evs] != list(zip(r.tokens,
+                                                           r.ages)):
+                raise AssertionError("/v1/stream != /v1/generate")
+            events += len(r.tokens)
+        t, a = patients[0]
+        fu = rng.random((FUTURES_N, 16, V), dtype=np.float32)
+        fr = remote.sample_futures(FuturesRequest(
+            tokens=[int(x) for x in t], ages=[float(x) for x in a],
+            n_futures=FUTURES_N, max_new=16, uniforms=fu))
+        ora = ring_reference_futures(params, cfg, t, a, n=FUTURES_N,
+                                     max_new=16, uniforms=fu,
+                                     slots=HTTP_KNOBS["slots"],
+                                     max_context=HTTP_KNOBS["max_context"],
+                                     device=DEVICE)
+        if [(x.tokens, x.ages) for x in fr.trajectories] != \
+                [(list(k), [float(y) for y in g]) for k, g in ora]:
+            raise AssertionError("/v1/futures != ring_reference_futures")
+    finally:
+        server.stop()
+    return {"generate_events": events,
+            "futures_events": sum(len(x.tokens) for x in fr.trajectories)}
+
+
+def http_risk(url, params, cfg, prompts) -> float:
+    """``/v1/risk`` for 4 prompts against ``core/risk.py`` on logits that
+    the card computes here: each item's risk within 1e-5 relative, and the
+    items the top ones (up to ties within that tolerance).  Returns the
+    largest relative difference."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Client
+    from repro_torch.core.risk import analytic_next_event_risk_np
+    from repro_torch.models import cast_params, forward
+    remote = Client.connect(url)
+    wp = cast_params(params, cfg)
+    worst = 0.0
+    for t, a in prompts[:HTTP_RISKS]:
+        rep = remote.risk(t, a, horizon=5.0, top=10)
+        S = max(cfg.max_seq_len, len(t))
+        tok = np.zeros((1, S), np.int32)
+        tok[0, :len(t)] = t
+        age = np.full((1, S), a[-1], np.float32)
+        age[0, :len(a)] = a
+        with torch.no_grad():
+            lg = forward(wp, cfg, {
+                "tokens": torch.from_numpy(tok).to(DEVICE),
+                "ages": torch.from_numpy(age).to(DEVICE)},
+                mode="train")["logits"][0, len(t) - 1]
+        want = analytic_next_event_risk_np(lg.float().cpu().numpy(), 5.0)
+        got = np.asarray([i.risk for i in rep.items])
+        ids = [i.token for i in rep.items]
+        rel = np.abs(got - want[ids]) / np.maximum(want[ids], 1e-30)
+        kth = np.sort(want)[::-1][len(ids) - 1]
+        if len(ids) != 10 or rel.max() > 1e-5 or \
+                want[ids].min() < kth * (1 - 1e-5):
+            raise AssertionError(f"/v1/risk != core/risk.py: {rel.max()}")
+        worst = max(worst, float(rel.max()))
+    return worst
+
+
+def cli_boot() -> dict:
+    """``python -m repro_torch.serve.server --config delphi-2m --port 0
+    --device cuda`` as a subprocess (the CLI's fp32 route): its address
+    line, ``/v1/healthz``, one ``/v1/generate``, SIGINT, exit code 0."""
+    import queue
+    import signal
+    import threading
+    from urllib.request import urlopen
+    from repro_torch.api import Client
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.serve.server", "--config",
+         "delphi-2m", "--port", "0", "--device", DEVICE],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=ROOT)
+    lines: "queue.Queue" = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True)
+    reader.start()
+    try:
+        url, seen = None, []
+        deadline = time.monotonic() + 180
+        while url is None and time.monotonic() < deadline:
+            try:
+                ln = lines.get(timeout=max(deadline - time.monotonic(), 0.1))
+            except queue.Empty:
+                break
+            seen.append(ln.rstrip())
+            if " backend on http://" in ln:
+                url = ln.split(" backend on ")[1].split()[0]
+        if url is None:
+            raise AssertionError("the server CLI printed no address: "
+                                 + " | ".join(seen))
+        boot = time.perf_counter() - t0
+        with urlopen(url + "/v1/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        if not health["engine"]["running"]:
+            raise AssertionError(f"healthz: {health}")
+        res = Client.connect(url).generate(tokens=[3, 10, 20],
+                                           ages=[0.0, 15.0, 28.0],
+                                           max_new=8)
+        if res.backend != "remote[engine]":
+            raise AssertionError(f"CLI generate: {res}")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+        if rc != 0:
+            raise AssertionError(f"the server CLI exited {rc} on SIGINT")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        reader.join(timeout=10)
+        proc.stdout.close()
+    return {"boot_s": boot, "lines": seen[:2], "events": len(res.tokens),
+            "exit_code": rc}
+
+
+def http_path(params, cfg, patients) -> dict:
+    """Phase 3g: Delphi-2M behind ``InferenceServer`` on the card."""
+    import torch
+    from repro_torch.api import FuturesRequest, RemoteBackend
+    from repro_torch.kernels import ops
+    from repro_torch.serve import server as server_mod
+    from repro_torch.serve.server import InferenceServer
+    prompts = http_prompts()
+    backend = serving_backend(params, cfg)
+    server = InferenceServer(backend, port=0).start()
+    inproc = serving_backend(params, cfg)
+    inproc.engine.start()
+    # the same traffic's streams against a server with the stdlib's listen
+    # backlog of 5 (the JAX package's server), over the in-process engine
+    port_backlog = server_mod._TrackingHTTPServer.request_queue_size
+    server_mod._TrackingHTTPServer.request_queue_size = 5
+    try:
+        backlog5 = InferenceServer(inproc, port=0).start()
+    finally:
+        server_mod._TrackingHTTPServer.request_queue_size = port_backlog
+    eng = backend.engine
+    try:
+        url = server.address
+        # first use of every shape, on both engines
+        generate_traffic(lambda: RemoteBackend(url), prompts[:8], cfg)
+        generate_traffic(lambda: inproc, prompts[:8], cfg)
+        t0, s0, a0 = eng.ticks, eng.host_syncs, eng.admit_batches
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        first = generate_traffic(lambda: RemoteBackend(url), prompts, cfg)
+        counts = ops.launch_counts()
+        for name in DELPHI_KERNELS:
+            if counts[name] <= 0:
+                raise AssertionError(f"{name} never launched over HTTP")
+        turns = [("http", first["events_per_s"])]
+        for mode in ("inprocess", "inprocess", "http"):
+            mk = ((lambda: RemoteBackend(url)) if mode == "http"
+                  else (lambda: inproc))
+            turns.append((mode, generate_traffic(mk, prompts,
+                                                 cfg)["events_per_s"]))
+        ttfe = {port_backlog: [], 5: []}
+        for backlog in (5, port_backlog, port_backlog, 5):
+            at = url if backlog == port_backlog else backlog5.address
+            ttfe[backlog] += stream_traffic(at, prompts[:HTTP_STREAMS],
+                                            cfg)["ttfe_s"]
+        futs = []
+        remote = RemoteBackend(url)
+        for t, a in patients:
+            fr = remote.sample_futures(FuturesRequest(
+                tokens=[int(x) for x in t], ages=[float(x) for x in a],
+                n_futures=FUTURES_N, max_new=FUTURES_MAX_NEW))
+            for r in fr.trajectories:
+                check_result(r, cfg, FUTURES_MAX_NEW)
+            futs.append(sum(len(r.tokens) for r in fr.trajectories))
+        risk_err = http_risk(url, params, cfg, prompts)
+        prof = path_profile(
+            lambda: generate_traffic(lambda: RemoteBackend(url), prompts,
+                                     cfg)["wall_s"], first["wall_s"])
+        health = remote.healthz()
+        remote.close()
+    finally:
+        server.stop()
+        backlog5.stop()
+        inproc.engine.stop()
+    if eng.host_syncs != eng.ticks + eng.admit_batches:
+        raise AssertionError(f"host_syncs {eng.host_syncs} != ticks "
+                             f"{eng.ticks} + admit_batches "
+                             f"{eng.admit_batches}")
+    if any(r is not None for r in eng.slot_req) or eng.pending:
+        raise AssertionError("the server's engine did not drain")
+    eng.drop_prefix_cache()
+    if eng.allocator.used or eng.pool._refs:
+        raise AssertionError("the server's engine leaked blocks")
+    exact = http_exact(params, cfg, prompts, patients)
+    cli = cli_boot()
+    return {"events": first["events"], "wall_s": first["wall_s"],
+            "events_per_s": first["events_per_s"],
+            "ticks": eng.ticks - t0, "host_syncs": eng.host_syncs - s0,
+            "admit_batches": eng.admit_batches - a0,
+            "launches": counts, "turns": turns,
+            "http_over_inprocess": (
+                sum(r for m, r in turns if m == "http")
+                / sum(r for m, r in turns if m == "inprocess")),
+            "sse_ttfe_p50_ms": 1e3 * pct(ttfe[port_backlog], 50),
+            "sse_ttfe_p95_ms": 1e3 * pct(ttfe[port_backlog], 95),
+            "sse_streams": len(ttfe[port_backlog]),
+            "sse_backlog": port_backlog,
+            "sse_ttfe_backlog5_p50_ms": 1e3 * pct(ttfe[5], 50),
+            "sse_ttfe_backlog5_p95_ms": 1e3 * pct(ttfe[5], 95),
+            "sse_ttfe_s": {str(k): v for k, v in ttfe.items()},
+            "futures_events": futs, "risk_max_rel_err": risk_err,
+            "profile": prof, "exact": exact, "cli": cli,
+            "healthz_engine": health["engine"]}
+
+
+def router_path(params, cfg, patients) -> dict:
+    """Phase 3h: ``RouterServer`` over 2 in-process paged replicas on the
+    card (the reference's ``--replica-mode inprocess``)."""
+    import threading
+    from repro_torch.api import Client, GenerateRequest, RemoteBackend
+    from repro_torch.serve.router import ReplicaSupervisor, RouterServer
+    from repro_torch.serve.server import InferenceServer
+    import numpy as np
+    prompts = http_prompts()
+    V = cfg.vocab_size
+
+    def replicas():
+        return ReplicaSupervisor.in_process(
+            lambda i: serving_backend(params, cfg), 2, probe_interval=0.2)
+    # affinity: each patient's futures twice
+    sup = replicas()
+    router = RouterServer(sup, port=0).start()
+    t0 = time.perf_counter()
+    try:
+        remote = Client.connect(router.address)
+        visits = []
+        for rnd in range(2):
+            a0 = router.scheduler.stats()["affinity_routed"]
+            hits0 = {r.name: r.server.backend.engine.prefix.hits
+                     for r in sup.replicas}
+            names = []
+            for t, a in patients:
+                fr = remote.sample_futures(
+                    tokens=[int(x) for x in t], ages=[float(x) for x in a],
+                    n_futures=FUTURES_N, max_new=FUTURES_MAX_NEW)
+                for r in fr.trajectories:
+                    check_result(r, cfg, FUTURES_MAX_NEW)
+                names.append(fr.backend.split("router[")[1].split(":")[0])
+            hits = {r.name: r.server.backend.engine.prefix.hits - hits0[
+                r.name] for r in sup.replicas}
+            visits.append({"replicas": names, "prefix_hits": hits,
+                           "affinity_routed": router.scheduler.stats()[
+                               "affinity_routed"] - a0})
+        first, second = visits
+        if second["replicas"] != first["replicas"] or \
+                second["affinity_routed"] != len(patients):
+            raise AssertionError(f"second visits not routed by affinity: "
+                                 f"{visits}")
+        for name in set(first["replicas"]):
+            if second["prefix_hits"][name] != first["replicas"].count(name):
+                raise AssertionError(f"the holder's prefix hits did not "
+                                     f"rise: {visits}")
+        # drain one replica under load: every request is answered
+        out, errs = {}, []
+
+        def client(k):
+            try:
+                rb = RemoteBackend(router.address)
+                for i in range(k, 16, 8):
+                    t, a = prompts[i]
+                    out[i] = rb.generate(GenerateRequest(
+                        tokens=t, ages=a, max_new=HTTP_MAX_NEW))
+            except Exception as e:              # noqa: BLE001
+                errs.append(e)
+        ts = [threading.Thread(target=client, args=(k,)) for k in range(8)]
+        for t in ts:
+            t.start()
+        time.sleep(0.05)
+        drained = router.drain_replica("r0", timeout=120.0)
+        for t in ts:
+            t.join(timeout=300)
+        if errs or len(out) != 16 or not drained:
+            raise AssertionError(f"drain: {len(out)} of 16 answered, "
+                                 f"drained {drained}, errors {errs[:1]}")
+        for r in out.values():
+            check_result(r, cfg, HTTP_MAX_NEW)
+        after = [remote.generate(tokens=t, ages=a, max_new=8).backend
+                 for t, a in prompts[16:20]]
+        if not all("router[r1:" in b for b in after):
+            raise AssertionError(f"after the drain: {after}")
+        sched = router.scheduler.stats()
+    finally:
+        router.stop()
+    wall = time.perf_counter() - t0
+    # router == a direct server, one request at a time, both fresh
+    sup = replicas()
+    router = RouterServer(sup, port=0).start()
+    direct = InferenceServer(serving_backend(params, cfg), port=0).start()
+    try:
+        rng = np.random.default_rng(SEED + 43)
+        via_r, via_d = Client.connect(router.address), Client.connect(
+            direct.address)
+        for t, a in prompts[:HTTP_EXACT]:
+            u = rng.random((HTTP_MAX_NEW, V), dtype=np.float32)
+            x = via_r.generate(tokens=t, ages=a, max_new=HTTP_MAX_NEW,
+                               uniforms=u)
+            y = via_d.generate(tokens=t, ages=a, max_new=HTTP_MAX_NEW,
+                               uniforms=u)
+            if not x.tokens or (x.tokens, x.ages) != (y.tokens, y.ages):
+                raise AssertionError(f"router {x.tokens} != direct "
+                                     f"{y.tokens}")
+    finally:
+        router.stop()
+        direct.stop()
+    return {"visits": visits, "scheduler": sched, "drained": drained,
+            "wall_s": wall, "exact_prompts": HTTP_EXACT}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: times
 # ---------------------------------------------------------------------------
 def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
@@ -1839,6 +2322,49 @@ def main() -> int:
         f"{sfx['stats']['prefix_cache']['partial_hits']}; shapes "
         f"{sfx['shapes']}; no block left after drop_prefix_cache()")
 
+    log("== phase 3g: HTTP serving (Delphi-2M bf16, EngineBackend on its "
+        "background loop behind InferenceServer: 16 slots, paged, prefix "
+        f"cache): {HTTP_REQUESTS} prompts x {HTTP_MAX_NEW} events from "
+        f"{HTTP_CLIENTS} clients, {HTTP_STREAMS} streams, futures, risk")
+    t3g = time.perf_counter()
+    http = http_path(fut["params"], fut["cfg"], fut["patients"])
+    hp = http["profile"]
+    log(f"  /v1/generate: {http['events']} events in {http['wall_s']:.3f}s:"
+        f" {http['events_per_s']:.1f} events/s; {http['ticks']} ticks, "
+        f"{http['admit_batches']} admission batches, host_syncs "
+        f"{http['host_syncs']}; launches {http['launches']}")
+    log("  in turns, events/s: " + ", ".join(
+        f"{m} {r:.1f}" for m, r in http["turns"])
+        + f"; HTTP / in-process {http['http_over_inprocess']:.3f}")
+    log(f"  SSE time to first event over {http['sse_streams']} streams "
+        f"(listen backlog {http['sse_backlog']}): p50 "
+        f"{http['sse_ttfe_p50_ms']:.2f} ms, p95 "
+        f"{http['sse_ttfe_p95_ms']:.2f} ms; with the stdlib's backlog of 5, "
+        f"in turns (5, {http['sse_backlog']}, {http['sse_backlog']}, 5): p50 "
+        f"{http['sse_ttfe_backlog5_p50_ms']:.2f} ms, p95 "
+        f"{http['sse_ttfe_backlog5_p95_ms']:.2f} ms; futures events "
+        f"{http['futures_events']}; /v1/risk == core/risk.py (max rel err "
+        f"{http['risk_max_rel_err']:.3g})")
+    log(f"  one HTTP run under the profiler: device busy "
+        f"{hp['device_busy_s']:.4f}s of {hp['wall_s']:.3f}s wall, idle share"
+        f" {'not measured' if hp['idle_share'] is None else format(hp['idle_share'], '.3f')}")
+    log(f"  fresh server == twin engine bit for bit on {HTTP_EXACT} "
+        f"prompts ({http['exact']['generate_events']} events), stream == "
+        f"generate, futures == ring_reference_futures "
+        f"({http['exact']['futures_events']} events); CLI booted in "
+        f"{http['cli']['boot_s']:.1f}s, exit {http['cli']['exit_code']} on "
+        f"SIGINT ({http['cli']['lines'][0]})")
+    log(f"  phase 3g took {time.perf_counter() - t3g:.1f}s")
+    log("== phase 3h: the router on one card (RouterServer over 2 "
+        "in-process paged replicas)")
+    t3h = time.perf_counter()
+    rtr = router_path(fut["params"], fut["cfg"], fut["patients"])
+    log(f"  futures visits: first {rtr['visits'][0]}, second "
+        f"{rtr['visits'][1]}; scheduler {rtr['scheduler']}; drained r0 "
+        f"under load with every request answered; router == direct bit "
+        f"for bit on {rtr['exact_prompts']} prompts")
+    log(f"  phase 3h took {time.perf_counter() - t3h:.1f}s")
+
     log("== phase 3b: Mamba2 path (Mamba2-780M bf16, BatchedEngine, 8 "
         "slots)")
     mamba = mamba_path()
@@ -1990,6 +2516,7 @@ def main() -> int:
                        "profiles": xprof},
         "suffix_path": {"pool": sfx["stats"], "matched": sfx["matched"],
                         "suffix_chunks": sfx["suffix_chunks"]},
+        "http_path": http, "router_path": rtr,
         "main_path": {"requests": len(main_res["done"]),
                       "events": main_res["events"], "seconds": sec,
                       "ticks": eng.ticks, "admit_batches": eng.admit_batches,

@@ -13,6 +13,7 @@ from repro_torch.core.risk import (analytic_next_event_risk,
 from repro_torch.core.sampler import (advance_trajectory_state,
                                       generate_trajectories,
                                       sample_next_event,
+                                      sample_next_event_np,
                                       sample_waiting_times)
 
 __all__ = ["advance_trajectory_state", "analytic_next_event_risk",
@@ -22,4 +23,4 @@ __all__ = ["advance_trajectory_state", "analytic_next_event_risk",
            "futures_risk_items", "generate_cohort", "generate_trajectories",
            "monte_carlo_risk", "next_event_risk",
            "pack_futures_trajectories", "sample_next_event",
-           "sample_waiting_times"]
+           "sample_next_event_np", "sample_waiting_times"]

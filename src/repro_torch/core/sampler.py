@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -32,6 +33,19 @@ def sample_next_event(logits, u):
     t_min (B,) fp32): the ``tte_sample`` kernel on the card, its plain
     version on the CPU."""
     return ops.tte_sample(logits, u)
+
+
+def sample_next_event_np(logits, u):
+    """Host-side NumPy twin of :func:`sample_next_event` for one trajectory:
+    the eq.-1 sampler of every host-side client loop (``repro_torch.api``).
+    ``u`` keeps its incoming dtype (injected fp32 uniforms stay fp32 through
+    the log); logits are promoted to fp64.  Returns (event id, waiting time
+    t_min) as Python scalars."""
+    lg = np.asarray(logits).astype(np.float64)
+    u = np.clip(u, 1e-12, 1 - 1e-12)
+    t = -np.exp(-lg) * np.log(u)
+    evt = int(np.argmin(t))
+    return evt, float(t[evt])
 
 
 def advance_trajectory_state(evt, tmin, age, n_emitted, max_new, next_pos,

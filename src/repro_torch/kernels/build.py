@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -109,9 +110,20 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 
 
+_first_build = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built at the first call in a process)."""
+    """The loaded kernel library (built at the first call in a process).
+    Threads that reach the first call together (a serving engine's loop
+    and a request handler) wait on one build."""
+    with _first_build:
+        return _load()
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     lib.repro_cuda_error_string.argtypes = [_I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p

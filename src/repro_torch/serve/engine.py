@@ -59,8 +59,16 @@ lands in the trash block.  A slot whose prompt is still chunking rides it
 too, inactive, with its whole table row -1 in the device copy until its
 last chunk lands: nothing reads or writes its half-written blocks.
 
-Not ported yet, and refused: the background loop and per-request
-callbacks.
+Foreground (``step``/``run`` on the caller's thread) or background
+(``start``: a daemon thread ticks, with exponential idle backoff, and
+``submit``/``cancel``/``fork`` wake it).  Per-request hooks fire on the
+loop's thread: ``on_event`` on the host side of the tick's one sync,
+``on_done`` once when the request ends, after ``error`` is set.  A tick
+that raises fails every queued, parked and in-flight request with that
+exception, frees their blocks, and the loop goes on serving.  Every thread
+launches on its own current stream, which is the default stream: the
+engine creates no side stream.  Cancelled, expired and malformed requests
+end with ``repro_torch.api.errors`` classes, which carry wire codes.
 """
 from __future__ import annotations
 
@@ -68,12 +76,15 @@ import dataclasses
 import itertools
 import threading
 import time
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.api.errors import (InvalidRequestError,
+                                    RequestCancelledError,
+                                    RequestTimeoutError)
 from repro_torch.configs import base as cb
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sampler import (advance_trajectory_state,
@@ -91,19 +102,6 @@ def _to_host(x: torch.Tensor) -> np.ndarray:
     return x.cpu().numpy()
 
 
-class RequestCancelledError(RuntimeError):
-    """The request was cancelled before it finished."""
-
-
-class RequestTimeoutError(RuntimeError):
-    """The request passed the engine's ``request_timeout``."""
-
-
-class InvalidRequestError(ValueError):
-    """A request the engine cannot take: a duplicate id, a fork of an
-    unknown or unheld parent, malformed fork uniforms."""
-
-
 @dataclasses.dataclass(eq=False)        # identity, not ndarray comparison
 class Request:
     tokens: np.ndarray                  # (S,) prompt
@@ -113,6 +111,11 @@ class Request:
     # the i-th sampled event (row 0 at admission, from the prefill logits;
     # a preempted request resumes on row len(out_tokens))
     uniforms: Optional[np.ndarray] = None
+    # hooks, called on the thread that ticks: on_event(token, age or None)
+    # per emitted event, on the host side of the tick's sync; on_done(req)
+    # once when the request ends, after ``error`` is set
+    on_event: Optional[Callable[[int, Optional[float]], None]] = None
+    on_done: Optional[Callable[["Request"], None]] = None
     request_id: Optional[str] = None    # autogenerated at submit when unset
     # prefill-only parking: the request is admitted (prompt KV in the cache,
     # bootstrap logits kept) but samples nothing and holds its slot until
@@ -595,6 +598,13 @@ class BatchedEngine:
         self._prefills: Dict[int, _PrefillProgress] = {}
         self._seq_counter = itertools.count(1)
         self._lock = threading.Lock()
+        # background loop: ``_wake`` cuts the idle backoff short on new work;
+        # with retain_completed False (start()'s default) finished requests
+        # are seen only through their hooks
+        self.retain_completed = True
+        self._wake = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._stop_flag = False
         # instrumentation (asserted on by tests and chip_smoke.py)
         self.ticks = 0
         self.host_syncs = 0
@@ -636,6 +646,7 @@ class BatchedEngine:
                     f"on this engine")
             self._by_id[req.request_id] = req
             self.pending.append(req)
+        self._wake.set()
 
     def cancel(self, request_id: str) -> bool:
         """Flag a pending, parked or in-flight request (or a fork child not
@@ -647,6 +658,7 @@ class BatchedEngine:
             if req is None or req.done:
                 return False
             self._cancel_ids.add(request_id)
+        self._wake.set()
         return True
 
     # -- fork: the Monte-Carlo futures primitive ------------------------------
@@ -701,6 +713,7 @@ class BatchedEngine:
             for c in children:
                 self._by_id[c.request_id] = c
             self._fork_ops.append((parent, list(children)))
+        self._wake.set()
         return children
 
     def _build_fork_children(self, parent: Request, n: Optional[int],
@@ -729,39 +742,175 @@ class BatchedEngine:
 
     def sample_futures(self, tokens, ages=None, *, n: int,
                        max_new: int = 48, uniforms=None,
-                       request_id: Optional[str] = None) -> List[Request]:
+                       request_id: Optional[str] = None,
+                       wait_timeout: float = 300.0) -> List[Request]:
         """N stochastic futures of one history through hold + fork: submit
         a held parent, fork it into ``n`` children sharing its KV, and run
-        the engine in the foreground until everything submitted finishes.
-        Returns the child requests in fork order; check ``Request.error``
-        per child."""
+        the engine in the foreground until everything submitted finishes,
+        or, when the background loop runs, wait on the children's
+        ``on_done`` (``RequestTimeoutError`` after ``wait_timeout``
+        seconds).  Returns the child requests in fork order; check
+        ``Request.error`` per child."""
         parent = Request(tokens=np.asarray(tokens),
                          ages=(np.asarray(ages) if ages is not None
                                else None),
                          max_new=max_new, hold=True, request_id=request_id)
+        running = self.running
         # check the children's shapes before the parent parks in a slot;
-        # with an autogenerated parent id, rebuild them from the real id
+        # with an autogenerated parent id, rebuild them from the real id.
+        # Hooks go on before the fork: the loop may apply it at once
         children = self._build_fork_children(parent, n, uniforms, max_new)
         self.submit(parent)
         if request_id is None:
             children = self._build_fork_children(parent, n, uniforms,
                                                  max_new)
+        waits: List[threading.Event] = []
+        if running:
+            for c in children:
+                evt = threading.Event()
+                c.on_done = lambda _r, _evt=evt: _evt.set()
+                waits.append(evt)
         self.fork(parent.request_id, children=children)
-        self.run()
+        if running:
+            for evt in waits:
+                if not evt.wait(wait_timeout):
+                    raise RequestTimeoutError(
+                        f"engine did not complete the forked futures within "
+                        f"{wait_timeout}s")
+        else:
+            self.run()
         return children
 
     def drop_prefix_cache(self) -> int:
         """Evict every prefix-index entry; returns the blocks freed.  On a
-        drained engine this restores ``allocator.used == 0``."""
+        drained engine this restores ``allocator.used == 0``.  The index
+        and the refcounts belong to the thread that ticks, so this refuses
+        while the background loop runs: ``stop()`` first."""
         if self.prefix is None:
             return 0
+        if self.running:
+            raise RuntimeError(
+                "drop_prefix_cache() mutates engine-thread state (index + "
+                "refcounts): stop() the background loop first")
         return self.prefix.clear()
+
+    # -- background loop ------------------------------------------------------
+    def start(self, *, idle_min: float = 0.001, idle_max: float = 0.05,
+              retain_completed: bool = False) -> "BatchedEngine":
+        """Tick on a daemon thread until :meth:`stop`.  With no work the
+        loop waits from ``idle_min`` doubling up to ``idle_max`` seconds
+        between polls; ``submit``, ``cancel`` and ``fork`` wake it at once.
+        ``retain_completed=False`` keeps ``completed`` empty (a long-running
+        server would otherwise keep every finished request): completion is
+        seen through ``on_event``/``on_done``."""
+        if self.running:
+            return self
+        self.retain_completed = retain_completed
+        self._stop_flag = False
+        self._wake.clear()
+        self._thread = threading.Thread(
+            target=self._loop, args=(idle_min, idle_max),
+            name="repro-torch-engine-loop", daemon=True)
+        self._thread.start()
+        return self
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def stop(self, join: bool = True, timeout: float = 60.0) -> None:
+        """End the background loop.  Requests still queued or in flight
+        fail at once ("engine stopped with the request in flight"), so
+        their waiters never sit out a timeout."""
+        was_running = self.running
+        self._stop_flag = True
+        self._wake.set()
+        t = self._thread
+        if join and t is not None:
+            t.join(timeout=timeout)
+            if t.is_alive():
+                # a tick outlived the timeout: keep ``running`` True rather
+                # than race a live loop over slot state; retry stop()
+                raise RuntimeError(
+                    f"engine loop still ticking after {timeout}s: retry "
+                    f"stop()")
+        self._thread = None
+        with self._lock:
+            queued = bool(self.pending or self._fork_ops)
+        inflight = any(r is not None for r in self.slot_req)
+        if was_running and (queued or inflight):
+            self._fail_inflight(
+                RuntimeError("engine stopped with the request in flight"))
+
+    def _loop(self, idle_min: float, idle_max: float) -> None:
+        idle = idle_min
+        while not self._stop_flag:
+            try:
+                progressed = self.step()
+            except Exception as e:          # fail the requests, keep the
+                self._fail_inflight(e)      # loop serving new work
+                progressed = False
+            if progressed:
+                idle = idle_min
+            else:
+                self._wake.wait(idle)
+                self._wake.clear()
+                idle = min(idle * 2.0, idle_max)
+
+    def _fail_inflight(self, exc: BaseException) -> None:
+        """A tick raised: every queued, forking, parked and in-flight
+        request ends with ``exc`` (waiters unblock through ``on_done``),
+        every slot's blocks go back to the pool, and the slot state resets
+        so that serving goes on."""
+        with self._lock:
+            victims = self.pending[:]
+            self.pending.clear()
+            for _parent, kids in self._fork_ops:
+                victims += kids
+            self._fork_ops.clear()
+        victims += [r for r in self.slot_req if r is not None]
+        for slot in range(self.slots):
+            # also a slot whose request never landed (an admission that
+            # raised after allocating): its blocks return to the pool
+            if self.slot_req[slot] is not None or (
+                    self.paged and self._slot_blocks[slot]):
+                self._release_slot(slot)
+        self._slot_pos[:] = 0
+        self._deactivate.clear()
+        self._prefills.clear()
+        self._held_logits.clear()
+        self._held_state.clear()
+        if self.paged:
+            # the next step uploads the emptied table before any admission
+            self._fresh_blocks.clear()
+            self._table[:] = -1
+            self._table_dirty = True
+        for req in victims:
+            self._finalize(req, exc)
+        # device state last: the waiters are already free if it raises too
+        self._state = {k: torch.zeros_like(v) for k, v in self._state.items()}
 
     @property
     def cache_bytes(self) -> int:
         """Resident decode-cache bytes (block pool and tables, or rings)."""
         return sum(t.numel() * t.element_size()
                    for leaf in self.cache.values() for t in leaf)
+
+    def health_stats(self) -> Dict[str, Any]:
+        """Queue, slot and counter snapshot for ``/v1/healthz``: the one
+        accessor that request handler threads use."""
+        with self._lock:
+            pending = len(self.pending)
+            ticks = self.ticks
+        active = sum(r is not None for r in self.slot_req)
+        return {
+            "running": self.running,
+            "ticks": ticks,
+            "pending": pending,
+            "active_slots": active,
+            "slots": self.slots,
+            "memory": self.pool_stats(),
+        }
 
     def pool_stats(self) -> Dict[str, object]:
         """Allocator watermarks and scheduler counters.  Every block count
@@ -803,8 +952,10 @@ class BatchedEngine:
         with self._lock:
             self._by_id.pop(req.request_id, None)
             self._cancel_ids.discard(req.request_id)
-        if req.error is None:
+        if req.error is None and self.retain_completed:
             self.completed.append(req)
+        if req.on_done is not None:
+            req.on_done(req)
 
     def _release_slot(self, slot: int) -> None:
         """Detach the slot's request and drop its block references (a block
@@ -849,7 +1000,8 @@ class BatchedEngine:
             if r.request_id in ids:
                 return RequestCancelledError("request cancelled")
             if r._deadline is not None and now > r._deadline:
-                return RequestTimeoutError("request exceeded its deadline")
+                return RequestTimeoutError(
+                    "request exceeded its engine deadline")
             return None
 
         drop = []
@@ -1548,6 +1700,8 @@ class BatchedEngine:
             req.out_tokens.append(int(evt))
             if self.is_delphi:
                 req.out_ages.append(float(age))
+            if req.on_event is not None:
+                req.on_event(int(evt), float(age) if self.is_delphi else None)
         if finished >= 0.5:
             self._release_slot(slot)     # returns paged blocks to the pool
             self._finalize(req)

@@ -13,6 +13,7 @@ the sampler's events are equal except at near-ties (waiting times within
 sums agree with the plain version's to atol 1e-4 (``test_kernels.py``'s
 SSD tolerance) on the same (rounded) inputs.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -605,3 +606,114 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     strided = torch.zeros((1, 1, 32, 2, 16), device="cuda")[..., ::2]
     with pytest.raises(ValueError, match="unit stride"):
         sk.ssd_intra_cuda(strided, Bm, Cm, cum)
+
+
+# ---------------------------------------------------------------------------
+# The serving surface on the card: the background loop, HTTP, /v1/risk
+# ---------------------------------------------------------------------------
+def _long_uniforms(rng, max_new, cfg):
+    u = rng.random((max_new, cfg.vocab_size), dtype=np.float32)
+    u[:, cfg.death_token] = 1e-12
+    return u
+
+
+def test_bf16_server_remote_equals_twin_on_card(gen):
+    """bf16 on the card, one request at a time, injected uniforms: a fresh
+    server's ``/v1/generate`` equals an in-process twin engine's generate
+    bit for bit (tokens and fp32 ages), and ``/v1/stream`` equals it."""
+    from repro_torch.api import Client
+    from repro_torch.api.client import EngineBackend
+    from repro_torch.serve.server import InferenceServer
+    params, cfg = _delphi_bf16()
+    kw = dict(slots=4, max_context=64, cache="paged", prefix_cache=True,
+              device="cuda")
+    server = InferenceServer(EngineBackend.create(params, cfg, **kw),
+                             port=0).start()
+    try:
+        remote = Client.connect(server.address)
+        twin = Client.serving(params, cfg, **kw)
+        rng = np.random.default_rng(3)
+        for S in (3, 9, 21):
+            toks = (np.arange(3, 3 + S) % 90).tolist()
+            ages = np.linspace(0.0, 30.0, S).astype(np.float32).tolist()
+            u = rng.random((8, cfg.vocab_size), dtype=np.float32)
+            r = remote.generate(tokens=toks, ages=ages, max_new=8,
+                                uniforms=u)
+            w = twin.generate(tokens=toks, ages=ages, max_new=8, uniforms=u)
+            assert len(r.tokens) > 0
+            assert (r.tokens, r.ages) == (w.tokens, w.ages)
+            evs = list(remote.stream(tokens=toks, ages=ages, max_new=8,
+                                     uniforms=u))
+            assert [(e.token, e.age) for e in evs] == list(zip(r.tokens,
+                                                               r.ages))
+    finally:
+        server.stop()
+
+
+def test_background_futures_equal_oracle_on_card(gen):
+    from repro_torch.serve import BatchedEngine, ring_reference_futures
+    params, cfg = _delphi_bf16()
+    toks = (np.arange(3, 3 + 37) % 90).astype(np.int32)
+    ages = np.linspace(0.0, 30.0, len(toks)).astype(np.float32)
+    u = np.random.default_rng(4).random((4, 6, cfg.vocab_size),
+                                        dtype=np.float32)
+    ora = ring_reference_futures(params, cfg, toks, ages, n=4, max_new=6,
+                                 uniforms=u, slots=4, max_context=64,
+                                 device="cuda")
+    eng = BatchedEngine(params, cfg, slots=4, max_context=64, cache="paged",
+                        prefix_cache=True, device="cuda").start()
+    try:
+        for _ in range(2):
+            kids = eng.sample_futures(toks, ages, n=4, max_new=6,
+                                      uniforms=u, wait_timeout=120.0)
+            assert all(k.error is None for k in kids)
+            assert [(k.out_tokens, k.out_ages) for k in kids] == ora
+    finally:
+        eng.stop()
+    assert eng.prefix.hits >= 1
+
+
+def test_risk_logits_during_ticks_equal_a_quiet_engine(gen):
+    """The loop's thread ticks while this thread runs ``EngineBackend
+    .logits`` (``/v1/risk``'s forward): both launch on the default stream,
+    so the logits equal those of a quiet engine bit for bit, and the
+    ticking requests equal a foreground run's."""
+    import threading
+    from repro_torch.api.client import EngineBackend
+    from repro_torch.serve import Request
+    params, cfg = _delphi_bf16()
+    kw = dict(slots=4, max_context=64, device="cuda")
+    quiet = EngineBackend.create(params, cfg, **kw)
+    busy = EngineBackend.create(params, cfg, **kw)
+    rng = np.random.default_rng(5)
+    prompts = [((np.arange(3, 3 + S) % 90).astype(np.int32),
+                np.linspace(0.0, 30.0, S).astype(np.float32),
+                _long_uniforms(rng, 40, cfg)) for S in (4, 7, 12, 20)]
+    asks = [((np.arange(5, 5 + S) % 90).tolist(),
+             np.linspace(1.0, 20.0, S).astype(np.float32).tolist())
+            for S in (2, 6, 11)]
+    want = [quiet.logits(t, a) for t, a in asks]
+    fg = [Request(tokens=t, ages=a, max_new=40, uniforms=u)
+          for t, a, u in prompts]
+    for r in fg:
+        quiet.engine.submit(r)
+    quiet.engine.run()
+    done = threading.Semaphore(0)
+    bg = [Request(tokens=t, ages=a, max_new=40, uniforms=u,
+                  on_done=lambda _r: done.release()) for t, a, u in prompts]
+    busy.engine.start()
+    try:
+        for r in bg:
+            busy.engine.submit(r)
+        rounds = 0
+        while any(not r.done for r in bg) or rounds < 3:
+            for (t, a), w in zip(asks, want):
+                assert np.array_equal(busy.logits(t, a), w)
+            rounds += 1
+        for _ in bg:
+            assert done.acquire(timeout=120.0)
+    finally:
+        busy.engine.stop()
+    assert busy.engine.ticks > 0
+    assert [(r.error, r.out_tokens, r.out_ages) for r in bg] == \
+        [(None, r.out_tokens, r.out_ages) for r in fg]

@@ -223,6 +223,7 @@ def test_serve_cli_on_cpu(capsys):
     assert eng.host_syncs == eng.ticks + eng.admit_batches
     assert "served 3 requests" in capsys.readouterr().out
     assert launch.parse_args(["--cache", "paged"]).cache == "paged"
-    for bad in (["--cache", "dense"], ["--replicas", "2"]):
+    assert launch.parse_args(["--replicas", "2"]).replicas == 2
+    for bad in (["--cache", "dense"], ["--replicas", "0"]):
         with pytest.raises(SystemExit):
             launch.parse_args(bad)

@@ -29,7 +29,9 @@ from repro_torch.kernels import tte_sample as tk
 from repro_torch.launch import serve as launch
 from repro_torch.models import (from_jax_flat, init_params, load_checkpoint,
                                 to_flat_numpy)
+from repro_torch.api import Client
 from repro_torch.serve import BatchedEngine
+from repro_torch.serve import server
 
 torch.set_num_threads(2)
 
@@ -83,6 +85,19 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
                       max_context=32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch.serve(launch.parse_args(["--requests", "1"]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.serve(launch.parse_args(["--requests", "2", "--replicas",
+                                        "2"]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Client.serving(params, cfg.replace(dtype="float32"), slots=2,
+                       max_context=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Client.from_params(params, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        server.main(["--config", "delphi-2m", "--reduced", "--port", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        server.main(["--config", "delphi-2m", "--reduced", "--port", "0",
+                     "--replicas", "2"])
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -120,6 +135,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
 
 def test_importing_the_port_builds_nothing():
     code = ("import repro_torch.serve, repro_torch.launch.serve\n"
+            "import repro_torch.api, repro_torch.serve.server\n"
+            "import repro_torch.serve.router\n"
             "from repro_torch.kernels import build\n"
             "assert build.library.cache_info().currsize == 0\n"
             "assert not build.last_build\n")

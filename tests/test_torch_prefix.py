@@ -3,7 +3,8 @@ index, hold/fork/``sample_futures`` held bit for bit to the port's
 ``ring_reference_futures`` (ring, paged, prefix-cached paged twice), the
 scheduler's edge cases, the zero-leak invariant extended to refcounts
 (twins of ``tests/test_prefix.py`` and ``scripts/paged_parity.py``'s fork
-storm, in the foreground: the port has no background loop yet), and the
+storm, in the foreground; the background loop has
+``tests/test_torch_engine_loop.py``), and the
 port's futures oracle against the JAX package's.
 
 Against JAX the futures are held margin-aware and teacher-forced with a
