@@ -83,6 +83,15 @@ runs these phases; any failure exits non-zero:
    (whose prefix hits rise); one replica drained under 16 concurrent
    requests, every one answered; on a fresh router and a fresh direct
    server, router ``/v1/generate`` == the direct server's bit for bit;
+3i. a cohort sweep at full width: ``ScenarioEngine`` over ``EngineBackend``
+   (phase 3d's knobs, its background loop) samples 8 futures x 32 events
+   for each of 64 patients (the first halves of ``patient(i,
+   SimulatorConfig(seed=7))``), 4 in flight, in bf16; ``assert_sweep_parity``
+   holds bit for bit on the first 8 patients in bf16 and in fp32; a paired
+   counterfactual (two edits of a 40-event history) on a fresh engine hits
+   the prefix cache once per arm; patients/s, events/s, the prefix hit rate,
+   the three kernels' launches on the sweep, and the idle share of its first
+   16 patients under the profiler;
 4. end-to-end parity in fp32: the same weights and injected uniforms through
    the engine on the card (kernels) and on the CPU (plain versions), for
    Delphi-2M and for Mamba2-780M at full width cut to 4 layers; the card's
@@ -98,6 +107,26 @@ runs these phases; any failure exits non-zero:
    chunk == the unchunked fork's and from one prefilled in 7 chunks == the
    oracle per future; ``monte_carlo_risk`` over phase 3d's futures equals the
    host aggregation exactly, and analytic risk on the card the CPU's;
+6a. gradients on the card: one full-width train step (Delphi-2M, fp32,
+   TF32 off, a 32 x 128 ``pack_trajectories`` batch); the loss and every
+   gradient against the CPU port's on the same batch, every gradient finite
+   and non-zero, no kernel launched (the training route is plain torch);
+6b. training at full width: ``python -m repro_torch.launch.train --arch
+   delphi-2m`` (its ``main``) for 200 steps of 32 x 128 over 2,048 simulated
+   patients, bf16 activations over fp32 masters; the loss of the last 20
+   steps below the first 20's; steps/s, target tokens/s, peak memory, the
+   idle share of 10 steps under the profiler; the server built from
+   ``--ckpt`` on its output answers a generate;
+6c. federated fine-tuning: 3 clients (64 patients each), 2 rounds of 2
+   local steps at full width, deltas clipped to norm 2; the mean client
+   loss falls; seconds a round;
+6d. the canary loop over HTTP: 4 member canaries of 8 (3 secret codes)
+   planted 8 times into 512 simulated patients, full-width Delphi trained
+   on the card, served by ``EngineBackend`` behind ``InferenceServer``,
+   audited by ``python -m repro_torch.privacy.audit --url`` as a subprocess
+   (exit 0, a valid report); the MI AUC, its CI and the extraction gap are
+   printed (measurements, not gates), with the kernels' launches on the
+   audit;
 5. times at the main paths' shapes: each kernel, its plain version, one
    PyTorch library call where one computes the same function (a yardstick
    the port never calls), and the bound from bytes and operations (for
@@ -119,9 +148,11 @@ runs these phases; any failure exits non-zero:
 
 The ``kernels`` line holds the four kernels and, as a fifth row, the flash
 kernel's position-masked route with its launches on the chunked drive of
-phase 3e.  The last lines are the ``kernels`` JSON line, the card's name
-and power limit (``nvidia-smi``), and the result line ``{"ok": true,
-"device": ...}``.  A copy of all numbers goes to
+phase 3e; each Delphi kernel's row also gives its launches on the sweep of
+phase 3i and on the audit of phase 6d (``launches_by_path``, counts zeroed
+just before each and read just after).  The last lines are the ``kernels``
+JSON line, the card's name and power limit (``nvidia-smi``), and the result
+line ``{"ok": true, "device": ...}``.  A copy of all numbers goes to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -130,6 +161,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1765,6 +1797,403 @@ def router_path(params, cfg, patients) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 6a-6d and 3i: training, federated fine-tuning, the cohort sweep and
+# the canary loop on the card
+# ---------------------------------------------------------------------------
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_PATIENTS = 32, 128, 200, 2048
+# card against CPU, fp32 with TF32 off: the same arithmetic summed in other
+# orders (cuBLAS, reductions) and sin/cos of the ~1e4-1e5 rad age angles on
+# two libraries (the frequency table itself is the same bits, built on the
+# host); a gradient off by more than this share of its leaf's largest
+# element is a fault, not rounding
+GRAD_CARD_REL = 1e-3
+FED_CLIENTS, FED_ROUNDS, FED_LOCAL_STEPS, FED_CLIP = 3, 2, 2, 2.0
+SWEEP_PATIENTS, SWEEP_FUTURES, SWEEP_MAX_NEW = 64, 8, 32
+SWEEP_IN_FLIGHT, SWEEP_EXACT, SWEEP_SEED = 4, 8, 13
+CANARIES, CANARY_SECRET, CANARY_PREFIX, CANARY_REPEATS = 8, 3, 6, 8
+CANARY_STEPS, CANARY_BATCH, CANARY_SEQ = 150, 32, 48
+
+
+def train_batches(n: int, seed: int) -> list:
+    """``n`` full-width training batches (32 x 128) from
+    ``pack_trajectories`` over freshly simulated patients."""
+    from repro_torch.data import (SimulatorConfig, batches,
+                                  generate_dataset, pack_trajectories)
+    trajs, _ = generate_dataset(SimulatorConfig(
+        n_train=n * TRAIN_BATCH, n_val=1, seed=seed))
+    it = batches(pack_trajectories(trajs, TRAIN_SEQ), TRAIN_BATCH, seed=seed)
+    return [next(it) for _ in range(n)]
+
+
+def grads_path() -> dict:
+    """Phase 6a: one full-width train step in fp32 (TF32 off) on the card;
+    its loss and every gradient against the CPU port's on the same batch."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.train import (OptimizerConfig, init_opt_state,
+                                   loss_and_grads, make_loss_fn,
+                                   make_train_step)
+    from repro_torch.train.trainer import to_device
+    cfg = get_config("delphi-2m").replace(dtype="float32")
+    host = init_params(cfg, seed=SEED, device="cpu")
+    params = {k: v.to(DEVICE) for k, v in host.items()}
+    batch = train_batches(1, SEED + 31)[0]
+    loss_fn = make_loss_fn(cfg, "delphi")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    g_card, m_card = loss_and_grads(loss_fn, params, to_device(batch, DEVICE))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    g_cpu, m_cpu = loss_and_grads(loss_fn, host, to_device(batch, "cpu"))
+    worst, worst_key = 0.0, None
+    for k, g in g_card.items():
+        if g is None or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"6a: {k}: no finite gradient on the card")
+        want = g_cpu[k].numpy()
+        got = g.cpu().numpy()
+        scale = float(np.abs(want).max())
+        if float(np.abs(got).max()) == 0.0 and scale > 0.0:
+            raise AssertionError(f"6a: {k}: all-zero gradient on the card")
+        rel = float(np.abs(got - want).max()) / max(scale, 1e-30)
+        if rel > worst:
+            worst, worst_key = rel, k
+    loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) \
+        / abs(float(m_cpu["loss"]))
+    if worst > GRAD_CARD_REL or loss_rel > 1e-5:
+        raise AssertionError(f"6a: card vs CPU: loss rel {loss_rel:.3g}, "
+                             f"gradient {worst_key} {worst:.3g} of its "
+                             f"largest element (allowed {GRAD_CARD_REL})")
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"6a: the training route launched a kernel: "
+                             f"{counts}")
+    new, state, m = make_train_step(cfg, OptimizerConfig(), "delphi")(
+        params, init_opt_state(params), to_device(batch, DEVICE))
+    if not all(bool(torch.isfinite(v).all()) and not v.requires_grad
+               for v in new.values()) or int(state["step"]) != 1:
+        raise AssertionError("6a: the updated parameters are not finite")
+    if float(m["loss"]) != float(m_card["loss"]):
+        raise AssertionError("6a: make_train_step's loss != loss_and_grads'")
+    return {"loss_card": float(m_card["loss"]),
+            "loss_cpu": float(m_cpu["loss"]), "loss_rel_err": loss_rel,
+            "grad_max_rel_err": worst, "grad_worst_leaf": worst_key,
+            "leaves": len(g_card), "grad_seconds": sec,
+            "targets": float(batch["loss_mask"].sum())}
+
+
+def train_path(out_dir: str) -> dict:
+    """Phase 6b: ``python -m repro_torch.launch.train --arch delphi-2m``
+    (its ``main``, in this process) for 200 steps of 32 x 128 in bf16
+    activations over fp32 masters; the loss falls, no kernel launches on
+    the training route; 10 steps once more for the device's idle share;
+    the port's server boots on ``--ckpt`` and answers a generate."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Client
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.serve import server as server_mod
+    from repro_torch.train import (OptimizerConfig, init_opt_state,
+                                   make_train_step)
+    from repro_torch.train.trainer import to_device
+    # the training's own peak: what the earlier phases still hold (their
+    # models and pools) is allocated before it starts
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    res = launch_train.main([
+        "--arch", "delphi-2m", "--steps", str(TRAIN_STEPS),
+        "--patients", str(TRAIN_PATIENTS), "--batch", str(TRAIN_BATCH),
+        "--seq-len", str(TRAIN_SEQ), "--seed", str(SEED), "--out", out_dir,
+        "--device", DEVICE])
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    if any(counts.values()):
+        raise AssertionError(f"6b: training launched a kernel: {counts}")
+    hist, cfg, sec = res["history"], res["cfg"], res["seconds"]
+    if cfg.dtype != "bfloat16" or not all(
+            v.dtype == torch.float32 and not v.requires_grad
+            for v in res["params"].values()):
+        raise AssertionError("6b: not bf16 activations over fp32 masters")
+    steps = np.asarray(hist["step"])
+    loss = np.asarray(hist["loss"])
+    if not np.isfinite(loss).all():
+        raise AssertionError(f"6b: loss {loss}")
+    first = loss[steps < 20].mean()
+    last = loss[steps >= TRAIN_STEPS - 20].mean()
+    if not last < first:
+        raise AssertionError(f"6b: the loss did not fall: first 20 steps "
+                             f"{first:.4f}, last 20 {last:.4f}")
+    # the same step function, 10 steps, without and with the profiler
+    step = make_train_step(cfg, OptimizerConfig(lr=1e-5), "delphi")
+    batches = [to_device(b, DEVICE) for b in train_batches(10, SEED + 41)]
+
+    def ten():
+        p, o = res["params"], init_opt_state(res["params"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            p, o, _ = step(p, o, b)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    ten()
+    wall10 = ten()
+    prof = path_profile(ten, wall10)
+    # the port's server on the checkpoint (its CLI's build path)
+    backend = server_mod._build_backend(server_mod.parse_args(
+        ["--config", "delphi-2m", "--ckpt", out_dir, "--device", DEVICE,
+         "--cache", "paged"]))
+    for k, v in res["params"].items():
+        if not torch.equal(backend.params[k], v):
+            raise AssertionError(f"6b: --ckpt served other weights ({k})")
+    server = server_mod.InferenceServer(backend, port=0).start()
+    try:
+        r = Client.connect(server.address).generate(
+            tokens=[3, 10, 20], ages=[0.0, 15.0, 28.0], max_new=8)
+    finally:
+        server.stop()
+    if not r.tokens or len(r.tokens) != len(r.ages):
+        raise AssertionError(f"6b: the served checkpoint answered {r}")
+    return {"steps": TRAIN_STEPS, "seconds": sec,
+            "steps_per_s": TRAIN_STEPS / sec,
+            "target_tokens": res["target_tokens"],
+            "target_tokens_per_s": res["target_tokens"] / sec,
+            "peak_memory_bytes": peak, "loss_first20": float(first),
+            "loss_last20": float(last), "history": hist,
+            "ten_steps_wall_s": wall10, "profile": prof,
+            "served_events": len(r.tokens), "params": res["params"],
+            "cfg": cfg}
+
+
+def federated_path() -> dict:
+    """Phase 6c: FedAvg over 3 clients (their own patients, 64 each), 2
+    rounds of 2 local steps at full width with delta clipping, from
+    ``init_params(seed)``; the mean client loss falls."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import (SimulatorConfig, batches,
+                                  generate_dataset, pack_trajectories)
+    from repro_torch.federated import FedConfig, federated_finetune
+    from repro_torch.models import init_params
+    cfg = get_config("delphi-2m")
+    trajs, _ = generate_dataset(SimulatorConfig(
+        n_train=FED_CLIENTS * 2 * TRAIN_BATCH, n_val=1, seed=SEED + 53))
+    iters = [batches(pack_trajectories(trajs[i::FED_CLIENTS], TRAIN_SEQ),
+                     TRAIN_BATCH, seed=i) for i in range(FED_CLIENTS)]
+    fed = FedConfig(n_rounds=FED_ROUNDS, local_steps=FED_LOCAL_STEPS,
+                    local_lr=2e-3, clip_delta_norm=FED_CLIP)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    rounds = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, hist = federated_finetune(
+        init_params(cfg, seed=SEED, device=DEVICE), cfg, iters, fed,
+        generator=gen, log_fn=lambda s: rounds.append(
+            (s, time.perf_counter())), device=DEVICE)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    loss = hist["client_loss"]
+    if not loss[-1] < loss[0] or not all(
+            bool(torch.isfinite(v).all()) for v in params.values()):
+        raise AssertionError(f"6c: mean client loss {loss}")
+    return {"clients": FED_CLIENTS, "rounds": FED_ROUNDS,
+            "local_steps": FED_LOCAL_STEPS, "clip_delta_norm": FED_CLIP,
+            "client_loss": loss, "seconds": sec,
+            "seconds_per_round": sec / FED_ROUNDS}
+
+
+def sweep_patients() -> list:
+    """The first halves of ``patient(i, SimulatorConfig(seed=7))``, i <
+    64: each history's present, whose futures the sweep samples."""
+    from repro_torch.data import SimulatorConfig, patient
+    sim = SimulatorConfig(seed=7)
+    out = []
+    for i in range(SWEEP_PATIENTS):
+        t, a = patient(i, sim)
+        half = max(len(t) // 2, 1)
+        out.append((t[:half], a[:half]))
+    return out
+
+
+def sweep_run(params, cfg, patients):
+    from repro_torch.cohort import ScenarioEngine
+    se = ScenarioEngine(serving_backend(params, cfg),
+                        max_in_flight=SWEEP_IN_FLIGHT, seed=SWEEP_SEED)
+    res = se.sweep(patients, n_futures=SWEEP_FUTURES, max_new=SWEEP_MAX_NEW,
+                   horizon=10.0)
+    if res.n_failed:
+        raise AssertionError(f"3i: {res.n_failed} patients failed: "
+                             f"{[p.error for p in res.results if not p.ok]}")
+    return res
+
+
+def sweep_parity(res, params, cfg, patients) -> dict:
+    """``assert_sweep_parity`` on the sweep's first 8 patients."""
+    import dataclasses
+    from repro_torch.cohort import assert_sweep_parity
+    head = dataclasses.replace(res, results=res.results[:SWEEP_EXACT])
+    return assert_sweep_parity(
+        head, params, cfg, patients, seed=SWEEP_SEED,
+        n_futures=SWEEP_FUTURES, max_new=SWEEP_MAX_NEW, horizon=10.0,
+        slots=HTTP_KNOBS["slots"], max_context=HTTP_KNOBS["max_context"],
+        device=DEVICE)
+
+
+def cohort_path(params, cfg) -> dict:
+    """Phase 3i: a ``ScenarioEngine`` sweep of 64 patients x 8 futures x
+    32 events through ``EngineBackend`` (its background loop, 4 patients
+    in flight) in bf16; ``assert_sweep_parity`` bit for bit on the first 8
+    patients in bf16 and in fp32; a paired counterfactual hits the prefix
+    cache once per arm; the sweep once more (its first 16 patients) under
+    the profiler for the idle share."""
+    import numpy as np
+    import torch
+    from repro_torch.cohort import CounterfactualEdit, ScenarioEngine
+    from repro_torch.data import SimulatorConfig, patient
+    from repro_torch.data import vocab as V
+    from repro_torch.kernels import ops
+    patients = sweep_patients()
+    sweep_run(params, cfg, patients[:4])                   # first use
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = sweep_run(params, cfg, patients)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for name in DELPHI_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"3i: {name} never launched on the sweep")
+    exact = {"bfloat16": sweep_parity(res, params, cfg, patients)}
+    cfg32 = cfg.replace(dtype="float32")
+    res32 = sweep_run(params, cfg32, patients[:SWEEP_EXACT])
+    exact["float32"] = sweep_parity(res32, params, cfg32, patients)
+    # a paired counterfactual on a fresh engine: each edited arm shares
+    # the baseline's blocks before its edit point
+    sim = SimulatorConfig(seed=7)
+    i = SWEEP_PATIENTS
+    while True:
+        toks, ages = patient(i, sim)
+        if len(toks) >= 40 and toks[-1] != V.DEATH:
+            break
+        i += 1
+    toks, ages = toks[:40], ages[:40]
+    be = serving_backend(params, cfg)
+    edits = [CounterfactualEdit("remove", int(toks[-1])),
+             CounterfactualEdit("insert", int(V.DISEASE0 + 7),
+                                age=float(ages[-2]))]
+    reps = ScenarioEngine(be, seed=SWEEP_SEED).counterfactual(
+        toks, ages, edits, n_futures=SWEEP_FUTURES, max_new=SWEEP_MAX_NEW,
+        horizon=10.0)
+    pc = be.engine.pool_stats()["prefix_cache"]
+    arm_hits = pc["hits"] + pc["partial_hits"]
+    if arm_hits != len(edits) or not all(
+            r.shared_prefix_len >= len(toks) - 2 for r in reps):
+        raise AssertionError(f"3i: counterfactual arms and the prefix "
+                             f"cache: {pc}")
+    prof = path_profile(
+        lambda: sweep_run(params, cfg, patients[:16]).wall_s,
+        sweep_run(params, cfg, patients[:16]).wall_s)
+    lat = np.asarray([p.latency_s for p in res.results])
+    return {"patients": res.n_patients, "futures": SWEEP_FUTURES,
+            "max_new": SWEEP_MAX_NEW, "in_flight": SWEEP_IN_FLIGHT,
+            "wall_s": res.wall_s, "patients_per_s": res.patients_per_s,
+            "events": res.events_total, "events_per_s": res.events_per_s,
+            "prefix_hit_rate": res.prefix_hit_rate,
+            "patient_latency_p50_s": float(np.median(lat)),
+            "patient_latency_p95_s": float(np.quantile(lat, 0.95)),
+            "launches": counts, "exact": exact,
+            "counterfactual": {"arms": len(reps), "arm_hits": arm_hits,
+                               "history": len(toks),
+                               "shared": [r.shared_prefix_len
+                                          for r in reps]},
+            "profile": prof}
+
+
+def audit_subprocess(url: str, out: str) -> dict:
+    """``python -m repro_torch.privacy.audit --url URL`` as a subprocess
+    over the canary spec of phase 6d; its exit code, stderr summary and
+    the report."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.privacy.audit", "--url", url,
+         "--canaries", str(CANARIES), "--secret-len", str(CANARY_SECRET),
+         "--prefix-events", str(CANARY_PREFIX), "--sim-seed", "0",
+         "--seed", "0", "--n-futures", "8", "--max-new", "16",
+         "--n-boot", "200", "--out", out],
+        capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    sec = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"6d: the audit exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    with open(out) as f:
+        report = json.load(f)
+    return {"report": report, "seconds": sec,
+            "summary": proc.stderr.strip().splitlines()[-1]}
+
+
+def canary_path(tmp: str) -> dict:
+    """Phase 6d: plant 4 member canaries of 8 (3 secret codes, 8 repeats)
+    into 512 simulated patients, train full-width Delphi on the card, serve
+    it through ``EngineBackend`` behind ``InferenceServer`` and audit it
+    over HTTP with the audit CLI as a subprocess."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import (SimulatorConfig, batches,
+                                  generate_dataset, pack_trajectories)
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.privacy import inject_canaries, make_canaries
+    from repro_torch.serve.server import InferenceServer
+    from repro_torch.train import OptimizerConfig, train_loop
+    cfg = get_config("delphi-2m")
+    sim = SimulatorConfig(n_train=512, n_val=1, seed=0)
+    train, _ = generate_dataset(sim)
+    canaries = make_canaries(CANARIES, sim, seed=0,
+                             secret_len=CANARY_SECRET,
+                             prefix_events=CANARY_PREFIX)
+    train = inject_canaries(train, canaries, repeats=CANARY_REPEATS)
+    t0 = time.perf_counter()
+    params, hist = train_loop(
+        init_params(cfg, seed=SEED, device=DEVICE), cfg,
+        OptimizerConfig(lr=1e-3, warmup_steps=10, total_steps=CANARY_STEPS),
+        batches(pack_trajectories(train, CANARY_SEQ), CANARY_BATCH, seed=0),
+        steps=CANARY_STEPS, log_every=CANARY_STEPS // 3,
+        log_fn=lambda s: None, device=DEVICE)
+    train_s = time.perf_counter() - t0
+    server = InferenceServer(serving_backend(params, cfg), port=0).start()
+    try:
+        ops.reset_launch_counts()
+        audit = audit_subprocess(server.address,
+                                 os.path.join(tmp, "audit.json"))
+        counts = ops.launch_counts()
+    finally:
+        server.stop()
+    rep = audit["report"]
+    lo, hi = rep["mi_auc_ci"]
+    if not (rep["backend"] == "remote" and rep["n_members"] == 4
+            and rep["n_nonmembers"] == 4 and 0.0 <= rep["mi_auc"] <= 1.0
+            and 0.0 <= lo <= hi <= 1.0
+            and all(0.0 <= rep[k] <= 1.0 for k in (
+                "member_extraction_rate", "nonmember_extraction_rate"))):
+        raise AssertionError(f"6d: invalid audit report: {rep}")
+    for name in DELPHI_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"6d: {name} never launched on the audit")
+    return {"train_steps": CANARY_STEPS, "train_s": train_s,
+            "loss": hist["loss"], "audit_s": audit["seconds"],
+            "mi_auc": rep["mi_auc"], "mi_auc_ci": [lo, hi],
+            "member_extraction_rate": rep["member_extraction_rate"],
+            "nonmember_extraction_rate": rep["nonmember_extraction_rate"],
+            "extraction_gap": rep["extraction_gap"],
+            "member_scores": rep["member_scores"],
+            "nonmember_scores": rep["nonmember_scores"],
+            "launches": counts, "summary": audit["summary"]}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: times
 # ---------------------------------------------------------------------------
 def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
@@ -2364,6 +2793,30 @@ def main() -> int:
         f"under load with every request answered; router == direct bit "
         f"for bit on {rtr['exact_prompts']} prompts")
     log(f"  phase 3h took {time.perf_counter() - t3h:.1f}s")
+    log(f"== phase 3i: cohort sweep (Delphi-2M bf16, ScenarioEngine over "
+        f"EngineBackend, phase 3d's knobs): {SWEEP_PATIENTS} patients x "
+        f"{SWEEP_FUTURES} futures x {SWEEP_MAX_NEW} events, "
+        f"{SWEEP_IN_FLIGHT} in flight")
+    t3i = time.perf_counter()
+    coh = cohort_path(fut["params"], fut["cfg"])
+    cp = coh["profile"]
+    log(f"  {coh['patients']} patients, {coh['events']} events in "
+        f"{coh['wall_s']:.3f}s: {coh['patients_per_s']:.2f} patients/s, "
+        f"{coh['events_per_s']:.1f} events/s; per-patient latency p50 "
+        f"{coh['patient_latency_p50_s']:.3f}s, p95 "
+        f"{coh['patient_latency_p95_s']:.3f}s; prefix hit rate "
+        f"{coh['prefix_hit_rate']:.3f}; launches {coh['launches']}")
+    log(f"  assert_sweep_parity bit for bit on the first {SWEEP_EXACT} "
+        f"patients: bf16 {coh['exact']['bfloat16']}, fp32 "
+        f"{coh['exact']['float32']}; counterfactual: "
+        f"{coh['counterfactual']['arms']} arms over a "
+        f"{coh['counterfactual']['history']}-event history, prefix hits "
+        f"{coh['counterfactual']['arm_hits']} (one per arm), shared "
+        f"{coh['counterfactual']['shared']}")
+    log(f"  the first 16 patients' sweep under the profiler: device busy "
+        f"{cp['device_busy_s']:.4f}s of {cp['wall_s']:.3f}s wall, idle share"
+        f" {'not measured' if cp['idle_share'] is None else format(cp['idle_share'], '.3f')}")
+    log(f"  phase 3i took {time.perf_counter() - t3i:.1f}s ({smi})")
 
     log("== phase 3b: Mamba2 path (Mamba2-780M bf16, BatchedEngine, 8 "
         "slots)")
@@ -2386,6 +2839,63 @@ def main() -> int:
     cpar = chunked_parity()
     log("== phase 4 (risk): risk on the card")
     rsk = risk_checks(fut)
+
+    log("== phase 6a: gradients on the card (Delphi-2M fp32, TF32 off, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}) against the CPU port")
+    t6 = time.perf_counter()
+    grd = grads_path()
+    log(f"  loss card {grd['loss_card']:.6f}, CPU {grd['loss_cpu']:.6f} "
+        f"(rel {grd['loss_rel_err']:.3g}); {grd['leaves']} gradients finite "
+        f"and non-zero, largest difference {grd['grad_max_rel_err']:.3g} of "
+        f"its leaf's largest element ({grd['grad_worst_leaf']}; allowed "
+        f"{GRAD_CARD_REL}); no kernel launched; took "
+        f"{time.perf_counter() - t6:.1f}s")
+    log(f"== phase 6b: training at full width (python -m "
+        f"repro_torch.launch.train --arch delphi-2m, bf16 over fp32 "
+        f"masters, {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"{TRAIN_PATIENTS} patients)")
+    t6 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        trn = train_path(os.path.join(tmp, "run"))
+        tp = trn["profile"]
+        log(f"  {trn['steps']} steps in {trn['seconds']:.3f}s: "
+            f"{trn['steps_per_s']:.2f} steps/s, "
+            f"{trn['target_tokens_per_s']:.1f} target tokens/s "
+            f"({trn['target_tokens']} targets, evaluations included); peak "
+            f"memory {trn['peak_memory_bytes'] / 2**20:.1f} MiB above what "
+            f"the earlier phases hold; loss first "
+            f"20 steps {trn['loss_first20']:.4f}, last 20 "
+            f"{trn['loss_last20']:.4f}; no kernel launched")
+        log(f"  10 steps: {trn['ten_steps_wall_s']:.4f}s wall, device busy "
+            f"{tp['device_busy_s']:.4f}s, idle share "
+            f"{'not measured' if tp['idle_share'] is None else format(tp['idle_share'], '.3f')}"
+            f", {tp['launches']} device activities; top by device time:")
+        for t in tp["top"]:
+            log(f"    {t['ms']:9.3f} ms  {t['launches']:6d}x  {t['kernel']}")
+        log(f"  the server on --ckpt answered a generate "
+            f"({trn['served_events']} events); took "
+            f"{time.perf_counter() - t6:.1f}s ({smi})")
+        log(f"== phase 6c: federated fine-tuning ({FED_CLIENTS} clients, "
+            f"{FED_ROUNDS} rounds x {FED_LOCAL_STEPS} local steps, delta "
+            f"clip {FED_CLIP})")
+        fedr = federated_path()
+        log(f"  mean client loss by round {fedr['client_loss']}; "
+            f"{fedr['seconds_per_round']:.3f}s a round ({smi})")
+        log(f"== phase 6d: the canary loop over HTTP ({CANARIES} canaries, "
+            f"{CANARIES // 2} planted x {CANARY_REPEATS}, full-width Delphi "
+            f"trained {CANARY_STEPS} steps, EngineBackend behind "
+            f"InferenceServer, the audit CLI as a subprocess)")
+        t6 = time.perf_counter()
+        can = canary_path(tmp)
+    log(f"  MI AUC {can['mi_auc']:.3f} [{can['mi_auc_ci'][0]:.3f}, "
+        f"{can['mi_auc_ci'][1]:.3f}], extraction member "
+        f"{can['member_extraction_rate']:.2f} vs held-out "
+        f"{can['nonmember_extraction_rate']:.2f} (gap "
+        f"{can['extraction_gap']:+.2f}); trained in {can['train_s']:.1f}s, "
+        f"audit {can['audit_s']:.1f}s; launches on the audit "
+        f"{can['launches']}; took {time.perf_counter() - t6:.1f}s ({smi})")
+    trn.pop("params")
+    trn.pop("cfg")
 
     log("== phase 5: times at the main paths' shapes")
     tm = times(main_res, mamba, gen)
@@ -2466,6 +2976,9 @@ def main() -> int:
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": launches[name],
         "path": "3b" if name == "ssd_intra" else "3c",
+        "launches_by_path": ({} if name == "ssd_intra" else
+                             {"3i": coh["launches"][name],
+                              "6d": can["launches"][name]}),
         "max_abs_err": errs[name], "ms": ms(rows[name]["kernel"]),
         "plain_ms": ms(rows[name]["plain"]),
         "bound_ms": rows[name]["bound_ms"],
@@ -2516,7 +3029,9 @@ def main() -> int:
                        "profiles": xprof},
         "suffix_path": {"pool": sfx["stats"], "matched": sfx["matched"],
                         "suffix_chunks": sfx["suffix_chunks"]},
-        "http_path": http, "router_path": rtr,
+        "http_path": http, "router_path": rtr, "cohort_path": coh,
+        "grads_path": grd, "train_path": trn, "federated_path": fedr,
+        "canary_path": can,
         "main_path": {"requests": len(main_res["done"]),
                       "events": main_res["events"], "seconds": sec,
                       "ticks": eng.ticks, "admit_batches": eng.admit_batches,

@@ -12,7 +12,7 @@ An age-dependent competing-risk model with comorbidity coupling:
 Trajectories are (tokens, ages) sequences starting with a sex token at age 0,
 terminated by DEATH or censored at ``max_age``.  Fully deterministic given
 the seed; the same seed gives the same patients as the JAX package's
-simulator (the port's prompts match the reference's).
+simulator (the port's prompts, cohorts and canaries match the reference's).
 """
 from __future__ import annotations
 
@@ -117,3 +117,37 @@ def generate_dataset(cfg: SimulatorConfig = SimulatorConfig()
     val = [simulate_patient(rng, a, b, partners, boosts, cfg)
            for _ in range(cfg.n_val)]
     return train, val
+
+
+_HAZARD_CACHE: dict = {}
+
+
+def hazard_params(cfg: SimulatorConfig = SimulatorConfig()):
+    """Disease universe (a, b, partners, boosts) for ``cfg``, cached.
+
+    The hazard parameters are the FIRST draws from ``default_rng(cfg.seed)``
+    in :func:`generate_dataset`, so this reproduces the sequential split's
+    exact disease universe without simulating any patients.
+    """
+    key = dataclasses.astuple(cfg)
+    if key not in _HAZARD_CACHE:
+        _HAZARD_CACHE[key] = _hazard_params(np.random.default_rng(cfg.seed),
+                                            cfg)
+    return _HAZARD_CACHE[key]
+
+
+def patient(index: int, cfg: SimulatorConfig = SimulatorConfig()
+            ) -> Tuple[np.ndarray, np.ndarray]:
+    """O(1) regeneration of cohort patient ``index``: an independent
+    per-index stream ``default_rng([cfg.seed, index])`` over the same hazard
+    universe as :func:`generate_dataset`.  A distinct (deterministic)
+    patient family: it is NOT the sequential split's patient ``index``."""
+    a, b, partners, boosts = hazard_params(cfg)
+    rng = np.random.default_rng([cfg.seed, int(index)])
+    return simulate_patient(rng, a, b, partners, boosts, cfg)
+
+
+def cohort(indices, cfg: SimulatorConfig = SimulatorConfig()
+           ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Materialize ``patient(i, cfg)`` for each index (order-preserving)."""
+    return [patient(i, cfg) for i in indices]

@@ -4,6 +4,15 @@ A CPU tensor takes the plain PyTorch version (``kernels.ref``); a CUDA
 tensor launches the hand-written kernel or the call raises.  There is no
 fallback from a failed build or launch to the plain version.  Signatures
 and layouts are those of the JAX package's ``kernels/ops.py``.
+
+No kernel has a backward (nor has any Pallas kernel of the JAX package):
+a kernel writes into a fresh tensor through ``ctypes``, so its output has
+no autograd history.  Every entry point therefore refuses, on both
+devices, a call made with gradients enabled on an input that requires
+them; otherwise a loss reaching a kernel would train correctly on the CPU
+(whose plain version is differentiable) and lose the gradient silently on
+the card.  Training takes the plain differentiable route instead
+(``models.attention.chunked_attention``).
 """
 from __future__ import annotations
 
@@ -32,6 +41,18 @@ def reset_launch_counts() -> None:
     _flash.position_launches = 0
 
 
+def _refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would need a backward through kernel ``name``."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: an input requires grad with gradients "
+            f"enabled.  Run inference under torch.no_grad() or "
+            f"torch.inference_mode() on parameters that do not require "
+            f"grad; train through the differentiable plain route "
+            f"(forward(..., differentiable=True)).")
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
@@ -44,6 +65,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """q: (B, Hq, S, hd); k, v: (B, Hkv, T, hd) -> (B, Hq, S, hd) in q's
     dtype.  Causality is by index (query row i sees keys j <= i)."""
+    _refuse_grad("flash_attention", q, k, v)
     if _on_cuda(q):
         return _flash.flash_attention_cuda(q, k, v, causal=causal,
                                            window=window)
@@ -64,6 +86,7 @@ def suffix_prefill_attention(q, k, v, ctx_k, ctx_v, q_pos, ctx_pos, *,
     along the keys and go through the flash kernel with position masks (a
     CUDA tensor) or its plain version (a CPU tensor).  A query with no
     valid key gets zeros.  Returns (B, Sc, Hq, hd) in q's dtype."""
+    _refuse_grad("suffix_prefill_attention", q, k, v, ctx_k, ctx_v)
     if q.shape[2] != k.shape[2] * q_per_kv:
         raise ValueError(f"{q.shape[2]} query heads != {k.shape[2]} kv heads "
                          f"x q_per_kv {q_per_kv}")
@@ -90,6 +113,7 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos, step, *,
     positions (-1 = empty); step: (B,) query positions.  GQA groups the
     query heads as ``(Hkv, Hq // Hkv)``.  Returns (B, Hq, hd) in q's dtype.
     """
+    _refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     B, Hq, hd = q.shape
     Hkv = k_pool.shape[1]
     q4 = q.reshape(B, Hkv, Hq // Hkv, hd)
@@ -106,6 +130,7 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos, step, *,
 def tte_sample(logits, u) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused competing-exponential sampler: (B, V) logits and uniforms ->
     (event (B,) int32, t_min (B,) fp32), ties to the lowest index."""
+    _refuse_grad("tte_sample", logits, u)
     logits = logits.float()
     u = u.float()
     if _on_cuda(logits):
@@ -127,6 +152,7 @@ def ssd_intra_heads(xdt, Bm, Cm, cum) -> Tuple[torch.Tensor, torch.Tensor]:
     (b, c, Q, H, N), where a stride-0 head axis (``expand``) shares one
     tile among the heads; cum (b, c, Q, H).  Returns (y_diag
     (b, c, Q, H, P), states (b, c, H, N, P)), fp32."""
+    _refuse_grad("ssd_intra", xdt, Bm, Cm, cum)
     if _on_cuda(xdt):
         return _ssd.ssd_intra_cuda(xdt, Bm, Cm, cum.float())
     if Bm.stride(3) == 0 and Cm.stride(3) == 0:    # broadcast, not H copies

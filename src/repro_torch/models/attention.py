@@ -29,6 +29,11 @@ Chunked prefill writes a prompt into the pool a chunk at a time: a chunk's
 queries attend over the slot's context blocks, gathered from the pool
 (:func:`gather_context`), and the chunk itself, by absolute position
 (:func:`suffix_attention`, the flash kernel with position masks).
+
+Training attends through :func:`chunked_attention`, a differentiable masked
+softmax in plain torch ops (the JAX package trains through its jnp
+``chunked_attention`` too, never through a Pallas kernel); no kernel has a
+backward, and ``kernels.ops`` refuses to run one under grad.
 """
 from __future__ import annotations
 
@@ -37,6 +42,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ops
+
+NEG_INF = -1e30
 
 
 class LayerCache(NamedTuple):
@@ -60,6 +67,41 @@ def output_projection(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """o (B, S, Hq, hd) -> (B, S, d)."""
     B, S = o.shape[:2]
     return o.reshape(B, S, -1) @ wo.to(o.dtype).reshape(-1, wo.shape[-1])
+
+
+def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
+                      window=None, q_per_kv: int = 1) -> torch.Tensor:
+    """The JAX package's ``models/attention.py::chunked_attention`` in
+    plain, differentiable torch ops: the training route's attention.
+
+    q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd); q_pos (B, Sq) and k_pos
+    (B, Skv) int positions (or (Sq,), (Skv,)), a key with k_pos < 0
+    invalid.  Scores in fp32, masked with -1e30 (a row with no valid key
+    averages its values, as JAX's dense form), one softmax over all keys;
+    the product with v in v's dtype.  JAX takes this dense form up to 512 x
+    512 scores and an online softmax over 512-key blocks past it: the same
+    function, summed in another order.  Returns (B, Sq, Hq, hd)."""
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = q_per_kv
+    if Hq != Hkv * G:
+        raise ValueError(f"{Hq} query heads != {Hkv} kv heads x {G}")
+    if q_pos.dim() == 1:
+        q_pos = q_pos[None].expand(B, Sq)
+    if k_pos.dim() == 1:
+        k_pos = k_pos[None].expand(B, Skv)
+    qg = q.reshape(B, Sq, Hkv, G, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * (hd ** -0.5)
+    valid = (k_pos >= 0)[:, None, None, None, :]
+    if causal:
+        rel = q_pos[:, None, None, :, None] - k_pos[:, None, None, None, :]
+        valid = valid & (rel >= 0)
+        if window is not None:
+            valid = valid & (rel < window)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+    return o.reshape(B, Sq, Hq, hd)
 
 
 def prefill_attention(q, k, v) -> torch.Tensor:

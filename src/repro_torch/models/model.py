@@ -150,8 +150,14 @@ def _qkv(params: Params, x: torch.Tensor, l: int):
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
             mode: str = "train", cache_width: Optional[int] = None,
-            last_index: Optional[torch.Tensor] = None) -> Dict[str, Any]:
-    """mode "train": (B, S, V) fp32 logits at every position.
+            last_index: Optional[torch.Tensor] = None,
+            differentiable: bool = False) -> Dict[str, Any]:
+    """mode "train": (B, S, V) fp32 logits at every position.  With
+    ``differentiable=True`` (mode "train" only) attention takes the plain
+    :func:`~repro_torch.models.attention.chunked_attention` instead of the
+    flash kernel, so the logits can be differentiated (the training route;
+    the kernels have no backward).  Mamba2's differentiable route (the JAX
+    package's ``ssd_chunked`` in plain ops) is not ported: it raises.
     mode "prefill": logits (B, 1, V) at ``last_index`` (B,) — each row's
     last valid token of a right-padded batch — or at the last position,
     plus ``cache``: {"self": LayerCache} rings of width ``cache_width``
@@ -162,6 +168,16 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
     check_supported(cfg)
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be 'train' or 'prefill': {mode!r}")
+    if differentiable:
+        if mode != "train":
+            raise ValueError("differentiable=True is the training route: "
+                             "mode 'train' only")
+        if cfg.arch_type == cb.SSM:
+            raise NotImplementedError(
+                f"{cfg.name}: training Mamba2 is not ported yet: its "
+                f"differentiable route (the JAX package's ssd_chunked in "
+                f"plain ops) is still to port, and the ssd_intra kernel "
+                f"has no backward")
     x = _embed(params, cfg, batch)
     B, S = x.shape[:2]
     out: Dict[str, Any] = {}
@@ -181,7 +197,12 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
                                  cfg.head_dim, x.dtype, x.device)
     for l in range(cfg.n_layers):
         q, k, v = _qkv(params, x, l)
-        o = attn.prefill_attention(q, k, v)
+        if differentiable:
+            o = attn.chunked_attention(q, k, v, positions, positions,
+                                       causal=True, window=cfg.sliding_window,
+                                       q_per_kv=cfg.q_per_kv)
+        else:
+            o = attn.prefill_attention(q, k, v)
         x = x + attn.output_projection(o, params["layers/attn/wo"][l])
         x = _mlp_block(params, x, l)
         if cache is not None:

@@ -449,10 +449,27 @@ class _Handler(BaseHTTPRequestHandler):
 PROG = "repro-torch-serve"
 
 
+def _checkpoint_config(path: str, cfg):
+    """The model a checkpoint directory was saved with, where its
+    ``meta.json`` (the layout of ``train.checkpoint.save`` in both
+    packages) holds a config of the named architecture, else ``cfg``;
+    activations in fp32."""
+    from repro_torch.train.checkpoint import load_config
+    try:
+        saved, _ = load_config(path)
+    except (FileNotFoundError, KeyError):     # no meta.json, or no config
+        return cfg
+    if saved.name != cfg.name:
+        raise SystemExit(f"{PROG}: --ckpt {path} holds {saved.name}, not "
+                         f"--config {cfg.name}")
+    return saved.replace(dtype="float32")
+
+
 def _build_backend(args):
     """The backend the CLI namespace describes: fresh parameters from
-    ``init_params(cfg, seed)`` or a JAX ``params.npz`` (``--ckpt``) on
-    ``--device``, with activations in fp32."""
+    ``init_params(cfg, seed)`` or a checkpoint directory (``--ckpt``: a
+    JAX-layout ``params.npz``, shaped by its ``meta.json`` config when it
+    has one) on ``--device``, with activations in fp32."""
     if args.artifact:
         raise SystemExit(
             f"{PROG}: --artifact is not ported yet: serving an exported "
@@ -468,6 +485,7 @@ def _build_backend(args):
     cfg = get_config(args.config, reduced=args.reduced).replace(
         dtype="float32")
     if args.ckpt:
+        cfg = _checkpoint_config(args.ckpt, cfg)
         params = load_checkpoint(args.ckpt, cfg, device)
     else:
         params = init_params(cfg, args.seed, device)
@@ -517,8 +535,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                      help="config name, e.g. delphi-2m: parameters from "
                           "--ckpt or fresh from --seed, served via --backend")
     ap.add_argument("--ckpt", metavar="DIR", default=None,
-                    help="--config: a checkpoint directory holding the JAX "
-                         "package's params.npz")
+                    help="--config: a checkpoint directory in the JAX "
+                         "package's layout (params.npz; the model's shapes "
+                         "from its meta.json config when it has one)")
     ap.add_argument("--device", default="cuda",
                     help="device of the model (cpu runs the plain PyTorch "
                          "path)")

@@ -1,0 +1,148 @@
+"""Training steps and loop of the port (the JAX package's
+``train/trainer.py``), eager PyTorch.
+
+Two objectives share one step factory:
+* ``objective="delphi"``: the paper's dual loss over (tokens, ages, targets,
+  target_dt, loss_mask) batches (``core.delphi.loss_fn``).
+* ``objective="lm"``: next-token CE over the token stream.
+
+Both differentiate through ``forward(..., differentiable=True)``: plain
+torch ops, attention by ``models.attention.chunked_attention``; no kernel
+has a backward.  Gradients are taken with respect to detached copies of the
+fp32 masters, and the update returns tensors that do not require grad, so
+the parameters a step or ``train_loop`` hands back can go straight to an
+engine or a server (whose kernels refuse inputs that require grad).
+Mamba2's training route is not ported and raises.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import losses as losses_lib
+from repro_torch.core.delphi import loss_fn as delphi_loss_fn
+from repro_torch.models import forward
+from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
+                                         init_opt_state)
+
+Tensors = Dict[str, torch.Tensor]
+
+
+def lm_loss(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]
+            ) -> Tensors:
+    """Next-token CE over the token stream.  The port's families have no
+    router, so ``aux_loss`` is 0 and ``loss`` is the CE."""
+    inputs = {k: batch[k] for k in ("tokens", "ages") if k in batch}
+    logits = forward(params, cfg, inputs, mode="train",
+                     differentiable=True)["logits"]
+    tokens = batch["tokens"]
+    loss = losses_lib.event_ce(logits[:, :-1], tokens[:, 1:]).mean()
+    return {"loss": loss, "event_ce": loss,
+            "aux_loss": torch.zeros((), device=loss.device)}
+
+
+def make_loss_fn(cfg: ModelConfig, objective: str = "lm") -> Callable:
+    if objective == "delphi":
+        return lambda p, b: delphi_loss_fn(p, cfg, b)
+    if objective == "lm":
+        return lambda p, b: lm_loss(p, cfg, b)
+    raise ValueError(f"objective must be 'delphi' or 'lm': {objective!r}")
+
+
+def loss_and_grads(loss_fn: Callable, params: Mapping[str, torch.Tensor],
+                   batch) -> Tuple[Tensors, Tensors]:
+    """(gradient of ``loss_fn(params, batch)["loss"]`` per parameter, the
+    detached metrics), differentiating with respect to detached leaves so
+    that no graph outlives the call.  A parameter the loss does not reach
+    raises (autograd's own check), rather than getting a zero gradient."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    with torch.enable_grad():
+        m = loss_fn(leaves, batch)
+        grads = torch.autograd.grad(m["loss"], list(leaves.values()))
+    return dict(zip(leaves, grads)), {k: v.detach() for k, v in m.items()}
+
+
+def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
+                    objective: str = "lm") -> Callable:
+    """fn(params, opt_state, batch) -> (params, opt_state, metrics): one
+    gradient of the objective and one AdamW update, no host sync."""
+    loss_fn = make_loss_fn(cfg, objective)
+
+    def train_step(params, opt_state, batch):
+        grads, metrics = loss_and_grads(loss_fn, params, batch)
+        params, opt_state, opt_metrics = adamw_update(grads, opt_state,
+                                                      params, ocfg)
+        return params, opt_state, {**metrics, **opt_metrics}
+
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig, objective: str = "lm") -> Callable:
+    loss_fn = make_loss_fn(cfg, objective)
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        return loss_fn(params, batch)
+
+    return eval_step
+
+
+def to_device(batch: Mapping[str, np.ndarray], device) -> Tensors:
+    """A numpy batch as tensors on ``device``.  To the card through pinned
+    host memory and asynchronous copies: a copy from pageable memory would
+    wait for the stream, a host sync every step."""
+    dev = torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = (t.pin_memory().to(dev, non_blocking=True)
+                  if dev.type == "cuda" else t.to(dev))
+    return out
+
+
+def train_loop(params, cfg: ModelConfig, ocfg: OptimizerConfig,
+               train_iter: Iterator[Dict[str, Any]], *,
+               objective: str = "delphi", steps: int = 200,
+               eval_iter: Optional[Iterator[Dict[str, Any]]] = None,
+               eval_every: int = 50, log_every: int = 10,
+               log_fn: Callable[[str], None] = print,
+               device="cuda") -> Tuple[Tensors, Dict[str, list]]:
+    """Single-device training loop on ``device`` (the card unless the
+    caller passes ``device="cpu"``): fp32 master parameters, activations in
+    ``cfg.dtype``.  One host sync per logged step (and per evaluation).
+    Returns (trained params, which do not require grad; history with the
+    JAX package's keys)."""
+    dev = resolve_device(device)
+    params = {k: v.detach().to(dev, torch.float32) for k, v in params.items()}
+    step_fn = make_train_step(cfg, ocfg, objective)
+    eval_fn = make_eval_step(cfg, objective)
+    opt_state = init_opt_state(params)
+    hist = {"step": [], "loss": [], "event_ce": [], "time_nll": [],
+            "val_loss": [], "val_step": []}
+    nan = torch.tensor(float("nan"), device=dev)
+    t0 = time.time()
+    for i in range(steps):
+        batch = to_device(next(train_iter), dev)
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        if i % log_every == 0 or i == steps - 1:
+            loss, ce, tn, lr, gn = torch.stack([
+                m["loss"], m["event_ce"], m.get("time_nll", nan),
+                m["lr"], m["grad_norm"]]).tolist()
+            hist["step"].append(i)
+            hist["loss"].append(loss)
+            hist["event_ce"].append(ce)
+            hist["time_nll"].append(tn)
+            log_fn(f"step {i:4d} loss {loss:.4f} ce {ce:.4f}"
+                   f" time_nll {tn:.4f} lr {lr:.2e} gnorm {gn:.2f}"
+                   f" ({time.time() - t0:.1f}s)")
+        if eval_iter is not None and (i + 1) % eval_every == 0:
+            vm = eval_fn(params, to_device(next(eval_iter), dev))
+            hist["val_loss"].append(float(vm["loss"]))
+            hist["val_step"].append(i)
+            log_fn(f"  eval step {i:4d} val_loss {hist['val_loss'][-1]:.4f}")
+    return params, hist

@@ -717,3 +717,124 @@ def test_risk_logits_during_ticks_equal_a_quiet_engine(gen):
     assert busy.engine.ticks > 0
     assert [(r.error, r.out_tokens, r.out_ages) for r in bg] == \
         [(None, r.out_tokens, r.out_ages) for r in fg]
+
+
+# ---------------------------------------------------------------------------
+# Training and the cohort sweep on the card
+# ---------------------------------------------------------------------------
+def _grad_calls(dev):
+    """One call of each kernel entry point with inputs that require grad."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+
+    def t(*shape, grad=True):
+        return torch.randn(shape, generator=g, device=dev).requires_grad_(grad)
+    table = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    pos = torch.arange(8, dtype=torch.int32, device=dev)[None].repeat(2, 1)
+    step = torch.tensor([7, 7], device=dev)
+    return {
+        "flash_attention": lambda: ops.flash_attention(
+            t(1, 2, 4, 8), t(1, 2, 4, 8), t(1, 2, 4, 8)),
+        "suffix_prefill_attention": lambda: ops.suffix_prefill_attention(
+            t(1, 2, 2, 8), t(1, 2, 2, 8), t(1, 2, 2, 8), t(1, 3, 2, 8),
+            t(1, 3, 2, 8), torch.tensor([[3, 4]], device=dev),
+            torch.tensor([[0, 1, 2]], device=dev)),
+        "paged_decode_attention": lambda: ops.paged_decode_attention(
+            t(2, 2, 8), t(2, 2, 8, 8), t(2, 2, 8, 8), table, pos, step),
+        "tte_sample": lambda: ops.tte_sample(
+            t(2, 16), torch.rand((2, 16), generator=g, device=dev)),
+        "ssd_intra_heads": lambda: ops.ssd_intra_heads(
+            t(1, 1, 32, 2, 16), t(1, 1, 32, 2, 16), t(1, 1, 32, 2, 16),
+            -torch.rand((1, 1, 32, 2), generator=g, device=dev).cumsum(2)),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_attention",
+                                  "suffix_prefill_attention",
+                                  "paged_decode_attention", "tte_sample",
+                                  "ssd_intra_heads"])
+def test_kernel_entry_points_refuse_grad_on_card(gen, name):
+    """No kernel has a backward: under grad each entry point raises on the
+    card as on the CPU, before it launches; without grad it launches."""
+    call = _grad_calls("cuda")[name]
+    before = dict(ops.launch_counts())
+    with pytest.raises(RuntimeError, match="has no backward"):
+        call()
+    assert ops.launch_counts() == before
+    with torch.no_grad():
+        call()
+    torch.cuda.synchronize()
+
+
+def test_train_step_on_card_equals_cpu(gen):
+    """fp32 with TF32 off: one train step's loss and every gradient on the
+    card against the CPU port's on the same batch (reduced Delphi-2M with
+    its 1289 events).  The two differ only in summation order and the
+    libraries' sin/cos of the age angles (the frequency table is the same
+    bits): loss within 1e-5 relative, each gradient within 1e-3 of its
+    leaf's largest element; none is missing or all-zero."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import (SimulatorConfig, generate_dataset,
+                                  pack_trajectories)
+    from repro_torch.models import init_params
+    from repro_torch.train import (OptimizerConfig, init_opt_state,
+                                   loss_and_grads, make_loss_fn,
+                                   make_train_step)
+    from repro_torch.train.trainer import to_device
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_config("delphi-2m", reduced=True).replace(
+            dtype="float32", vocab_size=1289)
+        host = init_params(cfg, seed=3, device="cpu")
+        card = {k: v.cuda() for k, v in host.items()}
+        trajs, _ = generate_dataset(SimulatorConfig(n_train=16, n_val=1,
+                                                    seed=3))
+        batch = pack_trajectories(trajs, 64)
+        loss_fn = make_loss_fn(cfg, "delphi")
+        n0 = dict(ops.launch_counts())
+        g_card, m_card = loss_and_grads(loss_fn, card,
+                                        to_device(batch, "cuda"))
+        assert ops.launch_counts() == n0        # no kernel on the route
+        g_cpu, m_cpu = loss_and_grads(loss_fn, host, to_device(batch, "cpu"))
+        torch.testing.assert_close(m_card["loss"].cpu(), m_cpu["loss"],
+                                   rtol=1e-5, atol=0)
+        for k in g_cpu:
+            g = g_card[k].cpu()
+            scale = float(g_cpu[k].abs().max())
+            assert bool(torch.isfinite(g).all()) and scale > 0
+            assert float(g.abs().max()) > 0, k
+            assert float((g - g_cpu[k]).abs().max()) <= 1e-3 * scale, k
+        new, state, m = make_train_step(cfg, OptimizerConfig(), "delphi")(
+            card, init_opt_state(card), to_device(batch, "cuda"))
+        assert int(state["step"]) == 1
+        assert all(bool(torch.isfinite(v).all()) and not v.requires_grad
+                   for v in new.values())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_cohort_sweep_equals_oracle_on_card(gen):
+    """bf16 on the card: a ``ScenarioEngine`` sweep through the paged,
+    prefix-cached ``EngineBackend`` (background loop, 3 in flight) equals
+    ``assert_sweep_parity``'s straight-line oracle bit for bit."""
+    from repro_torch.api.client import EngineBackend
+    from repro_torch.cohort import ScenarioEngine, assert_sweep_parity
+    params, cfg = _delphi_bf16()
+    pats = []
+    for i in range(5):
+        rng = np.random.default_rng(100 + i)
+        toks = np.concatenate([[3], rng.integers(13, 90, 6)])
+        ages = np.concatenate([[0.0], np.sort(rng.uniform(1.0, 40.0, 6))])
+        pats.append((toks.astype(np.int32), ages.astype(np.float32)))
+    be = EngineBackend.create(params, cfg, slots=4, max_context=64,
+                              cache="paged", block_size=16, blocks=64,
+                              prefix_cache=True, device="cuda")
+    res = ScenarioEngine(be, max_in_flight=3, seed=11).sweep(
+        pats, n_futures=3, max_new=8, horizon=20.0)
+    assert res.n_failed == 0 and res.events_total > 0
+    stats = assert_sweep_parity(res, params, cfg, pats, seed=11,
+                                n_futures=3, max_new=8, horizon=20.0,
+                                slots=4, max_context=64, device="cuda")
+    assert stats["patients_checked"] == 5
+    assert stats["events_checked"] == res.events_total
