@@ -92,6 +92,27 @@ runs these phases; any failure exits non-zero:
    the prefix cache once per arm; patients/s, events/s, the prefix hit rate,
    the three kernels' launches on the sweep, and the idle share of its first
    16 patients under the profiler;
+3j. the SDK artifact at full width: Delphi-2M exported by
+   ``repro_torch.sdk.export_model`` (``torch.export`` traced on the CPU),
+   spec v2 and v1, in bf16 and in fp32, checked with ``verify_checksums``
+   (strict) and loaded with ``ArtifactBackend(device="cuda")``.  On 4
+   patients: the full graph's logits == eager ``forward(mode="train")``
+   bit for bit (and v1's == v2's), prefill and 8 decode steps == the same
+   functions run eagerly bit for bit (logits and cache), with flash
+   launched 12 times a full or prefill call and the paged kernel 12 times
+   a decode step through the ``repro_torch::`` operators; then
+   ``ArtifactBackend`` == ``LocalBackend.stream`` token for token and age
+   for age under injected uniforms, one request at a time.  Export
+   seconds, artifact bytes and load seconds; in bf16: ms per event of a
+   request through v2 decode, the v1 full graph and
+   ``LocalBackend.stream``, ms per call of a v2 decode step, a v1 full
+   graph and an eager decode step, and of the decode graph's ``forward``
+   against the eager function on the card's inputs, each in turns; the
+   kernels' launches on a drive of the bf16 v2 artifact, one request's
+   idle share, and the host cost a call of each attention kernel through
+   its wrapper and through its operator; the server CLI on
+   ``--artifact`` as a subprocess answers ``/v1/manifest`` (with the
+   artifact's manifest) and a generate, and exits 0 on SIGINT;
 4. end-to-end parity in fp32: the same weights and injected uniforms through
    the engine on the card (kernels) and on the CPU (plain versions), for
    Delphi-2M and for Mamba2-780M at full width cut to 4 layers; the card's
@@ -149,8 +170,9 @@ runs these phases; any failure exits non-zero:
 The ``kernels`` line holds the four kernels and, as a fifth row, the flash
 kernel's position-masked route with its launches on the chunked drive of
 phase 3e; each Delphi kernel's row also gives its launches on the sweep of
-phase 3i and on the audit of phase 6d (``launches_by_path``, counts zeroed
-just before each and read just after).  The last lines are the ``kernels``
+phase 3i, on the audit of phase 6d and on the artifact drive of phase 3j
+(``launches_by_path``, counts zeroed just before each and read just
+after).  The last lines are the ``kernels``
 JSON line, the card's name and power limit (``nvidia-smi``), and the result
 line ``{"ok": true, "device": ...}``.  A copy of all numbers goes to
 ``chiprun_out/chip_smoke.json``.
@@ -1540,10 +1562,12 @@ def http_risk(url, params, cfg, prompts) -> float:
     return worst
 
 
-def cli_boot() -> dict:
-    """``python -m repro_torch.serve.server --config delphi-2m --port 0
-    --device cuda`` as a subprocess (the CLI's fp32 route): its address
-    line, ``/v1/healthz``, one ``/v1/generate``, SIGINT, exit code 0."""
+def cli_boot(source=("--config", "delphi-2m"), backend="engine") -> dict:
+    """``python -m repro_torch.serve.server <source> --port 0 --device
+    cuda`` as a subprocess (``--config delphi-2m``: the CLI's fp32 route;
+    ``--artifact DIR``: an exported artifact): its address line,
+    ``/v1/healthz`` (the engine running) or ``/v1/manifest`` (the FAIR
+    manifest of an artifact), one ``/v1/generate``, SIGINT, exit code 0."""
     import queue
     import signal
     import threading
@@ -1552,8 +1576,8 @@ def cli_boot() -> dict:
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
     proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.serve.server", "--config",
-         "delphi-2m", "--port", "0", "--device", DEVICE],
+        [sys.executable, "-m", "repro_torch.serve.server", *source,
+         "--port", "0", "--device", DEVICE],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env=env, cwd=ROOT)
     lines: "queue.Queue" = queue.Queue()
@@ -1575,14 +1599,21 @@ def cli_boot() -> dict:
             raise AssertionError("the server CLI printed no address: "
                                  + " | ".join(seen))
         boot = time.perf_counter() - t0
-        with urlopen(url + "/v1/healthz", timeout=60) as r:
-            health = json.loads(r.read())
-        if not health["engine"]["running"]:
-            raise AssertionError(f"healthz: {health}")
+        if backend == "engine":
+            with urlopen(url + "/v1/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            if not health["engine"]["running"]:
+                raise AssertionError(f"healthz: {health}")
+        else:
+            with urlopen(url + "/v1/manifest", timeout=60) as r:
+                manifest = json.loads(r.read())
+            if (manifest["backend"] != backend
+                    or "provenance" not in manifest.get("artifact", {})):
+                raise AssertionError(f"manifest: {manifest}")
         res = Client.connect(url).generate(tokens=[3, 10, 20],
                                            ages=[0.0, 15.0, 28.0],
                                            max_new=8)
-        if res.backend != "remote[engine]":
+        if res.backend != f"remote[{backend}]":
             raise AssertionError(f"CLI generate: {res}")
         proc.send_signal(signal.SIGINT)
         rc = proc.wait(timeout=60)
@@ -2196,6 +2227,369 @@ def canary_path(tmp: str) -> dict:
 # ---------------------------------------------------------------------------
 # phase 5: times
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# phase 3j: the SDK artifact on the card
+# ---------------------------------------------------------------------------
+ARTIFACT_DECODE_STEPS, ARTIFACT_MAX_NEW = 8, 32
+
+
+def artifact_export(params, cfg, d: str, spec: str) -> dict:
+    """``export_model`` (traced on the CPU), then ``verify_checksums``
+    strict: seconds and bytes of the artifact."""
+    from repro_torch.sdk import export_model, verify_checksums
+    t0 = time.perf_counter()
+    export_model(params, cfg, d, spec_version=spec)
+    sec = time.perf_counter() - t0
+    verify_checksums(d, strict=True)
+    return {"export_s": sec, "bytes": sum(
+        os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))}
+
+
+def artifact_uniforms(cfg, i: int):
+    """Seeded uniforms that never sample Death: a request runs its budget."""
+    import numpy as np
+    u = np.random.default_rng(SEED + 100 + i).uniform(
+        size=(ARTIFACT_MAX_NEW, cfg.vocab_size)).astype(np.float32)
+    u[:, cfg.death_token] = 1e-12
+    return u
+
+
+def artifact_gates(params, cfg, art, full, local, patients) -> dict:
+    """On the card, for one dtype: the full graph == eager
+    ``forward(mode="train")`` bit for bit (v1's == v2's), prefill and
+    ``ARTIFACT_DECODE_STEPS`` decode steps == the same functions run
+    eagerly (``build_inference_fns``, what ``LocalBackend.stream`` calls),
+    logits and cache bit for bit, flash launched 12 times per full or
+    prefill call and the paged kernel 12 times per decode step (counts
+    zeroed just before each call and read just after); then
+    ``ArtifactBackend`` == ``LocalBackend.stream`` token for token and age
+    for age under injected uniforms, one request at a time."""
+    import numpy as np
+    import torch
+    from repro_torch.api import GenerateRequest
+    from repro_torch.kernels import ops
+    from repro_torch.sdk import build_inference_fns
+    rt, S = art.runtime, art.seq_len
+    fns = build_inference_fns(cfg, S)
+
+    def dev(*arrays):
+        return [torch.from_numpy(np.asarray(x)).to(DEVICE) for x in arrays]
+
+    def counted(fn, want_flash, want_paged, what):
+        ops.reset_launch_counts()
+        out = fn()
+        c = ops.launch_counts()
+        if (c["flash_attention"], c["paged_decode_attention"],
+                c["tte_sample"]) != (want_flash, want_paged, 0):
+            raise AssertionError(f"artifact {what}: launches {c}, want "
+                                 f"flash {want_flash}, paged {want_paged}")
+        return out
+    rng = np.random.default_rng(SEED + 31)
+    steps = 0
+    for toks, ags in patients:
+        t, a = art._pad_inputs(toks, ags)
+        got = counted(lambda: rt.run(t, a), 12, 0, "full graph")
+        with torch.no_grad():
+            want = fns["full"](params, *dev(t, a)).cpu().numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError(
+                f"artifact full graph != eager forward: max diff "
+                f"{float(np.abs(got - want).max())}")
+        if not np.array_equal(full.runtime.run(t, a), got):
+            raise AssertionError("v1 full graph != v2 full graph")
+        last = np.asarray([len(toks) - 1], np.int32)
+        lg, cache = counted(lambda: rt.prefill(t, a, last), 12, 0, "prefill")
+        with torch.no_grad():
+            lg_e, cache_e = fns["prefill"](params, *dev(t, a, last))
+        if not np.array_equal(lg, lg_e.cpu().numpy()):
+            raise AssertionError("artifact prefill != eager prefill")
+        age = float(ags[-1])
+        for k in range(ARTIFACT_DECODE_STEPS):
+            age += float(rng.uniform(0.1, 2.0))
+            args = (np.asarray([[rng.integers(3, cfg.vocab_size)]], np.int32),
+                    np.asarray([[age]], np.float32),
+                    np.asarray([len(toks) + k], np.int32))
+            lg, cache = counted(lambda: rt.decode_step(cache, *args), 0, 12,
+                                "decode step")
+            with torch.no_grad():
+                lg_e, cache_e = fns["decode"](params, cache_e, *dev(*args))
+            if not np.array_equal(lg, lg_e.cpu().numpy()):
+                raise AssertionError(f"artifact decode step {k} != eager")
+            steps += 1
+        if not all(torch.equal(x, y) for x, y in zip(cache, cache_e)):
+            raise AssertionError("artifact cache != eager cache")
+    events = 0
+    for i, (toks, ags) in enumerate(patients):
+        req = GenerateRequest(tokens=[int(x) for x in toks],
+                              ages=[float(x) for x in ags],
+                              max_new=ARTIFACT_MAX_NEW, max_age=1e9,
+                              uniforms=artifact_uniforms(cfg, i))
+        got = art.generate(req)
+        want = list(local.stream(req))
+        if (got.tokens, got.ages) != ([e.token for e in want],
+                                      [e.age for e in want]):
+            raise AssertionError(f"ArtifactBackend != LocalBackend.stream "
+                                 f"on patient {i}")
+        events += len(got.tokens)
+    return {"prompts": len(patients), "decode_steps": steps,
+            "generate_events": events}
+
+
+def artifact_drive(backend, cfg, patients, stream: bool = False) -> dict:
+    """Every patient through ``backend`` one request at a time
+    (``ARTIFACT_MAX_NEW`` events, injected uniforms): wall per event."""
+    import torch
+    from repro_torch.api import GenerateRequest
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    events = 0
+    for i, (toks, ags) in enumerate(patients):
+        req = GenerateRequest(tokens=[int(x) for x in toks],
+                              ages=[float(x) for x in ags],
+                              max_new=ARTIFACT_MAX_NEW, max_age=1e9,
+                              uniforms=artifact_uniforms(cfg, i))
+        events += (len(list(backend.stream(req))) if stream
+                   else len(backend.generate(req).tokens))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"events": events, "wall_s": wall,
+            "ms_per_event": 1e3 * wall / max(events, 1)}
+
+
+def artifact_step_ms(art, full, params, cfg, patient) -> dict:
+    """Host wall per call, each call ending in its logits' copy to the
+    host (what a client waits for a token): a v2 decode step, a v1 full
+    graph and an eager decode step (the function ``LocalBackend.stream``
+    calls), ``ARTIFACT_MAX_NEW - 1`` calls each after one prefill, in turns
+    (v2, v1, eager, eager, v1, v2).  Then the decode graph's ``forward``
+    against the eager decode function on inputs already on the card, with
+    no copy to the host and one synchronise at the end (the graph's own
+    execution, without the runtime's input copies and checks), in turns;
+    and the graphs' node counts."""
+    import numpy as np
+    import torch
+    from repro_torch.sdk import build_inference_fns
+    fns = build_inference_fns(cfg, art.seq_len)
+    toks, ags = patient
+    t, a = art._pad_inputs(toks, ags)
+    last = np.asarray([len(toks) - 1], np.int32)
+    n = ARTIFACT_MAX_NEW - 1
+    steps = [(np.asarray([[3 + k]], np.int32),
+              np.asarray([[float(ags[-1]) + 0.5 * (k + 1)]], np.float32),
+              np.asarray([len(toks) + k], np.int32)) for k in range(n)]
+
+    prefill_ms = []
+
+    def v2():
+        t0 = time.perf_counter()
+        _, cache = art.runtime.prefill(t, a, last)
+        t1 = time.perf_counter()
+        prefill_ms.append(1e3 * (t1 - t0))
+        for args in steps:
+            _, cache = art.runtime.decode_step(cache, *args)
+        return time.perf_counter() - t1
+
+    def v1():
+        t0 = time.perf_counter()
+        for _ in steps:
+            full.runtime.run(t, a)
+        return time.perf_counter() - t0
+
+    def eager():
+        dev = [torch.from_numpy(x).to(DEVICE) for x in (t, a, last)]
+        with torch.no_grad():
+            _, cache = fns["prefill"](params, *dev)
+            t0 = time.perf_counter()
+            for args in steps:
+                lg, cache = fns["decode"](
+                    params, cache,
+                    *[torch.from_numpy(x).to(DEVICE) for x in args])
+                lg.cpu().numpy()
+        return time.perf_counter() - t0
+    dev_steps = [[torch.from_numpy(x).to(DEVICE) for x in args]
+                 for args in steps]
+    graph = art.runtime._calls["decode_step"]
+
+    def graph_forward():
+        _, cache = art.runtime.prefill(t, a, last)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for args in dev_steps:
+                _, cache = graph.forward(art.runtime._params, cache, *args)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def eager_fn():
+        dev = [torch.from_numpy(x).to(DEVICE) for x in (t, a, last)]
+        with torch.no_grad():
+            _, cache = fns["prefill"](params, *dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for args in dev_steps:
+                _, cache = fns["decode"](params, cache, *args)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    runs = {"v2": v2, "v1": v1, "eager": eager, "graph.forward": graph_forward,
+            "eager fn": eager_fn}
+    turns = []
+    for mode in ("v2", "v1", "eager", "eager", "v1", "v2", "graph.forward",
+                 "eager fn", "eager fn", "graph.forward"):
+        torch.cuda.synchronize()
+        turns.append((mode, 1e3 * runs[mode]() / n))
+    nodes = {name: len(list(g.graph.nodes))
+             for name, g in art.runtime._calls.items()}
+    return {"turns": turns, "v2_prefill_ms": prefill_ms,
+            "graph_nodes": nodes}
+
+
+def artifact_op_us() -> dict:
+    """Host microseconds a call of each attention kernel at a batch-1
+    request's shapes (bf16; flash at S 256, the paged kernel over a ring
+    of 256), called through its wrapper (the eager path) and through its
+    ``repro_torch::`` operator (the artifact's graphs): 500 calls ending in
+    a synchronise, in turns (wrapper, operator, operator, wrapper)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import paged_attention as pk
+    bf = dict(device=DEVICE, dtype=torch.bfloat16)
+    qf = torch.randn(1, 12, 256, 10, **bf)
+    q = torch.randn(1, 12, 1, 10, **bf)
+    kp = torch.randn(1, 12, 256, 10, **bf)
+    table = torch.zeros(1, 1, dtype=torch.int32, device=DEVICE)
+    pos = torch.arange(256, dtype=torch.int32, device=DEVICE)[None]
+    step = torch.tensor([255], dtype=torch.int32, device=DEVICE)
+    calls = {
+        "flash_attention": (
+            lambda: fk.flash_attention_cuda(qf, qf, qf, causal=True),
+            lambda: torch.ops.repro_torch.flash_attention(qf, qf, qf, True,
+                                                          None)),
+        "paged_decode_attention": (
+            lambda: pk.paged_decode_attention_cuda(q, kp, kp, table, pos,
+                                                   step),
+            lambda: torch.ops.repro_torch.paged_decode_attention(
+                q, kp, kp, table, pos, step, None))}
+    out = {}
+    for name, (wrapper, op) in calls.items():
+        turns = []
+        for mode in ("wrapper", "operator", "operator", "wrapper"):
+            fn = wrapper if mode == "wrapper" else op
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(500):
+                fn()
+            torch.cuda.synchronize()
+            turns.append((mode, 1e6 * (time.perf_counter() - t0) / 500))
+        out[name] = turns
+    return out
+
+
+def artifact_path(tmp: str) -> dict:
+    """Phase 3j: full-width Delphi-2M exported (spec v2 and v1, bf16 and
+    fp32), loaded with ``Runtime(device="cuda")``, gated against the eager
+    model and ``LocalBackend``; the kernels' launches on one drive of the
+    bf16 v2 artifact (counts zeroed just before, read just after); the
+    per-event time of v2 decode, the v1 full graph and
+    ``LocalBackend.stream`` in turns; the server CLI on ``--artifact``."""
+    import torch
+    from repro_torch.api import ArtifactBackend, LocalBackend
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    patients = futures_patients()
+    out = {"dtypes": {}}
+    for dtype in ("bfloat16", "float32"):
+        cfg = get_config("delphi-2m").replace(dtype=dtype)
+        params = init_params(cfg, seed=SEED, device=DEVICE)
+        d2 = os.path.join(tmp, f"artifact_{dtype}_v2")
+        d1 = os.path.join(tmp, f"artifact_{dtype}_v1")
+        ex2 = artifact_export(params, cfg, d2, "2")
+        ex1 = artifact_export(params, cfg, d1, "1")
+        t0 = time.perf_counter()
+        art = ArtifactBackend(d2, device=DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        full = ArtifactBackend(d1, device=DEVICE)
+        if not (art.use_decode_graph and not full.use_decode_graph):
+            raise AssertionError("v2 must decode, v1 must fall back")
+        local = LocalBackend(params, cfg, device=DEVICE)
+        gates = artifact_gates(params, cfg, art, full, local, patients)
+        res = {"export_v2": ex2, "export_v1": ex1, "load_v2_s": load_s,
+               "gates": gates}
+        if dtype == "bfloat16":
+            # the kernels' launches on one drive, its idle share, the
+            # operators' host cost, the CLI and the times (one dtype)
+            ops.reset_launch_counts()
+            drive = artifact_drive(art, cfg, patients)
+            res["launches"] = ops.launch_counts()
+            n = len(patients)
+            want = {"flash_attention": 12 * n, "tte_sample": 0,
+                    "paged_decode_attention": 12 * (drive["events"] - n)}
+            if any(res["launches"][k] != v for k, v in want.items()):
+                raise AssertionError(f"artifact drive: launches "
+                                     f"{res['launches']}, want {want}")
+            one = patients[:1]
+            res["profile"] = path_profile(
+                lambda: artifact_drive(art, cfg, one)["wall_s"],
+                artifact_drive(art, cfg, one)["wall_s"])
+            res["op_us"] = artifact_op_us()
+            res["cli"] = cli_boot(("--artifact", d2), "artifact")
+            two = patients[:2]
+            turns = []
+            for mode in ("v2", "v1", "local", "local", "v1", "v2"):
+                r = (artifact_drive(local, cfg, two, stream=True)
+                     if mode == "local" else
+                     artifact_drive(art if mode == "v2" else full, cfg, two))
+                turns.append((mode, r["ms_per_event"]))
+            res["ms_per_event_turns"] = turns
+            res["ms_per_call"] = artifact_step_ms(art, full, params, cfg,
+                                                  patients[0])
+        out["dtypes"][dtype] = res
+    return out
+
+
+def log_artifact(art: dict) -> None:
+    """Phase 3j's lines."""
+    for dtype, r in art["dtypes"].items():
+        g = r["gates"]
+        log(f"  {dtype}: export v2 {r['export_v2']['export_s']:.2f}s "
+            f"({r['export_v2']['bytes']} bytes), v1 "
+            f"{r['export_v1']['export_s']:.2f}s ({r['export_v1']['bytes']} "
+            f"bytes); load v2 {r['load_v2_s']:.2f}s; full graph == eager "
+            f"and v1 == v2 on {g['prompts']} prompts, "
+            f"prefill + {g['decode_steps']} decode steps == eager bit for "
+            f"bit, 12 flash launches a full or prefill call and 12 paged a "
+            f"decode step; ArtifactBackend == LocalBackend.stream on "
+            f"{g['generate_events']} events")
+    bart = art["dtypes"]["bfloat16"]
+    log("  bf16, ms per event of a request (v2 and v1 ArtifactBackend, "
+        "LocalBackend.stream; 2 requests), in turns: " + ", ".join(
+            f"{m} {v:.4f}" for m, v in bart["ms_per_event_turns"]))
+    mc = bart["ms_per_call"]
+    log("  bf16, ms per call (v2 decode step, v1 full graph, eager decode "
+        "step, each to the host's logits; then the decode graph's forward "
+        "and the eager decode function on the card's inputs), in turns: "
+        + ", ".join(f"{m} {v:.4f}" for m, v in mc["turns"])
+        + "; v2 prefill " + ", ".join(f"{v:.4f}" for v in mc["v2_prefill_ms"])
+        + f"; graph nodes {mc['graph_nodes']}")
+    log(f"  launches on the bf16 v2 drive ({FUTURES_PATIENTS} requests x "
+        f"{ARTIFACT_MAX_NEW} events): {bart['launches']}; the CLI on "
+        f"--artifact booted in {bart['cli']['boot_s']:.1f}s, answered "
+        f"/v1/manifest and a generate, exit {bart['cli']['exit_code']} on "
+        f"SIGINT")
+    ap = bart["profile"]
+    log(f"  one bf16 v2 request under the profiler: device busy "
+        f"{ap['device_busy_s']:.4f}s of {ap['wall_s']:.3f}s wall, idle "
+        f"share {'not measured' if ap['idle_share'] is None else format(ap['idle_share'], '.3f')}"
+        f", {ap['launches']} device activities")
+    for name, turns in bart["op_us"].items():
+        log(f"  {name}: host us a call, wrapper against repro_torch:: "
+            f"operator, in turns: " + ", ".join(
+                f"{m} {v:.1f}" for m, v in turns))
+
+
 def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     """Per-call time by CUDA events around a warmed run of ``iters`` calls:
     what a caller pays, host overhead included when launches are
@@ -2817,6 +3211,15 @@ def main() -> int:
         f"{cp['device_busy_s']:.4f}s of {cp['wall_s']:.3f}s wall, idle share"
         f" {'not measured' if cp['idle_share'] is None else format(cp['idle_share'], '.3f')}")
     log(f"  phase 3i took {time.perf_counter() - t3i:.1f}s ({smi})")
+    log("== phase 3j: the SDK artifact (full-width Delphi-2M through "
+        "torch.export, spec v2 and v1, bf16 and fp32, traced on the CPU; "
+        "Runtime on the card)")
+    t3j = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        art = artifact_path(tmp)
+    bart = art["dtypes"]["bfloat16"]
+    log_artifact(art)
+    log(f"  phase 3j took {time.perf_counter() - t3j:.1f}s ({smi})")
 
     log("== phase 3b: Mamba2 path (Mamba2-780M bf16, BatchedEngine, 8 "
         "slots)")
@@ -2978,7 +3381,8 @@ def main() -> int:
         "path": "3b" if name == "ssd_intra" else "3c",
         "launches_by_path": ({} if name == "ssd_intra" else
                              {"3i": coh["launches"][name],
-                              "6d": can["launches"][name]}),
+                              "6d": can["launches"][name],
+                              "artifact": bart["launches"][name]}),
         "max_abs_err": errs[name], "ms": ms(rows[name]["kernel"]),
         "plain_ms": ms(rows[name]["plain"]),
         "bound_ms": rows[name]["bound_ms"],
@@ -3031,7 +3435,7 @@ def main() -> int:
                         "suffix_chunks": sfx["suffix_chunks"]},
         "http_path": http, "router_path": rtr, "cohort_path": coh,
         "grads_path": grd, "train_path": trn, "federated_path": fedr,
-        "canary_path": can,
+        "canary_path": can, "artifact_path": art,
         "main_path": {"requests": len(main_res["done"]),
                       "events": main_res["events"], "seconds": sec,
                       "ticks": eng.ticks, "admit_batches": eng.admit_batches,

@@ -1,12 +1,12 @@
 """Unified inference client API of the port.
 
-``Client`` and three backends (engine and local in-process, plus
-``RemoteBackend`` speaking the versioned JSON/SSE wire protocol against a
+``Client`` and four backends (an exported artifact, engine and local
+in-process, plus ``RemoteBackend`` speaking the versioned JSON/SSE wire protocol against a
 ``repro_torch.serve.server``) over shared request/result schemas and one
 structured error taxonomy.  See ``repro_torch.api.client``.
 """
-from repro_torch.api.client import (Client, EngineBackend, InferenceBackend,
-                                    LocalBackend)
+from repro_torch.api.client import (ArtifactBackend, Client, EngineBackend,
+                                    InferenceBackend, LocalBackend)
 from repro_torch.api.errors import (AgesLengthMismatchError,
                                     AgesRequiredError, ApiError,
                                     EmptyTrajectoryError,
@@ -24,7 +24,7 @@ from repro_torch.api.schemas import (WIRE_PROTOCOL_VERSION, FuturesRequest,
 
 __all__ = [
     "Client", "InferenceBackend",
-    "EngineBackend", "LocalBackend", "RemoteBackend",
+    "ArtifactBackend", "EngineBackend", "LocalBackend", "RemoteBackend",
     "GenerateRequest", "TrajectoryEvent", "TrajectoryResult",
     "FuturesRequest", "FuturesResult",
     "RiskItem", "RiskReport", "WIRE_PROTOCOL_VERSION",

@@ -6,18 +6,21 @@ and one host-side eq.-1 sampler
 (``repro_torch.core.sampler.sample_next_event_np``), so trajectories are
 bit-comparable across backends under injected uniforms:
 
+* :class:`ArtifactBackend` wraps ``sdk.runtime.Runtime``.  Spec-v2
+  artifacts generate by prefill-then-decode (the KV cache threaded through
+  the exported decode graph, O(1) model work a token); v1 artifacts fall
+  back to the paper's full-graph-per-token loop.
 * :class:`EngineBackend` wraps ``serve.BatchedEngine`` for batched and
   streaming server-side use (eq.-1 sampling on the device, one host sync a
   tick), in the foreground or on the engine's background loop.
 * :class:`LocalBackend`: in-process parameters and ``core.sampler``
-  (``generate_trajectories`` for batched generation; streaming through a
-  batch-1 prefill and ``decode_step``).
+  (``generate_trajectories`` for batched generation; streaming through the
+  prefill and decode functions that the exporter serializes).
 * :class:`repro_torch.api.remote.RemoteBackend`: the same surface over the
   versioned JSON/SSE wire protocol against ``repro_torch.serve.server``
   (``Client.connect(url)``).
 
-The SDK artifact backend is not ported yet: it needs the port of the SDK
-runtime, and ``Client.from_artifact`` says so.
+``sdk.InferenceSession`` is a thin compatibility shim over ``Client``.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card the default raises.
@@ -46,7 +49,9 @@ from repro_torch.core.risk import (analytic_next_event_risk_np,
                                    futures_risk_items)
 from repro_torch.core.sampler import (generate_trajectories,
                                       sample_next_event_np)
-from repro_torch.models import decode_step, forward
+from repro_torch.models import forward
+from repro_torch.sdk.export import build_inference_fns
+from repro_torch.sdk.runtime import Runtime
 
 if TYPE_CHECKING:                       # the engine imports this package
     from repro_torch.serve.engine import BatchedEngine
@@ -298,6 +303,76 @@ def _torch(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x)).to(device)
 
 
+def _decode_inputs(token: int, age: Optional[float],
+                   step: int) -> List[np.ndarray]:
+    """A decode step's inputs in the graphs' order: token (1, 1)[, age
+    (1, 1)], step (1,)."""
+    args = [np.asarray([[token]], np.int32)]
+    if age is not None:
+        args.append(np.asarray([[age]], np.float32))
+    args.append(np.asarray([step], np.int32))
+    return args
+
+
+# ---------------------------------------------------------------------------
+# Artifact backend (the FAIR client path)
+# ---------------------------------------------------------------------------
+class ArtifactBackend(InferenceBackend):
+    """Client over an exported artifact directory (``sdk.runtime.Runtime``
+    on ``device``).
+
+    Spec-v2 artifacts default to prefill-then-decode generation: one prefill
+    over the prompt, then one KV-cached decode_step per generated token,
+    instead of re-running the O(S·V) full graph per token (the v1 path, kept
+    as ``use_decode_graph=False`` and as the automatic v1 fallback).
+    """
+    name = "artifact"
+
+    def __init__(self, artifact_dir: str, *,
+                 use_decode_graph: Optional[bool] = None, device="cuda"):
+        self.runtime = Runtime(artifact_dir, device=device)
+        m = self.runtime.manifest
+        sig = m["signature"]
+        self.seq_len = int(sig["inputs"][0]["shape"][1])
+        self.vocab_size = int(sig["outputs"][0]["shape"][2])
+        self.has_ages = any(i["name"] == "ages" for i in sig["inputs"])
+        term = m.get("sampling", {}).get("termination", {})
+        self.death_token = int(term.get("death_token", 1))
+        self.max_age = float(term.get("max_age_years", 85.0))
+        if use_decode_graph is None:
+            use_decode_graph = self.runtime.has_decode_graph
+        elif use_decode_graph and not self.runtime.has_decode_graph:
+            raise ValueError(
+                f"artifact {artifact_dir!r} is spec "
+                f"{self.runtime.spec_version} and ships no decode graph; "
+                f"re-export with spec v2 or pass use_decode_graph=False")
+        self.use_decode_graph = bool(use_decode_graph)
+
+    def logits(self, tokens, ages=None):
+        inputs = self._pad_inputs(tokens, ages)
+        out = self.runtime.run(*inputs)                  # (1, S, V)
+        return out[0, len(tokens) - 1]
+
+    def _next_full(self, toks, ags, state):
+        return self.logits(toks, ags if self.has_ages else None), None
+
+    def _next_decode_fn(self):
+        def prefill(inputs, last):
+            return self.runtime.prefill(*inputs,
+                                        np.asarray([last], np.int32))
+
+        def decode(cache, token, age, step):
+            return self.runtime.decode_step(
+                cache, *_decode_inputs(token, age, step))
+
+        return self._prefill_decode_stepper(prefill, decode)
+
+    def _event_stream(self, req):
+        step_fn = (self._next_decode_fn() if self.use_decode_graph
+                   else self._next_full)
+        return self._host_events(req, step_fn)
+
+
 # ---------------------------------------------------------------------------
 # Local backend (in-process parameters + core.sampler)
 # ---------------------------------------------------------------------------
@@ -307,9 +382,10 @@ class LocalBackend(InferenceBackend):
     ``generate`` runs the straight-line batched generator
     (``core.sampler.generate_trajectories``; without injected uniforms it
     draws from a ``torch.Generator`` seeded with the request's ``seed``);
-    ``stream`` runs a batch-1 prefill (``forward(mode="prefill")`` into a
-    ring of ``seq_len``) and then ``decode_step`` a token at a time, with
-    the host-side sampler.
+    ``stream`` calls the prefill and decode functions that the exporter
+    serializes (``sdk.export.build_inference_fns``: a batch-1 prefill into a
+    ring of ``seq_len``, then one decode step a token), with the host-side
+    sampler, so the local decode path and an artifact's are one function.
     """
     name = "local"
 
@@ -329,44 +405,33 @@ class LocalBackend(InferenceBackend):
         # recurrent state cannot mask padding: such a model prefills its
         # prompt at its exact length
         self._padded = cfg.arch_type in (cb.DENSE, cb.MOE, cb.VLM)
+        self._fns = build_inference_fns(cfg, self.seq_len)
 
-    def _batch(self, tokens: np.ndarray, ages: Optional[np.ndarray]) -> dict:
-        batch = {"tokens": _torch(np.asarray(tokens, np.int32), self.device)}
-        if self.has_ages:
-            batch["ages"] = _torch(np.asarray(ages, np.float32), self.device)
-        return batch
+    def _tensors(self, *arrays) -> List[torch.Tensor]:
+        return [_torch(a, self.device) for a in arrays]
 
     @torch.no_grad()
     def logits(self, tokens, ages=None):
         inputs = self._pad_inputs(tokens, ages)
-        out = forward(self.params, self.cfg,
-                      self._batch(inputs[0],
-                                  inputs[1] if self.has_ages else None),
-                      mode="train")
-        return out["logits"][0, len(tokens) - 1].float().cpu().numpy()
+        out = self._fns["full"](self.params, *self._tensors(*inputs))
+        return out[0, len(tokens) - 1].float().cpu().numpy()
 
     def _next_decode_fn(self):
         @torch.no_grad()
         def prefill(inputs, last):
-            t = inputs[0]
-            a = inputs[1] if self.has_ages else None
             if not self._padded:
-                t = t[:, :last + 1]
-                a = None if a is None else a[:, :last + 1]
-            out = forward(self.params, self.cfg, self._batch(t, a),
-                          mode="prefill", cache_width=self.seq_len,
-                          last_index=_torch(np.asarray([last], np.int32),
-                                            self.device))
-            return out["logits"][:, 0].float().cpu().numpy(), out["cache"]
+                inputs = tuple(a[:, :last + 1] for a in inputs)
+            lg, cache = self._fns["prefill"](
+                self.params, *self._tensors(*inputs,
+                                            np.asarray([last], np.int32)))
+            return lg.float().cpu().numpy(), cache
 
         @torch.no_grad()
         def decode(cache, token, age, step):
-            batch = self._batch(np.asarray([[token]], np.int32),
-                                None if age is None
-                                else np.asarray([[age]], np.float32))
-            d = decode_step(self.params, self.cfg, cache, batch,
-                            _torch(np.asarray([step], np.int32), self.device))
-            return d["logits"][:, 0].float().cpu().numpy(), d["cache"]
+            lg, cache = self._fns["decode"](
+                self.params, cache,
+                *self._tensors(*_decode_inputs(token, age, step)))
+            return lg.float().cpu().numpy(), cache
 
         return self._prefill_decode_stepper(prefill, decode)
 
@@ -702,6 +767,7 @@ class Client:
     """Unified inference client: ``generate`` / ``generate_batch`` /
     ``stream`` / ``risk`` / ``sample_futures`` over a pluggable backend.
 
+    >>> client = Client.from_artifact("artifact_dir/")       # FAIR artifact
     >>> client = Client.from_params(params, cfg)             # in-process
     >>> client = Client.serving(params, cfg, slots=8)        # batched engine
     >>> client = Client.connect("http://host:8478")          # over the wire
@@ -713,11 +779,9 @@ class Client:
     # -- constructors --------------------------------------------------------
     @classmethod
     def from_artifact(cls, artifact_dir: str, **kw) -> "Client":
-        raise NotImplementedError(
-            "Client.from_artifact is not ported yet: the artifact backend "
-            "needs the port of the SDK runtime (sdk/runtime.py and "
-            "sdk/export.py); serve the parameters through Client.serving "
-            "or Client.from_params instead")
+        """An exported artifact (``sdk.export_model``); ``kw`` are
+        :class:`ArtifactBackend`'s (``use_decode_graph``, ``device``)."""
+        return cls(ArtifactBackend(artifact_dir, **kw))
 
     @classmethod
     def from_params(cls, params, cfg: ModelConfig, **kw) -> "Client":
@@ -740,7 +804,8 @@ class Client:
 
     @staticmethod
     def backends() -> dict:
-        """Registered backend name -> class (engine/local/remote)."""
+        """Registered backend name -> class
+        (artifact/engine/local/remote)."""
         return dict(InferenceBackend.registry)
 
     # -- request plumbing ----------------------------------------------------

@@ -13,6 +13,11 @@ them; otherwise a loss reaching a kernel would train correctly on the CPU
 (whose plain version is differentiable) and lose the gradient silently on
 the card.  Training takes the plain differentiable route instead
 (``models.attention.chunked_attention``).
+
+While ``torch.export`` traces (the SDK artifact's graphs), the two
+attention entry points go through the operators of ``kernels.library``
+instead, so that the exported graph calls the kernel (or, on the CPU, the
+plain version) as one node.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import library
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
@@ -66,6 +72,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """q: (B, Hq, S, hd); k, v: (B, Hkv, T, hd) -> (B, Hq, S, hd) in q's
     dtype.  Causality is by index (query row i sees keys j <= i)."""
     _refuse_grad("flash_attention", q, k, v)
+    if torch.compiler.is_exporting():
+        return library.flash_attention(q, k, v, causal, window)
     if _on_cuda(q):
         return _flash.flash_attention_cuda(q, k, v, causal=causal,
                                            window=window)
@@ -117,7 +125,11 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos, step, *,
     B, Hq, hd = q.shape
     Hkv = k_pool.shape[1]
     q4 = q.reshape(B, Hkv, Hq // Hkv, hd)
-    if _on_cuda(q):
+    if torch.compiler.is_exporting():
+        out = library.paged_decode_attention(
+            q4.contiguous(), k_pool, v_pool, table.to(torch.int32),
+            pos.to(torch.int32), step.to(torch.int32), window)
+    elif _on_cuda(q):
         out = _paged.paged_decode_attention_cuda(
             q4.contiguous(), k_pool, v_pool, table.to(torch.int32),
             pos.to(torch.int32), step.to(torch.int32), window=window)

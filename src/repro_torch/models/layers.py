@@ -68,7 +68,11 @@ def age_encoding(ages: torch.Tensor, d_model: int, min_scale: float = 1e-3,
     """ages: (..., S) float years -> (..., S, d_model) fp32 sinusoidal
     features, frequencies from 1/min_scale down to 1/max_scale."""
     half = d_model // 2
-    inv_scales = _inv_scales(half, min_scale, max_scale, str(ages.device))
+    # while torch.export traces, the table is made anew (it becomes one of
+    # the graph's constants): the cache would keep the tracer's fake tensor
+    table = (_inv_scales.__wrapped__ if torch.compiler.is_exporting()
+             else _inv_scales)
+    inv_scales = table(half, min_scale, max_scale, str(ages.device))
     angles = ages.float()[..., None] * inv_scales
     enc = torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
     if enc.shape[-1] < d_model:   # odd d_model

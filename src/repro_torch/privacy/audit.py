@@ -14,6 +14,9 @@ privacy axis next to the perf axis:
     python -m repro_torch.privacy.audit --url http://127.0.0.1:8433 \
         --canaries 8 --out audit.json
 
+or against an exported artifact, in process (``--artifact DIR [--device
+cpu]``).
+
 The report's JSON is the JAX package's (``PrivacyAuditReport.from_json``
 of either package reads the other's).
 
@@ -127,14 +130,13 @@ PROG = "repro-torch-audit"
 
 def _build_backend(args):
     from repro_torch.api.client import Client
-    if args.artifact:
-        raise SystemExit(
-            f"{PROG}: --artifact is not ported yet: auditing an exported "
-            f"artifact needs the port of the SDK runtime (ROADMAP queue A, "
-            f"item 8); serve the checkpoint and pass --url instead")
     if args.url:
         return Client.connect(args.url).backend
-    raise SystemExit(f"{PROG}: pass --url (served checkpoint)")
+    if args.artifact:
+        return Client.from_artifact(args.artifact,
+                                    device=args.device).backend
+    raise SystemExit(f"{PROG}: pass --url (served checkpoint) "
+                     f"or --artifact (exported directory)")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -143,8 +145,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         description="Membership-inference + prompt-extraction audit of a "
                     "served checkpoint, over the public inference API.")
     p.add_argument("--url", help="server base URL (http://host:port)")
-    p.add_argument("--artifact", help="exported artifact directory (not "
-                                      "ported yet: refused)")
+    p.add_argument("--artifact", help="exported artifact directory")
+    p.add_argument("--device", default="cuda",
+                   help="--artifact: device of its graphs (cpu runs the "
+                        "plain PyTorch path)")
     p.add_argument("--canaries", type=int, default=8,
                    help="total canaries (even=member, odd=held-out)")
     p.add_argument("--secret-len", type=int, default=4)

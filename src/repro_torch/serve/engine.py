@@ -1744,8 +1744,13 @@ class BatchedEngine:
             self._apply_host(self.slot_req[slot], slot, arr[:, slot])
         return True
 
-    def run(self, max_ticks: int = 10_000) -> List[Request]:
-        """Tick until every submitted request has finished."""
+    def run(self, max_ticks: int = 10_000) -> List[Request]:  # repro-lint: engine-thread-only
+        """Tick until every submitted request has finished.  Refused while
+        the background loop runs: two threads would tick one engine."""
+        if self.running:
+            raise RuntimeError(
+                "engine is ticking on its background thread (start() was "
+                "called): submit() and wait on the request instead of run()")
         ticks = 0
         while (self.pending or self._fork_ops
                or any(r is not None for r in self.slot_req)) \

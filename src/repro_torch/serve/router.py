@@ -1102,7 +1102,7 @@ def _replica_argv_base(args) -> List[str]:
     subprocess replica's argv (everything but host/port/seed)."""
     argv: List[str] = []
     if args.artifact:
-        argv += ["--artifact", args.artifact]
+        argv += ["--artifact", args.artifact, "--device", args.device]
     else:
         argv += ["--config", args.config]
         if args.reduced:
@@ -1128,8 +1128,14 @@ def _replica_argv_base(args) -> List[str]:
 
 def _shared_params_backend_factory(args) -> Callable[[int], object]:
     """In-process replicas share ONE parameter set on one device, so N
-    replicas cost N KV pools — not N models."""
+    replicas cost N KV pools — not N models.  Artifact replicas each load
+    the artifact."""
     from repro_torch.serve.server import _build_backend
+    if args.artifact:
+        def make_artifact_backend(i: int):
+            from repro_torch.api.client import ArtifactBackend
+            return ArtifactBackend(args.artifact, device=args.device)
+        return make_artifact_backend
     first = _build_backend(args)
     from repro_torch.api.client import EngineBackend, LocalBackend
     if isinstance(first, LocalBackend):

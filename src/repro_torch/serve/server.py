@@ -22,7 +22,8 @@ Endpoints (all under ``/v1``; schemas are the canonical ``to_json`` forms):
                                the assembled TrajectoryResult (``error``
                                frame on mid-stream failure)
 ``/v1/manifest``       GET     protocol version, model/termination metadata,
-                               endpoint map
+                               endpoint map (+ the FAIR artifact manifest
+                               for an artifact backend)
 ``/v1/healthz``        GET     liveness + engine stats
 =====================  ======  ===============================================
 
@@ -38,9 +39,10 @@ admission** — the engine ticks on its own background thread
 threads merely enqueue requests and park on completion hooks, so concurrent
 requests continuously batch onto engine slots.  The loop's thread and the
 handler threads that run ``/v1/risk``'s forward all launch on the default
-stream.  Host-loop backends (local) are serialized by a lock.
+stream.  Host-loop backends (artifact/local) are serialized by a lock.
 
-Run:  ``python -m repro_torch.serve.server --config delphi-2m
+Run:  ``python -m repro_torch.serve.server --artifact DIR [--device cuda]``
+or    ``python -m repro_torch.serve.server --config delphi-2m
       [--device cuda] [--ckpt DIR] [--cache paged] [--replicas 2]``
 """
 from __future__ import annotations
@@ -217,6 +219,9 @@ class InferenceServer:
             },
             "endpoints": _ENDPOINTS,
         }
+        runtime = getattr(b, "runtime", None)       # FAIR provenance pass-
+        if runtime is not None:                     # through for artifacts
+            m["artifact"] = runtime.manifest
         return m
 
     def healthz(self) -> dict:
@@ -466,17 +471,16 @@ def _checkpoint_config(path: str, cfg):
 
 
 def _build_backend(args):
-    """The backend the CLI namespace describes: fresh parameters from
+    """The backend the CLI namespace describes: an exported artifact
+    (``--artifact``, its graphs on ``--device``), or fresh parameters from
     ``init_params(cfg, seed)`` or a checkpoint directory (``--ckpt``: a
     JAX-layout ``params.npz``, shaped by its ``meta.json`` config when it
     has one) on ``--device``, with activations in fp32."""
     if args.artifact:
-        raise SystemExit(
-            f"{PROG}: --artifact is not ported yet: serving an exported "
-            f"artifact needs the port of the SDK runtime (ROADMAP queue A, "
-            f"item 8); serve --config NAME instead")
+        from repro_torch.api.client import ArtifactBackend
+        return ArtifactBackend(args.artifact, device=args.device)
     if not args.config:
-        raise SystemExit(f"{PROG}: pass --config NAME")
+        raise SystemExit(f"{PROG}: pass --artifact DIR or --config NAME")
     from repro_torch import resolve_device
     from repro_torch.api.client import EngineBackend, LocalBackend
     from repro_torch.configs import get_config
@@ -530,7 +534,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     "wire protocol" % WIRE_PROTOCOL_VERSION)
     src = ap.add_argument_group("model source (one required)")
     src.add_argument("--artifact", metavar="DIR",
-                     help="exported SDK artifact (not ported yet: refused)")
+                     help="exported FAIR artifact directory "
+                          "(ArtifactBackend on --device)")
     src.add_argument("--config", metavar="NAME",
                      help="config name, e.g. delphi-2m: parameters from "
                           "--ckpt or fresh from --seed, served via --backend")
@@ -539,8 +544,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "package's layout (params.npz; the model's shapes "
                          "from its meta.json config when it has one)")
     ap.add_argument("--device", default="cuda",
-                    help="device of the model (cpu runs the plain PyTorch "
-                         "path)")
+                    help="device of the model or the artifact's graphs "
+                         "(cpu runs the plain PyTorch path)")
     ap.add_argument("--reduced", action="store_true",
                     help="reduced layer/width preset for --config")
     ap.add_argument("--backend", choices=("engine", "local"),

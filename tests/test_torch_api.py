@@ -200,10 +200,11 @@ def test_local_backend_validates_like_the_engine():
 
 
 def test_client_surface():
-    assert set(api.Client.backends()) == {"engine", "local", "remote"}
-    assert set(api.__all__) == set(jax_api.__all__) - {"ArtifactBackend"}
-    with pytest.raises(NotImplementedError, match="SDK runtime"):
-        api.Client.from_artifact("nowhere")
+    assert set(api.Client.backends()) == {"artifact", "engine", "local",
+                                          "remote"}
+    assert set(api.__all__) == set(jax_api.__all__)
+    with pytest.raises(FileNotFoundError, match="manifest.json"):
+        api.Client.from_artifact("nowhere", device="cpu")
     with pytest.raises(TypeError):
         _clients()[0].generate(api.GenerateRequest(tokens=TOKS), max_new=3)
 

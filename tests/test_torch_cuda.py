@@ -838,3 +838,40 @@ def test_cohort_sweep_equals_oracle_on_card(gen):
                                 slots=4, max_context=64, device="cuda")
     assert stats["patients_checked"] == 5
     assert stats["events_checked"] == res.events_total
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_artifact_on_card_equals_eager_through_the_kernels(gen, tmp_path,
+                                                           dtype):
+    """A reduced Delphi artifact (traced on the CPU) loaded on the card:
+    the full graph == eager ``forward`` bit for bit through the flash
+    operator, prefill + decode steps == ``LocalBackend.stream`` token for
+    token through the paged operator (launch counts per call)."""
+    from repro_torch.api import ArtifactBackend, GenerateRequest, LocalBackend
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+    from repro_torch.sdk import export_model
+    cfg = get_config("delphi-2m", reduced=True).replace(
+        dtype=dtype, vocab_size=96, max_seq_len=48)
+    params = init_params(cfg, seed=5, device="cuda")
+    export_model(params, cfg, str(tmp_path))
+    art = ArtifactBackend(str(tmp_path), device="cuda")
+    toks, ages = [3, 10, 20, 41], [0.0, 15.0, 28.0, 33.5]
+    t, a = art._pad_inputs(toks, ages)
+    ops.reset_launch_counts()
+    got = art.runtime.run(t, a)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    with torch.no_grad():
+        want = forward(params, cfg, {"tokens": torch.from_numpy(t).cuda(),
+                                     "ages": torch.from_numpy(a).cuda()})
+    assert np.array_equal(got, want["logits"].cpu().numpy())
+    u = np.random.default_rng(1).uniform(size=(6, 96)).astype(np.float32)
+    req = GenerateRequest(tokens=toks, ages=ages, max_new=6, uniforms=u,
+                          max_age=1e9)
+    ops.reset_launch_counts()
+    res = art.generate(req)
+    counts = ops.launch_counts()
+    assert counts["paged_decode_attention"] > 0 and counts["tte_sample"] == 0
+    s = list(LocalBackend(params, cfg, device="cuda").stream(req))
+    assert (res.tokens, res.ages) == ([e.token for e in s],
+                                      [e.age for e in s])

@@ -326,6 +326,28 @@ def test_drop_prefix_cache_refused_while_running(setup):
     eng.drop_prefix_cache()
 
 
+def test_run_refused_while_running_as_jax(setup):
+    """``run()`` after ``start()`` raises the JAX engine's error (two
+    threads would otherwise tick one engine); after ``stop()`` it runs."""
+    params, cfg = setup
+    jcfg = jax_config("delphi-2m", reduced=True).replace(
+        dtype="float32", vocab_size=96, max_seq_len=48, max_age=1e9)
+    jeng = JaxEngine(init_delphi(jcfg, jax.random.PRNGKey(7)), jcfg,
+                     slots=K, max_context=W)
+    messages = []
+    for eng in (_engine(params, cfg, "ring"), jeng):
+        eng.start()
+        try:
+            with pytest.raises(RuntimeError) as err:
+                eng.run()
+            messages.append(str(err.value))
+        finally:
+            eng.stop()
+        assert eng.run() == []
+    assert messages[0] == messages[1]
+    assert "submit() and wait on the request" in messages[0]
+
+
 @pytest.mark.parametrize("cache", ["ring", "paged"])
 def test_health_stats_keys_equal_jax(setup, cache):
     params, cfg = setup

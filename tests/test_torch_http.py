@@ -10,7 +10,10 @@
   status and code as the JAX server gives for the same payload.
 * JAX's ``RemoteBackend`` drives the port's server and the port's drives
   JAX's; manifests and health reports have the same keys.
-* The CLI refuses ``--artifact`` and boots, answers and stops on SIGINT.
+* An exported artifact served over HTTP equals a local ``ArtifactBackend``
+  and its FAIR manifest rides on ``/v1/manifest``; the CLI refuses an
+  ``--artifact`` directory that holds no artifact, and boots, answers and
+  stops on SIGINT.
 
 Every socket read and wait has a timeout; every server stops in teardown.
 """
@@ -377,13 +380,50 @@ def test_remote_rejects_rng_before_the_wire(setup):
     assert ei.value.code == "rng_not_serializable"
 
 
-def test_serve_artifact_refused():
-    """Serving an exported artifact needs the port of the SDK runtime: the
-    CLI refuses ``--artifact`` and ``Client.from_artifact`` raises."""
-    with pytest.raises(SystemExit, match="--artifact is not ported yet"):
-        server_mod.main(["--artifact", "somewhere", "--port", "0"])
-    with pytest.raises(NotImplementedError, match="SDK runtime"):
-        Client.from_artifact("somewhere")
+def test_serve_artifact_refused(tmp_path):
+    """A directory that holds no artifact is refused (by the CLI and by
+    ``Client.from_artifact``), and so is a CLI given no model source."""
+    with pytest.raises(FileNotFoundError, match="manifest.json"):
+        server_mod.main(["--artifact", str(tmp_path), "--port", "0",
+                         "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="manifest.json"):
+        Client.from_artifact(str(tmp_path), device="cpu")
+    with pytest.raises(SystemExit, match="--artifact DIR or --config"):
+        server_mod.main(["--port", "0"])
+
+
+def test_serve_artifact_backend(setup, tmp_path):
+    """The front-end is backend-agnostic: an exported artifact served over
+    HTTP answers as the same artifact in process, bit for bit, and its FAIR
+    manifest rides on ``/v1/manifest``."""
+    from repro_torch.sdk import export_model
+    params, cfg, _ = setup
+    d = str(tmp_path / "art")
+    export_model(params, cfg, d)
+    local = Client.from_artifact(d, device="cpu")
+    art_server = InferenceServer(
+        Client.from_artifact(d, device="cpu").backend, port=0).start()
+    try:
+        remote = Client.connect(art_server.address)
+        for seed in (3, 4):
+            u = _uniforms(5, cfg.vocab_size, seed=seed)
+            want = local.generate(tokens=TOKS, ages=AGES, max_new=5,
+                                  uniforms=u)
+            got = remote.generate(tokens=TOKS, ages=AGES, max_new=5,
+                                  uniforms=u)
+            assert (got.tokens, got.ages) == (want.tokens, want.ages)
+            assert got.backend == "remote[artifact]"
+            evs = list(remote.stream(tokens=TOKS, ages=AGES, max_new=5,
+                                     uniforms=u))
+            assert [e.token for e in evs] == want.tokens
+        m = RemoteBackend(art_server.address).server_manifest
+        assert m["backend"] == "artifact"
+        assert m["artifact"] == local.backend.runtime.manifest
+        assert "provenance" in m["artifact"]
+        assert m["model"]["seq_len"] == cfg.max_seq_len
+        assert "artifact" not in _get(setup[2].address, "/v1/manifest")
+    finally:
+        art_server.stop()
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ canary loop end to end on the CPU.
   trained by the port with member canaries planted, served by the port's
   ``InferenceServer`` over its paged engine, audited by the port's CLI
   over HTTP; the report is valid and JAX reads it.
+* The audit CLI over an exported artifact (``--artifact``).
 """
 import json
 
@@ -280,8 +281,36 @@ def test_audit_cli_over_http_on_a_model_the_port_trained(tmp_path):
     assert report["config"]["n_boot"] == 50
 
 
-def test_audit_cli_refuses_artifact():
-    with pytest.raises(SystemExit, match="not ported yet"):
-        audit_main(["--artifact", "somewhere"])
+def test_audit_cli_refuses_artifact(tmp_path):
+    """A directory that holds no artifact is refused, and so is a CLI given
+    no target."""
+    with pytest.raises(FileNotFoundError, match="manifest.json"):
+        audit_main(["--artifact", str(tmp_path), "--device", "cpu"])
     with pytest.raises(SystemExit, match="--url"):
         audit_main([])
+
+
+def test_audit_cli_on_an_exported_artifact(tmp_path):
+    """The audit CLI over an exported artifact, in process on the CPU: exit
+    0 and a valid report that JAX reads."""
+    from repro_torch.models import init_params
+    from repro_torch.sdk import export_model
+    cfg = get_config("delphi-2m", reduced=True).replace(
+        dtype="float32", vocab_size=1289)
+    d = str(tmp_path / "art")
+    export_model(init_params(cfg, seed=3, device="cpu"), cfg, d,
+                 seq_len=32)
+    out = tmp_path / "audit.json"
+    rc = audit_main(["--artifact", d, "--device", "cpu", "--canaries", "4",
+                     "--secret-len", "3", "--prefix-events", "6",
+                     "--n-futures", "2", "--max-new", "4", "--n-boot", "20",
+                     "--out", str(out)])
+    assert rc == 0
+    report = json.loads(out.read_text())
+    assert report["backend"] == "artifact"
+    assert report["n_members"] == 2 and report["n_nonmembers"] == 2
+    assert 0.0 <= report["mi_auc"] <= 1.0
+    for k in ("member_extraction_rate", "nonmember_extraction_rate"):
+        assert 0.0 <= report[k] <= 1.0
+    assert all(s <= 0.0 for s in report["member_scores"])
+    assert jaudit.PrivacyAuditReport.from_json(report).to_json() == report

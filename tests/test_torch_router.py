@@ -498,6 +498,30 @@ def test_build_router_from_the_cli_namespace(setup):
     assert "--artifact" not in argv
 
 
+def test_build_router_over_artifact_replicas(tmp_path):
+    """``--artifact DIR --replicas 2``: each in-process replica loads the
+    artifact on ``--device``, and a subprocess replica's argv carries
+    both."""
+    from repro_torch.sdk import export_model
+    cfg = get_config("delphi-2m", reduced=True).replace(
+        dtype="float32", vocab_size=96, max_seq_len=32)
+    d = str(tmp_path / "art")
+    export_model(init_params(cfg, seed=3, device="cpu"), cfg, d)
+    args = server_mod.parse_args(["--artifact", d, "--device", "cpu",
+                                  "--replicas", "2", "--port", "0"])
+    router = router_mod.build_router(args).start()
+    try:
+        reps = router.supervisor.replicas
+        assert [r.server.backend.name for r in reps] == ["artifact"] * 2
+        out = Client.connect(router.address).generate(
+            tokens=[3, 10, 20], ages=[0.0, 15.0, 28.0], max_new=3)
+        assert out.backend.startswith("remote[router[r")
+    finally:
+        router.stop()
+    argv = router_mod._replica_argv_base(args)
+    assert argv[:4] == ["--artifact", d, "--device", "cpu"]
+
+
 def test_launcher_shards_over_replicas(capsys):
     out = launch.main(["--arch", "delphi-2m", "--requests", "4", "--slots",
                        "2", "--max-new", "3", "--device", "cpu",
