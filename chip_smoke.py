@@ -16,7 +16,9 @@ runs these phases; any failure exits non-zero:
    masks in fp32 and bf16 against ``suffix_prefill_attention_ref`` at
    ``tests/test_kernels.py``'s suffix cases and Delphi-2M's chunk, the
    padded rows exact zeros, and its index route bit-equal to the position
-   route at a head chunk);
+   route at a head chunk; flash and paged also at the dense LMs' shapes:
+   GQA 32/4 hd 64, 32/8 hd 80 with a window of 4,096 past it, G 8 hd 64
+   and G 4 hd 80 in a 5,120-token ring with the window);
 3. the Delphi path at full width: Delphi-2M (12 layers, d_model 120) from
    ``init_params(seed)`` in bf16, served by the ring-cache ``BatchedEngine``
    through ``repro_torch.launch.serve`` (32 synthetic patient prompts, 16
@@ -113,6 +115,38 @@ runs these phases; any failure exits non-zero:
    its wrapper and through its operator; the server CLI on
    ``--artifact`` as a subprocess answers ``/v1/manifest`` (with the
    artifact's manifest) and a generate, and exits 0 on SIGINT;
+3k. TinyLlama-1.1B at full width (22 layers, d_model 2048, 32 query / 4
+   key-value heads of 64, d_ff 5632, V 32000; RoPE, RMSNorm, SwiGLU, untied
+   head) from ``init_params(seed)`` in bf16 on ``BatchedEngine(slots=8,
+   max_context=1024)``, ring then paged (16-token blocks, prefix cache):
+   16 requests of seeded random ids (64-768 tokens), 32 new tokens each.
+   Every request gets its 32 tokens, one host copy a tick and an admission
+   batch, flash 22 launches an admission batch, paged 22 a tick,
+   ``tte_sample`` none, the pool drained; ring == paged == chunked (64
+   tokens a step) bit for bit under injected uniforms (ring == paged over
+   the 16 requests served together, chunked == unchunked on the shortest
+   and the longest, each served alone); tokens/s and the idle share of one
+   profiled ring run;
+3l. H2O-Danube-1.8B at full width (24 layers, d_model 2560, 32/8 heads of
+   80, window 4,096) in bf16: one 4,600-token prompt with ``max_context``
+   5,120.  The last prefill position's logits through the kernels (bf16)
+   are as close to the fp32 model's (plain route, TF32 off) as the plain
+   route's in bf16 are, within ``DENSE_LOGITS_VS_PLAIN`` times, and differ
+   from a run with no window (the window bites); the prompt and 32 new
+   tokens on the ring and on the paged cache, bit for bit under injected
+   uniforms;
+3m. Delphi-100M served at full width (16 layers, d_model 768, hd 64)
+   through ``repro_torch.launch.serve`` with phase 3's knobs (32 prompts,
+   16 slots, 48 new events, ring): one host copy a tick and an admission
+   batch, all three Delphi kernels launched, ages monotone;
+3n. the generic-LM artifact: TinyLlama at full width with its depth cut to
+   2 layers, exported (spec v2, bf16, ``seq_len`` 256) and loaded on the
+   card; on two prompts the full, prefill and 8 decode-step graphs ==
+   the eager functions bit for bit, flash 2 launches a full or prefill
+   call and paged 2 a decode step through the ``repro_torch::``
+   operators, the decode graph's inputs ``(cache, token, step)``;
+   ``ArtifactBackend`` == ``LocalBackend.stream`` and held margin-aware
+   against the eager model's scores (``LM_MARGIN``);
 4. end-to-end parity in fp32: the same weights and injected uniforms through
    the engine on the card (kernels) and on the CPU (plain versions), for
    Delphi-2M and for Mamba2-780M at full width cut to 4 layers; the card's
@@ -148,6 +182,12 @@ runs these phases; any failure exits non-zero:
    (exit 0, a valid report); the MI AUC, its CI and the extraction gap are
    printed (measurements, not gates), with the kernels' launches on the
    audit;
+6e. Delphi-100M training at S 1,024 (the blocked attention route): one
+   fp32 step (TF32 off) of 2 x 1024 at full width cut to 2 layers, its
+   loss and every gradient against the CPU port's; then ``python -m
+   repro_torch.launch.train --arch delphi-100m --seq-len 1024`` for 20 bf16
+   steps of 8 x 1024 at full width: loss finite, steps/s, target tokens/s
+   and the training's peak memory;
 5. times at the main paths' shapes: each kernel, its plain version, one
    PyTorch library call where one computes the same function (a yardstick
    the port never calls), and the bound from bytes and operations (for
@@ -165,14 +205,20 @@ runs these phases; any failure exits non-zero:
    and the Mamba2 path's ``ssd_intra`` total), the paged, futures and both
    mixed-traffic paths included; ``flash_attention`` also with position
    masks at phase 3e's chunk (64 queries over 128 + 64 keys), its library
-   call SDPA with the boolean mask built from the positions.
+   call SDPA with the boolean mask built from the positions; flash and
+   paged at the dense LMs' shapes: phase 3k's largest prefill bucket (GQA
+   32/4, hd 64) and ring (G 8), a 4,608-token H2O-Danube prefill (32/8, hd
+   80, window 4,096) and phase 3l's ring (G 4, the window), each beside
+   its bound and SDPA (GQA by ``enable_gqa``).
 
 The ``kernels`` line holds the four kernels and, as a fifth row, the flash
 kernel's position-masked route with its launches on the chunked drive of
 phase 3e; each Delphi kernel's row also gives its launches on the sweep of
-phase 3i, on the audit of phase 6d and on the artifact drive of phase 3j
+phase 3i, on the audit of phase 6d, on the artifact drive of phase 3j and
+on the ring runs of 3k, 3l and 3m and the drive of 3n
 (``launches_by_path``, counts zeroed just before each and read just
-after).  The last lines are the ``kernels``
+after); four more rows give flash and paged at the shapes of 3k and 3l
+with their launches there.  The last lines are the ``kernels``
 JSON line, the card's name and power limit (``nvidia-smi``), and the result
 line ``{"ok": true, "device": ...}``.  A copy of all numbers goes to
 ``chiprun_out/chip_smoke.json``.
@@ -353,6 +399,10 @@ FLASH_CASES = [
     (1, 2, 2, 384, 64, 100, True, "bfloat16", "window hd=64 bf16"),
     (1, 2, 2, 130, 128, None, True, "bfloat16", "hd=128 ragged bf16"),
     (1, 2, 2, 128, 64, None, False, "bfloat16", "bidirectional hd=64 bf16"),
+    (1, 32, 4, 768, 64, None, True, "bfloat16",
+     "TinyLlama GQA 32/4 hd=64 bf16"),
+    (1, 32, 8, 4608, 80, 4096, True, "bfloat16",
+     "H2O-Danube GQA 32/8 hd=80 (padded to 128) window 4096 bf16"),
 ]
 
 
@@ -562,6 +612,10 @@ def check_paged(gen) -> float:
             gen, 2, 2, 2, 9, 16, 2, bf16), None),
         ("paged bs=4 empty slot", paged_inputs(
             gen, 3, 2, 2, 16, 4, 4, f32, empty_slot=True), None),
+        ("TinyLlama G=8 hd=64 bf16", paged_inputs(
+            gen, 8, 4, 8, 64, 16, 64, bf16), None),
+        ("H2O-Danube G=4 hd=80 window 4096 in a 5120 ring, wrapped, bf16",
+         paged_inputs(gen, 2, 8, 4, 80, 16, 320, bf16, wrap=True), 4096),
     ]
     main_err = 0.0
     for note, (q, k, v, table, pos, step), window in cases:
@@ -2225,6 +2279,536 @@ def canary_path(tmp: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 3k-3n and 6e: the dense knobs at full width (TinyLlama-1.1B,
+# H2O-Danube-1.8B, Delphi-100M)
+# ---------------------------------------------------------------------------
+DENSE_SLOTS, DENSE_REQUESTS, DENSE_MAX_NEW, DENSE_CONTEXT = 8, 16, 32, 1024
+DENSE_CHUNK = 64
+DANUBE_PROMPT, DANUBE_CONTEXT, DANUBE_MAX_NEW = 4600, 5120, 32
+# bf16 logits of the whole model against the fp32 model (TF32 off): the
+# kernels' route may be off by at most this multiple of the plain route's
+# own bf16 error (the plain version rounds the attention scores to bf16,
+# as the JAX package's jnp route does; the flash kernel keeps them in fp32)
+DENSE_LOGITS_VS_PLAIN = 1.5
+LM_ARTIFACT_LAYERS, LM_ARTIFACT_SEQ, LM_ARTIFACT_MAX_NEW = 2, 256, 16
+# Gumbel scores of the bf16 artifact against the eager bf16 model's full
+# forward: a token whose score is within this of the best is a near-tie
+LM_MARGIN = 5e-2
+LONG_BATCH, LONG_SEQ, LONG_STEPS, LONG_PATIENTS = 8, 1024, 20, 512
+
+
+class plain_route:
+    """Inside the block every kernel entry point of ``kernels.ops`` takes
+    its plain PyTorch version, on the card's tensors too (the reference
+    route of a whole model on the card)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._real = ops._on_cuda
+        ops._on_cuda = lambda t: False
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops._on_cuda = self._real
+
+
+def free_card() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_long_prompts(vocab: int):
+    """16 prompts of seeded random token ids, 64 to 768 tokens, in seeded
+    order."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 7)
+    lens = np.linspace(64, 768, DENSE_REQUESTS).astype(int)
+    rng.shuffle(lens)
+    return [rng.integers(0, vocab, int(S)).astype(np.int32) for S in lens]
+
+
+def lm_uniforms(n: int, max_new: int, vocab: int, seed: int):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.random((max_new, vocab), dtype=np.float32) for _ in range(n)]
+
+
+def lm_serve(params, cfg, prompts, *, max_new: int, slots: int,
+             max_context: int, uniforms=None, **kw):
+    """Serve ``prompts`` on a fresh engine (generator uniforms unless
+    ``uniforms`` are given); returns (engine, requests, seconds of
+    ``run()`` ending in a synchronise, launches counted over the run)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import BatchedEngine, Request
+    eng = BatchedEngine(params, cfg, slots=slots, max_context=max_context,
+                        seed=SEED, device=DEVICE, **kw)
+    reqs = [Request(tokens=t, max_new=max_new,
+                    uniforms=None if uniforms is None else uniforms[i])
+            for i, t in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    return eng, reqs, sec, ops.launch_counts()
+
+
+def check_lm_run(eng, reqs, counts, cfg, max_new: int, what: str) -> None:
+    """Every request got its ``max_new`` tokens (no ages), one host copy a
+    tick and an admission batch, the paged kernel once a layer a tick,
+    ``tte_sample`` never, flash once a layer an admission batch (chunked:
+    once a layer a chunk, by position), and a paged pool drained."""
+    L = cfg.n_layers
+    for r in reqs:
+        if not (r.done and r.error is None and len(r.out_tokens) == max_new
+                and not r.out_ages and all(0 <= t < cfg.vocab_size
+                                           for t in r.out_tokens)):
+            raise AssertionError(f"{what}: bad request {r.error} "
+                                 f"{len(r.out_tokens)} {r.out_ages[:2]}")
+    if eng.host_syncs != eng.ticks + eng.admit_batches:
+        raise AssertionError(f"{what}: host_syncs {eng.host_syncs} != ticks "
+                             f"{eng.ticks} + admit_batches "
+                             f"{eng.admit_batches}")
+    want_flash = L * (eng.prefill_chunks if eng.prefill_chunk_tokens
+                      else eng.admit_batches)
+    if (counts["paged_decode_attention"], counts["flash_attention"],
+            counts["tte_sample"]) != (L * eng.ticks, want_flash, 0):
+        raise AssertionError(f"{what}: launches {counts} over {eng.ticks} "
+                             f"ticks, {eng.admit_batches} admission batches")
+    if eng.paged:
+        eng.drop_prefix_cache()
+        if eng.allocator.used or eng.pool._refs or eng.preemptions:
+            raise AssertionError(f"{what}: pool not drained: "
+                                 f"{eng.pool_stats()}")
+
+
+def layer0(eng) -> tuple:
+    """Layer 0 of a ring engine's cache and the slots' steps, as the run
+    left them (the paged kernel's inputs on that path), cloned: (k, v,
+    pos, step)."""
+    lc = eng.cache["self"]
+    return (lc.k[0].clone(), lc.v[0].clone(), lc.pos[0].clone(),
+            eng._state["step"].clone())
+
+
+def tinyllama_path() -> dict:
+    """Phase 3k: TinyLlama-1.1B at full width in bf16 on the ring, then on
+    the prefix-cached paged cache; under injected uniforms ring == paged
+    bit for bit over all 16 requests, and chunked (64 tokens a step) ==
+    unchunked bit for bit on the shortest and the longest request, each
+    served alone (the concurrent chunked run's agreement is counted); one
+    profiled ring run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config("tinyllama-1.1b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    init_s = time.perf_counter() - t0
+    prompts = lm_long_prompts(cfg.vocab_size)
+    kw = dict(max_new=DENSE_MAX_NEW, slots=DENSE_SLOTS,
+              max_context=DENSE_CONTEXT)
+    # first use of cuBLAS at these shapes, through the same entry point
+    lm_serve(params, cfg, prompts[:2], max_new=2, slots=DENSE_SLOTS,
+             max_context=DENSE_CONTEXT)
+    runs = {}
+    for name, extra in (("ring", {}),
+                        ("paged", dict(cache="paged", prefix_cache=True))):
+        eng, reqs, sec, counts = lm_serve(params, cfg, prompts, **kw,
+                                          **extra)
+        check_lm_run(eng, reqs, counts, cfg, DENSE_MAX_NEW, f"3k {name}")
+        runs[name] = {"engine": eng, "seconds": sec, "launches": counts,
+                      "tokens": len(reqs) * DENSE_MAX_NEW,
+                      "tokens_per_s": len(reqs) * DENSE_MAX_NEW / sec,
+                      "ticks": eng.ticks, "admit_batches": eng.admit_batches,
+                      "host_syncs": eng.host_syncs,
+                      "prefill_shapes": sorted(eng.prefill_shapes)}
+    us = lm_uniforms(len(prompts), DENSE_MAX_NEW, cfg.vocab_size, SEED + 9)
+    exact = {}
+    chunked = dict(cache="paged", prefill_chunk_tokens=DENSE_CHUNK)
+    for name, extra in (("ring", {}), ("paged", dict(cache="paged")),
+                        ("chunked", chunked)):
+        eng, reqs, _, counts = lm_serve(params, cfg, prompts, uniforms=us,
+                                        **kw, **extra)
+        check_lm_run(eng, reqs, counts, cfg, DENSE_MAX_NEW,
+                     f"3k injected {name}")
+        exact[name] = [r.out_tokens for r in reqs]
+    if exact["ring"] != exact["paged"]:
+        raise AssertionError("3k: ring and paged tokens differ")
+    # chunked against unchunked, each request alone: a prompt's K/V are
+    # then computed at the same products' shapes by both (in a concurrent
+    # run the monolithic admission batches 8 prompts padded to 1024
+    # tokens, and the bf16 products' bits follow the batch's row count)
+    order = np.argsort([len(p) for p in prompts])
+    solo = [int(order[0]), int(order[-1])]      # the shortest, the longest
+    for i in solo:
+        one = {}
+        for name, extra in (("paged", dict(cache="paged")),
+                            ("chunked", chunked)):
+            eng, reqs, _, counts = lm_serve(params, cfg, [prompts[i]],
+                                            uniforms=[us[i]], **kw, **extra)
+            check_lm_run(eng, reqs, counts, cfg, DENSE_MAX_NEW,
+                         f"3k solo {name}")
+            one[name] = reqs[0].out_tokens
+        if one["paged"] != one["chunked"]:
+            raise AssertionError(f"3k: request {i} alone: chunked tokens "
+                                 f"differ from unchunked")
+    ring = runs["ring"]
+    prof = path_profile(lambda: lm_serve(params, cfg, prompts, **kw)[2],
+                        ring["seconds"])
+    saved = layer0(ring["engine"])
+    shapes = ring["prefill_shapes"]
+    for r in runs.values():
+        r.pop("engine")
+    del params
+    free_card()
+    return {"runs": runs, "profile": prof, "layer0": saved,
+            "prefill_shapes": shapes, "init_s": init_s,
+            "exact_tokens": sum(len(t) for t in exact["ring"]),
+            "solo_prompt_lengths": [len(prompts[i]) for i in solo],
+            "concurrent_chunked_equal": sum(
+                a == b for a, b in zip(exact["chunked"], exact["ring"])),
+            "cfg": cfg}
+
+
+def danube_path() -> dict:
+    """Phase 3l: H2O-Danube-1.8B at full width in bf16, one 4,600-token
+    prompt (past the window of 4,096) with ``max_context`` 5,120: the last
+    prefill position's logits through the kernels against the plain route
+    on the card, and against a run with no window; then the prompt served
+    on the ring and on the paged cache, bit for bit under injected
+    uniforms."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import cast_params, forward, init_params
+    cfg = get_config("h2o-danube-1.8b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 11)
+    prompt = rng.integers(0, cfg.vocab_size, DANUBE_PROMPT).astype(np.int32)
+    w = cast_params(params, cfg)
+    toks = torch.from_numpy(prompt[None]).to(DEVICE)
+
+    def last_logits(c, p=w):
+        with torch.no_grad():
+            return forward(p, c, {"tokens": toks}, mode="prefill",
+                           cache_width=DANUBE_CONTEXT)["logits"][0, 0]
+    last_logits(cfg)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    kern = last_logits(cfg)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if counts["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"3l: flash launched {counts} in one prefill")
+    with plain_route():
+        plain = last_logits(cfg)
+        exact = last_logits(cfg.replace(dtype="float32"), params)
+    no_window = last_logits(cfg.replace(sliding_window=None))
+    scale = float(exact.abs().max())
+    err = float((kern - exact).abs().max())
+    plain_err = float((plain - exact).abs().max())
+    bite = float((kern - no_window).abs().max())
+    if not (torch.isfinite(kern).all()
+            and err <= DENSE_LOGITS_VS_PLAIN * plain_err):
+        raise AssertionError(f"3l: against the fp32 model the kernels' "
+                             f"route is off by {err}, the plain route by "
+                             f"{plain_err} (allowed {DENSE_LOGITS_VS_PLAIN}"
+                             f"x it)")
+    if not bite > 10 * max(err, plain_err):
+        raise AssertionError(f"3l: the window does not bite: no-window "
+                             f"logits within {bite} (bf16 error {err})")
+    del w
+    free_card()
+    u = lm_uniforms(1, DANUBE_MAX_NEW, cfg.vocab_size, SEED + 12)
+    kw = dict(max_new=DANUBE_MAX_NEW, slots=1, max_context=DANUBE_CONTEXT,
+              uniforms=u)
+    runs = {}
+    for name, extra in (("ring", {}), ("paged", dict(cache="paged"))):
+        eng, reqs, sec, c = lm_serve(params, cfg, [prompt], **kw, **extra)
+        check_lm_run(eng, reqs, c, cfg, DANUBE_MAX_NEW, f"3l {name}")
+        runs[name] = {"tokens": reqs[0].out_tokens, "seconds": sec,
+                      "launches": c, "ticks": eng.ticks,
+                      "prefill_shapes": sorted(eng.prefill_shapes)}
+        if name == "ring":
+            saved = layer0(eng)
+        del eng
+    if runs["ring"]["tokens"] != runs["paged"]["tokens"]:
+        raise AssertionError("3l: ring and paged tokens differ")
+    del params
+    free_card()
+    return {"init_s": init_s, "prefill_s": prefill_s, "logits_err": err,
+            "plain_err": plain_err, "kernel_vs_plain": float(
+                (kern - plain).abs().max()),
+            "logits_scale": scale, "no_window_diff": bite, "runs": runs,
+            "layer0": saved, "prefill_launches": counts, "cfg": cfg}
+
+
+def delphi100m_path() -> dict:
+    """Phase 3m: Delphi-100M served at full width through
+    ``repro_torch.launch.serve`` with phase 3's knobs (32 synthetic patient
+    prompts, 16 slots, 48 new events, ring, bf16): every request finishes,
+    one host copy a tick and an admission batch, all three Delphi kernels
+    launched."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+
+    def args(n, m):
+        return launch.parse_args(["--arch", "delphi-100m", "--requests",
+                                  str(n), "--slots", "16", "--max-new",
+                                  str(m), "--seed", str(SEED), "--device",
+                                  DEVICE])
+    launch.serve(args(4, 4))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = launch.serve(args(32, 48))
+    counts = ops.launch_counts()
+    eng, done = out["engine"], out["done"]
+    if len(done) != 32 or not all(r.done and r.error is None for r in done):
+        raise AssertionError(f"3m: {len(done)} of 32 requests completed")
+    if eng.host_syncs != eng.ticks + eng.admit_batches:
+        raise AssertionError(f"3m: host_syncs {eng.host_syncs}")
+    if counts["paged_decode_attention"] != eng.cfg.n_layers * eng.ticks or any(
+            counts[k] <= 0 for k in DELPHI_KERNELS):
+        raise AssertionError(f"3m: launches {counts} in {eng.ticks} ticks")
+    for r in done:
+        ages = np.asarray(r.out_ages, np.float64)
+        if not (np.isfinite(ages).all() and (ages <= 85.0).all()
+                and (np.diff(ages) >= 0).all()):
+            raise AssertionError(f"3m: bad ages {ages}")
+    res = {"events": out["events"], "seconds": out["seconds"],
+           "events_per_s": out["events"] / out["seconds"],
+           "ticks": eng.ticks, "admit_batches": eng.admit_batches,
+           "host_syncs": eng.host_syncs, "launches": counts,
+           "prefill_shapes": sorted(eng.prefill_shapes),
+           "max_context": eng.max_context}
+    del out, eng, done
+    free_card()
+    return res
+
+
+def lm_artifact_path(tmp: str) -> dict:
+    """Phase 3n: TinyLlama at full width cut to 2 layers, exported by
+    ``export_model`` (spec v2, bf16, ``seq_len`` 256, traced on the CPU)
+    and loaded with ``ArtifactBackend`` on the card.  On two prompts: the
+    full, prefill and 8 decode-step graphs' logits == the eager functions'
+    bit for bit, flash launched 2 times a full or prefill call and paged 2
+    times a decode step through the ``repro_torch::`` operators, the decode
+    graph taking ``(token, step)``; then ``ArtifactBackend`` ==
+    ``LocalBackend.stream`` token for token and held margin-aware against
+    the eager model's full forward (Gumbel scores, ``LM_MARGIN``)."""
+    import numpy as np
+    import torch
+    from repro_torch.api import (ArtifactBackend, GenerateRequest,
+                                 LocalBackend)
+    from repro_torch.configs import get_config
+    from repro_torch.core import parity as par
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.sdk import build_inference_fns, read_manifest
+    cfg = get_config("tinyllama-1.1b").replace(n_layers=LM_ARTIFACT_LAYERS)
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    d = os.path.join(tmp, "tinyllama")
+    ex = artifact_export(params, cfg, d, "2", seq_len=LM_ARTIFACT_SEQ)
+    sig = read_manifest(d)["graphs"]["decode_step"]["inputs"]
+    if [i["name"] for i in sig] != ["cache", "token", "step"]:
+        raise AssertionError(f"3n: decode graph inputs {sig}")
+    t0 = time.perf_counter()
+    art = ArtifactBackend(d, device=DEVICE)
+    load_s = time.perf_counter() - t0
+    if art.seq_len != LM_ARTIFACT_SEQ:
+        raise AssertionError(f"3n: the artifact's axis is {art.seq_len}")
+    local = LocalBackend(params, cfg, seq_len=LM_ARTIFACT_SEQ, device=DEVICE)
+    rt, fns = art.runtime, build_inference_fns(cfg, LM_ARTIFACT_SEQ)
+    L = cfg.n_layers
+
+    def dev(*arrays):
+        return [torch.from_numpy(np.asarray(x)).to(DEVICE) for x in arrays]
+
+    def counted(fn, want_flash, want_paged, what):
+        ops.reset_launch_counts()
+        out = fn()
+        c = ops.launch_counts()
+        if (c["flash_attention"], c["paged_decode_attention"],
+                c["tte_sample"]) != (want_flash, want_paged, 0):
+            raise AssertionError(f"3n {what}: launches {c}")
+        return out
+    rng = np.random.default_rng(SEED + 21)
+    prompts = [rng.integers(0, cfg.vocab_size, S).astype(np.int32)
+               for S in (40, 100)]
+    steps = 0
+    for toks in prompts:
+        (t,) = art._pad_inputs(toks, None)
+        got = counted(lambda: rt.run(t), L, 0, "full graph")
+        with torch.no_grad():
+            want = fns["full"](params, *dev(t)).cpu().numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"3n: full graph != eager: "
+                                 f"{float(np.abs(got - want).max())}")
+        last = np.asarray([len(toks) - 1], np.int32)
+        lg, cache = counted(lambda: rt.prefill(t, last), L, 0, "prefill")
+        with torch.no_grad():
+            lg_e, cache_e = fns["prefill"](params, *dev(t, last))
+        if not np.array_equal(lg, lg_e.cpu().numpy()):
+            raise AssertionError("3n: prefill graph != eager prefill")
+        for k in range(ARTIFACT_DECODE_STEPS):
+            args = (np.asarray([[rng.integers(0, cfg.vocab_size)]], np.int32),
+                    np.asarray([len(toks) + k], np.int32))
+            lg, cache = counted(lambda: rt.decode_step(cache, *args), 0, L,
+                                "decode step")
+            with torch.no_grad():
+                lg_e, cache_e = fns["decode"](params, cache_e, *dev(*args))
+            if not np.array_equal(lg, lg_e.cpu().numpy()):
+                raise AssertionError(
+                    f"3n: prompt of {len(toks)} tokens, decode step {k} != "
+                    f"eager: max diff "
+                    f"{float(np.abs(lg - lg_e.float().cpu().numpy()).max())}"
+                    f", caches equal "
+                    f"{[torch.equal(x, y) for x, y in zip(cache, cache_e)]}")
+            steps += 1
+        if not all(torch.equal(x, y) for x, y in zip(cache, cache_e)):
+            raise AssertionError("3n: artifact cache != eager cache")
+    us = lm_uniforms(len(prompts), LM_ARTIFACT_MAX_NEW, cfg.vocab_size,
+                     SEED + 22)
+    outs = []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for toks, u in zip(prompts, us):
+        outs.append(art.generate(GenerateRequest(
+            tokens=[int(x) for x in toks], max_new=LM_ARTIFACT_MAX_NEW,
+            uniforms=u)).tokens)
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    drive = ops.launch_counts()
+    t0 = time.perf_counter()
+    for toks, u, o in zip(prompts, us, outs):
+        mine = [e.token for e in local.stream(GenerateRequest(
+            tokens=[int(x) for x in toks], max_new=LM_ARTIFACT_MAX_NEW,
+            uniforms=u))]
+        if mine != o:
+            raise AssertionError("3n: ArtifactBackend != LocalBackend.stream")
+    torch.cuda.synchronize()
+    local_s = time.perf_counter() - t0
+    held = par.check_lm_trajectories(
+        prompts, outs, us, par.port_logits_fn(params, cfg),
+        margin_tol=LM_MARGIN)
+    n = len(prompts) * LM_ARTIFACT_MAX_NEW
+    res = {"export": ex, "load_s": load_s, "decode_steps": steps,
+           "launches": drive, "tokens": n,
+           "ms_per_token": 1e3 * drive_s / n,
+           "local_ms_per_token": 1e3 * local_s / n,
+           "held_steps": held["steps"], "near_ties": len(held["near_ties"])}
+    del art, local, params
+    free_card()
+    return res
+
+
+def long_grads_path() -> dict:
+    """Phase 6e, first part: Delphi-100M at full width cut to 2 layers, one
+    fp32 step (TF32 off) of 2 x 1024 (the blocked attention route) on the
+    card; its loss and every gradient against the CPU port's."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import (SimulatorConfig, generate_dataset,
+                                  pack_trajectories)
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.train import loss_and_grads, make_loss_fn
+    from repro_torch.train.trainer import to_device
+    cfg = get_config("delphi-100m").replace(n_layers=2, dtype="float32")
+    host = init_params(cfg, seed=SEED, device="cpu")
+    params = {k: v.to(DEVICE) for k, v in host.items()}
+    trajs, _ = generate_dataset(SimulatorConfig(n_train=2, n_val=1,
+                                                seed=SEED + 51))
+    batch = pack_trajectories(trajs, LONG_SEQ)
+    loss_fn = make_loss_fn(cfg, "delphi")
+    ops.reset_launch_counts()
+    g_card, m_card = loss_and_grads(loss_fn, params, to_device(batch, DEVICE))
+    g_cpu, m_cpu = loss_and_grads(loss_fn, host, to_device(batch, "cpu"))
+    if any(ops.launch_counts().values()):
+        raise AssertionError("6e: the training route launched a kernel")
+    worst, worst_key = 0.0, None
+    for k, g in g_card.items():
+        got, want = g.cpu().numpy(), g_cpu[k].numpy()
+        scale = float(np.abs(want).max())
+        if not np.isfinite(got).all() or (scale > 0 and not got.any()):
+            raise AssertionError(f"6e: {k}: gradient not finite or zero")
+        rel = float(np.abs(got - want).max()) / max(scale, 1e-30)
+        if rel > worst:
+            worst, worst_key = rel, k
+    loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) \
+        / abs(float(m_cpu["loss"]))
+    if worst > GRAD_CARD_REL or loss_rel > 1e-5:
+        raise AssertionError(f"6e: card vs CPU: loss rel {loss_rel:.3g}, "
+                             f"gradient {worst_key} {worst:.3g}")
+    del params
+    free_card()
+    return {"loss_card": float(m_card["loss"]),
+            "loss_cpu": float(m_cpu["loss"]), "loss_rel_err": loss_rel,
+            "grad_max_rel_err": worst, "grad_worst_leaf": worst_key,
+            "leaves": len(g_card)}
+
+
+def long_train_path() -> dict:
+    """Phase 6e, second part: ``python -m repro_torch.launch.train --arch
+    delphi-100m --seq-len 1024`` (its ``main``) for 20 bf16 steps of 8 x
+    1024 over fp32 masters at full width: the loss finite; steps/s, target
+    tokens/s and the training's peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    res = launch_train.main([
+        "--arch", "delphi-100m", "--steps", str(LONG_STEPS), "--patients",
+        str(LONG_PATIENTS), "--batch", str(LONG_BATCH), "--seq-len",
+        str(LONG_SEQ), "--seed", str(SEED), "--device", DEVICE])
+    peak = torch.cuda.max_memory_allocated() - base
+    if any(ops.launch_counts().values()):
+        raise AssertionError("6e: training launched a kernel")
+    loss = np.asarray(res["history"]["loss"])
+    if res["cfg"].dtype != "bfloat16" or not np.isfinite(loss).all():
+        raise AssertionError(f"6e: dtype {res['cfg'].dtype}, loss {loss}")
+    sec = res["seconds"]
+    out = {"steps": LONG_STEPS, "seconds": sec,
+           "steps_per_s": LONG_STEPS / sec,
+           "target_tokens": res["target_tokens"],
+           "target_tokens_per_s": res["target_tokens"] / sec,
+           "peak_memory_bytes": peak, "loss_first": float(loss[0]),
+           "loss_last": float(loss[-1])}
+    del res
+    free_card()
+    return out
+
+
+def sdpa_gqa(q, k, v, **kw):
+    """One ``scaled_dot_product_attention`` call with G = Hq / Hkv query
+    heads a key head (``enable_gqa`` where G > 1)."""
+    import torch.nn.functional as F
+    if q.shape[1] != k.shape[1]:
+        kw["enable_gqa"] = True
+    return F.scaled_dot_product_attention(q, k, v, **kw)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: times
 # ---------------------------------------------------------------------------
 # ---------------------------------------------------------------------------
@@ -2233,12 +2817,13 @@ def canary_path(tmp: str) -> dict:
 ARTIFACT_DECODE_STEPS, ARTIFACT_MAX_NEW = 8, 32
 
 
-def artifact_export(params, cfg, d: str, spec: str) -> dict:
-    """``export_model`` (traced on the CPU), then ``verify_checksums``
+def artifact_export(params, cfg, d: str, spec: str, seq_len=None) -> dict:
+    """``export_model`` (traced on the CPU; graphs of ``seq_len`` tokens,
+    by default the config's ``max_seq_len``), then ``verify_checksums``
     strict: seconds and bytes of the artifact."""
     from repro_torch.sdk import export_model, verify_checksums
     t0 = time.perf_counter()
-    export_model(params, cfg, d, spec_version=spec)
+    export_model(params, cfg, d, spec_version=spec, seq_len=seq_len)
     sec = time.perf_counter() - t0
     verify_checksums(d, strict=True)
     return {"export_s": sec, "bytes": sum(
@@ -2709,27 +3294,51 @@ def tte_row(gen, B: int, V: int, cold: bool = False) -> dict:
     return row
 
 
-def flash_row(gen, nb: int, H: int, sb: int, hd: int) -> dict:
-    """``flash_attention`` at one prefill bucket: (nb, H, sb, hd) bf16,
-    causal, against its plain version and SDPA."""
+def flash_row(gen, nb: int, H: int, sb: int, hd: int, Hkv=None,
+              window=None) -> dict:
+    """``flash_attention`` at one prefill bucket: (nb, H, sb, hd) bf16
+    queries over (nb, Hkv, sb, hd) keys (``Hkv`` defaults to H), causal,
+    within ``window`` where given; against its plain version and SDPA (GQA
+    by ``enable_gqa``; a window as a boolean band mask made once, outside
+    the timed call).  The bound counts q, k, v and the output once and the
+    products of the (query, key) pairs the mask keeps."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ref
-    q, k, v = (torch.randn((nb, H, sb, hd), generator=gen, device=DEVICE
-                           ).to(torch.bfloat16) for _ in range(3))
-    nbytes = 4 * nb * H * sb * hd * 2
-    flops = 4 * nb * H * hd * sb * (sb + 1) / 2
-    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    Hkv = Hkv or H
+    q = torch.randn((nb, H, sb, hd), generator=gen, device=DEVICE
+                    ).to(torch.bfloat16)
+    k, v = (torch.randn((nb, Hkv, sb, hd), generator=gen, device=DEVICE
+                        ).to(torch.bfloat16) for _ in range(2))
+    i = torch.arange(sb, device=DEVICE)
+    band = i[:, None] >= i[None, :]
+    if window is not None:
+        band &= (i[:, None] - i[None, :]) < window
+    pairs = nb * int(band.sum())
+    b_ms, b_by = bound(2 * nb * sb * hd * (2 * H + 2 * Hkv),
+                       4 * pairs * H * hd, "bfloat16")
+    out = fk.flash_attention_cuda(q, k, v, causal=True, window=window)
+    err = float((out.float() - ref.flash_attention_ref(
+        q.float(), k.float(), v.float(), causal=True, window=window)
+    ).abs().max())
+    if not err <= 2e-2:
+        raise AssertionError(f"flash at {(nb, H, Hkv, sb, hd, window)}: "
+                             f"err {err}")
+
+    def library():
+        if window is None:
+            return sdpa_gqa(q, k, v, is_causal=True)
+        return sdpa_gqa(q, k, v, attn_mask=band)
     return {
-        "shape": f"B={nb} H={H} S={sb} hd={hd} causal bf16",
-        "kernel": measure(lambda: fk.flash_attention_cuda(q, k, v,
-                                                          causal=True)),
-        "plain": measure(lambda: ref.flash_attention_ref(q, k, v,
-                                                         causal=True)),
-        "library": measure(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True)),
-        "bound_ms": b_ms, "bound_by": b_by}
+        "shape": f"B={nb} H={H}" + ("" if Hkv == H else f"/{Hkv}")
+                 + f" S={sb} hd={hd} causal"
+                 + ("" if window is None else f" window={window}") + " bf16",
+        "kernel": measure(lambda: fk.flash_attention_cuda(
+            q, k, v, causal=True, window=window)),
+        "plain": measure(lambda: ref.flash_attention_ref(
+            q, k, v, causal=True, window=window)),
+        "library": measure(library), "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": err}
 
 
 def flash_pos_row(gen, B: int = 1, Sc: int = 64, C: int = 128, H: int = 12,
@@ -2782,35 +3391,46 @@ def flash_pos_row(gen, B: int = 1, Sc: int = 64, C: int = 128, H: int = 12,
         "max_abs_err": err}
 
 
-def paged_row(gen, kl, vl, pos, step, note: str) -> dict:
+def paged_row(gen, kl, vl, pos, step, note: str, G: int = 1,
+              window=None) -> dict:
     """``paged_decode_attention`` on one layer's ring viewed as a pool of
-    one block per slot, against its plain version and SDPA with a mask.
-    The bound counts the K/V rows of the valid tokens only."""
+    one block per slot, G query heads a KV head, within ``window`` where
+    given; against its plain version and SDPA with the mask (GQA by
+    ``enable_gqa``).  The bound counts q in and out, the K/V rows of the
+    valid tokens only, the positions and the steps."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.kernels import ref
     Bs, Hkv, W, hd = kl.shape
     table = torch.arange(Bs, dtype=torch.int32, device=DEVICE)[:, None]
-    q4 = torch.randn((Bs, Hkv, 1, hd), generator=gen, device=DEVICE
+    q4 = torch.randn((Bs, Hkv, G, hd), generator=gen, device=DEVICE
                      ).to(kl.dtype)
-    valid = (pos >= 0) & (pos <= step[:, None]) & (pos > step[:, None] - W)
+    st = step[:, None]
+    valid = (pos >= 0) & (pos <= st) & (pos > st - W)
+    if window is not None:
+        valid &= pos > st - window
     n_valid = int(valid.sum())
-    nbytes = (q4.numel() * 2 * 2 + 2 * n_valid * Hkv * hd * 2 + pos.numel() * 4
-              + Bs * 8)
-    flops = 4 * n_valid * Hkv * hd
-    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    nbytes = (q4.numel() * 2 * 2 + 2 * n_valid * Hkv * hd * 2
+              + pos.numel() * 4 + Bs * 8)
+    b_ms, b_by = bound(nbytes, 4 * n_valid * Hkv * G * hd, "bfloat16")
+    out = pk.paged_decode_attention_cuda(q4, kl, vl, table, pos, step,
+                                         window=window)
+    err = float((out.float() - ref.paged_decode_attention_ref(
+        q4, kl, vl, table, pos, step, window=window)).abs().max())
+    if not err <= 2e-2:
+        raise AssertionError(f"paged at {tuple(q4.shape)}: err {err}")
+    qs = q4.reshape(Bs, Hkv * G, 1, hd)
     mask = valid[:, None, None, :]
     return {
-        "shape": f"B={Bs} Hkv={Hkv} G=1 hd={hd} bs=W={W} nbs=1 bf16, "
-                 f"{n_valid} valid tokens ({note})",
+        "shape": f"B={Bs} Hkv={Hkv} G={G} hd={hd} bs=W={W} nbs=1 bf16"
+                 + ("" if window is None else f" window={window}")
+                 + f", {n_valid} valid tokens ({note})",
         "kernel": measure(lambda: pk.paged_decode_attention_cuda(
-            q4, kl, vl, table, pos, step)),
+            q4, kl, vl, table, pos, step, window=window)),
         "plain": measure(lambda: ref.paged_decode_attention_ref(
-            q4, kl, vl, table, pos, step)),
-        "library": measure(lambda: F.scaled_dot_product_attention(
-            q4, kl, vl, attn_mask=mask)),
-        "bound_ms": b_ms, "bound_by": b_by}
+            q4, kl, vl, table, pos, step, window=window)),
+        "library": measure(lambda: sdpa_gqa(qs, kl, vl, attn_mask=mask)),
+        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
 
 
 def paged_pool_row(gen, eng) -> dict:
@@ -2885,7 +3505,7 @@ def paged_pool_row(gen, eng) -> dict:
         "max_abs_err": err}
 
 
-def times(main: dict, mamba: dict, gen) -> dict:
+def times(main: dict, mamba: dict, gen, dense=None) -> dict:
     """Kernel, plain version and library call at the main paths' shapes:
     device time per call (profiler) and per-call time (CUDA events).  The
     first four keys are the ``kernels`` line's rows; ``launch floor`` is
@@ -2938,6 +3558,24 @@ def times(main: dict, mamba: dict, gen) -> dict:
     # the zoo's largest vocabulary (seamless, 256,206 tokens) at the same
     # slots: device time with a cold L2, kernel only; warm beside it
     res["tte_sample V=256206"] = tte_row(gen, B, 256206, cold=True)
+
+    # the dense LMs' shapes: TinyLlama's largest prefill bucket of phase 3k
+    # and its ring after the run (G 8); H2O-Danube's 4,608-token prefill
+    # (window 4,096, hd 80) and its 5,120-token ring after phase 3l (G 4)
+    if dense is not None:
+        tl, dn = dense["3k"], dense["3l"]
+        tc, dc = tl["cfg"], dn["cfg"]
+        nb, sb = max(tl["prefill_shapes"], key=lambda s: s[0] * s[1] * s[1])
+        res["flash_attention 3k"] = flash_row(
+            gen, nb, tc.n_heads, sb, tc.head_dim, Hkv=tc.n_kv_heads)
+        res["flash_attention 3l"] = flash_row(
+            gen, 1, dc.n_heads, 4608, dc.head_dim, Hkv=dc.n_kv_heads,
+            window=dc.sliding_window)
+        res["paged_decode_attention 3k"] = paged_row(
+            gen, *tl["layer0"], "phase 3k's ring", G=tc.q_per_kv)
+        res["paged_decode_attention 3l"] = paged_row(
+            gen, *dn["layer0"], "phase 3l's ring", G=dc.q_per_kv,
+            window=dc.sliding_window)
 
     z = torch.zeros(1, device=DEVICE)
     res["launch floor"] = {"shape": "one-element zero_()",
@@ -3221,6 +3859,81 @@ def main() -> int:
     log_artifact(art)
     log(f"  phase 3j took {time.perf_counter() - t3j:.1f}s ({smi})")
 
+    log(f"== phase 3k: TinyLlama-1.1B at full width (22 layers, d_model "
+        f"2048, 32/4 heads, hd 64, V 32000; bf16), BatchedEngine("
+        f"slots={DENSE_SLOTS}, max_context={DENSE_CONTEXT}): "
+        f"{DENSE_REQUESTS} requests of seeded random ids (64-768 tokens), "
+        f"{DENSE_MAX_NEW} new tokens each, ring then prefix-cached paged")
+    t3k = time.perf_counter()
+    tiny = tinyllama_path()
+    for name, r in tiny["runs"].items():
+        log(f"  {name}: {r['tokens']} tokens, {r['ticks']} ticks, "
+            f"{r['admit_batches']} admission batches in {r['seconds']:.3f}s:"
+            f" {r['tokens_per_s']:.1f} tokens/s; host_syncs "
+            f"{r['host_syncs']}; prefill shapes {r['prefill_shapes']}; "
+            f"launches {r['launches']} (22 flash an admission batch, 22 "
+            f"paged a tick, no tte_sample)")
+    tp = tiny["profile"]
+    log(f"  under injected uniforms: ring == paged bit for bit "
+        f"({tiny['exact_tokens']} tokens); chunked ({DENSE_CHUNK} tokens a "
+        f"step) == unchunked bit for bit on the requests of "
+        f"{tiny['solo_prompt_lengths']} tokens served alone; served "
+        f"together, {tiny['concurrent_chunked_equal']} of {DENSE_REQUESTS} "
+        f"chunked requests equal their monolithic run's; pool drained; one "
+        f"ring run under the profiler: device busy "
+        f"{tp['device_busy_s']:.4f}s of {tp['wall_s']:.3f}s wall, idle share"
+        f" {'not measured' if tp['idle_share'] is None else format(tp['idle_share'], '.3f')}"
+        f"; weights made in {tiny['init_s']:.1f}s; phase 3k took "
+        f"{time.perf_counter() - t3k:.1f}s ({smi})")
+    log(f"== phase 3l: H2O-Danube-1.8B at full width (24 layers, d_model "
+        f"2560, 32/8 heads, hd 80, window 4096; bf16): one "
+        f"{DANUBE_PROMPT}-token prompt, max_context {DANUBE_CONTEXT}, "
+        f"{DANUBE_MAX_NEW} new tokens, ring and paged")
+    t3l = time.perf_counter()
+    danube = danube_path()
+    log(f"  last prefill position's logits against the fp32 model (plain "
+        f"route, TF32 off; largest |logit| {danube['logits_scale']:.4g}): "
+        f"kernels' route in bf16 off by {danube['logits_err']:.4g}, the "
+        f"plain route in bf16 by {danube['plain_err']:.4g} (allowed "
+        f"{DENSE_LOGITS_VS_PLAIN}x it), kernels vs plain "
+        f"{danube['kernel_vs_plain']:.4g}; against no window: "
+        f"{danube['no_window_diff']:.4g} (the window bites); one prefill "
+        f"{danube['prefill_s']:.3f}s, launches {danube['prefill_launches']}")
+    for name, r in danube["runs"].items():
+        log(f"  {name}: {DANUBE_MAX_NEW} tokens, {r['ticks']} ticks in "
+            f"{r['seconds']:.3f}s; prefill shapes {r['prefill_shapes']}; "
+            f"launches {r['launches']}")
+    log(f"  ring == paged bit for bit; phase 3l took "
+        f"{time.perf_counter() - t3l:.1f}s ({smi})")
+    log("== phase 3m: Delphi-100M served at full width (16 layers, d_model "
+        "768, hd 64; bf16) through repro_torch.launch.serve: 32 patient "
+        "prompts, 16 slots, 48 new events, ring")
+    t3m = time.perf_counter()
+    d100 = delphi100m_path()
+    log(f"  {d100['events']} events, {d100['ticks']} ticks, "
+        f"{d100['admit_batches']} admission batches in {d100['seconds']:.3f}"
+        f"s: {d100['events_per_s']:.1f} events/s; host_syncs "
+        f"{d100['host_syncs']}; prefill shapes {d100['prefill_shapes']}; "
+        f"launches {d100['launches']}; took "
+        f"{time.perf_counter() - t3m:.1f}s")
+    log(f"== phase 3n: the generic-LM artifact (TinyLlama at full width, "
+        f"depth cut to {LM_ARTIFACT_LAYERS} layers, spec v2, bf16, seq_len "
+        f"{LM_ARTIFACT_SEQ})")
+    t3n = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        lmart = lm_artifact_path(tmp)
+    log(f"  exported in {lmart['export']['export_s']:.1f}s "
+        f"({lmart['export']['bytes']} bytes), loaded in "
+        f"{lmart['load_s']:.1f}s; full, prefill and "
+        f"{lmart['decode_steps']} decode steps == eager bit for bit through "
+        f"the repro_torch:: operators; ArtifactBackend == "
+        f"LocalBackend.stream, {lmart['held_steps']} tokens held against "
+        f"the eager model ({lmart['near_ties']} near-ties, margin "
+        f"{LM_MARGIN}); {lmart['ms_per_token']:.2f} ms a token (local "
+        f"stream {lmart['local_ms_per_token']:.2f}); launches on the drive "
+        f"{lmart['launches']}; took {time.perf_counter() - t3n:.1f}s "
+        f"({smi})")
+
     log("== phase 3b: Mamba2 path (Mamba2-780M bf16, BatchedEngine, 8 "
         "slots)")
     mamba = mamba_path()
@@ -3299,9 +4012,27 @@ def main() -> int:
         f"{can['launches']}; took {time.perf_counter() - t6:.1f}s ({smi})")
     trn.pop("params")
     trn.pop("cfg")
+    log(f"== phase 6e: Delphi-100M training at S {LONG_SEQ} (the blocked "
+        f"attention route)")
+    t6 = time.perf_counter()
+    lgr = long_grads_path()
+    log(f"  one fp32 step, 2 x {LONG_SEQ}, depth cut to 2 layers, TF32 "
+        f"off: loss card {lgr['loss_card']:.6f}, CPU {lgr['loss_cpu']:.6f} "
+        f"(rel {lgr['loss_rel_err']:.3g}); {lgr['leaves']} gradients, "
+        f"largest difference {lgr['grad_max_rel_err']:.3g} of its leaf's "
+        f"largest element ({lgr['grad_worst_leaf']}; allowed "
+        f"{GRAD_CARD_REL})")
+    ltr = long_train_path()
+    log(f"  python -m repro_torch.launch.train --arch delphi-100m --seq-len "
+        f"{LONG_SEQ}: {ltr['steps']} bf16 steps of {LONG_BATCH} x "
+        f"{LONG_SEQ} in {ltr['seconds']:.3f}s: {ltr['steps_per_s']:.2f} "
+        f"steps/s, {ltr['target_tokens_per_s']:.1f} target tokens/s; peak "
+        f"memory {ltr['peak_memory_bytes'] / 2**20:.1f} MiB; loss "
+        f"{ltr['loss_first']:.4f} -> {ltr['loss_last']:.4f}; took "
+        f"{time.perf_counter() - t6:.1f}s ({smi})")
 
     log("== phase 5: times at the main paths' shapes")
-    tm = times(main_res, mamba, gen)
+    tm = times(main_res, mamba, gen, {"3k": tiny, "3l": danube})
 
     def fmt(m):
         if m is None:
@@ -3375,14 +4106,21 @@ def main() -> int:
         "max_abs_err"]
     launches = {name: (mamba["launches"][name] if name == "ssd_intra"
                        else paged["launches"][name]) for name in REPLACES}
+    dense_paths = {"3k": tiny["runs"]["ring"]["launches"],
+                   "3l": danube["runs"]["ring"]["launches"],
+                   "3m": d100["launches"], "3n": lmart["launches"]}
+
+    def by_path(name):
+        out = ({} if name == "ssd_intra" else
+               {"3i": coh["launches"][name], "6d": can["launches"][name],
+                "artifact": bart["launches"][name]})
+        out.update({p: c[name] for p, c in dense_paths.items()})
+        return out
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": launches[name],
         "path": "3b" if name == "ssd_intra" else "3c",
-        "launches_by_path": ({} if name == "ssd_intra" else
-                             {"3i": coh["launches"][name],
-                              "6d": can["launches"][name],
-                              "artifact": bart["launches"][name]}),
+        "launches_by_path": by_path(name),
         "max_abs_err": errs[name], "ms": ms(rows[name]["kernel"]),
         "plain_ms": ms(rows[name]["plain"]),
         "bound_ms": rows[name]["bound_ms"],
@@ -3401,6 +4139,23 @@ def main() -> int:
         "bound_ms": prow["bound_ms"], "bound_by": prow["bound_by"],
         "library_ms": ms(prow["library"]),
         "call_ms": prow["kernel"]["call_ms"]})
+    # the two attention kernels at the dense LMs' shapes, with their
+    # launches on those paths' ring runs (3k, 3l)
+    for name in ("flash_attention", "paged_decode_attention"):
+        for ph in ("3k", "3l"):
+            row = rows[f"{name} {ph}"]
+            kernels.append({
+                "name": f"{name} {ph}", "route": "cuda",
+                "source": SOURCES[name], "replaces": REPLACES[name],
+                "launches": dense_paths[ph][name], "path": ph,
+                "shape": row["shape"], "max_abs_err": row["max_abs_err"],
+                "ms": ms(row["kernel"]), "plain_ms": ms(row["plain"]),
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": ms(row["library"]),
+                "call_ms": row["kernel"]["call_ms"]})
+    for d in (tiny, danube):
+        d.pop("layer0")
+        d["cfg"] = d["cfg"].name
     record = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_seconds": build.last_build.get("seconds"),
@@ -3436,6 +4191,9 @@ def main() -> int:
         "http_path": http, "router_path": rtr, "cohort_path": coh,
         "grads_path": grd, "train_path": trn, "federated_path": fedr,
         "canary_path": can, "artifact_path": art,
+        "tinyllama_path": tiny, "danube_path": danube,
+        "delphi100m_path": d100, "lm_artifact_path": lmart,
+        "long_grads_path": lgr, "long_train_path": ltr,
         "main_path": {"requests": len(main_res["done"]),
                       "events": main_res["events"], "seconds": sec,
                       "ticks": eng.ticks, "admit_batches": eng.admit_batches,

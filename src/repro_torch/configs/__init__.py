@@ -2,7 +2,10 @@
 
 ``get_config(arch_id)`` returns the full :class:`ModelConfig`;
 ``get_config(arch_id, reduced=True)`` its small test variant.  The port
-registers the architectures its model code serves.
+registers the architectures its model code serves: Delphi (2M and 100M),
+the generic dense LMs (TinyLlama, H2O-Danube, Qwen2.5, DeepSeek) and
+Mamba2.  ``qwen2.5-32b`` runs reduced only: its fp32 masters (~131 GB) do
+not fit one 80 GB card.
 """
 from __future__ import annotations
 
@@ -13,7 +16,12 @@ from repro_torch.configs.base import DENSE, SSM, ModelConfig  # noqa: F401
 
 _REGISTRY: Dict[str, str] = {
     "delphi-2m": "delphi_2m",
+    "delphi-100m": "delphi_100m",
+    "qwen2.5-32b": "qwen2_5_32b",
     "mamba2-780m": "mamba2_780m",
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "deepseek-7b": "deepseek_7b",
 }
 
 ALL_ARCHS = list(_REGISTRY)

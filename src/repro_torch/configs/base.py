@@ -1,10 +1,12 @@
 """Model configuration dataclass (the port's own copy).
 
 The JAX package's configuration, cut to the fields the port reads: the
-dense transformer core, the Mamba2 (SSD) block and Delphi's knobs.  Field
-names and defaults are the JAX package's, so the same values describe the
-same model in both.  The model code serves the Delphi family and the pure
-SSM family (Mamba2) and raises ``NotImplementedError`` for the rest
+dense transformer core (RoPE, GQA, SwiGLU or GELU, RMSNorm or LayerNorm,
+sliding windows, QKV biases, tied or untied heads), the Mamba2 (SSD) block
+and Delphi's knobs.  Field names and defaults are the JAX package's, so
+the same values describe the same model in both.  The model code serves
+the dense family (Delphi and the generic dense LMs) and the pure SSM
+family (Mamba2) and raises ``NotImplementedError`` for the rest
 (``repro_torch.models.model``).
 """
 from __future__ import annotations
@@ -41,6 +43,7 @@ class ModelConfig:
     qkv_bias: bool = False
     norm: str = "rmsnorm"              # rmsnorm | layernorm
     activation: str = "swiglu"         # swiglu | gelu
+    rope_theta: float = 10_000.0
     max_seq_len: int = 8192
     tie_embeddings: bool = False
     sliding_window: Optional[int] = None

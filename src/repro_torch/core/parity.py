@@ -19,10 +19,10 @@ the reference says it ends (Death, censoring at ``max_age``, the budget or
 a full context).  Two free-running runs are then compared up to their first
 divergence (:func:`compare_runs`).
 
-A generic LM (Mamba2) samples by Gumbel-argmax instead:
-:func:`check_lm_trajectories` holds each emitted token against the argmax
-of the reference's scores ``logits / temperature + g(u)`` on its own
-prefix, with the same margin rule on the scores.
+A generic LM (a dense LM with RoPE, Mamba2) samples by Gumbel-argmax
+instead: :func:`check_lm_trajectories` holds each emitted token against
+the argmax of the reference's scores ``logits / temperature + g(u)`` on
+its own prefix, with the same margin rule on the scores.
 """
 from __future__ import annotations
 

@@ -18,8 +18,8 @@ On a CUDA tensor an operator calls the kernel's wrapper (which counts its
 directly and pays no dispatcher cost.
 
 ``tte_sample`` and ``ssd_intra`` have no operator: the artifact samples
-eq. 1 on the host, and only the Delphi family is exported, which reaches
-no SSD kernel.
+on the host (eq. 1, or Gumbel for a generic LM), and only the dense
+family is exported, which reaches no SSD kernel.
 
 A program that loads an artifact of the port imports this module first,
 so that the operators exist before ``torch.export.load`` resolves them.

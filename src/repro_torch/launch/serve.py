@@ -5,11 +5,18 @@
         [--prefill-chunk-tokens N] [--ckpt DIR] [--device cuda] \
         [--replicas N]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m ...
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        [--max-context 1024] ...
 
-The same command line as ``repro.launch.serve``: the prompts are the first
-halves of synthetic patient histories for every architecture (a generic
-LM such as Mamba2 reads their event ids as tokens and ignores the ages),
-and the engine's ``max_context`` is ``cfg.max_seq_len``.  On ``cuda``
+The command line of ``repro.launch.serve``, plus ``--device``, ``--cache``,
+``--prefill-chunk-tokens`` and ``--max-context``.  The prompts are the
+first halves of synthetic patient histories for Delphi and Mamba2 (which
+reads their event ids as tokens and ignores the ages), and seeded random
+token ids of 16-128 tokens for a generic dense LM (TinyLlama, H2O-Danube,
+Qwen2.5, DeepSeek: their vocabularies are not the event vocabulary).  The
+engine's ``max_context`` is ``--max-context``, by default
+``cfg.max_seq_len`` (32,768 for the generic LMs: pass a smaller one to
+keep the ring small).  On ``cuda``
 activations run in ``cfg.dtype`` (bf16); on the CPU in fp32.  Parameters
 stay fp32 and come from ``--ckpt`` (a JAX ``params.npz`` checkpoint) or
 from ``init_params(seed)``.  ``--cache paged`` serves from a pool of
@@ -28,10 +35,11 @@ import argparse
 import time
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import ALL_ARCHS, get_config
+from repro_torch.configs import ALL_ARCHS, SSM, get_config
 from repro_torch.data import SimulatorConfig, generate_dataset
 from repro_torch.data import vocab as V
 from repro_torch.models import init_params, load_checkpoint
@@ -72,6 +80,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="--cache paged: prefill in N-token chunks "
                          "interleaved with decode ticks (multiple of the "
                          "16-token block size)")
+    ap.add_argument("--max-context", type=int, default=None,
+                    help="each slot's context (default: the config's "
+                         "max_seq_len)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.replicas < 1:
@@ -79,6 +90,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if args.prefill_chunk_tokens is not None and args.cache != "paged":
         ap.error("--prefill-chunk-tokens requires --cache paged")
     return args
+
+
+def lm_prompts(n: int, vocab: int, seed: int, lo: int = 16,
+               hi: int = 128) -> List[np.ndarray]:
+    """``n`` prompts of seeded random token ids, ``lo``-``hi`` tokens."""
+    rng = np.random.default_rng(seed + 17)
+    lens = rng.integers(lo, hi + 1, n)
+    return [rng.integers(0, vocab, int(S)).astype(np.int32) for S in lens]
 
 
 def serve(args: argparse.Namespace) -> Dict[str, Any]:
@@ -93,22 +112,28 @@ def serve(args: argparse.Namespace) -> Dict[str, Any]:
         params = load_checkpoint(args.ckpt, cfg, device)
     else:
         params = init_params(cfg, args.seed, device)
+    max_context = getattr(args, "max_context", None) or cfg.max_seq_len
     shards = [_EngineShard(f"r{i}", BatchedEngine(
-        params, cfg, slots=args.slots, max_context=cfg.max_seq_len,
+        params, cfg, slots=args.slots, max_context=max_context,
         seed=args.seed + i, cache=args.cache,
         prefill_chunk_tokens=args.prefill_chunk_tokens, device=device))
         for i in range(args.replicas)]
-    # prompts: the first half of fresh synthetic patients (known history)
-    trajs, _ = generate_dataset(SimulatorConfig(
-        n_train=args.requests, n_val=1, seed=args.seed + 17))
+    if cfg.arch_type == SSM or cfg.age_encoding:
+        # the first half of fresh synthetic patients (known history)
+        trajs, _ = generate_dataset(SimulatorConfig(
+            n_train=args.requests, n_val=1, seed=args.seed + 17))
+        prompts = [(tok[:max(len(tok) // 2, 1)], age[:max(len(tok) // 2, 1)])
+                   for tok, age in trajs]
+    else:
+        prompts = [(t, None) for t in lm_prompts(
+            args.requests, cfg.vocab_size, args.seed,
+            hi=min(128, max_context))]
     sched = None
     if args.replicas > 1:
         from repro_torch.serve.router import PrefixAffinityScheduler
         sched = PrefixAffinityScheduler(block_size=16)
-    for tok, age in trajs:
-        half = max(len(tok) // 2, 1)
-        req = Request(tokens=tok[:half], ages=age[:half],
-                      max_new=args.max_new)
+    for tok, age in prompts:
+        req = Request(tokens=tok, ages=age, max_new=args.max_new)
         shard = (shards[0] if sched is None else
                  sched.route(req.tokens, req.ages, shards)[0])
         shard.requests.append(req)

@@ -33,13 +33,22 @@ queries attend over the slot's context blocks, gathered from the pool
 Training attends through :func:`chunked_attention`, a differentiable masked
 softmax in plain torch ops (the JAX package trains through its jnp
 ``chunked_attention`` too, never through a Pallas kernel); no kernel has a
-backward, and ``kernels.ops`` refuses to run one under grad.
+backward, and ``kernels.ops`` refuses to run one under grad.  Past 512 x
+512 scores it takes the JAX package's blocked route: an online softmax over
+512-key blocks, each key step recomputed in the backward.
+
+A sliding window (``window``, tokens) narrows every route to the keys at
+positions ``> q_pos - window``; the ring's own eviction (``pos > step -
+W``) applies on top of it in decode.  Keys are stored post-RoPE (the
+model rotates q and k at absolute positions before any cache write), so
+attention here never sees positions other than through the masks.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 
@@ -53,13 +62,18 @@ class LayerCache(NamedTuple):
     pos: torch.Tensor     # (L, B, W) int32 absolute positions, -1 = empty
 
 
-def project_qkv(x: torch.Tensor, wq, wk, wv):
-    """x (B, S, d) -> q (B, S, Hq, hd), k and v (B, S, Hkv, hd)."""
+def project_qkv(x: torch.Tensor, wq, wk, wv, bq=None, bk=None, bv=None):
+    """x (B, S, d) -> q (B, S, Hq, hd), k and v (B, S, Hkv, hd); the QKV
+    biases (Hq|Hkv, hd), where given, are added in x's dtype."""
     dt = x.dtype
     B, S, d = x.shape
     q = (x @ wq.to(dt).reshape(d, -1)).view(B, S, wq.shape[1], wq.shape[2])
     k = (x @ wk.to(dt).reshape(d, -1)).view(B, S, wk.shape[1], wk.shape[2])
     v = (x @ wv.to(dt).reshape(d, -1)).view(B, S, wv.shape[1], wv.shape[2])
+    if bq is not None:
+        q = q + bq.to(dt)
+        k = k + bk.to(dt)
+        v = v + bv.to(dt)
     return q, k, v
 
 
@@ -69,18 +83,34 @@ def output_projection(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return o.reshape(B, S, -1) @ wo.to(o.dtype).reshape(-1, wo.shape[-1])
 
 
+def _valid(q_pos, k_pos, causal: bool, window):
+    """(B, 1, 1, Sq, Skv) mask: key valid (k_pos >= 0) and, when causal,
+    ``0 <= q_pos - k_pos < window``."""
+    valid = (k_pos >= 0)[:, None, None, None, :]
+    if causal:
+        rel = q_pos[:, None, None, :, None] - k_pos[:, None, None, None, :]
+        valid = valid & (rel >= 0)
+        if window is not None:
+            valid = valid & (rel < window)
+    return valid
+
+
 def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
-                      window=None, q_per_kv: int = 1) -> torch.Tensor:
+                      window=None, q_per_kv: int = 1, q_block: int = 512,
+                      kv_block: int = 512) -> torch.Tensor:
     """The JAX package's ``models/attention.py::chunked_attention`` in
     plain, differentiable torch ops: the training route's attention.
 
     q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd); q_pos (B, Sq) and k_pos
     (B, Skv) int positions (or (Sq,), (Skv,)), a key with k_pos < 0
     invalid.  Scores in fp32, masked with -1e30 (a row with no valid key
-    averages its values, as JAX's dense form), one softmax over all keys;
-    the product with v in v's dtype.  JAX takes this dense form up to 512 x
-    512 scores and an online softmax over 512-key blocks past it: the same
-    function, summed in another order.  Returns (B, Sq, Hq, hd)."""
+    averages its values, as JAX's dense form); the product with v in v's
+    dtype.  Up to ``q_block * kv_block`` scores it is one dense softmax;
+    past that, as JAX, an online softmax over ``kv_block``-key blocks for
+    each ``q_block`` of queries (both padded, padded keys invalid), each key
+    step rematerialised in the backward (``torch.utils.checkpoint``, JAX's
+    ``jax.checkpoint(policy=nothing_saveable)``), so that the scores of
+    only one block are ever live.  Returns (B, Sq, Hq, hd)."""
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = q_per_kv
@@ -90,40 +120,82 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
         q_pos = q_pos[None].expand(B, Sq)
     if k_pos.dim() == 1:
         k_pos = k_pos[None].expand(B, Skv)
-    qg = q.reshape(B, Sq, Hkv, G, hd)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * (hd ** -0.5)
-    valid = (k_pos >= 0)[:, None, None, None, :]
-    if causal:
-        rel = q_pos[:, None, None, :, None] - k_pos[:, None, None, None, :]
-        valid = valid & (rel >= 0)
-        if window is not None:
-            valid = valid & (rel < window)
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
-    return o.reshape(B, Sq, Hq, hd)
+    scale = hd ** -0.5
+    if Sq * Skv <= q_block * kv_block:
+        qg = q.reshape(B, Sq, Hkv, G, hd)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * scale
+        valid = _valid(q_pos, k_pos, causal, window)
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+        return o.reshape(B, Sq, Hq, hd)
+
+    def pad(x, mult, value=0):
+        n = (-x.shape[1]) % mult
+        if n == 0:
+            return x
+        widths = [0, 0] * (x.dim() - 2) + [0, n]
+        return torch.nn.functional.pad(x, widths, value=value)
+    qp = pad(q, q_block)
+    qpos = pad(q_pos, q_block)
+    kp, vp = pad(k, kv_block), pad(v, kv_block)
+    kpos = pad(k_pos, kv_block, value=-1)     # padded keys are invalid
+    nq, nk = qp.shape[1] // q_block, kp.shape[1] // kv_block
+
+    def kv_step(o, m, l, q_i, qp_i, k_i, v_i, kp_i):
+        s = torch.einsum("bqhgd,bkhd->bhgqk", q_i, k_i).float() * scale
+        s = torch.where(_valid(qp_i, kp_i, causal, window), s,
+                        torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l_new = l * alpha + p.sum(dim=-1)
+        o_new = o * alpha[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p.to(v_i.dtype), v_i).float()
+        return o_new, m_new, l_new
+
+    outs = []
+    for iq in range(nq):
+        sl = slice(iq * q_block, (iq + 1) * q_block)
+        q_i = qp[:, sl].reshape(B, q_block, Hkv, G, hd)
+        qp_i = qpos[:, sl]
+        o = q.new_zeros((B, Hkv, G, q_block, hd), dtype=torch.float32)
+        m = torch.full((B, Hkv, G, q_block), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, Hkv, G, q_block), dtype=torch.float32,
+                        device=q.device)
+        for ik in range(nk):
+            kl = slice(ik * kv_block, (ik + 1) * kv_block)
+            o, m, l = checkpoint(kv_step, o, m, l, q_i, qp_i, kp[:, kl],
+                                 vp[:, kl], kpos[:, kl], use_reentrant=False)
+        outs.append(o / l.clamp(min=1e-30)[..., None])
+    out = torch.cat(outs, dim=3)                      # (B, Hkv, G, Sq_p, hd)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, nq * q_block, Hq, hd)
+    return out[:, :Sq].to(q.dtype)
 
 
-def prefill_attention(q, k, v) -> torch.Tensor:
+def prefill_attention(q, k, v, window: Optional[int] = None
+                      ) -> torch.Tensor:
     """Causal self-attention over positions 0..S-1 (right padding sits at
-    later positions, so index causality equals position causality).
+    later positions, so index causality equals position causality), within
+    ``window`` tokens where given.
     q: (B, S, Hq, hd), k, v: (B, S, Hkv, hd) -> (B, S, Hq, hd)."""
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=True)
+                            v.transpose(1, 2), causal=True, window=window)
     return o.transpose(1, 2)
 
 
-def suffix_attention(q, k, v, ctx_k, ctx_v, positions,
-                     ctx_pos) -> torch.Tensor:
+def suffix_attention(q, k, v, ctx_k, ctx_v, positions, ctx_pos,
+                     window: Optional[int] = None) -> torch.Tensor:
     """One layer's suffix-prefill attention (mode "suffix" of the JAX
-    package's attention; Delphi takes no RoPE): the chunk's projected heads
-    q (B, Sc, Hq, hd) and k, v (B, Sc, Hkv, hd) at ``positions`` (B, Sc)
-    attend over the context ``ctx_k``/``ctx_v`` (B, C, Hkv, hd) at
+    package's attention): the chunk's projected (and, with RoPE, rotated)
+    heads q (B, Sc, Hq, hd) and k, v (B, Sc, Hkv, hd) at ``positions``
+    (B, Sc) attend over the context ``ctx_k``/``ctx_v`` (B, C, Hkv, hd) at
     ``ctx_pos`` (B, C) followed by the chunk, causal by position (-1 =
-    invalid).  Returns (B, Sc, Hq, hd); the caller keeps k and v for its
-    block write."""
+    invalid) and within ``window``.  Returns (B, Sc, Hq, hd); the caller
+    keeps k and v for its block write."""
     return ops.suffix_prefill_attention(q, k, v, ctx_k, ctx_v, positions,
-                                        ctx_pos, causal=True,
+                                        ctx_pos, causal=True, window=window,
                                         q_per_kv=q.shape[2] // k.shape[2])
 
 
@@ -179,19 +251,21 @@ def write_ring_positions(cache: LayerCache, step: torch.Tensor) -> torch.Tensor:
 
 def ring_decode_attention(q, k_new, v_new, cache: LayerCache, layer: int,
                           slot: torch.Tensor, step: torch.Tensor,
-                          table: torch.Tensor) -> torch.Tensor:
+                          table: torch.Tensor,
+                          window: Optional[int] = None) -> torch.Tensor:
     """One layer's decode attention against its ring.
 
     q: (B, 1, Hq, hd); k_new, v_new: (B, 1, Hkv, hd); ``slot`` (B,) from
     :func:`write_ring_positions`; ``table`` = arange(B)[:, None] int32.
     Writes the new K/V into the layer's ring in place, then attends through
-    the paged decode kernel.  Returns (B, 1, Hq, hd)."""
+    the paged decode kernel (positions in ``(step - W, step]`` and, with a
+    ``window``, ``> step - window``).  Returns (B, 1, Hq, hd)."""
     kl, vl = cache.k[layer], cache.v[layer]
     rows = torch.arange(q.shape[0], device=q.device)
     kl[rows, :, slot] = k_new[:, 0].to(kl.dtype)
     vl[rows, :, slot] = v_new[:, 0].to(vl.dtype)
     o = ops.paged_decode_attention(q[:, 0], kl, vl, table, cache.pos[layer],
-                                   step)
+                                   step, window=window)
     return o[:, None]
 
 
@@ -246,17 +320,20 @@ def write_paged_positions(cache: PagedCache, step: torch.Tensor):
 def paged_decode_layer_attention(q, k_new, v_new, cache: PagedCache,
                                  layer: int, dst: torch.Tensor,
                                  off: torch.Tensor,
-                                 step: torch.Tensor) -> torch.Tensor:
+                                 step: torch.Tensor,
+                                 window: Optional[int] = None
+                                 ) -> torch.Tensor:
     """One layer's decode attention against the pool: writes the new K/V at
     (``dst``, ``off``) from :func:`write_paged_positions`, in place, then
-    attends through the paged decode kernel with the slots' tables.
+    attends through the paged decode kernel with the slots' tables (and
+    the ``window``, where given).
     q: (B, 1, Hq, hd); k_new, v_new: (B, 1, Hkv, hd).  Returns
     (B, 1, Hq, hd)."""
     kl, vl = cache.k[layer], cache.v[layer]
     kl[dst, :, off] = k_new[:, 0].to(kl.dtype)
     vl[dst, :, off] = v_new[:, 0].to(vl.dtype)
     o = ops.paged_decode_attention(q[:, 0], kl, vl, cache.table, cache.pos,
-                                   step)
+                                   step, window=window)
     return o[:, None]
 
 

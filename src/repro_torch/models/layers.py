@@ -1,12 +1,13 @@
-"""Shared layers: norms, continuous age encoding, GELU MLP, embedding and
-the tied and untied logits heads.
+"""Shared layers: norms, RoPE, continuous age encoding, the GELU and
+SwiGLU MLPs, embedding and the tied and untied logits heads.
 
 Compute runs in the activation dtype ``cfg.dtype``; parameters stay fp32
 and are cast at use (``.to`` is a no-op for weights already cast by
 ``models.model.cast_params``).  Numerics follow the JAX package's
 ``models/layers.py``: norms in fp32 with population variance, the tanh
 GELU, and heads whose product runs in the activation dtype before the
-logits go to fp32 (and the fp32 ``out_bias`` is added).
+logits go to fp32 (and the fp32 ``out_bias`` is added).  RoPE rotates
+in fp32 at absolute positions, split into halves (not interleaved).
 """
 from __future__ import annotations
 
@@ -40,6 +41,47 @@ def apply_norm(x: torch.Tensor, scale: torch.Tensor,
         ms = x32.square().mean(dim=-1, keepdim=True)
         y = x32 * torch.rsqrt(ms + eps) * scale.float()
     return y.to(dt)
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_table(half: int, theta: float, device: str) -> torch.Tensor:
+    """The (half,) fp32 RoPE frequencies ``1 / theta ** (i / half)``, made
+    once on the host and copied to ``device``.  Each step of the JAX
+    package's fp32 chain (divide, power, reciprocal) is correctly rounded
+    here, the power through fp64; the table then equals XLA's bit for bit
+    (numpy's fp32 ``power`` is off by up to 2 ulps at a few entries, and
+    near position 4,096 one ulp of the top frequency moves the angle by
+    ~5e-4 rad)."""
+    f32 = np.float32
+    expo = np.arange(half, dtype=f32) / f32(half)
+    power = (np.float64(f32(theta)) ** expo.astype(np.float64)).astype(f32)
+    return torch.from_numpy(f32(1.0) / power).to(device)
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device="cpu") -> torch.Tensor:
+    """(head_dim // 2,) fp32 inverse frequencies of RoPE on ``device``."""
+    # while torch.export traces, the table is made anew (it becomes one of
+    # the graph's constants): the cache would keep the tracer's fake tensor
+    table = (_rope_table.__wrapped__ if torch.compiler.is_exporting()
+             else _rope_table)
+    return table(head_dim // 2, float(theta), str(device))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: absolute positions broadcastable to
+    (..., S).  Rotates the two halves of each head by ``positions *
+    freqs`` in fp32 and casts back to x's dtype."""
+    half = x.shape[-1] // 2
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions.float()[..., None] * freqs          # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]                   # (..., S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1 = x[..., :half].float()
+    x2 = x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,6 +130,14 @@ def apply_mlp(x: torch.Tensor, w_fc, b_fc, w_proj, b_proj) -> torch.Tensor:
     return h @ w_proj.to(dt) + b_proj.to(dt)
 
 
+def apply_swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    """SwiGLU MLP of the llama family: ``(silu(x @ w_gate) * (x @ w_up))
+    @ w_down``, every product and the gate in x's dtype."""
+    dt = x.dtype
+    h = F.silu(x @ w_gate.to(dt)) * (x @ w_up.to(dt))
+    return h @ w_down.to(dt)
+
+
 def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
     return embed.to(dtype)[tokens.long()]
@@ -102,6 +152,12 @@ def logits_head(embed: torch.Tensor, h: torch.Tensor,
     return logits
 
 
-def untied_logits_head(lm_head: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """Untied head: ``h @ lm_head`` (lm_head (d, V)) in h's dtype, then fp32."""
-    return (h @ lm_head.to(h.dtype)).float()
+def untied_logits_head(lm_head: torch.Tensor, h: torch.Tensor,
+                       out_bias: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Untied head: ``h @ lm_head`` (lm_head (d, V)) in h's dtype, then fp32
+    (+ the fp32 bias of a Delphi head on an untied backbone)."""
+    logits = (h @ lm_head.to(h.dtype)).float()
+    if out_bias is not None:
+        logits = logits + out_bias.float()
+    return logits

@@ -4,20 +4,24 @@ engine (the JAX package's ``models/model.py``) for two families.
 Parameters are the flat dict of ``models.params``; layer ``l`` of a stacked
 leaf is ``params[key][l]``.
 
-* Delphi (``arch_type="dense"``): pre-LayerNorm attention (no RoPE:
-  Delphi's continuous age encoding replaces positions) and a GELU MLP,
-  then the tied head with the fp32 ``out_bias``.  Prefill attention runs
-  the flash kernel; decode runs the paged decode kernel over the ring cache
-  (``models.attention``).  Cache: ``{"self": LayerCache}``.  The suffix
-  prefill of chunked admission (:func:`forward_suffix`) runs the flash
-  kernel with position masks over context gathered from a paged pool.
+* Dense (``arch_type="dense"``): pre-norm attention and MLP blocks, then
+  the head.  Delphi (LayerNorm, GELU, tied head with the fp32
+  ``out_bias``) takes no RoPE: its continuous age encoding replaces
+  positions.  The generic dense LMs (TinyLlama, H2O-Danube, Qwen2.5,
+  DeepSeek) take RoPE on q and k at absolute positions (``use_rope = not
+  cfg.age_encoding``, as JAX), GQA, RMSNorm, a SwiGLU MLP, an untied head
+  and, where configured, QKV biases and a sliding window.  Prefill
+  attention runs the flash kernel; decode runs the paged decode kernel
+  over the ring cache or the paged pool (``models.attention``).  Cache:
+  ``{"self": LayerCache}``.  The suffix prefill of chunked admission
+  (:func:`forward_suffix`) runs the flash kernel with position masks over
+  context gathered from a paged pool.
 * Mamba2 (``arch_type="ssm"``): pre-RMSNorm Mamba2 blocks
   (``models.ssm``; prefill's intra-chunk SSD runs the ``ssd_intra``
   kernel), then the untied head.  Cache: ``{"ssm": SSMCache}``.
 
-Dense configurations that need RoPE, GQA, SwiGLU, RMSNorm, a sliding
-window, QKV biases or an untied head, and the other families (MoE, hybrid,
-enc-dec, VLM, audio), raise ``NotImplementedError``.
+The other families (MoE, hybrid, enc-dec, VLM, audio) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,45 +35,30 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import LayerCache, PagedCache
 from repro_torch.models.layers import (act_dtype, age_encoding, apply_mlp,
-                                       apply_norm, embed_tokens, logits_head,
+                                       apply_norm, apply_rope, apply_swiglu,
+                                       embed_tokens, logits_head,
                                        untied_logits_head)
 from repro_torch.models.params import Params
 from repro_torch.models.ssm import SSMCache
 
-# weights that enter a matrix product or the activation-dtype conv (cast to
-# the activation dtype); norms, out_bias, A_log, dt_bias, D and norm_scale
-# are used in fp32
+# weights that enter a matrix product, a bias added in the activation
+# dtype, or the activation-dtype conv (cast to the activation dtype); norms,
+# out_bias, A_log, dt_bias, D and norm_scale are used in fp32
 MATMUL_KEYS = ("embed/embed", "embed/lm_head", "layers/attn/wq",
                "layers/attn/wk", "layers/attn/wv", "layers/attn/wo",
+               "layers/attn/bq", "layers/attn/bk", "layers/attn/bv",
                "layers/mlp/w_fc", "layers/mlp/b_fc", "layers/mlp/w_proj",
-               "layers/mlp/b_proj", "layers/ssm/in_proj", "layers/ssm/conv_w",
+               "layers/mlp/b_proj", "layers/mlp/w_gate", "layers/mlp/w_up",
+               "layers/mlp/w_down", "layers/ssm/in_proj", "layers/ssm/conv_w",
                "layers/ssm/conv_b", "layers/ssm/out_proj")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this port does not serve."""
-    if cfg.arch_type == cb.SSM:
-        return
-    gaps = []
-    if cfg.arch_type != cb.DENSE:
-        gaps.append(f"arch_type={cfg.arch_type}")
-    if not cfg.age_encoding:
-        gaps.append("RoPE (age_encoding=False)")
-    if cfg.n_kv_heads != cfg.n_heads:
-        gaps.append("GQA")
-    if cfg.activation != "gelu":
-        gaps.append(f"activation={cfg.activation}")
-    if cfg.norm != "layernorm":
-        gaps.append(f"norm={cfg.norm}")
-    if cfg.sliding_window is not None:
-        gaps.append("sliding window")
-    if cfg.qkv_bias:
-        gaps.append("qkv_bias")
-    if not cfg.tie_embeddings:
-        gaps.append("untied head")
-    if gaps:
+    """Raise ``NotImplementedError`` for what this port does not serve:
+    every family but the dense one (with any of its knobs) and Mamba2."""
+    if cfg.arch_type not in (cb.DENSE, cb.SSM):
         raise NotImplementedError(
-            f"{cfg.name}: not ported yet: {', '.join(gaps)}")
+            f"{cfg.name}: not ported yet: arch_type={cfg.arch_type}")
 
 
 def cast_params(params: Params, cfg: ModelConfig) -> Params:
@@ -87,9 +76,19 @@ def _embed(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
     return x
 
 
+def _layer(params: Params, key: str, l: int) -> Optional[torch.Tensor]:
+    """Layer ``l`` of a stacked leaf, or None where the config has none."""
+    leaf = params.get(key)
+    return None if leaf is None else leaf[l]
+
+
 def _mlp_block(params: Params, x: torch.Tensor, l: int) -> torch.Tensor:
     h = apply_norm(x, params["layers/mlp_norm/scale"][l],
-                   params["layers/mlp_norm/bias"][l])
+                   _layer(params, "layers/mlp_norm/bias", l))
+    if "layers/mlp/w_gate" in params:
+        return x + apply_swiglu(h, params["layers/mlp/w_gate"][l],
+                                params["layers/mlp/w_up"][l],
+                                params["layers/mlp/w_down"][l])
     return x + apply_mlp(h, params["layers/mlp/w_fc"][l],
                          params["layers/mlp/b_fc"][l],
                          params["layers/mlp/w_proj"][l],
@@ -99,7 +98,8 @@ def _mlp_block(params: Params, x: torch.Tensor, l: int) -> torch.Tensor:
 def _head(params: Params, x: torch.Tensor) -> torch.Tensor:
     x = apply_norm(x, params["final_norm/scale"], params.get("final_norm/bias"))
     if "embed/lm_head" in params:
-        return untied_logits_head(params["embed/lm_head"], x)
+        return untied_logits_head(params["embed/lm_head"], x,
+                                  params.get("embed/out_bias"))
     return logits_head(params["embed/embed"], x, params.get("embed/out_bias"))
 
 
@@ -108,9 +108,8 @@ def mamba_layer(params: Params, x: torch.Tensor, cfg: ModelConfig, l: int, *,
     """Layer ``l``: ``x + Mamba2(RMSNorm(x))``.  mode "train" returns the
     new x; "prefill" (x, (h, conv)) of this layer; "decode" updates layer
     ``l`` of ``cache`` in place and returns the new x."""
-    bias = params.get("layers/norm/bias")
     h = apply_norm(x, params["layers/norm/scale"][l],
-                   None if bias is None else bias[l])
+                   _layer(params, "layers/norm/bias", l))
     p = ssm_lib.layer_params(params, l)
     if mode == "decode":
         y, hs, conv = ssm_lib.ssm_decode_step(p, h, cache.h[l], cache.conv[l],
@@ -140,12 +139,23 @@ def _ssm_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return x, SSMCache(h=torch.stack(hs), conv=torch.stack(convs))
 
 
-def _qkv(params: Params, x: torch.Tensor, l: int):
+def _qkv(params: Params, cfg: ModelConfig, x: torch.Tensor, l: int,
+         positions: torch.Tensor):
+    """Layer ``l``'s pre-norm and QKV projection (with its biases); with
+    RoPE (``not cfg.age_encoding``) q and k are rotated at the absolute
+    ``positions`` (broadcastable to (B, S)) before any cache write."""
     h = apply_norm(x, params["layers/attn_norm/scale"][l],
-                   params["layers/attn_norm/bias"][l])
-    return attn.project_qkv(h, params["layers/attn/wq"][l],
-                            params["layers/attn/wk"][l],
-                            params["layers/attn/wv"][l])
+                   _layer(params, "layers/attn_norm/bias", l))
+    q, k, v = attn.project_qkv(h, params["layers/attn/wq"][l],
+                               params["layers/attn/wk"][l],
+                               params["layers/attn/wv"][l],
+                               _layer(params, "layers/attn/bq", l),
+                               _layer(params, "layers/attn/bk", l),
+                               _layer(params, "layers/attn/bv", l))
+    if not cfg.age_encoding:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
@@ -161,8 +171,9 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
     mode "prefill": logits (B, 1, V) at ``last_index`` (B,) — each row's
     last valid token of a right-padded batch — or at the last position,
     plus ``cache``: {"self": LayerCache} rings of width ``cache_width``
-    (Delphi) or {"ssm": SSMCache} (Mamba2: the state after the whole
-    sequence, so its rows must not be right-padded).
+    (default: the window where the config has one, else S, as JAX) or
+    {"ssm": SSMCache} (Mamba2: the state after the whole sequence, so its
+    rows must not be right-padded).
 
     batch: tokens (B, S) int, and for Delphi ages (B, S) float years."""
     check_supported(cfg)
@@ -191,18 +202,19 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     cache = None
+    win = cfg.sliding_window
     if mode == "prefill":
-        W = cache_width or S
+        W = cache_width or (win if win is not None else S)
         cache = attn.empty_cache(cfg.n_layers, B, cfg.n_kv_heads, W,
                                  cfg.head_dim, x.dtype, x.device)
     for l in range(cfg.n_layers):
-        q, k, v = _qkv(params, x, l)
+        q, k, v = _qkv(params, cfg, x, l, positions)
         if differentiable:
             o = attn.chunked_attention(q, k, v, positions, positions,
-                                       causal=True, window=cfg.sliding_window,
+                                       causal=True, window=win,
                                        q_per_kv=cfg.q_per_kv)
         else:
-            o = attn.prefill_attention(q, k, v)
+            o = attn.prefill_attention(q, k, v, window=win)
         x = x + attn.output_projection(o, params["layers/attn/wo"][l])
         x = _mlp_block(params, x, l)
         if cache is not None:
@@ -243,9 +255,12 @@ def forward_suffix(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     positions = batch["positions"]
     ks, vs = [], []
     for l in range(cfg.n_layers):
-        q, k, v = _qkv(params, x, l)
+        # RoPE at the chunk's absolute positions: its K is byte-compatible
+        # with the cached context's
+        q, k, v = _qkv(params, cfg, x, l, positions)
         o = attn.suffix_attention(q, k, v, ctx["k"][l], ctx["v"][l],
-                                  positions, ctx["pos"])
+                                  positions, ctx["pos"],
+                                  window=cfg.sliding_window)
         x = x + attn.output_projection(o, params["layers/attn/wo"][l])
         x = _mlp_block(params, x, l)
         ks.append(k)
@@ -285,6 +300,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
     if step.dim() == 0:
         step = step.expand(B)
     lc = cache["self"]
+    win = cfg.sliding_window
     if isinstance(lc, PagedCache):
         # one position write a tick for all layers; per layer the pool
         # write, then the kernel through the slots' tables
@@ -292,16 +308,17 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
 
         def attend(q, k, v, l):
             return attn.paged_decode_layer_attention(q, k, v, lc, l, dst,
-                                                     off, step)
+                                                     off, step, window=win)
     else:
         slot = attn.write_ring_positions(lc, step)
         table = torch.arange(B, dtype=torch.int32, device=x.device)[:, None]
 
         def attend(q, k, v, l):
             return attn.ring_decode_attention(q, k, v, lc, l, slot, step,
-                                              table)
+                                              table, window=win)
+    pos1 = step[:, None]                # each row's own position (B, 1)
     for l in range(cfg.n_layers):
-        q, k, v = _qkv(params, x, l)
+        q, k, v = _qkv(params, cfg, x, l, pos1)
         o = attend(q, k, v, l)
         x = x + attn.output_projection(o, params["layers/attn/wo"][l])
         x = _mlp_block(params, x, l)

@@ -2,15 +2,25 @@
 
 Parameters are a flat ``dict`` of fp32 tensors keyed by the ``/``-joined
 pytree paths that the JAX package's ``train/checkpoint.py`` writes to
-``params.npz`` (layer-stacked leaves carry a leading layer axis).  Delphi
-(dense, LayerNorm, tied dual head):
+``params.npz`` (layer-stacked leaves carry a leading layer axis).  The
+dense family (H query heads, Hkv key/value heads of width hd):
 
-    embed/embed (V, d)            embed/out_bias (V,)
-    final_norm/{scale,bias} (d,)
-    layers/attn/{wq,wk,wv} (L, d, H, hd)       layers/attn/wo (L, H, hd, d)
-    layers/{attn_norm,mlp_norm}/{scale,bias} (L, d)
-    layers/mlp/w_fc (L, d, ff)    layers/mlp/b_fc (L, ff)
-    layers/mlp/w_proj (L, ff, d)  layers/mlp/b_proj (L, d)
+    embed/embed (V, d)
+    embed/lm_head (d, V)          untied head (tie_embeddings=False)
+    embed/out_bias (V,)           Delphi's dual head
+    final_norm/scale (d,)         final_norm/bias (d,)  (LayerNorm only)
+    layers/{attn_norm,mlp_norm}/scale (L, d)
+    layers/{attn_norm,mlp_norm}/bias (L, d)             (LayerNorm only)
+    layers/attn/wq (L, d, H, hd)  layers/attn/{wk,wv} (L, d, Hkv, hd)
+    layers/attn/wo (L, H, hd, d)
+    layers/attn/bq (L, H, hd)     layers/attn/{bk,bv} (L, Hkv, hd)  (qkv_bias)
+    GELU:    layers/mlp/w_fc (L, d, ff)    layers/mlp/b_fc (L, ff)
+             layers/mlp/w_proj (L, ff, d)  layers/mlp/b_proj (L, d)
+    SwiGLU:  layers/mlp/{w_gate,w_up} (L, d, ff)   layers/mlp/w_down (L, ff, d)
+
+Delphi is LayerNorm, GELU, tied, with the dual head; the llama-family
+LMs (TinyLlama, H2O-Danube, Qwen2.5, DeepSeek) are RMSNorm, SwiGLU,
+untied, with GQA and, for Qwen2.5, QKV biases.
 
 Mamba2 (SSM, RMSNorm, untied head; di = d_inner, ch = di + 2N):
 
@@ -39,9 +49,10 @@ Params = Dict[str, torch.Tensor]
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
-    """Key -> shape of every parameter: the Delphi family (a dense
-    pre-LayerNorm GELU transformer with a tied dual head) or, for
-    ``arch_type="ssm"``, a stack of Mamba2 blocks with an untied head."""
+    """Key -> shape of every parameter: the dense family (pre-norm
+    transformer blocks whose norm, MLP, QKV biases and head follow the
+    config's knobs) or, for ``arch_type="ssm"``, a stack of Mamba2 blocks
+    with an untied head."""
     d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab_size
     norm_keys = ("scale",) if cfg.norm == "rmsnorm" else ("scale", "bias")
     shapes = {"embed/embed": (V, d)}
@@ -76,11 +87,20 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         "layers/attn/wk": (L, d, Hkv, hd),
         "layers/attn/wv": (L, d, Hkv, hd),
         "layers/attn/wo": (L, H, hd, d),
-        "layers/mlp/w_fc": (L, d, ff),
-        "layers/mlp/b_fc": (L, ff),
-        "layers/mlp/w_proj": (L, ff, d),
-        "layers/mlp/b_proj": (L, d),
     })
+    if cfg.qkv_bias:
+        shapes.update({"layers/attn/bq": (L, H, hd),
+                       "layers/attn/bk": (L, Hkv, hd),
+                       "layers/attn/bv": (L, Hkv, hd)})
+    if cfg.activation == "swiglu":
+        shapes.update({"layers/mlp/w_gate": (L, d, ff),
+                       "layers/mlp/w_up": (L, d, ff),
+                       "layers/mlp/w_down": (L, ff, d)})
+    else:
+        shapes.update({"layers/mlp/w_fc": (L, d, ff),
+                       "layers/mlp/b_fc": (L, ff),
+                       "layers/mlp/w_proj": (L, ff, d),
+                       "layers/mlp/b_proj": (L, d)})
     return shapes
 
 
@@ -155,15 +175,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
             flat[key] = np.ones(shape, np.float32)
         elif key == "layers/ssm/conv_b":
             flat[key] = np.zeros(shape, np.float32)
-        elif key.endswith("/bias") or key.startswith("layers/mlp/b_"):
+        elif key.endswith("/bias") or key.startswith("layers/mlp/b_") \
+                or key in ("layers/attn/bq", "layers/attn/bk",
+                           "layers/attn/bv"):
             flat[key] = np.zeros(shape, np.float32)
         elif key in ("layers/attn/wq", "layers/attn/wk", "layers/attn/wv"):
             flat[key] = normal(shape, d ** -0.5)
         elif key == "layers/attn/wo":
             flat[key] = normal(shape, (H * hd) ** -0.5)
-        elif key == "layers/mlp/w_fc":
+        elif key in ("layers/mlp/w_fc", "layers/mlp/w_gate",
+                     "layers/mlp/w_up"):
             flat[key] = normal(shape, d ** -0.5)
-        elif key == "layers/mlp/w_proj":
+        elif key in ("layers/mlp/w_proj", "layers/mlp/w_down"):
             flat[key] = normal(shape, ff ** -0.5)
         else:
             raise AssertionError(f"no initializer for {key}")

@@ -26,9 +26,12 @@ position into those tensors in place and returns them: the list it returns
 is the list it was given, updated.
 
 Graphs are traced on the CPU at the configuration's dtype, so a machine
-with no card can export.  Only the Delphi family is exported: a Mamba2
-recurrent state cannot take the right-padded fixed-shape prompt of the
-graphs' signature, and the generic LMs need RoPE, which is not ported.
+with no card can export.  The dense family is exported: Delphi, whose
+graphs take ages beside the tokens, and the generic dense LMs (RoPE,
+GQA, SwiGLU, RMSNorm, windows, QKV biases), whose graphs take tokens only
+(the decode graph ``(token, step)``).  A Mamba2 recurrent state cannot
+take the right-padded fixed-shape prompt of the graphs' signature: it is
+refused.
 """
 from __future__ import annotations
 
@@ -142,33 +145,37 @@ def _dtype_name(dtype: torch.dtype) -> str:
 def _graph_signatures(cfg: ModelConfig, S: int,
                       cache_leaves) -> Dict[str, Any]:
     """The manifest ``graphs`` section: per-graph files + tensor signatures
-    (of the Delphi family, whose graphs take ages)."""
+    (ages only where the model reads them: the Delphi family)."""
     V = cfg.vocab_size
+    delphi = cfg.age_encoding
     tok = {"name": "tokens", "shape": [1, S], "dtype": "int32"}
-    age = {"name": "ages", "shape": [1, S], "dtype": "float32"}
+    ages = ([{"name": "ages", "shape": [1, S], "dtype": "float32"}]
+            if delphi else [])
+    age = ([{"name": "age", "shape": [1, 1], "dtype": "float32"}]
+           if delphi else [])
     cache_spec = [{"shape": list(l.shape), "dtype": _dtype_name(l.dtype)}
                   for l in cache_leaves]
     cache_io = {"name": "cache", "leaves": len(cache_leaves)}
     return {
         "full": {
             "file": FULL_GRAPH,
-            "inputs": [tok, age],
+            "inputs": [tok] + ages,
             "outputs": [{"name": "logits", "shape": [1, S, V],
                          "dtype": "float32"}],
         },
         "prefill": {
             "file": PREFILL_GRAPH,
-            "inputs": [tok, age, {"name": "last_index", "shape": [1],
-                                  "dtype": "int32"}],
+            "inputs": [tok] + ages + [{"name": "last_index", "shape": [1],
+                                       "dtype": "int32"}],
             "outputs": [{"name": "logits", "shape": [1, V],
                          "dtype": "float32"}, cache_io],
         },
         "decode_step": {
             "file": DECODE_GRAPH,
             "inputs": [cache_io,
-                       {"name": "token", "shape": [1, 1], "dtype": "int32"},
-                       {"name": "age", "shape": [1, 1], "dtype": "float32"},
-                       {"name": "step", "shape": [1], "dtype": "int32"}],
+                       {"name": "token", "shape": [1, 1], "dtype": "int32"}]
+                      + age
+                      + [{"name": "step", "shape": [1], "dtype": "int32"}],
             "outputs": [{"name": "logits", "shape": [1, V],
                          "dtype": "float32"}, cache_io],
         },
@@ -191,15 +198,15 @@ class _Graph(torch.nn.Module):
 def _check_exportable(cfg: ModelConfig) -> None:
     if cfg.arch_type == cb.SSM:
         raise NotImplementedError(
-            f"{cfg.name}: export_model exports the Delphi family only: a "
+            f"{cfg.name}: export_model exports the dense family only: a "
             f"Mamba2 recurrent state cannot take the right-padded "
             f"fixed-shape prompt of the artifact's graphs (the state after "
             f"the padding is not the state after the prompt)")
     if cfg.arch_type != cb.DENSE:
         raise NotImplementedError(
-            f"{cfg.name}: export_model exports the Delphi family only; "
+            f"{cfg.name}: export_model exports the dense family only; "
             f"arch_type={cfg.arch_type} is not ported")
-    check_supported(cfg)        # the dense knobs: RoPE, GQA, SwiGLU, ...
+    check_supported(cfg)
 
 
 def export_model(params, cfg: ModelConfig, out_dir: str, *,
@@ -208,10 +215,11 @@ def export_model(params, cfg: ModelConfig, out_dir: str, *,
                  spec_version: str = SPEC_V2) -> str:
     """Export inference graph(s) + params + manifest.
 
-    The full graph is ``f(params, tokens, ages) -> logits`` with tokens
-    (1, seq_len) int32.  Spec v2 (the default) also exports the prefill and
-    KV-cached decode_step graphs, so that clients generate with O(1) model
-    work per token instead of re-running the O(S·V) full graph.
+    The full graph is ``f(params, tokens[, ages]) -> logits`` with tokens
+    (1, seq_len) int32 (ages for the Delphi family only).  Spec v2 (the
+    default) also exports the prefill and KV-cached decode_step graphs, so
+    that clients generate with O(1) model work per token instead of
+    re-running the O(S·V) full graph.
 
     ``spec_version="1"``/``"1.0"`` exports a v1 (full-graph-only) artifact;
     a custom ``logits_fn(params, tokens, ages)`` implies v1 (there is no way
@@ -244,9 +252,10 @@ def export_model(params, cfg: ModelConfig, out_dir: str, *,
     p = {k: v.detach().to("cpu", torch.float32) for k, v in params.items()}
 
     fns = build_inference_fns(cfg, S)
+    delphi = cfg.age_encoding
     tokens = torch.zeros((1, S), dtype=torch.int32)
     ages = torch.zeros((1, S), dtype=torch.float32)
-    full_args = (p, tokens, ages)
+    full_args = (p, tokens, ages) if delphi else (p, tokens)
 
     def _export_graph(fn, args, fname):
         with torch.no_grad():
@@ -264,14 +273,15 @@ def export_model(params, cfg: ModelConfig, out_dir: str, *,
         leaves = _leaves(make_decode_cache(p, cfg, 1, S))
         token = torch.zeros((1, 1), dtype=torch.int32)
         age = torch.zeros((1, 1), dtype=torch.float32)
-        _export_graph(fns["decode"], (p, leaves, token, age, last),
-                      DECODE_GRAPH)
+        step_args = (token, age, last) if delphi else (token, last)
+        _export_graph(fns["decode"], (p, leaves) + step_args, DECODE_GRAPH)
         graphs = _graph_signatures(cfg, S, leaves)
     np.savez(os.path.join(out_dir, "params.npz"), **to_flat_numpy(p))
 
     signature = {
-        "inputs": [{"name": "tokens", "shape": [1, S], "dtype": "int32"},
-                   {"name": "ages", "shape": [1, S], "dtype": "float32"}],
+        "inputs": [{"name": "tokens", "shape": [1, S], "dtype": "int32"}]
+                  + ([{"name": "ages", "shape": [1, S], "dtype": "float32"}]
+                     if delphi else []),
         "outputs": [{"name": "logits", "shape": [1, S, cfg.vocab_size],
                      "dtype": "float32"}],
         "params": "params.npz (flattened pytree paths)",

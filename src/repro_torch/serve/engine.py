@@ -1,6 +1,7 @@
 """Batched serving engine: device-resident continuous batching over a
 per-slot ring KV cache or a paged block pool (the JAX package's
-``serve/engine.py``), for Delphi and for generic LMs (Mamba2).
+``serve/engine.py``), for Delphi and for generic LMs (the dense LMs with
+RoPE, and Mamba2).
 
 * Each tick runs ONE batched ``decode_step`` over all slots, each at its own
   absolute position, then samples, then ``advance_trajectory_state``

@@ -5,9 +5,10 @@ holding ``{"config": dataclasses.asdict(cfg), "extra": {...}}``.
 The two packages read each other's directories: the port's flat keys are the
 JAX pytree's paths, and every field of the port's ``ModelConfig`` is a field
 of JAX's, so JAX's ``load_config`` builds its config from the port's
-``meta.json``; the port's :func:`load_config` keeps the fields it has and
-drops the JAX-only ones (MoE, encoder, frontend and compile knobs, which
-the configurations the port serves leave at their defaults).
+``meta.json``; the port's :func:`load_config` keeps the fields it has
+(``rope_theta`` among them: a Qwen2.5 checkpoint keeps its 10^6) and drops
+the JAX-only ones (MoE, encoder, frontend and compile knobs, which the
+configurations the port serves leave at their defaults).
 """
 from __future__ import annotations
 

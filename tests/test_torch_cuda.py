@@ -185,6 +185,12 @@ def test_tte_sample_kernel_strided_and_misaligned_rows(gen, V):
     (2, 4, 2, 256, 64, None, True, torch.bfloat16),
     (1, 2, 2, 130, 128, None, True, torch.bfloat16),
     (1, 2, 2, 128, 64, None, False, torch.bfloat16),
+    # the dense LMs' prefill: TinyLlama (GQA 32/4, hd 64) and H2O-Danube
+    # (32/8, hd 80 padded to 128, a window of 4096 that a 4608-token row
+    # passes)
+    (1, 32, 4, 4608, 64, None, True, torch.bfloat16),
+    (1, 32, 8, 4608, 80, 4096, True, torch.bfloat16),
+    (1, 32, 8, 4608, 80, 4096, True, torch.float32),
 ])
 def test_flash_attention_kernel_vs_plain(gen, B, Hq, Hkv, S, hd, window,
                                          causal, dtype):
@@ -273,6 +279,11 @@ def test_head_chunk_by_position_equals_index_route(gen, S, n, dtype):
     (3, 2, 4, 16, 16, 4, 20, torch.bfloat16),
     (16, 12, 1, 10, 256, 1, None, torch.float32),
     (2, 2, 2, 9, 16, 2, None, torch.bfloat16),       # odd hd: by element
+    # the dense LMs' decode: TinyLlama's G 8 at hd 64; H2O-Danube's G 4 at
+    # hd 80 with its window of 4096 inside a 5120-token ring
+    (4, 4, 8, 64, 16, 64, None, torch.bfloat16),
+    (2, 8, 4, 80, 16, 320, 4096, torch.bfloat16),
+    (2, 8, 4, 80, 16, 320, 4096, torch.float32),
 ])
 def test_paged_decode_kernel_vs_plain(gen, B, Hkv, G, hd, bs, nbs, window,
                                       dtype):
@@ -416,6 +427,43 @@ def test_paged_engine_bit_identical_to_ring_on_card(gen):
         outs.append([(r.out_tokens, r.out_ages) for r in reqs])
     assert outs[0] == outs[1]
     assert eng.allocator.used == 0
+
+
+def test_generic_lm_engine_ring_equals_paged_on_card(gen):
+    """Reduced TinyLlama (RoPE, GQA, SwiGLU, RMSNorm, untied head) in bf16
+    on the card, injected uniforms: the paged engine's tokens, and the
+    paged engine's with 32-token chunked prefill, equal the ring engine's
+    bit for bit; 2 flash launches an admission batch, 2 paged a tick."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import BatchedEngine, Request
+    cfg = get_config("tinyllama-1.1b", reduced=True)
+    params = init_params(cfg, seed=3, device="cuda")
+    rng = np.random.default_rng(1)
+    prompts = [(rng.integers(0, cfg.vocab_size, S).astype(np.int32),
+                rng.random((10, cfg.vocab_size), dtype=np.float32))
+               for S in (5, 20, 33, 70, 90, 120)]
+    outs = []
+    for kw in ({}, {"cache": "paged"},
+               {"cache": "paged", "prefill_chunk_tokens": 32}):
+        eng = BatchedEngine(params, cfg, slots=3, max_context=256,
+                            device="cuda", **kw)
+        reqs = [Request(tokens=t, max_new=10, uniforms=u)
+                for t, u in prompts]
+        for r in reqs:
+            eng.submit(r)
+        ops.reset_launch_counts()
+        eng.run()
+        counts = ops.launch_counts()
+        assert all(r.done and r.error is None and len(r.out_tokens) == 10
+                   for r in reqs)
+        assert counts["paged_decode_attention"] == 2 * eng.ticks
+        assert counts["tte_sample"] == 0
+        if "prefill_chunk_tokens" not in kw:
+            assert counts["flash_attention"] == 2 * eng.admit_batches
+        outs.append([r.out_tokens for r in reqs])
+    assert outs[0] == outs[1] == outs[2]
 
 
 def test_fork_bit_identical_to_oracle_on_card(gen):

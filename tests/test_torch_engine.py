@@ -23,7 +23,8 @@ from repro.models import forward as jax_forward
 from repro.serve import BatchedEngine as JaxEngine
 from repro.serve import Request as JaxRequest
 from repro_torch.configs import get_config
-from repro_torch.core.parity import check_trajectories, compare_runs
+from repro_torch.core.parity import (check_lm_trajectories,
+                                     check_trajectories, compare_runs)
 from repro_torch.launch import serve as launch
 from repro_torch.models import init_params, to_flat_numpy
 from repro_torch.serve import (BatchedEngine, Request, RequestCancelledError,
@@ -202,17 +203,45 @@ def test_engine_refuses_what_is_not_ported(kw, error):
         BatchedEngine(params, cfg, slots=2, device="cpu", **kw)
 
 
-def test_engine_refuses_hold_fork_and_generic_sampling():
+@pytest.mark.parametrize("change", [
+    dict(age_encoding=False, dual_head=False), dict(arch_type="moe")],
+    ids=["generic-dense", "moe"])
+def test_engine_refuses_hold_fork_and_generic_sampling(change):
     """Hold, fork and ``sample_futures`` are ported (tests/test_torch_prefix
-    .py); generic (Gumbel) sampling is ported for Mamba2, but a generic
-    dense LM still needs RoPE, and MoE is not ported: the engine refuses
-    both."""
-    cfg, _, params, _ = _setup()
-    for change in (dict(age_encoding=False, dual_head=False),
-                   dict(arch_type="moe")):
+    .py), and so is generic (Gumbel) sampling, for Mamba2 and for a generic
+    dense LM (RoPE): reduced Delphi with no age encoding and no dual head
+    serves token-only requests, and its tokens are held step by step against
+    the JAX model's Gumbel scores under the same uniforms (margin 2e-3).
+    MoE is not ported: the engine refuses it."""
+    cfg, jcfg, params, _ = _setup()
+    cfg = cfg.replace(**change)
+    if cfg.arch_type != "dense":
         with pytest.raises(NotImplementedError):
-            BatchedEngine(params, cfg.replace(**change), slots=2,
-                          max_context=W, device="cpu")
+            BatchedEngine(params, cfg, slots=2, max_context=W, device="cpu")
+        return
+    params = init_params(cfg, seed=3, device="cpu")
+    jcfg = jcfg.replace(**change)
+    jp = jax_params(to_flat_numpy(params))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(3, cfg.vocab_size, S).astype(np.int32)
+               for S in (5, 17, 30)]
+    us = [rng.random((MAX_NEW, cfg.vocab_size), dtype=np.float32)
+          for _ in prompts]
+    eng = BatchedEngine(params, cfg, slots=2, max_context=W, device="cpu")
+    rs = [Request(tokens=t, max_new=MAX_NEW, uniforms=u)
+          for t, u in zip(prompts, us)]
+    for r in rs:
+        eng.submit(r)
+    eng.run()
+    assert all(r.done and r.error is None and len(r.out_tokens) == MAX_NEW
+               and not r.out_ages for r in rs)
+    assert eng.host_syncs == eng.ticks + eng.admit_batches
+    jf = jax.jit(lambda t: jax_forward(jp, jcfg, {"tokens": t})["logits"])
+    held = check_lm_trajectories(
+        prompts, [r.out_tokens for r in rs], us,
+        lambda t, a: np.asarray(jf(jnp.asarray(t, jnp.int32))),
+        margin_tol=2e-3)
+    assert held["steps"] == len(prompts) * MAX_NEW
 
 
 def test_serve_cli_on_cpu(capsys):

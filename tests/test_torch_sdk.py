@@ -44,7 +44,7 @@ from repro_torch.core import generate_trajectories
 from repro_torch.core.parity import (check_trajectories, compare_runs,
                                      port_logits_fn)
 from repro_torch.kernels import library, ref
-from repro_torch.models import forward, from_jax_flat
+from repro_torch.models import forward, from_jax_flat, init_params
 from repro_torch.sdk import (ChecksumError, InferenceSession, Runtime,
                              export_model, read_manifest, verify_checksums)
 from repro_torch.sdk import runtime as runtime_mod
@@ -491,14 +491,36 @@ def test_custom_logits_fn_exports_v1(setup, tmp_path):
     ("mamba2-780m", "recurrent state"),
     ("rope", "RoPE")])
 def test_export_refuses_what_it_cannot_serve(tmp_path, arch, match):
-    """Only the Delphi family is exported: Mamba2 cannot take a padded
-    prompt, and a generic dense LM needs RoPE (not ported)."""
-    if arch == "rope":
-        cfg = _cfgs(32)[0].replace(age_encoding=False)
-    else:
+    """Mamba2 is refused: it cannot take a padded prompt.  A dense model
+    with RoPE (reduced Delphi with no age encoding: a generic LM's
+    signature) is exported: its graphs take no ages, its full graph equals
+    eager ``forward`` bit for bit, and v2 decode gives the full graph's
+    tokens (Gumbel sampling, injected uniforms)."""
+    if arch != "rope":
         cfg = get_config(arch, reduced=True).replace(dtype="float32")
-    with pytest.raises(NotImplementedError, match=match):
-        export_model({}, cfg, str(tmp_path / "refused"))
+        with pytest.raises(NotImplementedError, match=match):
+            export_model({}, cfg, str(tmp_path / "refused"))
+        return
+    cfg = _cfgs(32)[0].replace(age_encoding=False, dual_head=False)
+    params = init_params(cfg, seed=5, device="cpu")
+    d = str(tmp_path / "rope")
+    export_model(params, cfg, d)
+    m = read_manifest(d)
+    assert [i["name"] for i in m["signature"]["inputs"]] == ["tokens"]
+    assert [i["name"] for i in m["graphs"]["decode_step"]["inputs"]] == [
+        "cache", "token", "step"]
+    full = ArtifactBackend(d, use_decode_graph=False, device="cpu")
+    dec = ArtifactBackend(d, device="cpu")
+    t = np.zeros((1, 32), np.int32)
+    t[0, :3] = TOKS
+    with torch.no_grad():
+        want = forward(params, cfg, {"tokens": torch.from_numpy(t)},
+                       mode="train")["logits"][0, 2].numpy()
+    assert (full.logits(TOKS) == want).all()
+    u = _uniforms(6, cfg.vocab_size, seed=13)
+    a = Client(full).generate(tokens=TOKS, max_new=6, uniforms=u)
+    b = Client(dec).generate(tokens=TOKS, max_new=6, uniforms=u)
+    assert len(b.tokens) == 6 and b.tokens == a.tokens and not b.ages
 
 
 def test_bf16_artifact_equals_eager(tmp_path):
