@@ -18,7 +18,9 @@ runs these phases; any failure exits non-zero:
    padded rows exact zeros, and its index route bit-equal to the position
    route at a head chunk; flash and paged also at the dense LMs' shapes:
    GQA 32/4 hd 64, 32/8 hd 80 with a window of 4,096 past it, G 8 hd 64
-   and G 4 hd 80 in a 5,120-token ring with the window);
+   and G 4 hd 80 in a 5,120-token ring with the window; and at Zamba2's:
+   ``ssd_intra`` at 8 chunks x 64 heads with N 64, flash as MHA 32/32 at hd
+   64 and S 1,024, paged on a ring of B 8, Hkv 32, G 1, hd 64, W 4,096);
 3. the Delphi path at full width: Delphi-2M (12 layers, d_model 120) from
    ``init_params(seed)`` in bf16, served by the ring-cache ``BatchedEngine``
    through ``repro_torch.launch.serve`` (32 synthetic patient prompts, 16
@@ -96,7 +98,8 @@ runs these phases; any failure exits non-zero:
    16 patients under the profiler;
 3j. the SDK artifact at full width: Delphi-2M exported by
    ``repro_torch.sdk.export_model`` (``torch.export`` traced on the CPU),
-   spec v2 and v1, in bf16 and in fp32, checked with ``verify_checksums``
+   spec v2 and v1, in bf16 and in fp32 (the fp32 export's depth cut to
+   ``ARTIFACT_FP32_LAYERS`` layers), checked with ``verify_checksums``
    (strict) and loaded with ``ArtifactBackend(device="cuda")``.  On 4
    patients: the full graph's logits == eager ``forward(mode="train")``
    bit for bit (and v1's == v2's), prefill and 8 decode steps == the same
@@ -119,12 +122,13 @@ runs these phases; any failure exits non-zero:
    key-value heads of 64, d_ff 5632, V 32000; RoPE, RMSNorm, SwiGLU, untied
    head) from ``init_params(seed)`` in bf16 on ``BatchedEngine(slots=8,
    max_context=1024)``, ring then paged (16-token blocks, prefix cache):
-   16 requests of seeded random ids (64-768 tokens), 32 new tokens each.
+   8 requests of seeded random ids (64-768 tokens; the count cut from 16
+   to keep the call in its time), 32 new tokens each.
    Every request gets its 32 tokens, one host copy a tick and an admission
    batch, flash 22 launches an admission batch, paged 22 a tick,
    ``tte_sample`` none, the pool drained; ring == paged == chunked (64
    tokens a step) bit for bit under injected uniforms (ring == paged over
-   the 16 requests served together, chunked == unchunked on the shortest
+   the 8 requests served together, chunked == unchunked on the shortest
    and the longest, each served alone); tokens/s and the idle share of one
    profiled ring run;
 3l. H2O-Danube-1.8B at full width (24 layers, d_model 2560, 32/8 heads of
@@ -133,8 +137,11 @@ runs these phases; any failure exits non-zero:
    are as close to the fp32 model's (plain route, TF32 off) as the plain
    route's in bf16 are, within ``DENSE_LOGITS_VS_PLAIN`` times, and differ
    from a run with no window (the window bites); the prompt and 32 new
-   tokens on the ring and on the paged cache, bit for bit under injected
-   uniforms;
+   tokens on the ring (the window's 4,096 wide) and on the paged cache
+   (5,120-token tables) under injected uniforms, each run held step by
+   step against the model's full forward (near-ties within twice the
+   kernels' bf16 logits error), the tokens equal before the two runs part
+   counted (the two decode walks order the window's positions differently);
 3m. Delphi-100M served at full width (16 layers, d_model 768, hd 64)
    through ``repro_torch.launch.serve`` with phase 3's knobs (32 prompts,
    16 slots, 48 new events, ring): one host copy a tick and an admission
@@ -147,6 +154,22 @@ runs these phases; any failure exits non-zero:
    operators, the decode graph's inputs ``(cache, token, step)``;
    ``ArtifactBackend`` == ``LocalBackend.stream`` and held margin-aware
    against the eager model's scores (``LM_MARGIN``);
+3o. Zamba2-1.2B at full width (38 Mamba2 layers, d_model 2048, N 64, 64
+   SSD heads; one weight-shared attention block, 32/32 heads of 64, window
+   4,096, d_ff 8,192, applied before every 6th layer: 7 applications; V
+   32000) from ``init_params(seed)`` in bf16 on ``BatchedEngine(slots=8,
+   max_context=4096)``, its rings the window's 4,096 wide: 16 requests of
+   seeded random ids (96-1024 tokens), 32 new tokens each.  Every request
+   gets its 32 tokens, one host copy a tick and an admission, every
+   prefill ``(1, S)``, ``ssd_intra`` 38 launches an admission, flash 7 an
+   admission, paged 7 a tick, ``tte_sample`` none (counts zeroed just
+   before, read just after); a held parent (parked 6 ticks beside other
+   traffic) forked into 4 children == 4 immediate forks bit for bit under
+   injected uniforms; the 1024-token prompt's last logits through the
+   kernels against the fp32 model (plain route, TF32 off), within
+   ``DENSE_LOGITS_VS_PLAIN`` times the plain route's bf16 error; tokens/s,
+   the idle share of a profiled window (the first ``PROFILE_REQUESTS``
+   prompts, ``PROFILE_MAX_NEW`` tokens each), the weights' making time;
 4. end-to-end parity in fp32: the same weights and injected uniforms through
    the engine on the card (kernels) and on the CPU (plain versions), for
    Delphi-2M and for Mamba2-780M at full width cut to 4 layers; the card's
@@ -188,6 +211,17 @@ runs these phases; any failure exits non-zero:
    repro_torch.launch.train --arch delphi-100m --seq-len 1024`` for 20 bf16
    steps of 8 x 1024 at full width: loss finite, steps/s, target tokens/s
    and the training's peak memory;
+6f. Mamba2-780M training (the plain SSD route): one fp32 ``lm`` step of 2
+   x 256 seeded random ids at full width cut to 2 layers (TF32 off), its
+   loss and every gradient against the CPU port's (within
+   ``GRAD_CARD_REL`` of each leaf's largest element); the plain SSD route's
+   ``y`` and final state against the kernel route's within 1e-4 at full
+   width and 1,024 tokens (dt ~ 0.01 as the init's); then ``python -m
+   repro_torch.launch.train --arch mamba2-780m`` at full depth for 20 bf16
+   steps of 4 x 512: no kernel launched, the loss finite, steps/s, target
+   tokens/s, peak memory, and the idle share of one step under the
+   profiler;
+6g. Zamba2-1.2B training: 6f's checks and CLI for ``--arch zamba2-1.2b``;
 5. times at the main paths' shapes: each kernel, its plain version, one
    PyTorch library call where one computes the same function (a yardstick
    the port never calls), and the bound from bytes and operations (for
@@ -201,7 +235,8 @@ runs these phases; any failure exits non-zero:
    ``zero_()``, the least a launch costs on the device);
    device time per call from ``torch.profiler`` and per-call time from CUDA
    events (the ``kernels`` line's ``ms`` is the device time); then each path
-   once more under the profiler (device busy time, idle share, top kernels,
+   once more under the profiler (the Mamba2 path over the same window as
+   3o's; device busy time, idle share, top kernels,
    and the Mamba2 path's ``ssd_intra`` total), the paged, futures and both
    mixed-traffic paths included; ``flash_attention`` also with position
    masks at phase 3e's chunk (64 queries over 128 + 64 keys), its library
@@ -209,16 +244,20 @@ runs these phases; any failure exits non-zero:
    paged at the dense LMs' shapes: phase 3k's largest prefill bucket (GQA
    32/4, hd 64) and ring (G 8), a 4,608-token H2O-Danube prefill (32/8, hd
    80, window 4,096) and phase 3l's ring (G 4, the window), each beside
-   its bound and SDPA (GQA by ``enable_gqa``).
+   its bound and SDPA (GQA by ``enable_gqa``); and phase 3o's shapes:
+   ``ssd_intra`` at a 1024-token prompt (64 heads, N 64), flash as MHA
+   32/32 at hd 64, S 1,024, and paged on 3o's ring after the run (B 8, Hkv
+   32, G 1, W 4,096).
 
 The ``kernels`` line holds the four kernels and, as a fifth row, the flash
 kernel's position-masked route with its launches on the chunked drive of
 phase 3e; each Delphi kernel's row also gives its launches on the sweep of
 phase 3i, on the audit of phase 6d, on the artifact drive of phase 3j and
-on the ring runs of 3k, 3l and 3m and the drive of 3n
-(``launches_by_path``, counts zeroed just before each and read just
-after); four more rows give flash and paged at the shapes of 3k and 3l
-with their launches there.  The last lines are the ``kernels``
+on the ring runs of 3k, 3l and 3m, the drive of 3n, the Zamba2 run of 3o
+and the training CLIs of 6f and 6g (``launches_by_path``, counts zeroed
+just before each and read just after; 6f and 6g read 0); seven more rows
+give flash and paged at the shapes of 3k, 3l and 3o, and ``ssd_intra`` at
+3o's, with their launches there.  The last lines are the ``kernels``
 JSON line, the card's name and power limit (``nvidia-smi``), and the result
 line ``{"ok": true, "device": ...}``.  A copy of all numbers goes to
 ``chiprun_out/chip_smoke.json``.
@@ -403,6 +442,8 @@ FLASH_CASES = [
      "TinyLlama GQA 32/4 hd=64 bf16"),
     (1, 32, 8, 4608, 80, 4096, True, "bfloat16",
      "H2O-Danube GQA 32/8 hd=80 (padded to 128) window 4096 bf16"),
+    (1, 32, 32, 1024, 64, 4096, True, "bfloat16",
+     "Zamba2 shared block MHA 32/32 hd=64 S=1024 window 4096 bf16"),
 ]
 
 
@@ -616,6 +657,9 @@ def check_paged(gen) -> float:
             gen, 8, 4, 8, 64, 16, 64, bf16), None),
         ("H2O-Danube G=4 hd=80 window 4096 in a 5120 ring, wrapped, bf16",
          paged_inputs(gen, 2, 8, 4, 80, 16, 320, bf16, wrap=True), 4096),
+        ("Zamba2 ring B=8 Hkv=32 G=1 hd=64 W=4096 window 4096, bf16",
+         ring_inputs(gen, 8, 32, 1, 64, 4096, bf16,
+                     [100, 1055, 4095, 4096, 5000, 300, 2047, 8191]), 4096),
     ]
     main_err = 0.0
     for note, (q, k, v, table, pos, step), window in cases:
@@ -662,20 +706,23 @@ SSD_CASES = [
      "steep decay (L underflows to 0)"),
     (2, 2, 128, 8, 64, 128, "float32", "float32", True, 0.2,
      "fp32 B/C shared by the heads"),
+    (1, 8, 128, 64, 64, 64, "float32", "bfloat16", True, 0.2,
+     "Zamba2: 1024-token prompt, 64 heads, N 64"),
 ]
 
 
-def check_ssd(gen) -> float:
+def check_ssd(gen) -> dict:
     """atol 1e-4 (tests/test_kernels.py's SSD tolerance) against the plain
     version in fp32 on the same (rounded) inputs, drawn as test_kernels.py
     draws them (N(0, 1) tiles, cum of U(0, 0.2) decrements; U(0, 2.0) in
     the steep case, where L underflows to 0 and no NaN may appear).
-    Returns the error at the main path's tile (48 heads sharing bf16 B/C by
-    a 0 stride, fp32 xdt, as the model passes them)."""
+    Returns the errors at the main path's tile (48 heads sharing bf16 B/C
+    by a 0 stride, fp32 xdt, as the model passes them) and at Zamba2's
+    (``{"main": ..., "zamba2": ...}``)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as k
-    main_err = 0.0
+    out = {}
     for b, C, Q, H, P, N, dx, dbc, shared, step, note in SSD_CASES:
         def rnd(*shape, dt):
             return torch.randn(shape, generator=gen, device=DEVICE
@@ -696,12 +743,14 @@ def check_ssd(gen) -> float:
                 and bool(st.isfinite().all())):
             raise AssertionError(f"ssd_intra {note}: err {err} > 1e-4")
         if note.startswith("main"):
-            main_err = err
+            out["main"] = err
+        if note.startswith("Zamba2"):
+            out["zamba2"] = err
         log(f"  ssd_intra {note} (b={b} C={C} Q={Q} H={H} P={P} N={N} xdt "
             f"{dx}, B/C {dbc}{', shared' if shared else ''}, cum steps "
             f"<= {step}): max abs err "
             f"{err:.3g} (tol 1e-4)")
-    return main_err
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2282,7 +2331,8 @@ def canary_path(tmp: str) -> dict:
 # phases 3k-3n and 6e: the dense knobs at full width (TinyLlama-1.1B,
 # H2O-Danube-1.8B, Delphi-100M)
 # ---------------------------------------------------------------------------
-DENSE_SLOTS, DENSE_REQUESTS, DENSE_MAX_NEW, DENSE_CONTEXT = 8, 16, 32, 1024
+# 3k's request count cut from 16 to 8 to keep the whole call in its time
+DENSE_SLOTS, DENSE_REQUESTS, DENSE_MAX_NEW, DENSE_CONTEXT = 8, 8, 32, 1024
 DENSE_CHUNK = 64
 DANUBE_PROMPT, DANUBE_CONTEXT, DANUBE_MAX_NEW = 4600, 5120, 32
 # bf16 logits of the whole model against the fp32 model (TF32 off): the
@@ -2320,8 +2370,8 @@ def free_card() -> None:
 
 
 def lm_long_prompts(vocab: int):
-    """16 prompts of seeded random token ids, 64 to 768 tokens, in seeded
-    order."""
+    """``DENSE_REQUESTS`` prompts of seeded random token ids, 64 to 768
+    tokens, in seeded order."""
     import numpy as np
     rng = np.random.default_rng(SEED + 7)
     lens = np.linspace(64, 768, DENSE_REQUESTS).astype(int)
@@ -2400,7 +2450,7 @@ def layer0(eng) -> tuple:
 def tinyllama_path() -> dict:
     """Phase 3k: TinyLlama-1.1B at full width in bf16 on the ring, then on
     the prefix-cached paged cache; under injected uniforms ring == paged
-    bit for bit over all 16 requests, and chunked (64 tokens a step) ==
+    bit for bit over all 8 requests, and chunked (64 tokens a step) ==
     unchunked bit for bit on the shortest and the longest request, each
     served alone (the concurrent chunked run's agreement is counted); one
     profiled ring run."""
@@ -2483,11 +2533,18 @@ def danube_path() -> dict:
     prompt (past the window of 4,096) with ``max_context`` 5,120: the last
     prefill position's logits through the kernels against the plain route
     on the card, and against a run with no window; then the prompt served
-    on the ring and on the paged cache, bit for bit under injected
-    uniforms."""
+    on the ring (the window's 4,096 wide) and on the paged cache (each
+    slot's table 5,120 wide) under injected uniforms.  The two decode walks
+    visit the window's positions in other orders, so their bf16 outputs
+    may part in the last bit: each run's tokens are held step by step
+    against the model's full forward (teacher forcing), a step whose
+    Gumbel score gap is within twice the kernels' measured bf16 logits
+    error a near-tie, and the tokens equal before their first divergence
+    are counted."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.core import parity as par
     from repro_torch.kernels import ops
     from repro_torch.models import cast_params, forward, init_params
     cfg = get_config("h2o-danube-1.8b")
@@ -2544,16 +2601,29 @@ def danube_path() -> dict:
                       "prefill_shapes": sorted(eng.prefill_shapes)}
         if name == "ring":
             saved = layer0(eng)
+            runs[name]["layer0_width"] = saved[0].shape[2]
         del eng
-    if runs["ring"]["tokens"] != runs["paged"]["tokens"]:
-        raise AssertionError("3l: ring and paged tokens differ")
+    if runs["ring"]["layer0_width"] != cfg.sliding_window:
+        raise AssertionError(f"3l: the ring is {runs['ring']['layer0_width']}"
+                             f" wide, not the window's {cfg.sliding_window}")
+    margin = 2 * err
+    held = {name: par.check_lm_trajectories(
+        [prompt], [r["tokens"]], u, par.port_logits_fn(params, cfg),
+        margin_tol=margin) for name, r in runs.items()}
+    free = par.compare_runs([(runs["ring"]["tokens"], [])],
+                            [(runs["paged"]["tokens"], [])], age_rtol=0.0)
     del params
     free_card()
     return {"init_s": init_s, "prefill_s": prefill_s, "logits_err": err,
             "plain_err": plain_err, "kernel_vs_plain": float(
                 (kern - plain).abs().max()),
             "logits_scale": scale, "no_window_diff": bite, "runs": runs,
-            "layer0": saved, "prefill_launches": counts, "cfg": cfg}
+            "layer0": saved, "prefill_launches": counts, "cfg": cfg,
+            "margin": margin,
+            "held_steps": {k: h["steps"] for k, h in held.items()},
+            "near_ties": {k: len(h["near_ties"]) for k, h in held.items()},
+            "equal_before_divergence": free["compared"],
+            "divergences": free["divergences"]}
 
 
 def delphi100m_path() -> dict:
@@ -2799,6 +2869,340 @@ def long_train_path() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 3o, 6f and 6g: Zamba2-1.2B served, Mamba2 and Zamba2 trained
+# ---------------------------------------------------------------------------
+ZAMBA_SLOTS, ZAMBA_MAX_NEW, ZAMBA_CONTEXT = 8, 32, 4096
+ZAMBA_FORKS, ZAMBA_FORK_NEW = 4, 8
+# phases 6f/6g: the CLI's batch at full depth, and the card-vs-CPU step's
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 4, 512, 20
+SSM_GRAD_BATCH, SSM_GRAD_SEQ, SSM_GRAD_LAYERS = 2, 256, 2
+SSM_ROUTE_SEQ, SSM_ROUTE_TOL = 1024, 1e-4
+
+
+def zamba2_config():
+    from repro_torch.configs import get_config
+    return get_config("zamba2-1.2b")
+
+
+def zamba2_forks(params, cfg, prompts) -> dict:
+    """A held parent, forked into ``ZAMBA_FORKS`` children after another
+    request has decoded beside it for 6 ticks (the parked rows advance its
+    Mamba state and write a discarded token into its rings), against
+    ``sample_futures``' immediate forks on a fresh engine: the same tokens
+    bit for bit under injected uniforms."""
+    import numpy as np
+    from repro_torch.serve import BatchedEngine, Request
+    V = cfg.vocab_size
+    rng = np.random.default_rng(SEED + 13)
+    us = rng.random((ZAMBA_FORKS, ZAMBA_FORK_NEW, V), dtype=np.float32)
+    prompt, side = sorted(prompts, key=len)[:2]
+
+    def engine():
+        return BatchedEngine(params, cfg, slots=ZAMBA_SLOTS,
+                             max_context=ZAMBA_CONTEXT, seed=SEED,
+                             device=DEVICE)
+    now = engine().sample_futures(prompt, n=ZAMBA_FORKS,
+                                  max_new=ZAMBA_FORK_NEW, uniforms=us)
+    eng = engine()
+    parent = Request(tokens=prompt, max_new=ZAMBA_FORK_NEW, hold=True)
+    other = Request(tokens=side, max_new=16,
+                    uniforms=rng.random((16, V), dtype=np.float32))
+    eng.submit(parent)
+    eng.submit(other)
+    for _ in range(6):
+        eng.step()
+    kids = [Request(tokens=prompt, max_new=ZAMBA_FORK_NEW, uniforms=us[i])
+            for i in range(ZAMBA_FORKS)]
+    eng.fork(parent.request_id, children=kids)
+    eng.run()
+    held = [k.out_tokens for k in kids]
+    if held != [k.out_tokens for k in now] or not all(
+            len(t) == ZAMBA_FORK_NEW for t in held) or not other.done:
+        raise AssertionError(f"3o: held-parent forks {held} differ from "
+                             f"immediate forks {[k.out_tokens for k in now]}")
+    return {"forks": ZAMBA_FORKS, "tokens": sum(len(t) for t in held),
+            "parked_ticks": 6, "prompt_tokens": len(prompt)}
+
+
+def zamba2_logits(params, cfg, prompt) -> dict:
+    """The last prefill position's logits of one prompt through the
+    kernels (bf16) against the fp32 model (plain route, TF32 off), beside
+    the plain route's own bf16 error, as phase 3l holds H2O-Danube."""
+    import torch
+    from repro_torch.models import cast_params, forward
+    w = cast_params(params, cfg)
+    toks = torch.from_numpy(prompt[None]).to(DEVICE)
+
+    def last(c, p=w):
+        with torch.no_grad():
+            return forward(p, c, {"tokens": toks}, mode="prefill",
+                           cache_width=ZAMBA_CONTEXT)["logits"][0, 0]
+    kern = last(cfg)
+    with plain_route():
+        plain = last(cfg)
+        exact = last(cfg.replace(dtype="float32"), params)
+    err = float((kern - exact).abs().max())
+    plain_err = float((plain - exact).abs().max())
+    if not (bool(torch.isfinite(kern).all())
+            and err <= DENSE_LOGITS_VS_PLAIN * plain_err):
+        raise AssertionError(f"3o: against the fp32 model the kernels' "
+                             f"route is off by {err}, the plain route by "
+                             f"{plain_err} (allowed {DENSE_LOGITS_VS_PLAIN}"
+                             f"x it)")
+    del w
+    return {"prompt_tokens": len(prompt), "logits_err": err,
+            "plain_err": plain_err,
+            "kernel_vs_plain": float((kern - plain).abs().max()),
+            "logits_scale": float(exact.abs().max())}
+
+
+def zamba2_path() -> dict:
+    """Phase 3o: Zamba2-1.2B at full width in bf16 on
+    ``BatchedEngine(slots=8, max_context=4096)`` (the ring): 16 requests of
+    seeded random ids (96-1024 tokens), 32 new tokens each, generator
+    uniforms.  Every request gets its tokens, one host copy a tick and an
+    admission, every prefill ``(1, S)``, ``ssd_intra`` 38 launches an
+    admission, flash 7 an admission and paged 7 a tick, ``tte_sample``
+    none; a held parent's forks == immediate forks bit for bit; one
+    prompt's last logits against the fp32 model; a profiled window."""
+    import torch
+    from repro_torch.models import init_params, n_attn_apps, ring_width
+    cfg = zamba2_config()
+    napps = n_attn_apps(cfg)
+    stage = {}
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    init_s = time.perf_counter() - t0
+    stage["init"] = init_s
+    prompts = mamba_prompts(cfg.vocab_size)
+    kw = dict(max_new=ZAMBA_MAX_NEW, slots=ZAMBA_SLOTS,
+              max_context=ZAMBA_CONTEXT)
+    # first use of cuBLAS at these shapes, through the same entry point
+    t0 = time.perf_counter()
+    lm_serve(params, cfg, prompts[:2], max_new=2, slots=ZAMBA_SLOTS,
+             max_context=ZAMBA_CONTEXT)
+    stage["warmup"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng, reqs, sec, counts = lm_serve(params, cfg, prompts, **kw)
+    stage["serve"] = time.perf_counter() - t0
+    for r in reqs:
+        if not (r.done and r.error is None
+                and len(r.out_tokens) == ZAMBA_MAX_NEW and not r.out_ages
+                and all(0 <= t < cfg.vocab_size for t in r.out_tokens)):
+            raise AssertionError(f"3o: bad request {r.error} "
+                                 f"{len(r.out_tokens)}")
+    if eng.host_syncs != eng.ticks + eng.admit_batches:
+        raise AssertionError(f"3o: host_syncs {eng.host_syncs} != ticks "
+                             f"{eng.ticks} + admit_batches "
+                             f"{eng.admit_batches}")
+    if eng.prefill_shapes != {(1, len(p)) for p in prompts} \
+            or eng.admit_batches != len(prompts):
+        raise AssertionError(f"3o: prefill shapes "
+                             f"{sorted(eng.prefill_shapes)}")
+    want = {"ssd_intra": cfg.n_layers * eng.admit_batches,
+            "flash_attention": napps * eng.admit_batches,
+            "paged_decode_attention": napps * eng.ticks, "tte_sample": 0}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"3o: launches {counts}, expected {want}")
+    lc = eng.cache["attn"]
+    if tuple(lc.k.shape) != (napps, ZAMBA_SLOTS, cfg.n_kv_heads,
+                             ring_width(cfg, ZAMBA_CONTEXT), cfg.head_dim):
+        raise AssertionError(f"3o: rings {tuple(lc.k.shape)}")
+    ring0 = (lc.k[0].clone(), lc.v[0].clone(), lc.pos[0].clone(),
+             eng._state["step"].clone())
+    run = {"seconds": sec, "launches": counts,
+           "tokens": len(reqs) * ZAMBA_MAX_NEW,
+           "tokens_per_s": len(reqs) * ZAMBA_MAX_NEW / sec,
+           "ticks": eng.ticks, "admit_batches": eng.admit_batches,
+           "host_syncs": eng.host_syncs,
+           "prefill_shapes": sorted(eng.prefill_shapes),
+           "prompt_lengths": sorted(len(p) for p in prompts)}
+    del eng
+    t0 = time.perf_counter()
+    prof = window_profile(lambda: lm_serve(
+        params, cfg, prompts[:PROFILE_REQUESTS], max_new=PROFILE_MAX_NEW,
+        slots=ZAMBA_SLOTS, max_context=ZAMBA_CONTEXT)[2])
+    stage["profile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    forks = zamba2_forks(params, cfg, prompts)
+    stage["forks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logits = zamba2_logits(params, cfg, max(prompts, key=len))
+    stage["logits"] = time.perf_counter() - t0
+    del params
+    free_card()
+    torch.cuda.synchronize()
+    return {"run": run, "profile": prof, "forks": forks, "logits": logits,
+            "ring0": ring0, "init_s": init_s, "cfg": cfg, "napps": napps,
+            "stage_s": stage}
+
+
+def ssm_grads(arch: str) -> dict:
+    """Phase 6f/6g, first part: the arch at full width cut to
+    ``SSM_GRAD_LAYERS`` layers, one fp32 ``lm`` step (TF32 off) of
+    ``SSM_GRAD_BATCH`` x ``SSM_GRAD_SEQ`` seeded random ids on the card;
+    its loss and every gradient against the CPU port's, no kernel
+    launched."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.train import loss_and_grads, make_loss_fn
+    from repro_torch.train.trainer import to_device
+    cfg = get_config(arch).replace(n_layers=SSM_GRAD_LAYERS, dtype="float32")
+    host = init_params(cfg, seed=SEED, device="cpu")
+    params = {k: v.to(DEVICE) for k, v in host.items()}
+    rng = np.random.default_rng(SEED + 61)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (
+        SSM_GRAD_BATCH, SSM_GRAD_SEQ)).astype(np.int32)}
+    loss_fn = make_loss_fn(cfg, "lm")
+    ops.reset_launch_counts()
+    g_card, m_card = loss_and_grads(loss_fn, params, to_device(batch, DEVICE))
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"{arch}: the training route launched a kernel")
+    g_cpu, m_cpu = loss_and_grads(loss_fn, host, to_device(batch, "cpu"))
+    worst, worst_key = 0.0, None
+    for k, g in g_card.items():
+        got, want = g.cpu().numpy(), g_cpu[k].numpy()
+        scale = float(np.abs(want).max())
+        if not np.isfinite(got).all() or (scale > 0 and not got.any()):
+            raise AssertionError(f"{arch}: {k}: gradient not finite or zero")
+        rel = float(np.abs(got - want).max()) / max(scale, 1e-30)
+        if rel > worst:
+            worst, worst_key = rel, k
+    loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) \
+        / abs(float(m_cpu["loss"]))
+    if worst > GRAD_CARD_REL or loss_rel > 1e-5:
+        raise AssertionError(f"{arch}: card vs CPU: loss rel {loss_rel:.3g}, "
+                             f"gradient {worst_key} {worst:.3g}")
+    del params
+    free_card()
+    return {"loss_card": float(m_card["loss"]),
+            "loss_cpu": float(m_cpu["loss"]), "loss_rel_err": loss_rel,
+            "grad_max_rel_err": worst, "grad_worst_leaf": worst_key,
+            "leaves": len(g_card)}
+
+
+def ssd_route_check(arch: str) -> dict:
+    """The plain (differentiable) SSD route against the kernel route at the
+    arch's full width and an ``SSM_ROUTE_SEQ``-token sequence, one layer's
+    call as the model makes it: x fp32, dt the softplus of N(0, 0.5) plus
+    the init's ``dt_bias`` (dt ~ 0.01), A from the init's ``A_log``, B and
+    C bf16 (N(0, 0.5)); ``y`` and the final state within
+    ``SSM_ROUTE_TOL``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm as ssm_lib
+    cfg = get_config(arch)
+    H, P, N, S = cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state, \
+        SSM_ROUTE_SEQ
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED + 71)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=DEVICE)
+    x = rnd(1, S, H, P)
+    dt = F.softplus(0.5 * rnd(1, S, H)
+                    + float(np.log(np.expm1(np.float32(0.01)))))
+    A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, H, device=DEVICE)))
+    Bm, Cm = ((0.5 * rnd(1, S, N)).to(torch.bfloat16) for _ in range(2))
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        yk, hk = ssm_lib.ssd_chunked(x, dt, A, Bm, Cm, cfg.ssm_chunk)
+        yp, hp = ssm_lib.ssd_chunked(x, dt, A, Bm, Cm, cfg.ssm_chunk,
+                                     differentiable=True)
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()["ssd_intra"]
+    err_y = float((yk - yp).abs().max())
+    err_h = float((hk - hp).abs().max())
+    if not (launched == 1 and max(err_y, err_h) <= SSM_ROUTE_TOL
+            and bool(torch.isfinite(yp).all())):
+        raise AssertionError(f"{arch}: plain SSD route vs kernel route: y "
+                             f"{err_y}, h {err_h} (tol {SSM_ROUTE_TOL}), "
+                             f"ssd_intra launched {launched}")
+    return {"shape": f"b=1 S={S} H={H} P={P} N={N} Q={cfg.ssm_chunk}",
+            "err_y": err_y, "err_h": err_h,
+            "y_scale": float(yp.abs().max()), "h_scale": float(hp.abs().max())}
+
+
+def ssm_train_cli(arch: str) -> dict:
+    """Phase 6f/6g, last part: ``python -m repro_torch.launch.train --arch
+    ARCH`` (its ``main``) at full depth for ``SSM_TRAIN_STEPS`` bf16 steps
+    of ``SSM_TRAIN_BATCH`` x ``SSM_TRAIN_SEQ`` seeded random ids over fp32
+    masters: no kernel launched, the loss finite; steps/s, target tokens/s,
+    the training's peak memory, and one step of the same step function
+    once more without and with the profiler for the device's idle share
+    (a step makes ~15,000 device activities)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import (OptimizerConfig, init_opt_state,
+                                   make_train_step)
+    from repro_torch.train.trainer import to_device
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t_cli = time.perf_counter()
+    res = launch_train.main([
+        "--arch", arch, "--steps", str(SSM_TRAIN_STEPS), "--batch",
+        str(SSM_TRAIN_BATCH), "--seq-len", str(SSM_TRAIN_SEQ), "--seed",
+        str(SEED), "--device", DEVICE])
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{arch}: training launched a kernel: {counts}")
+    cfg = res["cfg"]
+    loss = np.asarray(res["history"]["loss"])
+    if cfg.dtype != "bfloat16" or not np.isfinite(loss).all():
+        raise AssertionError(f"{arch}: dtype {cfg.dtype}, loss {loss}")
+    cli_s = time.perf_counter() - t_cli
+    step = make_train_step(cfg, OptimizerConfig(lr=1e-5), "lm")
+    rng = np.random.default_rng(SEED + 81)
+    batch = to_device({"tokens": rng.integers(0, cfg.vocab_size, (
+        SSM_TRAIN_BATCH, SSM_TRAIN_SEQ)).astype(np.int32)}, DEVICE)
+    opt = init_opt_state(res["params"])
+
+    def one():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(res["params"], opt, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    prof = window_profile(one)
+    sec = res["seconds"]
+    out = {"steps": SSM_TRAIN_STEPS, "batch": SSM_TRAIN_BATCH,
+           "seq": SSM_TRAIN_SEQ, "seconds": sec,
+           "steps_per_s": SSM_TRAIN_STEPS / sec,
+           "target_tokens": res["target_tokens"],
+           "target_tokens_per_s": res["target_tokens"] / sec,
+           "peak_memory_bytes": peak, "loss_first": float(loss[0]),
+           "loss_last": float(loss[-1]), "launches": counts,
+           "profile": prof,
+           "cli_wall_s": cli_s}
+    del res, batch, opt
+    free_card()
+    return out
+
+
+def ssm_train_path(arch: str) -> dict:
+    """Phase 6f (``mamba2-780m``) or 6g (``zamba2-1.2b``): the step against
+    the CPU, the plain SSD route against the kernel route, the CLI."""
+    out, stage = {}, {}
+    for name, fn in (("grads", ssm_grads), ("route", ssd_route_check),
+                     ("cli", ssm_train_cli)):
+        t0 = time.perf_counter()
+        out[name] = fn(arch)
+        stage[name] = time.perf_counter() - t0
+    out["stage_s"] = stage
+    return out
+
+
 def sdpa_gqa(q, k, v, **kw):
     """One ``scaled_dot_product_attention`` call with G = Hq / Hkv query
     heads a key head (``enable_gqa`` where G > 1)."""
@@ -2815,6 +3219,9 @@ def sdpa_gqa(q, k, v, **kw):
 # phase 3j: the SDK artifact on the card
 # ---------------------------------------------------------------------------
 ARTIFACT_DECODE_STEPS, ARTIFACT_MAX_NEW = 8, 32
+# the fp32 artifact's depth (the bf16 one keeps Delphi-2M's 12 layers):
+# cut to keep the whole call in its time
+ARTIFACT_FP32_LAYERS = 2
 
 
 def artifact_export(params, cfg, d: str, spec: str, seq_len=None) -> dict:
@@ -2844,8 +3251,8 @@ def artifact_gates(params, cfg, art, full, local, patients) -> dict:
     ``forward(mode="train")`` bit for bit (v1's == v2's), prefill and
     ``ARTIFACT_DECODE_STEPS`` decode steps == the same functions run
     eagerly (``build_inference_fns``, what ``LocalBackend.stream`` calls),
-    logits and cache bit for bit, flash launched 12 times per full or
-    prefill call and the paged kernel 12 times per decode step (counts
+    logits and cache bit for bit, flash launched once a layer per full or
+    prefill call and the paged kernel once a layer per decode step (counts
     zeroed just before each call and read just after); then
     ``ArtifactBackend`` == ``LocalBackend.stream`` token for token and age
     for age under injected uniforms, one request at a time."""
@@ -2855,6 +3262,7 @@ def artifact_gates(params, cfg, art, full, local, patients) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.sdk import build_inference_fns
     rt, S = art.runtime, art.seq_len
+    L = cfg.n_layers
     fns = build_inference_fns(cfg, S)
 
     def dev(*arrays):
@@ -2873,7 +3281,7 @@ def artifact_gates(params, cfg, art, full, local, patients) -> dict:
     steps = 0
     for toks, ags in patients:
         t, a = art._pad_inputs(toks, ags)
-        got = counted(lambda: rt.run(t, a), 12, 0, "full graph")
+        got = counted(lambda: rt.run(t, a), L, 0, "full graph")
         with torch.no_grad():
             want = fns["full"](params, *dev(t, a)).cpu().numpy()
         if not np.array_equal(got, want):
@@ -2883,7 +3291,7 @@ def artifact_gates(params, cfg, art, full, local, patients) -> dict:
         if not np.array_equal(full.runtime.run(t, a), got):
             raise AssertionError("v1 full graph != v2 full graph")
         last = np.asarray([len(toks) - 1], np.int32)
-        lg, cache = counted(lambda: rt.prefill(t, a, last), 12, 0, "prefill")
+        lg, cache = counted(lambda: rt.prefill(t, a, last), L, 0, "prefill")
         with torch.no_grad():
             lg_e, cache_e = fns["prefill"](params, *dev(t, a, last))
         if not np.array_equal(lg, lg_e.cpu().numpy()):
@@ -2894,7 +3302,7 @@ def artifact_gates(params, cfg, art, full, local, patients) -> dict:
             args = (np.asarray([[rng.integers(3, cfg.vocab_size)]], np.int32),
                     np.asarray([[age]], np.float32),
                     np.asarray([len(toks) + k], np.int32))
-            lg, cache = counted(lambda: rt.decode_step(cache, *args), 0, 12,
+            lg, cache = counted(lambda: rt.decode_step(cache, *args), 0, L,
                                 "decode step")
             with torch.no_grad():
                 lg_e, cache_e = fns["decode"](params, cache_e, *dev(*args))
@@ -2917,7 +3325,7 @@ def artifact_gates(params, cfg, art, full, local, patients) -> dict:
                                  f"on patient {i}")
         events += len(got.tokens)
     return {"prompts": len(patients), "decode_steps": steps,
-            "generate_events": events}
+            "generate_events": events, "layers": L}
 
 
 def artifact_drive(backend, cfg, patients, stream: bool = False) -> dict:
@@ -3087,6 +3495,8 @@ def artifact_path(tmp: str) -> dict:
     out = {"dtypes": {}}
     for dtype in ("bfloat16", "float32"):
         cfg = get_config("delphi-2m").replace(dtype=dtype)
+        if dtype == "float32":      # the fp32 export's depth is cut
+            cfg = cfg.replace(n_layers=ARTIFACT_FP32_LAYERS)
         params = init_params(cfg, seed=SEED, device=DEVICE)
         d2 = os.path.join(tmp, f"artifact_{dtype}_v2")
         d1 = os.path.join(tmp, f"artifact_{dtype}_v1")
@@ -3145,8 +3555,9 @@ def log_artifact(art: dict) -> None:
             f"bytes); load v2 {r['load_v2_s']:.2f}s; full graph == eager "
             f"and v1 == v2 on {g['prompts']} prompts, "
             f"prefill + {g['decode_steps']} decode steps == eager bit for "
-            f"bit, 12 flash launches a full or prefill call and 12 paged a "
-            f"decode step; ArtifactBackend == LocalBackend.stream on "
+            f"bit, {g['layers']} flash launches a full or prefill call and "
+            f"{g['layers']} paged a decode step ({g['layers']} layers); "
+            f"ArtifactBackend == LocalBackend.stream on "
             f"{g['generate_events']} events")
     bart = art["dtypes"]["bfloat16"]
     log("  bf16, ms per event of a request (v2 and v1 ArtifactBackend, "
@@ -3196,13 +3607,14 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
 def device_kernels(fn) -> dict:
     """Run ``fn`` under ``torch.profiler`` and return {device activity
     (kernel, copy, set) name: (count, device ms)}; empty if the profiler
-    saw no device activity."""
+    saw no device activity.  Only the device's activity is traced: the
+    host's op events are not read here, and folding them into the trace
+    took several times as long as the device's alone."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     out = {}
@@ -3576,6 +3988,18 @@ def times(main: dict, mamba: dict, gen, dense=None) -> dict:
         res["paged_decode_attention 3l"] = paged_row(
             gen, *dn["layer0"], "phase 3l's ring", G=dc.q_per_kv,
             window=dc.sliding_window)
+        # Zamba2's shapes (phase 3o): one layer's ssd_intra at a 1024-token
+        # prompt (N 64, 64 heads), the shared block's flash at the longest
+        # prompt (MHA 32/32; the window of 4,096 does not bite below 4,096
+        # tokens) and its ring after the run (G 1, 32 kv heads, W 4,096)
+        zb = dense["3o"]
+        zc = zb["cfg"]
+        res["ssd_intra 3o"] = ssd_row(gen, zc, 1024)
+        res["flash_attention 3o"] = flash_row(gen, 1, zc.n_heads, 1024,
+                                              zc.head_dim)
+        res["paged_decode_attention 3o"] = paged_row(
+            gen, *zb["ring0"], "phase 3o's ring", G=zc.q_per_kv,
+            window=zc.sliding_window)
 
     z = torch.zeros(1, device=DEVICE)
     res["launch floor"] = {"shape": "one-element zero_()",
@@ -3661,6 +4085,21 @@ def path_profile(run, wall: float) -> dict:
                     for name, (n, ms) in top]}
 
 
+# the recurrent paths' profiled window: their first PROFILE_REQUESTS
+# prompts, PROFILE_MAX_NEW new tokens each (a whole 16-request run makes
+# ~200,000 device activities, whose trace the profiler takes minutes to
+# fold); its wall time is taken from the same window run without the
+# profiler
+PROFILE_REQUESTS, PROFILE_MAX_NEW = 4, 8
+
+
+def window_profile(run) -> dict:
+    """``path_profile`` of ``run()`` (which returns its wall seconds), the
+    wall time from one unprofiled run after a warm one."""
+    run()
+    return path_profile(run, run())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3689,8 +4128,9 @@ def main() -> int:
     log("== phase 2: kernels against their plain versions on the card")
     errs = {"tte_sample": check_tte(gen), "flash_attention": check_flash(gen),
             "flash_attention positions": check_flash_positions(gen),
-            "paged_decode_attention": check_paged(gen),
-            "ssd_intra": check_ssd(gen)}
+            "paged_decode_attention": check_paged(gen)}
+    ssd_errs = check_ssd(gen)
+    errs["ssd_intra"] = ssd_errs["main"]
 
     log("== phase 3: Delphi path (Delphi-2M bf16, ring BatchedEngine, 16 "
         "slots)")
@@ -3849,9 +4289,10 @@ def main() -> int:
         f"{cp['device_busy_s']:.4f}s of {cp['wall_s']:.3f}s wall, idle share"
         f" {'not measured' if cp['idle_share'] is None else format(cp['idle_share'], '.3f')}")
     log(f"  phase 3i took {time.perf_counter() - t3i:.1f}s ({smi})")
-    log("== phase 3j: the SDK artifact (full-width Delphi-2M through "
-        "torch.export, spec v2 and v1, bf16 and fp32, traced on the CPU; "
-        "Runtime on the card)")
+    log(f"== phase 3j: the SDK artifact (full-width Delphi-2M through "
+        f"torch.export, spec v2 and v1, bf16 and fp32 (its depth cut to "
+        f"{ARTIFACT_FP32_LAYERS} layers), traced on the CPU; Runtime on the "
+        f"card)")
     t3j = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         art = artifact_path(tmp)
@@ -3903,7 +4344,14 @@ def main() -> int:
         log(f"  {name}: {DANUBE_MAX_NEW} tokens, {r['ticks']} ticks in "
             f"{r['seconds']:.3f}s; prefill shapes {r['prefill_shapes']}; "
             f"launches {r['launches']}")
-    log(f"  ring == paged bit for bit; phase 3l took "
+    log(f"  ring ({danube['runs']['ring']['layer0_width']} wide, the window)"
+        f" and paged ({DANUBE_CONTEXT:,}-token tables): "
+        f"{danube['equal_before_divergence']}"
+        f" tokens equal before the first divergence (divergences "
+        f"{danube['divergences']}); each run held step by step against the "
+        f"model's full forward: {danube['held_steps']} steps, near-ties "
+        f"{danube['near_ties']} (score margin {danube['margin']:.4g}, twice "
+        f"the kernels' bf16 logits error); phase 3l took "
         f"{time.perf_counter() - t3l:.1f}s ({smi})")
     log("== phase 3m: Delphi-100M served at full width (16 layers, d_model "
         "768, hd 64; bf16) through repro_torch.launch.serve: 32 patient "
@@ -3933,6 +4381,46 @@ def main() -> int:
         f"stream {lmart['local_ms_per_token']:.2f}); launches on the drive "
         f"{lmart['launches']}; took {time.perf_counter() - t3n:.1f}s "
         f"({smi})")
+
+    log(f"== phase 3o: Zamba2-1.2B at full width (38 Mamba2 layers, d_model "
+        f"2048, N 64, 64 SSD heads; one shared attention block, 32/32 heads "
+        f"of 64, window 4096, applied 7 times; V 32000; bf16), BatchedEngine("
+        f"slots={ZAMBA_SLOTS}, max_context={ZAMBA_CONTEXT}): phase 3b's "
+        f"{MAMBA_REQUESTS} prompts of seeded random ids (96-1024 tokens), "
+        f"{ZAMBA_MAX_NEW} new tokens each, ring")
+    t3o = time.perf_counter()
+    zamba = zamba2_path()
+    zr, zp, zl = zamba["run"], zamba["profile"], zamba["logits"]
+    log(f"  {zr['tokens']} tokens, {zr['ticks']} ticks, "
+        f"{zr['admit_batches']} admissions in {zr['seconds']:.3f}s: "
+        f"{zr['tokens_per_s']:.1f} tokens/s; host_syncs {zr['host_syncs']}; "
+        f"prefill shapes (1, S) for S in {zr['prompt_lengths']}; launches "
+        f"{zr['launches']} (38 ssd_intra and 7 flash an admission, 7 paged "
+        f"a tick, no tte_sample)")
+    log(f"  a held parent ({zamba['forks']['prompt_tokens']} tokens, parked "
+        f"{zamba['forks']['parked_ticks']} ticks beside other traffic) "
+        f"forked into {ZAMBA_FORKS} children == {ZAMBA_FORKS} immediate "
+        f"forks bit for bit ({zamba['forks']['tokens']} tokens, injected "
+        f"uniforms)")
+    log(f"  last prefill position's logits of a {zl['prompt_tokens']}-token "
+        f"prompt against the fp32 model (plain route, TF32 off; largest "
+        f"|logit| {zl['logits_scale']:.4g}): kernels' route in bf16 off by "
+        f"{zl['logits_err']:.4g}, the plain route in bf16 by "
+        f"{zl['plain_err']:.4g} (allowed {DENSE_LOGITS_VS_PLAIN}x it), "
+        f"kernels vs plain {zl['kernel_vs_plain']:.4g}")
+    zidle = ("not measured" if zp["idle_share"] is None
+             else format(zp["idle_share"], ".3f"))
+    log(f"  the first {PROFILE_REQUESTS} prompts x {PROFILE_MAX_NEW} tokens "
+        f"under the profiler: device busy "
+        f"{zp['device_busy_s']:.4f}s of {zp['wall_s']:.3f}s wall, idle share"
+        f" {zidle}"
+        f", {zp['launches']} device activities; weights made in "
+        f"{zamba['init_s']:.1f}s; phase 3o took "
+        f"{time.perf_counter() - t3o:.1f}s (" + ", ".join(
+            f"{k} {v:.1f}s" for k, v in zamba["stage_s"].items())
+        + f"; {smi})")
+    for t in zp["top"]:
+        log(f"    {t['ms']:9.3f} ms  {t['launches']:6d}x  {t['kernel']}")
 
     log("== phase 3b: Mamba2 path (Mamba2-780M bf16, BatchedEngine, 8 "
         "slots)")
@@ -4031,8 +4519,46 @@ def main() -> int:
         f"{ltr['loss_first']:.4f} -> {ltr['loss_last']:.4f}; took "
         f"{time.perf_counter() - t6:.1f}s ({smi})")
 
+    ssm_train = {}
+    for ph, arch in (("6f", "mamba2-780m"), ("6g", "zamba2-1.2b")):
+        log(f"== phase {ph}: {arch} training (the plain SSD route)")
+        t6 = time.perf_counter()
+        st = ssm_train[ph] = ssm_train_path(arch)
+        g, rt, c = st["grads"], st["route"], st["cli"]
+        log(f"  one fp32 step, {SSM_GRAD_BATCH} x {SSM_GRAD_SEQ}, full width "
+            f"cut to {SSM_GRAD_LAYERS} layers, TF32 off: loss card "
+            f"{g['loss_card']:.6f}, CPU {g['loss_cpu']:.6f} (rel "
+            f"{g['loss_rel_err']:.3g}); {g['leaves']} gradients, largest "
+            f"difference {g['grad_max_rel_err']:.3g} of its leaf's largest "
+            f"element ({g['grad_worst_leaf']}; allowed {GRAD_CARD_REL}); no "
+            f"kernel launched")
+        log(f"  plain SSD route vs the kernel route at full width "
+            f"({rt['shape']}): y {rt['err_y']:.3g} (|y| <= "
+            f"{rt['y_scale']:.3g}), h {rt['err_h']:.3g} (|h| <= "
+            f"{rt['h_scale']:.3g}); tol {SSM_ROUTE_TOL}")
+        cp = c["profile"]
+        log(f"  python -m repro_torch.launch.train --arch {arch}: {c['steps']}"
+            f" bf16 steps of {c['batch']} x {c['seq']} at full depth in "
+            f"{c['seconds']:.3f}s: {c['steps_per_s']:.2f} steps/s, "
+            f"{c['target_tokens_per_s']:.1f} target tokens/s; peak memory "
+            f"{c['peak_memory_bytes'] / 2**20:.1f} MiB; loss "
+            f"{c['loss_first']:.4f} -> {c['loss_last']:.4f}; launches "
+            f"{c['launches']}")
+        cidle = ("not measured" if cp["idle_share"] is None
+                 else format(cp["idle_share"], ".3f"))
+        log(f"  one step: {cp['wall_s']:.4f}s wall, device busy "
+            f"{cp['device_busy_s']:.4f}s, idle share {cidle}"
+            f", {cp['launches']} device activities; the CLI's call "
+            f"{c['cli_wall_s']:.1f}s; took {time.perf_counter() - t6:.1f}s ("
+            + ", ".join(f"{k} {v:.1f}s" for k, v in st["stage_s"].items())
+            + f"; {smi})")
+        for t in cp["top"]:
+            log(f"    {t['ms']:9.3f} ms  {t['launches']:6d}x  {t['kernel']}")
+
     log("== phase 5: times at the main paths' shapes")
-    tm = times(main_res, mamba, gen, {"3k": tiny, "3l": danube})
+    tm = times(main_res, mamba, gen, {"3k": tiny, "3l": danube, "3o": zamba})
+    # phase 2 holds ssd_intra at 3o's tile; the timing row reuses its error
+    tm["ssd_intra 3o"]["max_abs_err"] = ssd_errs["zamba2"]
 
     def fmt(m):
         if m is None:
@@ -4069,9 +4595,10 @@ def main() -> int:
     fprof = path_profile(
         lambda: futures_run(fut["params"], fut["cfg"], fut["patients"])[2],
         fsec)
-    mprof = path_profile(
-        lambda: mamba_serve(mamba["params"], mamba["cfg"], mamba["prompts"],
-                            MAMBA_MAX_NEW)[2], msec)
+    mprof = window_profile(
+        lambda: mamba_serve(mamba["params"], mamba["cfg"],
+                            mamba["prompts"][:PROFILE_REQUESTS],
+                            PROFILE_MAX_NEW)[2])
     xwall = {m: r["wall_s"] for m, r in mixed["runs"]}
     xprof = {m: path_profile(
         lambda m=m: mixed_drive(mixed["engines"][m])["wall_s"], xwall[m])
@@ -4080,7 +4607,8 @@ def main() -> int:
                         ("futures", fprof, "3d"),
                         ("mixed monolithic", xprof["monolithic"], "3e"),
                         ("mixed chunked", xprof["chunked"], "3e"),
-                        ("Mamba2", mprof, "3b")):
+                        ("Mamba2", mprof, f"3b's first {PROFILE_REQUESTS} "
+                         f"prompts x {PROFILE_MAX_NEW} tokens")):
         idle = ("not measured" if p["idle_share"] is None
                 else f"{p['idle_share']:.3f}")
         log(f"  {name} path: device busy {p['device_busy_s']:.4f}s of "
@@ -4108,7 +4636,10 @@ def main() -> int:
                        else paged["launches"][name]) for name in REPLACES}
     dense_paths = {"3k": tiny["runs"]["ring"]["launches"],
                    "3l": danube["runs"]["ring"]["launches"],
-                   "3m": d100["launches"], "3n": lmart["launches"]}
+                   "3m": d100["launches"], "3n": lmart["launches"],
+                   "3o": zamba["run"]["launches"],
+                   "6f": ssm_train["6f"]["cli"]["launches"],
+                   "6g": ssm_train["6g"]["cli"]["launches"]}
 
     def by_path(name):
         out = ({} if name == "ssd_intra" else
@@ -4140,22 +4671,26 @@ def main() -> int:
         "library_ms": ms(prow["library"]),
         "call_ms": prow["kernel"]["call_ms"]})
     # the two attention kernels at the dense LMs' shapes, with their
-    # launches on those paths' ring runs (3k, 3l)
-    for name in ("flash_attention", "paged_decode_attention"):
-        for ph in ("3k", "3l"):
-            row = rows[f"{name} {ph}"]
-            kernels.append({
-                "name": f"{name} {ph}", "route": "cuda",
-                "source": SOURCES[name], "replaces": REPLACES[name],
-                "launches": dense_paths[ph][name], "path": ph,
-                "shape": row["shape"], "max_abs_err": row["max_abs_err"],
-                "ms": ms(row["kernel"]), "plain_ms": ms(row["plain"]),
-                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": ms(row["library"]),
-                "call_ms": row["kernel"]["call_ms"]})
+    # launches on those paths' ring runs (3k, 3l), and the three kernels of
+    # the Zamba2 path at its shapes (3o)
+    for name, ph in [(n, p) for n in ("flash_attention",
+                                      "paged_decode_attention")
+                     for p in ("3k", "3l", "3o")] + [("ssd_intra", "3o")]:
+        row = rows[f"{name} {ph}"]
+        kernels.append({
+            "name": f"{name} {ph}", "route": "cuda",
+            "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": dense_paths[ph][name], "path": ph,
+            "shape": row["shape"], "max_abs_err": row["max_abs_err"],
+            "ms": ms(row["kernel"]), "plain_ms": ms(row["plain"]),
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": ms(row["library"]),
+            "call_ms": row["kernel"]["call_ms"]})
     for d in (tiny, danube):
         d.pop("layer0")
         d["cfg"] = d["cfg"].name
+    zamba.pop("ring0")
+    zamba["cfg"] = zamba["cfg"].name
     record = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_seconds": build.last_build.get("seconds"),
@@ -4194,6 +4729,7 @@ def main() -> int:
         "tinyllama_path": tiny, "danube_path": danube,
         "delphi100m_path": d100, "lm_artifact_path": lmart,
         "long_grads_path": lgr, "long_train_path": ltr,
+        "zamba2_path": zamba, "ssm_train_paths": ssm_train,
         "main_path": {"requests": len(main_res["done"]),
                       "events": main_res["events"], "seconds": sec,
                       "ticks": eng.ticks, "admit_batches": eng.admit_batches,

@@ -3,16 +3,17 @@
 ``get_config(arch_id)`` returns the full :class:`ModelConfig`;
 ``get_config(arch_id, reduced=True)`` its small test variant.  The port
 registers the architectures its model code serves: Delphi (2M and 100M),
-the generic dense LMs (TinyLlama, H2O-Danube, Qwen2.5, DeepSeek) and
-Mamba2.  ``qwen2.5-32b`` runs reduced only: its fp32 masters (~131 GB) do
-not fit one 80 GB card.
+the generic dense LMs (TinyLlama, H2O-Danube, Qwen2.5, DeepSeek), Mamba2
+and the Mamba2/attention hybrid Zamba2.  ``qwen2.5-32b`` runs reduced
+only: its fp32 masters (~131 GB) do not fit one 80 GB card.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict
 
-from repro_torch.configs.base import DENSE, SSM, ModelConfig  # noqa: F401
+from repro_torch.configs.base import (DENSE, HYBRID, SSM,  # noqa: F401
+                                      ModelConfig)
 
 _REGISTRY: Dict[str, str] = {
     "delphi-2m": "delphi_2m",
@@ -22,6 +23,7 @@ _REGISTRY: Dict[str, str] = {
     "tinyllama-1.1b": "tinyllama_1_1b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "deepseek-7b": "deepseek_7b",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
 
 ALL_ARCHS = list(_REGISTRY)

@@ -5,9 +5,10 @@ dense transformer core (RoPE, GQA, SwiGLU or GELU, RMSNorm or LayerNorm,
 sliding windows, QKV biases, tied or untied heads), the Mamba2 (SSD) block
 and Delphi's knobs.  Field names and defaults are the JAX package's, so
 the same values describe the same model in both.  The model code serves
-the dense family (Delphi and the generic dense LMs) and the pure SSM
-family (Mamba2) and raises ``NotImplementedError`` for the rest
-(``repro_torch.models.model``).
+the dense family (Delphi and the generic dense LMs), the pure SSM family
+(Mamba2) and the hybrid family (Zamba2: Mamba2 layers with a weight-shared
+attention block every ``attn_every`` layers) and raises
+``NotImplementedError`` for the rest (``repro_torch.models.model``).
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
-# Architecture families (the port serves DENSE and SSM)
+# Architecture families (the port serves DENSE, SSM and HYBRID)
 DENSE = "dense"
 MOE = "moe"
 SSM = "ssm"
@@ -95,9 +96,9 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: 2 layers, d_model 256, 4 heads (attention
-        models), SSM state 16 / head dim 32 / chunk 32 (SSM models), vocab
-        <= 512 (the JAX package's ``reduced()`` for the families this port
-        covers)."""
+        models), SSM state 16 / head dim 32 / chunk 32 (SSM models), the
+        shared block before every layer (hybrid), vocab <= 512 (the JAX
+        package's ``reduced()`` for the families this port covers)."""
         kw = dict(n_layers=2, d_model=256, head_dim=64, d_ff=512,
                   vocab_size=min(self.vocab_size, 512), max_seq_len=256)
         if self.n_heads:
@@ -105,6 +106,8 @@ class ModelConfig:
             kw["n_kv_heads"] = max(1, 4 // min(self.q_per_kv, 4))
         if self.ssm_state:
             kw.update(ssm_state=16, ssm_head_dim=32, ssm_chunk=32)
+        if self.attn_every:
+            kw.update(attn_every=1, n_layers=2)
         if self.sliding_window:
             kw["sliding_window"] = 64
         return self.replace(**kw)

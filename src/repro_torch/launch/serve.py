@@ -5,22 +5,26 @@
         [--prefill-chunk-tokens N] [--ckpt DIR] [--device cuda] \
         [--replicas N]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m ...
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+        [--max-context 4096] ...
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         [--max-context 1024] ...
 
 The command line of ``repro.launch.serve``, plus ``--device``, ``--cache``,
 ``--prefill-chunk-tokens`` and ``--max-context``.  The prompts are the
-first halves of synthetic patient histories for Delphi and Mamba2 (which
-reads their event ids as tokens and ignores the ages), and seeded random
-token ids of 16-128 tokens for a generic dense LM (TinyLlama, H2O-Danube,
-Qwen2.5, DeepSeek: their vocabularies are not the event vocabulary).  The
-engine's ``max_context`` is ``--max-context``, by default
-``cfg.max_seq_len`` (32,768 for the generic LMs: pass a smaller one to
-keep the ring small).  On ``cuda``
-activations run in ``cfg.dtype`` (bf16); on the CPU in fp32.  Parameters
-stay fp32 and come from ``--ckpt`` (a JAX ``params.npz`` checkpoint) or
-from ``init_params(seed)``.  ``--cache paged`` serves from a pool of
-16-token blocks with the ring's bytes (an attention model only), and
+first halves of synthetic patient histories for Delphi, Mamba2 and
+Zamba2 (which read their event ids as tokens and ignore the ages, as the
+JAX launcher serves every architecture), and seeded random token ids of
+16-128 tokens for a generic dense LM (TinyLlama, H2O-Danube, Qwen2.5,
+DeepSeek: their vocabularies are not the event vocabulary).  The engine's
+``max_context`` is ``--max-context``, by default ``cfg.max_seq_len``
+(32,768 for the generic LMs: pass a smaller one to keep the ring small;
+Zamba2's 1,048,576 costs nothing, its rings are the window's 4,096
+wide).  On ``cuda`` activations run in ``cfg.dtype`` (bf16); on the CPU
+in fp32.  Parameters stay fp32 and come from ``--ckpt`` (a JAX
+``params.npz`` checkpoint) or from ``init_params(seed)``.  ``--cache
+paged`` serves from a pool of 16-token blocks with the ring's bytes (an
+attention model only), and
 ``--prefill-chunk-tokens N`` prefills its prompts in chunks of at most N
 tokens a step between decode ticks (a multiple of the block size; refused
 without ``--cache paged``).  ``--replicas N`` shards the requests over N
@@ -39,7 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import ALL_ARCHS, SSM, get_config
+from repro_torch.configs import ALL_ARCHS, HYBRID, SSM, get_config
 from repro_torch.data import SimulatorConfig, generate_dataset
 from repro_torch.data import vocab as V
 from repro_torch.models import init_params, load_checkpoint
@@ -118,7 +122,7 @@ def serve(args: argparse.Namespace) -> Dict[str, Any]:
         seed=args.seed + i, cache=args.cache,
         prefill_chunk_tokens=args.prefill_chunk_tokens, device=device))
         for i in range(args.replicas)]
-    if cfg.arch_type == SSM or cfg.age_encoding:
+    if cfg.arch_type in (SSM, HYBRID) or cfg.age_encoding:
         # the first half of fresh synthetic patients (known history)
         trajs, _ = generate_dataset(SimulatorConfig(
             n_train=args.requests, n_val=1, seed=args.seed + 17))

@@ -13,11 +13,12 @@ checkpoint layout (``params.npz``, ``meta.json`` with the config) and
 repro_torch.serve.server --config ARCH --ckpt DIR``, the shapes from
 ``meta.json``) and the JAX package's ``restore`` and ``load_config`` read
 it.  ``--reduced`` Delphi keeps the simulator's full event vocabulary.
-A generic dense LM (``--arch tinyllama-1.1b`` and the others) trains the
-``lm`` objective on seeded random token ids.  Past 512 x 512 attention
-scores (``--arch delphi-100m --seq-len 1024``) attention takes the blocked
-online-softmax route with recompute (``models.attention``).  Mamba2's
-training route is not ported: ``--arch mamba2-780m`` raises.
+A generic LM (``--arch tinyllama-1.1b`` and the other dense LMs,
+``--arch mamba2-780m``, ``--arch zamba2-1.2b``) trains the ``lm``
+objective on seeded random token ids; Mamba2 layers take the plain SSD
+route (``models.ssm``).  Past 512 x 512 attention scores (``--arch
+delphi-100m --seq-len 1024``) attention takes the blocked online-softmax
+route with recompute (``models.attention``).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Model entry points: prefill, decode and the cache helpers of the serving
-engine (the JAX package's ``models/model.py``) for two families.
+engine (the JAX package's ``models/model.py``) for three families.
 
 Parameters are the flat dict of ``models.params``; layer ``l`` of a stacked
 leaf is ``params[key][l]``.
@@ -19,8 +19,17 @@ leaf is ``params[key][l]``.
 * Mamba2 (``arch_type="ssm"``): pre-RMSNorm Mamba2 blocks
   (``models.ssm``; prefill's intra-chunk SSD runs the ``ssd_intra``
   kernel), then the untied head.  Cache: ``{"ssm": SSMCache}``.
+* Zamba2 (``arch_type="hybrid"``): Mamba2's stack, with one weight-shared
+  transformer block (``shared_attn/*``) applied before every
+  ``cfg.attn_every``-th Mamba layer (:func:`n_attn_apps` applications,
+  each at the same absolute positions, RoPE included).  Cache:
+  ``{"ssm": SSMCache (L, ...), "attn": LayerCache (n_apps, ...)}``: one
+  ring per application, indexed by ``layer // attn_every``.
 
-The other families (MoE, hybrid, enc-dec, VLM, audio) raise
+Training (``forward(..., differentiable=True)``) takes plain torch ops in
+every family: ``attention.chunked_attention`` for attention and the plain
+SSD route of ``ssm.ssd_chunked`` for Mamba2 layers; no kernel has a
+backward.  The other families (MoE, enc-dec, VLM, audio) raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -55,17 +64,20 @@ MATMUL_KEYS = ("embed/embed", "embed/lm_head", "layers/attn/wq",
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not serve:
-    every family but the dense one (with any of its knobs) and Mamba2."""
-    if cfg.arch_type not in (cb.DENSE, cb.SSM):
+    every family but the dense one (with any of its knobs), Mamba2 and the
+    Mamba2/attention hybrid."""
+    if cfg.arch_type not in (cb.DENSE, cb.SSM, cb.HYBRID):
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: arch_type={cfg.arch_type}")
 
 
 def cast_params(params: Params, cfg: ModelConfig) -> Params:
     """The same parameters with the matrix-product weights cast once to the
-    activation dtype (what every forward would cast at use)."""
+    activation dtype (what every forward would cast at use); the hybrid's
+    shared block casts as a stacked layer does."""
     dt = act_dtype(cfg)
-    return {k: (v.to(dt) if k in MATMUL_KEYS else v)
+    return {k: (v.to(dt) if k.replace("shared_attn/", "layers/", 1)
+                in MATMUL_KEYS else v)
             for k, v in params.items()}
 
 
@@ -76,23 +88,41 @@ def _embed(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
     return x
 
 
-def _layer(params: Params, key: str, l: int) -> Optional[torch.Tensor]:
-    """Layer ``l`` of a stacked leaf, or None where the config has none."""
-    leaf = params.get(key)
-    return None if leaf is None else leaf[l]
+def n_attn_apps(cfg: ModelConfig) -> int:
+    """Hybrid: applications of the shared block over the layer stack."""
+    return -(-cfg.n_layers // cfg.attn_every)
 
 
-def _mlp_block(params: Params, x: torch.Tensor, l: int) -> torch.Tensor:
-    h = apply_norm(x, params["layers/mlp_norm/scale"][l],
-                   _layer(params, "layers/mlp_norm/bias", l))
-    if "layers/mlp/w_gate" in params:
-        return x + apply_swiglu(h, params["layers/mlp/w_gate"][l],
-                                params["layers/mlp/w_up"][l],
-                                params["layers/mlp/w_down"][l])
-    return x + apply_mlp(h, params["layers/mlp/w_fc"][l],
-                         params["layers/mlp/b_fc"][l],
-                         params["layers/mlp/w_proj"][l],
-                         params["layers/mlp/b_proj"][l])
+class Block:
+    """One transformer block's weights by their name inside the block
+    (``"attn/wq"``, ``"mlp_norm/scale"``, ...): layer ``l`` of the stacked
+    ``layers/*`` leaves, or, with ``l=None``, the hybrid's unstacked
+    ``shared_attn/*`` leaves, which every application reuses."""
+    __slots__ = ("params", "prefix", "l")
+
+    def __init__(self, params: Params, prefix: str = "layers/",
+                 l: Optional[int] = None):
+        self.params, self.prefix, self.l = params, prefix, l
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        leaf = self.params[self.prefix + name]
+        return leaf if self.l is None else leaf[self.l]
+
+    def __contains__(self, name: str) -> bool:
+        return self.prefix + name in self.params
+
+    def get(self, name: str) -> Optional[torch.Tensor]:
+        """The tensor, or None where the config has none."""
+        return self[name] if name in self else None
+
+
+def _mlp_block(blk: Block, x: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(x, blk["mlp_norm/scale"], blk.get("mlp_norm/bias"))
+    if "mlp/w_gate" in blk:
+        return x + apply_swiglu(h, blk["mlp/w_gate"], blk["mlp/w_up"],
+                                blk["mlp/w_down"])
+    return x + apply_mlp(h, blk["mlp/w_fc"], blk["mlp/b_fc"],
+                         blk["mlp/w_proj"], blk["mlp/b_proj"])
 
 
 def _head(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -104,12 +134,14 @@ def _head(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def mamba_layer(params: Params, x: torch.Tensor, cfg: ModelConfig, l: int, *,
-                mode: str, cache: Optional[SSMCache] = None):
+                mode: str, cache: Optional[SSMCache] = None,
+                differentiable: bool = False):
     """Layer ``l``: ``x + Mamba2(RMSNorm(x))``.  mode "train" returns the
-    new x; "prefill" (x, (h, conv)) of this layer; "decode" updates layer
-    ``l`` of ``cache`` in place and returns the new x."""
-    h = apply_norm(x, params["layers/norm/scale"][l],
-                   _layer(params, "layers/norm/bias", l))
+    new x (``differentiable`` takes the plain SSD route); "prefill" (x,
+    (h, conv)) of this layer; "decode" updates layer ``l`` of ``cache`` in
+    place and returns the new x."""
+    blk = Block(params, "layers/", l)
+    h = apply_norm(x, blk["norm/scale"], blk.get("norm/bias"))
     p = ssm_lib.layer_params(params, l)
     if mode == "decode":
         y, hs, conv = ssm_lib.ssm_decode_step(p, h, cache.h[l], cache.conv[l],
@@ -120,42 +152,39 @@ def mamba_layer(params: Params, x: torch.Tensor, cfg: ModelConfig, l: int, *,
     if mode == "prefill":
         y, state = ssm_lib.ssm_forward(p, h, cfg, return_state=True)
         return x + y, state
-    return x + ssm_lib.ssm_forward(p, h, cfg)
+    return x + ssm_lib.ssm_forward(p, h, cfg, differentiable=differentiable)
 
 
-def _ssm_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
-               mode: str):
-    """Prefill/train over the layer stack; prefill also returns the stacked
-    :class:`SSMCache`."""
-    if mode == "train":
-        for l in range(cfg.n_layers):
-            x = mamba_layer(params, x, cfg, l, mode="train")
-        return x, None
-    hs, convs = [], []
-    for l in range(cfg.n_layers):
-        x, (h, conv) = mamba_layer(params, x, cfg, l, mode="prefill")
-        hs.append(h)
-        convs.append(conv)
-    return x, SSMCache(h=torch.stack(hs), conv=torch.stack(convs))
-
-
-def _qkv(params: Params, cfg: ModelConfig, x: torch.Tensor, l: int,
+def _qkv(blk: Block, cfg: ModelConfig, x: torch.Tensor,
          positions: torch.Tensor):
-    """Layer ``l``'s pre-norm and QKV projection (with its biases); with
-    RoPE (``not cfg.age_encoding``) q and k are rotated at the absolute
+    """A block's pre-norm and QKV projection (with its biases); with RoPE
+    (``not cfg.age_encoding``) q and k are rotated at the absolute
     ``positions`` (broadcastable to (B, S)) before any cache write."""
-    h = apply_norm(x, params["layers/attn_norm/scale"][l],
-                   _layer(params, "layers/attn_norm/bias", l))
-    q, k, v = attn.project_qkv(h, params["layers/attn/wq"][l],
-                               params["layers/attn/wk"][l],
-                               params["layers/attn/wv"][l],
-                               _layer(params, "layers/attn/bq", l),
-                               _layer(params, "layers/attn/bk", l),
-                               _layer(params, "layers/attn/bv", l))
+    h = apply_norm(x, blk["attn_norm/scale"], blk.get("attn_norm/bias"))
+    q, k, v = attn.project_qkv(h, blk["attn/wq"], blk["attn/wk"],
+                               blk["attn/wv"], blk.get("attn/bq"),
+                               blk.get("attn/bk"), blk.get("attn/bv"))
     if not cfg.age_encoding:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _attn_block(blk: Block, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, differentiable: bool):
+    """A whole pre-norm transformer block over a full sequence: causal
+    attention (the flash kernel, or ``chunked_attention`` on the training
+    route) within the config's window, then the MLP.  Returns (x, k, v):
+    k and v for a prefill's ring."""
+    q, k, v = _qkv(blk, cfg, x, positions)
+    if differentiable:
+        o = attn.chunked_attention(q, k, v, positions, positions,
+                                   causal=True, window=cfg.sliding_window,
+                                   q_per_kv=cfg.q_per_kv)
+    else:
+        o = attn.prefill_attention(q, k, v, window=cfg.sliding_window)
+    x = x + attn.output_projection(o, blk["attn/wo"])
+    return _mlp_block(blk, x), k, v
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
@@ -163,68 +192,74 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
             last_index: Optional[torch.Tensor] = None,
             differentiable: bool = False) -> Dict[str, Any]:
     """mode "train": (B, S, V) fp32 logits at every position.  With
-    ``differentiable=True`` (mode "train" only) attention takes the plain
+    ``differentiable=True`` (mode "train" only) the forward takes plain
+    torch ops that autograd can go through (the training route; the
+    kernels have no backward): attention by
     :func:`~repro_torch.models.attention.chunked_attention` instead of the
-    flash kernel, so the logits can be differentiated (the training route;
-    the kernels have no backward).  Mamba2's differentiable route (the JAX
-    package's ``ssd_chunked`` in plain ops) is not ported: it raises.
+    flash kernel, and Mamba2 layers by the plain SSD route instead of the
+    ``ssd_intra`` kernel.
     mode "prefill": logits (B, 1, V) at ``last_index`` (B,) — each row's
     last valid token of a right-padded batch — or at the last position,
     plus ``cache``: {"self": LayerCache} rings of width ``cache_width``
-    (default: the window where the config has one, else S, as JAX) or
+    (default: the window where the config has one, else S, as JAX),
     {"ssm": SSMCache} (Mamba2: the state after the whole sequence, so its
-    rows must not be right-padded).
+    rows must not be right-padded) or both kinds for the hybrid
+    ({"ssm", "attn"}: one ring per application of the shared block).
 
     batch: tokens (B, S) int, and for Delphi ages (B, S) float years."""
     check_supported(cfg)
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be 'train' or 'prefill': {mode!r}")
-    if differentiable:
-        if mode != "train":
-            raise ValueError("differentiable=True is the training route: "
-                             "mode 'train' only")
-        if cfg.arch_type == cb.SSM:
-            raise NotImplementedError(
-                f"{cfg.name}: training Mamba2 is not ported yet: its "
-                f"differentiable route (the JAX package's ssd_chunked in "
-                f"plain ops) is still to port, and the ssd_intra kernel "
-                f"has no backward")
+    if differentiable and mode != "train":
+        raise ValueError("differentiable=True is the training route: "
+                         "mode 'train' only")
     x = _embed(params, cfg, batch)
     B, S = x.shape[:2]
     out: Dict[str, Any] = {}
-    if cfg.arch_type == cb.SSM:
-        x, ssm_cache = _ssm_stack(params, x, cfg, mode=mode)
-        if mode == "prefill":
-            x = _last_rows(x, last_index)
-            out["cache"] = {"ssm": ssm_cache}
-        out["logits"] = _head(params, x)
-        return out
+    prefill = mode == "prefill"
+    t = cfg.arch_type
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
-    cache = None
-    win = cfg.sliding_window
-    if mode == "prefill":
+    cache, ssm_cache = None, None
+    if prefill and t != cb.SSM:
+        win = cfg.sliding_window
         W = cache_width or (win if win is not None else S)
-        cache = attn.empty_cache(cfg.n_layers, B, cfg.n_kv_heads, W,
-                                 cfg.head_dim, x.dtype, x.device)
-    for l in range(cfg.n_layers):
-        q, k, v = _qkv(params, cfg, x, l, positions)
-        if differentiable:
-            o = attn.chunked_attention(q, k, v, positions, positions,
-                                       causal=True, window=win,
-                                       q_per_kv=cfg.q_per_kv)
-        else:
-            o = attn.prefill_attention(q, k, v, window=win)
-        x = x + attn.output_projection(o, params["layers/attn/wo"][l])
-        x = _mlp_block(params, x, l)
+        n = cfg.n_layers if t == cb.DENSE else n_attn_apps(cfg)
+        cache = attn.empty_cache(n, B, cfg.n_kv_heads, W, cfg.head_dim,
+                                 x.dtype, x.device)
+
+    def attend(blk: Block, x, i: int):
+        """Block ``blk`` over x; a prefill writes its ring ``i``."""
+        x, k, v = _attn_block(blk, cfg, x, positions, differentiable)
         if cache is not None:
             ring = attn.cache_from_prefill(k, v, positions, cache.k.shape[3])
-            cache.k[l] = ring.k
-            cache.v[l] = ring.v
-            cache.pos[l] = ring.pos
-    if mode == "prefill":
+            cache.k[i] = ring.k
+            cache.v[i] = ring.v
+            cache.pos[i] = ring.pos
+        return x
+    if t == cb.DENSE:
+        for l in range(cfg.n_layers):
+            x = attend(Block(params, "layers/", l), x, l)
+    else:
+        shared = Block(params, "shared_attn/")
+        hs, convs = [], []
+        for l in range(cfg.n_layers):
+            if t == cb.HYBRID and l % cfg.attn_every == 0:
+                x = attend(shared, x, l // cfg.attn_every)
+            if prefill:
+                x, (h, conv) = mamba_layer(params, x, cfg, l, mode="prefill")
+                hs.append(h)
+                convs.append(conv)
+            else:
+                x = mamba_layer(params, x, cfg, l, mode="train",
+                                differentiable=differentiable)
+        if prefill:
+            ssm_cache = SSMCache(h=torch.stack(hs), conv=torch.stack(convs))
+    if prefill:
         x = _last_rows(x, last_index)
-        out["cache"] = {"self": cache}
+        out["cache"] = ({"self": cache} if t == cb.DENSE else
+                        {"ssm": ssm_cache} if t == cb.SSM else
+                        {"ssm": ssm_cache, "attn": cache})
     out["logits"] = _head(params, x)
     return out
 
@@ -257,12 +292,13 @@ def forward_suffix(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     for l in range(cfg.n_layers):
         # RoPE at the chunk's absolute positions: its K is byte-compatible
         # with the cached context's
-        q, k, v = _qkv(params, cfg, x, l, positions)
+        blk = Block(params, "layers/", l)
+        q, k, v = _qkv(blk, cfg, x, positions)
         o = attn.suffix_attention(q, k, v, ctx["k"][l], ctx["v"][l],
                                   positions, ctx["pos"],
                                   window=cfg.sliding_window)
-        x = x + attn.output_projection(o, params["layers/attn/wo"][l])
-        x = _mlp_block(params, x, l)
+        x = x + attn.output_projection(o, blk["attn/wo"])
+        x = _mlp_block(blk, x)
         ks.append(k)
         vs.append(v)
     x = _last_rows(x, last_index)
@@ -290,7 +326,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
     "cache": cache}."""
     check_supported(cfg)
     x = _embed(params, cfg, batch)
-    if cfg.arch_type == cb.SSM:
+    t = cfg.arch_type
+    if t == cb.SSM:
         sc: SSMCache = cache["ssm"]
         for l in range(cfg.n_layers):
             x = mamba_layer(params, x, cfg, l, mode="decode", cache=sc)
@@ -299,7 +336,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
     step = torch.as_tensor(step, dtype=torch.int32, device=x.device)
     if step.dim() == 0:
         step = step.expand(B)
-    lc = cache["self"]
+    lc = cache["self"] if t == cb.DENSE else cache["attn"]
     win = cfg.sliding_window
     if isinstance(lc, PagedCache):
         # one position write a tick for all layers; per layer the pool
@@ -310,6 +347,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
             return attn.paged_decode_layer_attention(q, k, v, lc, l, dst,
                                                      off, step, window=win)
     else:
+        # one position write a tick for every ring (a layer's, or a shared
+        # block application's)
         slot = attn.write_ring_positions(lc, step)
         table = torch.arange(B, dtype=torch.int32, device=x.device)[:, None]
 
@@ -317,11 +356,23 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
             return attn.ring_decode_attention(q, k, v, lc, l, slot, step,
                                               table, window=win)
     pos1 = step[:, None]                # each row's own position (B, 1)
-    for l in range(cfg.n_layers):
-        q, k, v = _qkv(params, cfg, x, l, pos1)
-        o = attend(q, k, v, l)
-        x = x + attn.output_projection(o, params["layers/attn/wo"][l])
-        x = _mlp_block(params, x, l)
+
+    def block(blk: Block, x, i: int):
+        q, k, v = _qkv(blk, cfg, x, pos1)
+        o = attend(q, k, v, i)
+        x = x + attn.output_projection(o, blk["attn/wo"])
+        return _mlp_block(blk, x)
+    if t == cb.DENSE:
+        for l in range(cfg.n_layers):
+            x = block(Block(params, "layers/", l), x, l)
+    else:
+        shared = Block(params, "shared_attn/")
+        sc = cache["ssm"]
+        for l in range(cfg.n_layers):
+            if l % cfg.attn_every == 0:
+                # the application's ring, not the Mamba layer's index
+                x = block(shared, x, l // cfg.attn_every)
+            x = mamba_layer(params, x, cfg, l, mode="decode", cache=sc)
     return {"logits": _head(params, x), "cache": cache}
 
 
@@ -341,20 +392,36 @@ def mask_padded_positions(cache, last_idx: torch.Tensor):
     return {k: fix(v) for k, v in cache.items()}
 
 
+def ring_width(cfg: ModelConfig, context_len: int) -> int:
+    """The decode ring's width: ``context_len``, or the sliding window
+    where it is narrower (older tokens are masked out by the window, so a
+    wider ring would only hold them), as the JAX package's
+    ``make_decode_cache``."""
+    return min(cfg.sliding_window or context_len, context_len)
+
+
 def make_decode_cache(params: Params, cfg: ModelConfig, batch: int,
                       context_len: int):
     """An empty decode cache for ``batch`` slots on the parameters' device:
-    Delphi's ring of width ``context_len`` in the activation dtype, or
+    a ring of :func:`ring_width` per layer in the activation dtype (dense),
     Mamba2's constant-size state (fp32 ``h``, conv inputs in the activation
-    dtype), which does not depend on ``context_len``."""
+    dtype), which does not depend on ``context_len``, or the hybrid's
+    state per Mamba layer and ring per shared-block application."""
     check_supported(cfg)
     device = params["embed/embed"].device
-    if cfg.arch_type == cb.SSM:
-        return {"ssm": ssm_lib.empty_ssm_cache(cfg, cfg.n_layers, batch,
-                                               act_dtype(cfg), device)}
-    return {"self": attn.empty_cache(cfg.n_layers, batch, cfg.n_kv_heads,
-                                     context_len, cfg.head_dim,
-                                     act_dtype(cfg), device)}
+    dt = act_dtype(cfg)
+    W = ring_width(cfg, context_len)
+    if cfg.arch_type == cb.DENSE:
+        return {"self": attn.empty_cache(cfg.n_layers, batch,
+                                         cfg.n_kv_heads, W, cfg.head_dim,
+                                         dt, device)}
+    out = {"ssm": ssm_lib.empty_ssm_cache(cfg, cfg.n_layers, batch, dt,
+                                          device)}
+    if cfg.arch_type == cb.HYBRID:
+        out["attn"] = attn.empty_cache(n_attn_apps(cfg), batch,
+                                       cfg.n_kv_heads, W, cfg.head_dim, dt,
+                                       device)
+    return out
 
 
 def make_paged_decode_cache(params: Params, cfg: ModelConfig, batch: int,

@@ -31,6 +31,15 @@ Mamba2 (SSM, RMSNorm, untied head; di = d_inner, ch = di + 2N):
     layers/ssm/{A_log,dt_bias,D} (L, H)        layers/ssm/norm_scale (L, di)
     layers/ssm/out_proj (L, di, d)
 
+Zamba2 (hybrid): Mamba2's ``embed/*``, ``final_norm/*``, ``layers/norm/*``
+and ``layers/ssm/*`` stacked over its L Mamba layers, and one transformer
+block shared by every application, unstacked (no layer axis):
+
+    shared_attn/{attn_norm,mlp_norm}/scale (d,)
+    shared_attn/attn/wq (d, H, hd)  shared_attn/attn/{wk,wv} (d, Hkv, hd)
+    shared_attn/attn/wo (H, hd, d)
+    shared_attn/mlp/{w_gate,w_up} (d, ff)   shared_attn/mlp/w_down (ff, d)
+
 The same weights therefore load into both packages, which is what the
 parity tests and the serving CLI's ``--ckpt`` rest on.
 """
@@ -43,7 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import SSM, ModelConfig
+from repro_torch.configs.base import HYBRID, SSM, ModelConfig
 
 Params = Dict[str, torch.Tensor]
 
@@ -51,8 +60,9 @@ Params = Dict[str, torch.Tensor]
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     """Key -> shape of every parameter: the dense family (pre-norm
     transformer blocks whose norm, MLP, QKV biases and head follow the
-    config's knobs) or, for ``arch_type="ssm"``, a stack of Mamba2 blocks
-    with an untied head."""
+    config's knobs), for ``arch_type="ssm"`` a stack of Mamba2 blocks with
+    an untied head, and for ``arch_type="hybrid"`` that stack and one
+    shared transformer block (``shared_attn/*``, no layer axis)."""
     d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab_size
     norm_keys = ("scale",) if cfg.norm == "rmsnorm" else ("scale", "bias")
     shapes = {"embed/embed": (V, d)}
@@ -62,7 +72,7 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         shapes["embed/out_bias"] = (V,)
     for k in norm_keys:
         shapes[f"final_norm/{k}"] = (d,)
-    if cfg.arch_type == SSM:
+    if cfg.arch_type in (SSM, HYBRID):
         di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_n_heads
         ch = di + 2 * N
         for k in norm_keys:
@@ -77,30 +87,35 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
             "layers/ssm/norm_scale": (L, di),
             "layers/ssm/out_proj": (L, di, d),
         })
+        if cfg.arch_type == HYBRID:
+            shapes.update(_block_shapes(cfg, "shared_attn/", ()))
         return shapes
-    H, Hkv, hd, ff = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
-    for norm in ("attn_norm", "mlp_norm"):
-        for k in norm_keys:
-            shapes[f"layers/{norm}/{k}"] = (L, d)
-    shapes.update({
-        "layers/attn/wq": (L, d, H, hd),
-        "layers/attn/wk": (L, d, Hkv, hd),
-        "layers/attn/wv": (L, d, Hkv, hd),
-        "layers/attn/wo": (L, H, hd, d),
-    })
+    shapes.update(_block_shapes(cfg, "layers/", (L,)))
+    return shapes
+
+
+def _block_shapes(cfg: ModelConfig, prefix: str, lead: Tuple[int, ...]
+                  ) -> Dict[str, Tuple[int, ...]]:
+    """A pre-norm transformer block's parameters under ``prefix``, each
+    with the leading axes ``lead`` (``(L,)`` for a stack, ``()`` for the
+    hybrid's shared block)."""
+    d, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd, ff = cfg.head_dim, cfg.d_ff
+    norm_keys = ("scale",) if cfg.norm == "rmsnorm" else ("scale", "bias")
+    shapes = {f"{prefix}{norm}/{k}": lead + (d,)
+              for norm in ("attn_norm", "mlp_norm") for k in norm_keys}
+    block = {"attn/wq": (d, H, hd), "attn/wk": (d, Hkv, hd),
+             "attn/wv": (d, Hkv, hd), "attn/wo": (H, hd, d)}
     if cfg.qkv_bias:
-        shapes.update({"layers/attn/bq": (L, H, hd),
-                       "layers/attn/bk": (L, Hkv, hd),
-                       "layers/attn/bv": (L, Hkv, hd)})
+        block.update({"attn/bq": (H, hd), "attn/bk": (Hkv, hd),
+                      "attn/bv": (Hkv, hd)})
     if cfg.activation == "swiglu":
-        shapes.update({"layers/mlp/w_gate": (L, d, ff),
-                       "layers/mlp/w_up": (L, d, ff),
-                       "layers/mlp/w_down": (L, ff, d)})
+        block.update({"mlp/w_gate": (d, ff), "mlp/w_up": (d, ff),
+                      "mlp/w_down": (ff, d)})
     else:
-        shapes.update({"layers/mlp/w_fc": (L, d, ff),
-                       "layers/mlp/b_fc": (L, ff),
-                       "layers/mlp/w_proj": (L, ff, d),
-                       "layers/mlp/b_proj": (L, d)})
+        block.update({"mlp/w_fc": (d, ff), "mlp/b_fc": (ff,),
+                      "mlp/w_proj": (ff, d), "mlp/b_proj": (d,)})
+    shapes.update({prefix + k: lead + v for k, v in block.items()})
     return shapes
 
 
@@ -151,43 +166,45 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
                 * np.float32(scale))
 
     flat: Dict[str, np.ndarray] = {}
-    for key, shape in param_shapes(cfg).items():
+    for full, shape in param_shapes(cfg).items():
+        # the shared block initialises as a layer of a stack does
+        key = full.replace("shared_attn/", "layers/", 1)
         if key == "embed/embed":
-            flat[key] = normal(shape, 0.02)
+            flat[full] = normal(shape, 0.02)
         elif key == "embed/out_bias":
             # logits are log-hazards (1/years): start rates low so the total
             # rate sum e^logit is O(0.1/yr), not O(vocab)
-            flat[key] = np.full(shape, -8.0, np.float32)
+            flat[full] = np.full(shape, -8.0, np.float32)
         elif key in ("embed/lm_head", "layers/ssm/in_proj"):
-            flat[key] = normal(shape, d ** -0.5)
+            flat[full] = normal(shape, d ** -0.5)
         elif key == "layers/ssm/conv_w":
-            flat[key] = normal(shape, cfg.ssm_conv ** -0.5)
+            flat[full] = normal(shape, cfg.ssm_conv ** -0.5)
         elif key == "layers/ssm/out_proj":
-            flat[key] = normal(shape, di ** -0.5)
+            flat[full] = normal(shape, di ** -0.5)
         elif key == "layers/ssm/A_log":
             a_log = np.log(np.linspace(1.0, 16.0, Hs, dtype=np.float32))
-            flat[key] = np.broadcast_to(a_log, shape).astype(np.float32)
+            flat[full] = np.broadcast_to(a_log, shape).astype(np.float32)
         elif key == "layers/ssm/dt_bias":     # softplus^-1(0.01)
-            flat[key] = np.full(shape, np.log(np.expm1(np.float32(0.01))),
-                                np.float32)
+            flat[full] = np.full(shape, np.log(np.expm1(np.float32(0.01))),
+                                 np.float32)
         elif key in ("layers/ssm/D", "layers/ssm/norm_scale") \
                 or key.endswith("/scale"):
-            flat[key] = np.ones(shape, np.float32)
+            flat[full] = np.ones(shape, np.float32)
         elif key == "layers/ssm/conv_b":
-            flat[key] = np.zeros(shape, np.float32)
+            flat[full] = np.zeros(shape, np.float32)
         elif key.endswith("/bias") or key.startswith("layers/mlp/b_") \
                 or key in ("layers/attn/bq", "layers/attn/bk",
                            "layers/attn/bv"):
-            flat[key] = np.zeros(shape, np.float32)
+            flat[full] = np.zeros(shape, np.float32)
         elif key in ("layers/attn/wq", "layers/attn/wk", "layers/attn/wv"):
-            flat[key] = normal(shape, d ** -0.5)
+            flat[full] = normal(shape, d ** -0.5)
         elif key == "layers/attn/wo":
-            flat[key] = normal(shape, (H * hd) ** -0.5)
+            flat[full] = normal(shape, (H * hd) ** -0.5)
         elif key in ("layers/mlp/w_fc", "layers/mlp/w_gate",
                      "layers/mlp/w_up"):
-            flat[key] = normal(shape, d ** -0.5)
+            flat[full] = normal(shape, d ** -0.5)
         elif key in ("layers/mlp/w_proj", "layers/mlp/w_down"):
-            flat[key] = normal(shape, ff ** -0.5)
+            flat[full] = normal(shape, ff ** -0.5)
         else:
-            raise AssertionError(f"no initializer for {key}")
+            raise AssertionError(f"no initializer for {full}")
     return from_jax_flat(flat, cfg, dev)

@@ -9,8 +9,11 @@ The SSD formulation of arXiv:2405.21060 with n_groups = 1:
 Prefill runs the chunked algorithm: the intra-chunk quadratic term and the
 chunk states go through the ``ssd_intra`` kernel (``kernels.ops``); the
 inter-chunk recurrence over chunk states and the off-diagonal term stay
-plain PyTorch (a Python loop over chunks, O(S / Q)).  Decode is the O(1)
-recurrent step against a constant-size state.
+plain PyTorch (a Python loop over chunks, O(S / Q)).  Training takes the
+differentiable route of the same algorithm (``differentiable=True``): the
+intra-chunk term and the chunk states in plain fp32 ops, as the JAX
+package's ``ssd_chunked`` computes them, since the kernel has no backward.
+Decode is the O(1) recurrent step against a constant-size state.
 
 Numerics follow the JAX code, including where it rounds: the depthwise
 conv is four unrolled adds in the activation dtype, ``ssd_chunked``
@@ -51,13 +54,41 @@ def _causal_depthwise_conv(x, w, b):
     return out + b
 
 
-def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None
+def _intra_plain(xdt, Bm, Cm, cum):
+    """The intra-chunk term and the chunk states in plain, differentiable
+    fp32 ops (the JAX package's ``ssd_chunked`` body).  xdt (b, c, Q, H,
+    P) fp32; Bm, Cm (b, c, Q, N); cum (b, c, Q, H).  Returns (y_diag
+    (b, c, Q, H, P), states (b, c, H, N, P)).
+
+    ``exp`` is taken only where i >= j: above the diagonal the exponent is
+    positive, and an overflow there would turn the masked product's
+    gradient into NaN (JAX's ``where(tri, exp(seg), 0)`` gives the same
+    values but not that guarantee)."""
+    Q = xdt.shape[2]
+    Bc, Cc = Bm.float(), Cm.float()
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=xdt.device).tril()
+    tri = tri[None, None, :, :, None]
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]           # (b,c,i,j,H)
+    zero = torch.zeros((), dtype=seg.dtype, device=seg.device)
+    L = torch.where(tri, torch.exp(torch.where(tri, seg, zero)), zero)
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    y_diag = torch.einsum("bcijh,bcjhp->bcihp", scores[..., None] * L, xdt)
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)              # (b,c,Q,H)
+    states = torch.einsum("bcjn,bcjhp->bchnp", Bc,
+                          decay_to_end[..., None] * xdt)
+    return y_diag, states
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None,
+                differentiable: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan.
 
     x: (B, S, H, P); dt: (B, S, H) (post-softplus); A: (H,) negative;
     Bm, Cm: (B, S, N).  Returns (y (B, S, H, P) in x's dtype, h_last
-    (B, H, N, P) fp32).  S must be a multiple of ``chunk`` (callers pad)."""
+    (B, H, N, P) fp32).  S must be a multiple of ``chunk`` (callers pad).
+    The intra-chunk term runs the ``ssd_intra`` kernel, or with
+    ``differentiable=True`` plain fp32 ops (the training route)."""
     b, s, H, P = x.shape
     N = Bm.shape[-1]
     Q = chunk
@@ -68,11 +99,15 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None
     dtA = (dt.float() * A.float()).reshape(b, c, Q, H)            # negative
     cum = torch.cumsum(dtA, dim=2)                                 # (b,c,Q,H)
 
-    # intra-chunk term and chunk states: the kernel, with B and C read once
-    # per batch row (a stride-0 head axis), in their own dtype
-    Bc = Bm.reshape(b, c, Q, 1, N).expand(b, c, Q, H, N)
-    Cc = Cm.reshape(b, c, Q, 1, N).expand(b, c, Q, H, N)
-    y_diag, states = ops.ssd_intra_heads(xdt, Bc, Cc, cum)
+    if differentiable:
+        y_diag, states = _intra_plain(xdt, Bm.reshape(b, c, Q, N),
+                                      Cm.reshape(b, c, Q, N), cum)
+    else:
+        # the kernel, with B and C read once per batch row (a stride-0
+        # head axis), in their own dtype
+        Bc = Bm.reshape(b, c, Q, 1, N).expand(b, c, Q, H, N)
+        Cc = Cm.reshape(b, c, Q, 1, N).expand(b, c, Q, H, N)
+        y_diag, states = ops.ssd_intra_heads(xdt, Bc, Cc, cum)
     chunk_decay = torch.exp(cum[:, :, -1, :])                      # (b,c,H)
 
     # inter-chunk recurrence: the state entering each chunk
@@ -111,11 +146,13 @@ def _dt_and_A(dt_raw, p):
     return dt, A
 
 
-def ssm_forward(p, x, cfg: ModelConfig, h0=None, return_state: bool = False):
+def ssm_forward(p, x, cfg: ModelConfig, h0=None, return_state: bool = False,
+                differentiable: bool = False):
     """Full-sequence Mamba2 block.  ``p``: one layer's ``layers/ssm/*``
     tensors keyed by their last name; x: (B, S, d_model).  With
     ``return_state`` also returns this layer's (h (B, H, N, P) fp32,
-    conv (B, conv, ch)) decode state."""
+    conv (B, conv, ch)) decode state.  ``differentiable=True`` takes the
+    plain SSD route (:func:`ssd_chunked`), which autograd can go through."""
     dt_act = x.dtype
     B_, S, _ = x.shape
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_n_heads, cfg.ssm_head_dim
@@ -138,7 +175,8 @@ def ssm_forward(p, x, cfg: ModelConfig, h0=None, return_state: bool = False):
     else:
         xh_p, dt_p, Bm_p, Cm_p = xh, dt, Bm, Cm
 
-    y, h_last = ssd_chunked(xh_p, dt_p, A, Bm_p, Cm_p, Q, h0=h0)
+    y, h_last = ssd_chunked(xh_p, dt_p, A, Bm_p, Cm_p, Q, h0=h0,
+                            differentiable=differentiable)
     y = y[:, :S]
     y = y + p["D"].to(y.dtype)[:, None] * xh
     y = y.reshape(B_, S, di)

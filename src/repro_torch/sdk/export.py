@@ -43,9 +43,11 @@ import torch
 
 from repro_torch.configs import base as cb
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import (decode_step, forward, make_decode_cache,
-                                mask_padded_positions, to_flat_numpy)
+from repro_torch.models import attention as attn
+from repro_torch.models import (decode_step, forward, mask_padded_positions,
+                                to_flat_numpy)
 from repro_torch.models.attention import LayerCache
+from repro_torch.models.layers import act_dtype
 from repro_torch.models.model import check_supported
 from repro_torch.models.ssm import SSMCache
 from repro_torch.sdk.manifest import (SPEC_V1, SPEC_V2, build_manifest,
@@ -196,12 +198,13 @@ class _Graph(torch.nn.Module):
 
 
 def _check_exportable(cfg: ModelConfig) -> None:
-    if cfg.arch_type == cb.SSM:
+    if cfg.arch_type in (cb.SSM, cb.HYBRID):
         raise NotImplementedError(
             f"{cfg.name}: export_model exports the dense family only: a "
-            f"Mamba2 recurrent state cannot take the right-padded "
-            f"fixed-shape prompt of the artifact's graphs (the state after "
-            f"the padding is not the state after the prompt)")
+            f"Mamba2 recurrent state (arch_type={cfg.arch_type}) cannot "
+            f"take the right-padded fixed-shape prompt of the artifact's "
+            f"graphs (the state after the padding is not the state after "
+            f"the prompt)")
     if cfg.arch_type != cb.DENSE:
         raise NotImplementedError(
             f"{cfg.name}: export_model exports the dense family only; "
@@ -270,7 +273,12 @@ def export_model(params, cfg: ModelConfig, out_dir: str, *,
     if spec_version == SPEC_V2:
         last = torch.zeros((1,), dtype=torch.int32)
         _export_graph(fns["prefill"], full_args + (last,), PREFILL_GRAPH)
-        leaves = _leaves(make_decode_cache(p, cfg, 1, S))
+        # the prefill graph's ring is S wide, whatever the window: a
+        # right-padded prompt longer than the window would evict its own
+        # context from a narrower ring.  The decode graph takes that ring.
+        leaves = _leaves({"self": attn.empty_cache(
+            cfg.n_layers, 1, cfg.n_kv_heads, S, cfg.head_dim, act_dtype(cfg),
+            p["embed/embed"].device)})
         token = torch.zeros((1, 1), dtype=torch.int32)
         age = torch.zeros((1, 1), dtype=torch.float32)
         step_args = (token, age, last) if delphi else (token, last)

@@ -1,7 +1,7 @@
 """Batched serving engine: device-resident continuous batching over a
 per-slot ring KV cache or a paged block pool (the JAX package's
 ``serve/engine.py``), for Delphi and for generic LMs (the dense LMs with
-RoPE, and Mamba2).
+RoPE, Mamba2, and the Mamba2/attention hybrid Zamba2).
 
 * Each tick runs ONE batched ``decode_step`` over all slots, each at its own
   absolute position, then samples, then ``advance_trajectory_state``
@@ -20,8 +20,10 @@ RoPE, and Mamba2).
   buckets and admission groups to power-of-two batch buckets, the prefill
   builds rings of width ``max_context``, padded positions are invalidated
   (``mask_padded_positions``) and the rows are inserted into the slot ring
-  or copied into pool blocks.  Recurrent state (SSM) cannot mask padding,
-  so such a model admits each prompt solo at its exact length.
+  (repacked to its width: the window, where narrower) or copied into pool
+  blocks.  Recurrent state (SSM, and the hybrid's Mamba layers) cannot
+  mask padding, so such a model admits each prompt solo at its exact
+  length.
 * ``cache="paged"``: a shared pool of ``block_size``-token blocks with a
   table per slot.  Admission is budgeted by free blocks, decode grows a
   slot a block at a time, a write into a block shared with another owner
@@ -36,7 +38,9 @@ RoPE, and Mamba2).
   (paged) or copy its ring row (ring), each sampling its own first event
   from the parent's prefill logits (:func:`_fork_rows_core`).  A recurrent
   model's parent keeps its state as admitted, which the fork copies: the
-  batched tick advances every row's state, a parked one's too.
+  batched tick advances every row's state, a parked one's too.  A
+  hybrid's parent keeps its Mamba state so, and its attention rings are
+  forked as any ring row, positions past the prompt masked.
 * ``prefill_chunk_tokens`` (paged only): chunked prefill.  Admission
   stages a prompt (its blocks allocated, any indexed prefix shared by
   reference) and the prompt's unmatched suffix is prefilled between decode
@@ -93,8 +97,8 @@ from repro_torch.core.sampler import (advance_trajectory_state,
 from repro_torch.models import (cast_params, decode_step, forward,
                                 forward_suffix, make_decode_cache,
                                 make_paged_decode_cache,
-                                mask_padded_positions)
-from repro_torch.models.attention import gather_context
+                                mask_padded_positions, ring_width)
+from repro_torch.models.attention import LayerCache, gather_context
 from repro_torch.serve.prefix import PrefixIndex, SharedBlockPool
 
 
@@ -198,6 +202,10 @@ class BlockAllocator:
 
 
 MIN_SEQ_BUCKET = 8       # smallest padded prompt width of a prefill
+# right-padding a prefill is sound only where padded positions can be
+# masked out of the state: KV-cache attention (pos = -1), not recurrent SSM
+# state (Mamba2, the hybrid), which admits unbucketed
+_BUCKETED = (cb.DENSE, cb.MOE, cb.VLM)
 
 
 def _next_pow2(n: int) -> int:
@@ -213,9 +221,15 @@ def _seq_bucket(n: int) -> int:
 # fork oracle (``serve.prefix.ring_reference_futures``) runs the same code.
 # ---------------------------------------------------------------------------
 class _Knobs(NamedTuple):
-    """The engine's static sampling and termination parameters."""
+    """The engine's static sampling and termination parameters, and the
+    width of the rings a prefill builds: ``max_context`` for an attention
+    model (its right-padded bucket must not evict its own context from a
+    narrower ring; the slot ring takes the rows repacked to its width,
+    :func:`_insert_rows`), the slot ring's own width for a hybrid, which
+    admits at its exact length."""
     slots: int
     max_context: int
+    prefill_width: int
     is_delphi: bool
     inv_temp: float
     max_age: float
@@ -226,6 +240,9 @@ class _Knobs(NamedTuple):
     def of(cls, cfg: ModelConfig, slots: int, max_context: int,
            temperature: float) -> "_Knobs":
         return cls(slots=slots, max_context=max_context,
+                   prefill_width=(
+                       max_context if cfg.arch_type in _BUCKETED
+                       else ring_width(cfg, max_context)),
                    is_delphi=cfg.age_encoding,
                    inv_temp=1.0 / max(temperature, 1e-6),
                    max_age=cfg.max_age, death_token=cfg.death_token,
@@ -289,7 +306,7 @@ def _prefill_core(params, tokens, ages, last_idx, age0, lengths, max_new, u,
     if cfg.age_encoding:
         batch["ages"] = ages
     out = forward(params, cfg, batch, mode="prefill",
-                  cache_width=kn.max_context, last_index=last_idx)
+                  cache_width=kn.prefill_width, last_index=last_idx)
     cache_rows = mask_padded_positions(out["cache"], last_idx)
     lg = out["logits"][:, 0]
     rows, packed = _fork_rows_core(lg, u, age0, lengths, max_new, kn)
@@ -323,24 +340,47 @@ def _commit(state, ids: torch.Tensor, rows, n: int) -> None:
         state[key][ids] = val[:n].to(state[key].dtype)
 
 
+def _rering(rows: LayerCache, width: int) -> LayerCache:
+    """Prefill rings (L, n, Hkv, W', hd) repacked into rings of ``width``
+    <= W': slot i takes the latest position p = i (mod width) of its row
+    (positions past a row's last token are -1 already), as a prefill of
+    that width would have packed it.  The source ring holds the row's
+    last W' positions, so every such p lies in it, at slot p % W'."""
+    L, n, Hkv, Wp, hd = rows.k.shape
+    hi = rows.pos[0].amax(dim=-1, keepdim=True).long()         # (n, 1)
+    i = torch.arange(width, device=hi.device)
+    p = hi - torch.remainder(hi - i, width)                     # (n, width)
+    src = torch.remainder(p, Wp)[None, :, None, :, None].expand(
+        L, n, Hkv, width, hd)
+    pos = torch.where(p >= 0, p, torch.full_like(p, -1)).to(torch.int32)
+    return LayerCache(k=rows.k.gather(3, src), v=rows.v.gather(3, src),
+                      pos=pos[None].expand(L, n, width))
+
+
 def _insert_rows(cache, rows, ids: torch.Tensor, n: int) -> None:
-    """Write the first ``n`` prefill rows of every cache leaf into the slot
-    cache at slots ``ids`` (leaves are (L, slots, ...)), in place."""
-    for kind, big in cache.items():
-        for buf, new in zip(big, rows[kind]):
+    """Write the first ``n`` prefill rows of every cache kind in ``rows``
+    into the slot cache at slots ``ids`` (leaves are (L, slots, ...)), in
+    place.  Rings wider than the slot ring are repacked to its width."""
+    for kind, new_rows in rows.items():
+        big = cache[kind]
+        if isinstance(big, LayerCache) \
+                and new_rows.pos.shape[-1] != big.pos.shape[-1]:
+            new_rows = _rering(new_rows, big.pos.shape[-1])
+        for buf, new in zip(big, new_rows):
             buf[:, ids] = new[:, :n].to(buf.dtype)
 
 
 def _fork_copy_rows(cache, src: int, dst: List[int], max_pos: int) -> None:
     """Ring fork: copy slot ``src``'s cache row into slots ``dst``, in
     place.  Ring positions past ``max_pos`` (the prompt's last index) are
-    invalidated in the copies: a held parent's parked ticks wrote a
-    discarded token at its next position."""
-    for kind, c in cache.items():
+    invalidated in every ring of the copies (a dense model's and a
+    hybrid's): a held parent's parked ticks wrote a discarded token at its
+    next position."""
+    for c in cache.values():
         ids = torch.tensor(dst, dtype=torch.long, device=c[0].device)
         for buf in c:
             row = buf[:, src:src + 1].clone()
-            if kind == "self" and buf is c.pos:
+            if isinstance(c, LayerCache) and buf is c.pos:
                 row = torch.where((row >= 0) & (row <= max_pos), row,
                                   torch.full_like(row, -1))
             buf[:, ids] = row
@@ -477,7 +517,8 @@ def _reset_pos(cache, ids: List[int]) -> None:
 
 class BatchedEngine:
     """Slot-based continuous batching over a per-slot decode cache (a ring
-    KV cache, a paged block pool, or a Mamba2 model's SSM state).
+    KV cache, a paged block pool, a Mamba2 model's SSM state, or a
+    hybrid's SSM state and rings).
 
     ``params`` are the fp32 flat parameters (``models.params``); they move
     to ``device`` (``cuda`` unless the caller passes another), and the
@@ -521,10 +562,7 @@ class BatchedEngine:
         self.slots = slots
         self.max_context = max_context
         self.is_delphi = cfg.age_encoding
-        # right-padding a prefill is sound only where padded positions can
-        # be masked out of the state: KV-cache attention (pos = -1), not
-        # recurrent SSM state, which admits unbucketed
-        self.bucketed = cfg.arch_type in (cb.DENSE, cb.MOE, cb.VLM)
+        self.bucketed = cfg.arch_type in _BUCKETED
         self.paged = cache == "paged"
         self.block_size = block_size
         if self.paged:

@@ -428,7 +428,8 @@ def ring_reference_futures(params, cfg, tokens, ages=None, *, n: int,
 
     It bypasses everything under test (allocator, refcounts, the index,
     fork ops, preemption) and runs the engine's own module-level functions
-    in a straight line: one solo bucketed prefill of the history with
+    in a straight line: one solo prefill of the history (bucketed, as the
+    engine admits it; at its exact length for a recurrent model) with
     filler uniforms (``_prefill_core``, as a ``hold`` admission), the ring
     fork copy with positions past the prompt masked
     (``_fork_copy_rows``), each future's first event from the shared
@@ -446,7 +447,8 @@ def ring_reference_futures(params, cfg, tokens, ages=None, *, n: int,
 
     from repro_torch import resolve_device
     from repro_torch.models import cast_params, make_decode_cache
-    from repro_torch.serve.engine import (_commit, _fork_copy_rows,
+    from repro_torch.serve.engine import (_BUCKETED, _commit,
+                                          _fork_copy_rows,
                                           _fork_rows_core, _insert_rows,
                                           _Knobs, _next_pow2, _prefill_core,
                                           _seq_bucket, _tick_core)
@@ -468,7 +470,9 @@ def ring_reference_futures(params, cfg, tokens, ages=None, *, n: int,
 
     toks = np.asarray(tokens, np.int64)
     S = len(toks)
-    sb = S if S > W else min(_seq_bucket(S), W)   # over-width: exact shape
+    # over-width, or a recurrent state that cannot mask padding: exact shape
+    sb = (S if S > W or cfg.arch_type not in _BUCKETED
+          else min(_seq_bucket(S), W))
     t = np.zeros((1, sb), np.int32)
     t[0, :S] = toks
     a = np.zeros((1, sb), np.float32)

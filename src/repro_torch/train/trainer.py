@@ -7,12 +7,15 @@ Two objectives share one step factory:
 * ``objective="lm"``: next-token CE over the token stream.
 
 Both differentiate through ``forward(..., differentiable=True)``: plain
-torch ops, attention by ``models.attention.chunked_attention``; no kernel
-has a backward.  Gradients are taken with respect to detached copies of the
-fp32 masters, and the update returns tensors that do not require grad, so
-the parameters a step or ``train_loop`` hands back can go straight to an
-engine or a server (whose kernels refuse inputs that require grad).
-Mamba2's training route is not ported and raises.
+torch ops, attention by ``models.attention.chunked_attention`` and Mamba2
+layers (Mamba2, the hybrid Zamba2) by the plain SSD route of
+``models.ssm.ssd_chunked``; no kernel has a backward.  Gradients are
+taken with respect to detached copies of the fp32 masters, and the
+update returns tensors that do not require grad, so the parameters a
+step or ``train_loop`` hands back can go straight to an engine or a
+server (whose kernels refuse inputs that require grad).  The hybrid's
+shared block is one set of leaves used by every application, so autograd
+sums its gradients over the applications, as ``jax.grad`` does.
 """
 from __future__ import annotations
 
@@ -35,8 +38,9 @@ Tensors = Dict[str, torch.Tensor]
 
 def lm_loss(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]
             ) -> Tensors:
-    """Next-token CE over the token stream.  The port's families have no
-    router, so ``aux_loss`` is 0 and ``loss`` is the CE."""
+    """Next-token CE over the token stream.  The port's families (dense,
+    Mamba2, hybrid) have no router, so ``aux_loss`` is 0 and ``loss`` is
+    the CE."""
     inputs = {k: batch[k] for k in ("tokens", "ages") if k in batch}
     logits = forward(params, cfg, inputs, mode="train",
                      differentiable=True)["logits"]

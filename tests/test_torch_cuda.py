@@ -191,6 +191,9 @@ def test_tte_sample_kernel_strided_and_misaligned_rows(gen, V):
     (1, 32, 4, 4608, 64, None, True, torch.bfloat16),
     (1, 32, 8, 4608, 80, 4096, True, torch.bfloat16),
     (1, 32, 8, 4608, 80, 4096, True, torch.float32),
+    # Zamba2's shared block: MHA 32/32 at hd 64 (its window of 4096 does
+    # not bite at 1024 tokens)
+    (1, 32, 32, 1024, 64, 4096, True, torch.bfloat16),
 ])
 def test_flash_attention_kernel_vs_plain(gen, B, Hq, Hkv, S, hd, window,
                                          causal, dtype):
@@ -284,6 +287,8 @@ def test_head_chunk_by_position_equals_index_route(gen, S, n, dtype):
     (4, 4, 8, 64, 16, 64, None, torch.bfloat16),
     (2, 8, 4, 80, 16, 320, 4096, torch.bfloat16),
     (2, 8, 4, 80, 16, 320, 4096, torch.float32),
+    # Zamba2's ring: 8 slots x 32 kv heads, G 1 at hd 64, W = window 4096
+    (8, 32, 1, 64, 4096, 1, 4096, torch.bfloat16),
 ])
 def test_paged_decode_kernel_vs_plain(gen, B, Hkv, G, hd, bs, nbs, window,
                                       dtype):
@@ -608,6 +613,49 @@ def test_ssd_intra_kernel_main_path_tile_with_shared_bc(gen):
                                Cm.transpose(2, 3), cum.transpose(2, 3))
     torch.testing.assert_close(y, yr.transpose(2, 3), atol=1e-4, rtol=0)
     torch.testing.assert_close(st, sr, atol=1e-4, rtol=0)
+
+
+def test_ssd_intra_kernel_zamba2_tile_with_shared_bc(gen):
+    """Zamba2-1.2B at a 1024-token prompt: 8 chunks x 64 heads at N 64, fp32
+    xdt and bf16 B/C read once per batch row through a stride-0 head
+    axis."""
+    xdt, Bm, Cm, cum = _ssd_inputs(gen, 1, 8, 128, 64, 64, 64,
+                                   torch.float32, shared_bc=True,
+                                   bc_dtype=torch.bfloat16)
+    n0 = sk.launches
+    y, st = ops.ssd_intra_heads(xdt, Bm, Cm, cum)
+    assert sk.launches == n0 + 1
+    yr, sr = ref.ssd_intra_ref(xdt.transpose(2, 3), Bm.transpose(2, 3),
+                               Cm.transpose(2, 3), cum.transpose(2, 3))
+    torch.testing.assert_close(y, yr.transpose(2, 3), atol=1e-4, rtol=0)
+    torch.testing.assert_close(st, sr, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("H,N", [(48, 128), (64, 64)],
+                         ids=["mamba2-780m", "zamba2-1.2b"])
+def test_plain_ssd_route_equals_kernel_route_on_card(gen, H, N):
+    """The training route's plain SSD (``ssd_chunked(...,
+    differentiable=True)``) against the kernel route at full width and
+    1024 tokens: x fp32, dt ~ 0.01 (the init's), bf16 B/C; ``y`` and the
+    final state within 1e-4."""
+    from repro_torch.models import ssm as ssm_lib
+    S, P, Q = 1024, 64, 128
+    x = torch.randn((1, S, H, P), generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(
+        0.5 * torch.randn((1, S, H), generator=gen, device="cuda")
+        + float(np.log(np.expm1(np.float32(0.01)))))
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    Bm, Cm = (0.5 * torch.randn((1, S, N), generator=gen, device="cuda")
+              for _ in range(2))
+    Bm, Cm = Bm.to(torch.bfloat16), Cm.to(torch.bfloat16)
+    n0 = sk.launches
+    with torch.no_grad():
+        yk, hk = ssm_lib.ssd_chunked(x, dt, A, Bm, Cm, Q)
+        yp, hp = ssm_lib.ssd_chunked(x, dt, A, Bm, Cm, Q,
+                                     differentiable=True)
+    assert sk.launches == n0 + 1
+    torch.testing.assert_close(yp, yk, atol=1e-4, rtol=0)
+    torch.testing.assert_close(hp, hk, atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("b,C,H,bc_dtype,shared,step", [

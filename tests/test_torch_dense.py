@@ -348,22 +348,28 @@ def test_bridge_round_trip_new_archs(arch, tmp_path):
 def test_registry_and_refusals():
     assert sorted(ALL_ARCHS) == sorted(
         ["delphi-2m", "delphi-100m", "mamba2-780m", "tinyllama-1.1b",
-         "h2o-danube-1.8b", "qwen2.5-32b", "deepseek-7b"])
+         "h2o-danube-1.8b", "qwen2.5-32b", "deepseek-7b", "zamba2-1.2b"])
     for arch in ALL_ARCHS:
         full, red = get_config(arch), get_config(arch, reduced=True)
         jfull, jred = jax_config(arch), jax_config(arch, reduced=True)
         for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
                   "d_ff", "vocab_size", "qkv_bias", "norm", "activation",
                   "rope_theta", "max_seq_len", "tie_embeddings",
-                  "sliding_window", "age_encoding", "dual_head", "citation"):
+                  "sliding_window", "age_encoding", "dual_head", "citation",
+                  "ssm_state", "ssm_expand", "ssm_head_dim", "ssm_conv",
+                  "ssm_chunk", "attn_every"):
             assert getattr(full, f) == getattr(jfull, f), (arch, f)
             assert getattr(red, f) == getattr(jred, f), (arch, f)
         check_supported(full)
     dan = get_config("h2o-danube-1.8b", reduced=True)
     assert dan.sliding_window == 64 and dan.q_per_kv == 4
     assert get_config("tinyllama-1.1b", reduced=True).q_per_kv == 4
+    zam = get_config("zamba2-1.2b", reduced=True)
+    assert (zam.arch_type, zam.attn_every, zam.n_layers) == ("hybrid", 1, 2)
     base = get_config("tinyllama-1.1b", reduced=True)
-    for t in ("moe", "hybrid", "enc_dec", "vlm", "audio"):
+    check_supported(base.replace(arch_type="hybrid", attn_every=1,
+                                 ssm_state=16))       # the hybrid is served
+    for t in ("moe", "enc_dec", "vlm", "audio"):
         with pytest.raises(NotImplementedError):
             check_supported(base.replace(arch_type=t))
 

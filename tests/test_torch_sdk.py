@@ -489,9 +489,11 @@ def test_custom_logits_fn_exports_v1(setup, tmp_path):
 
 @pytest.mark.parametrize("arch,match", [
     ("mamba2-780m", "recurrent state"),
+    ("zamba2-1.2b", "recurrent state"),
     ("rope", "RoPE")])
 def test_export_refuses_what_it_cannot_serve(tmp_path, arch, match):
-    """Mamba2 is refused: it cannot take a padded prompt.  A dense model
+    """Mamba2 and the hybrid Zamba2 are refused: their recurrent state
+    cannot take a padded prompt.  A dense model
     with RoPE (reduced Delphi with no age encoding: a generic LM's
     signature) is exported: its graphs take no ages, its full graph equals
     eager ``forward`` bit for bit, and v2 decode gives the full graph's
