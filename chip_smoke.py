@@ -20,7 +20,13 @@ runs these phases; any failure exits non-zero:
    GQA 32/4 hd 64, 32/8 hd 80 with a window of 4,096 past it, G 8 hd 64
    and G 4 hd 80 in a 5,120-token ring with the window; and at Zamba2's:
    ``ssd_intra`` at 8 chunks x 64 heads with N 64, flash as MHA 32/32 at hd
-   64 and S 1,024, paged on a ring of B 8, Hkv 32, G 1, hd 64, W 4,096);
+   64 and S 1,024, paged on a ring of B 8, Hkv 32, G 1, hd 64, W 4,096; and
+   at the MoE LMs': flash as MHA 16/16 at hd 128, B 8, S 1,024, paged on a
+   partly filled ring of B 8, Hkv 16, G 1, hd 128, W 1,024); then
+   ``models/moe.py::apply_moe`` at Qwen2-MoE's widths, one layer, at T 8
+   and T 2,048: the bf16 route against the same weights in fp32 (TF32
+   off), within ``MOE_BF16_REL`` of the output's scale on the tokens whose
+   routing cannot flip (the near-ties counted and left out);
 3. the Delphi path at full width: Delphi-2M (12 layers, d_model 120) from
    ``init_params(seed)`` in bf16, served by the ring-cache ``BatchedEngine``
    through ``repro_torch.launch.serve`` (32 synthetic patient prompts, 16
@@ -131,8 +137,9 @@ runs these phases; any failure exits non-zero:
    the 8 requests served together, chunked == unchunked on the shortest
    and the longest, each served alone); tokens/s and the idle share of one
    profiled ring run;
-3l. H2O-Danube-1.8B at full width (24 layers, d_model 2560, 32/8 heads of
-   80, window 4,096) in bf16: one 4,600-token prompt with ``max_context``
+3l. H2O-Danube-1.8B at full width (its depth cut from 24 to
+   ``DANUBE_LAYERS`` layers; d_model 2560, 32/8 heads of 80, window 4,096)
+   in bf16: one 4,600-token prompt with ``max_context``
    5,120.  The last prefill position's logits through the kernels (bf16)
    are as close to the fp32 model's (plain route, TF32 off) as the plain
    route's in bf16 are, within ``DENSE_LOGITS_VS_PLAIN`` times, and differ
@@ -170,6 +177,26 @@ runs these phases; any failure exits non-zero:
    ``DENSE_LOGITS_VS_PLAIN`` times the plain route's bf16 error; tokens/s,
    the idle share of a profiled window (the first ``PROFILE_REQUESTS``
    prompts, ``PROFILE_MAX_NEW`` tokens each), the weights' making time;
+3p. OLMoE-1B-7B at full width (16 layers, d_model 2048, 16/16 heads of
+   128, 64 experts of 1,024, top-8, V 50,304) in bf16, its weights made on
+   the card (``init_params_on_device``), with 3k's knobs: the ring, then the
+   prefix-cached paged cache; under injected uniforms ring == paged bit for
+   bit on all 8 requests, chunked (64 tokens a step) == unchunked bit for
+   bit on the shortest and the longest served alone; one host copy a tick
+   and an admission batch, the pool drained, flash 16 launches an
+   admission batch (a chunk when chunked), paged 16 a tick, ``tte_sample``
+   none; tokens/s, peak memory and a profiled ring window (3o's: the first
+   ``PROFILE_REQUESTS`` prompts, ``PROFILE_MAX_NEW`` tokens each); the longest
+   prompt's last logits against the fp32 model made from the same draws
+   (3l's rule, ``DENSE_LOGITS_VS_PLAIN``), with the router choices the
+   bf16 model flips, layer by layer;
+3q. Qwen2-MoE-A2.7B at full width (24 layers, 16/16 heads of 128, QKV
+   biases, 60 experts of 1,408, top-4, 4 shared experts, V 151,936): 3p's
+   runs and gates, its peak memory asserted under the card's; the fp32
+   comparison on a model cut to ``MOE_FP32_LAYERS`` layers at full width
+   (57 GB of fp32 weights do not fit beside the bf16 model).  3p and 3q
+   run last, after phase 5's other rows and profiles (their ring runs'
+   large traces ahead of those rows cost the rows their device times);
 4. end-to-end parity in fp32: the same weights and injected uniforms through
    the engine on the card (kernels) and on the CPU (plain versions), for
    Delphi-2M and for Mamba2-780M at full width cut to 4 layers; the card's
@@ -244,20 +271,22 @@ runs these phases; any failure exits non-zero:
    paged at the dense LMs' shapes: phase 3k's largest prefill bucket (GQA
    32/4, hd 64) and ring (G 8), a 4,608-token H2O-Danube prefill (32/8, hd
    80, window 4,096) and phase 3l's ring (G 4, the window), each beside
-   its bound and SDPA (GQA by ``enable_gqa``); and phase 3o's shapes:
+   its bound and SDPA (GQA by ``enable_gqa``); phase 3o's shapes:
    ``ssd_intra`` at a 1024-token prompt (64 heads, N 64), flash as MHA
    32/32 at hd 64, S 1,024, and paged on 3o's ring after the run (B 8, Hkv
-   32, G 1, W 4,096).
+   32, G 1, W 4,096); and the MoE LMs' (3p and 3q share them): flash at B 8,
+   MHA 16/16, S 1,024, hd 128, and paged on 3q's ring after the run (B 8,
+   Hkv 16, G 1, hd 128, W 1,024).
 
 The ``kernels`` line holds the four kernels and, as a fifth row, the flash
 kernel's position-masked route with its launches on the chunked drive of
 phase 3e; each Delphi kernel's row also gives its launches on the sweep of
 phase 3i, on the audit of phase 6d, on the artifact drive of phase 3j and
-on the ring runs of 3k, 3l and 3m, the drive of 3n, the Zamba2 run of 3o
-and the training CLIs of 6f and 6g (``launches_by_path``, counts zeroed
-just before each and read just after; 6f and 6g read 0); seven more rows
-give flash and paged at the shapes of 3k, 3l and 3o, and ``ssd_intra`` at
-3o's, with their launches there.  The last lines are the ``kernels``
+on the ring runs of 3k, 3l and 3m, the drive of 3n, the Zamba2 run of 3o,
+the MoE ring runs of 3p and 3q and the training CLIs of 6f and 6g
+(``launches_by_path``, counts zeroed just before each and read just after;
+6f and 6g read 0); nine more rows give flash and paged at the shapes of
+3k, 3l, 3o and 3q, and ``ssd_intra`` at 3o's, with their launches there.  The last lines are the ``kernels``
 JSON line, the card's name and power limit (``nvidia-smi``), and the result
 line ``{"ok": true, "device": ...}``.  A copy of all numbers goes to
 ``chiprun_out/chip_smoke.json``.
@@ -444,6 +473,8 @@ FLASH_CASES = [
      "H2O-Danube GQA 32/8 hd=80 (padded to 128) window 4096 bf16"),
     (1, 32, 32, 1024, 64, 4096, True, "bfloat16",
      "Zamba2 shared block MHA 32/32 hd=64 S=1024 window 4096 bf16"),
+    (8, 16, 16, 1024, 128, None, True, "bfloat16",
+     "OLMoE/Qwen2-MoE MHA 16/16 hd=128 S=1024 bf16"),
 ]
 
 
@@ -660,6 +691,9 @@ def check_paged(gen) -> float:
         ("Zamba2 ring B=8 Hkv=32 G=1 hd=64 W=4096 window 4096, bf16",
          ring_inputs(gen, 8, 32, 1, 64, 4096, bf16,
                      [100, 1055, 4095, 4096, 5000, 300, 2047, 8191]), 4096),
+        ("MoE ring B=8 Hkv=16 G=1 hd=128 W=1024, partly filled, bf16",
+         ring_inputs(gen, 8, 16, 1, 128, 1024, bf16,
+                     [63, 700, 1023, 1024, 1500, 200, 511, 2047]), None),
     ]
     main_err = 0.0
     for note, (q, k, v, table, pos, step), window in cases:
@@ -2335,6 +2369,10 @@ def canary_path(tmp: str) -> dict:
 DENSE_SLOTS, DENSE_REQUESTS, DENSE_MAX_NEW, DENSE_CONTEXT = 8, 8, 32, 1024
 DENSE_CHUNK = 64
 DANUBE_PROMPT, DANUBE_CONTEXT, DANUBE_MAX_NEW = 4600, 5120, 32
+# 3l's depth cut from 24 layers to keep the whole call in its time (its
+# gates do not depend on depth; the host's numpy draws of 24 layers took
+# ~35 s)
+DANUBE_LAYERS = 8
 # bf16 logits of the whole model against the fp32 model (TF32 off): the
 # kernels' route may be off by at most this multiple of the plain route's
 # own bf16 error (the plain version rounds the attention scores to bf16,
@@ -2529,8 +2567,9 @@ def tinyllama_path() -> dict:
 
 
 def danube_path() -> dict:
-    """Phase 3l: H2O-Danube-1.8B at full width in bf16, one 4,600-token
-    prompt (past the window of 4,096) with ``max_context`` 5,120: the last
+    """Phase 3l: H2O-Danube-1.8B at full width (``DANUBE_LAYERS`` deep) in
+    bf16, one 4,600-token prompt (past the window of 4,096) with
+    ``max_context`` 5,120: the last
     prefill position's logits through the kernels against the plain route
     on the card, and against a run with no window; then the prompt served
     on the ring (the window's 4,096 wide) and on the paged cache (each
@@ -2547,7 +2586,7 @@ def danube_path() -> dict:
     from repro_torch.core import parity as par
     from repro_torch.kernels import ops
     from repro_torch.models import cast_params, forward, init_params
-    cfg = get_config("h2o-danube-1.8b")
+    cfg = get_config("h2o-danube-1.8b").replace(n_layers=DANUBE_LAYERS)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=SEED, device=DEVICE)
     init_s = time.perf_counter() - t0
@@ -3036,6 +3075,315 @@ def zamba2_path() -> dict:
     return {"run": run, "profile": prof, "forks": forks, "logits": logits,
             "ring0": ring0, "init_s": init_s, "cfg": cfg, "napps": napps,
             "stage_s": stage}
+
+
+# ---------------------------------------------------------------------------
+# phase 2's MoE check and phases 3p/3q: the MoE LMs at full width
+# (OLMoE-1B-7B, Qwen2-MoE-A2.7B), with 3k's knobs
+# ---------------------------------------------------------------------------
+# apply_moe in bf16 against the same weights in fp32 (TF32 off): the error
+# of the tokens whose routing cannot flip, relative to the fp32 output's
+# largest |y| (the H100 measured 7.4e-3 at T 8 and 6.9e-3 at T 2,048)
+MOE_BF16_REL = 1.5e-2
+MOE_CHECK_TOKENS = (8, 2048)
+# 3q's fp32 comparison: Qwen2-MoE's 57 GB of fp32 weights do not fit beside
+# its bf16 model, so that model is cut to 2 layers at full width
+MOE_FP32_LAYERS = 2
+
+
+def check_moe(gen, cfg=None) -> dict:
+    """``models/moe.py::apply_moe`` at Qwen2-MoE's widths (60 experts of
+    1,408, top-4, 4 shared), one layer, at T 8 and T 2,048 tokens: the bf16
+    route against the same weights in fp32 on the card, TF32 off.  A token
+    whose top-k margin in fp32 (the k-th probability less the (k+1)-th) is
+    below the bf16 router's largest probability error may route otherwise
+    in bf16: such tokens are counted and left out of the error, which must
+    stay within ``MOE_BF16_REL`` of the fp32 output's largest |y|."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import cast_params, init_params_on_device, moe
+    from repro_torch.models.model import Block
+    cfg = (cfg or get_config("qwen2-moe-a2.7b")).replace(n_layers=1)
+    w32 = init_params_on_device(cfg.replace(dtype="float32"), seed=SEED,
+                                device=DEVICE)
+    blk32 = Block(w32, "layers/", 0)
+    blk16 = Block(cast_params(w32, cfg), "layers/", 0)
+    out = {}
+    for T in MOE_CHECK_TOKENS:
+        x = torch.randn((1, T, cfg.d_model), generator=gen, device=DEVICE)
+        x16 = x.to(torch.bfloat16)
+        y32, _ = moe.apply_moe(blk32, x, cfg.replace(dtype="float32"))
+        y16, _ = moe.apply_moe(blk16, x16, cfg)
+        router = blk32["moe/router"]
+        p32 = torch.softmax(moe.router_logits(router, x[0]), dim=-1)
+        p16 = torch.softmax(moe.router_logits(router, x16[0]), dim=-1)
+        router_err = float((p16 - p32).abs().max())
+        top = p32.sort(dim=-1, descending=True).values
+        keep = (top[:, cfg.top_k - 1] - top[:, cfg.top_k]) >= router_err
+        err_tok = (y16[0].float() - y32[0]).abs().amax(dim=-1)
+        scale = float(y32.abs().max())
+        err = float(err_tok[keep].max())
+        torch.cuda.synchronize()
+        if not (err <= MOE_BF16_REL * scale
+                and bool(torch.isfinite(y16).all())):
+            raise AssertionError(f"apply_moe T={T}: bf16 err {err} > "
+                                 f"{MOE_BF16_REL} x {scale}")
+        out[T] = {"err": err, "scale": scale, "router_err": router_err,
+                  "near_ties": int((~keep).sum()),
+                  "err_near_ties": float(err_tok.max())}
+        log(f"  apply_moe T={T} (E={cfg.n_experts} top-{cfg.top_k} f="
+            f"{cfg.moe_d_ff}, {cfg.n_shared_experts} shared; bf16 vs fp32): "
+            f"max abs err {err:.3g} of |y| <= {scale:.3g} (tol "
+            f"{MOE_BF16_REL} x it); router prob err {router_err:.3g}, "
+            f"{out[T]['near_ties']} near-tie tokens left out (their err "
+            f"<= {out[T]['err_near_ties']:.3g})")
+    del w32, blk32, blk16
+    free_card()
+    return out
+
+
+class routing:
+    """Inside the block ``models.moe.route`` records each call's experts
+    (one call a layer, in order) in ``seen``; with ``held`` (a list of
+    (T, k) expert tensors, one a layer) it takes those experts in place of
+    its own top-k, with their renormalised probabilities as the combine
+    weights: a run held to another run's routing (the aux loss stays the
+    route's own; the logits do not read it)."""
+
+    def __init__(self, held=None):
+        self.held, self.seen = held, []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self._real = real = moe.route
+
+        def route(router, x, k):
+            w, e, aux = real(router, x, k)
+            if self.held is not None:
+                e = self.held[len(self.seen)]
+                probs = torch.softmax(moe.router_logits(router, x), dim=-1)
+                w = probs.gather(1, e)
+                w = w / w.sum(dim=-1, keepdim=True)
+            self.seen.append(e)
+            return w, e, aux
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._real
+
+
+def moe_logits(params, cfg, prompt) -> dict:
+    """The bf16 model's last prefill position's logits of one prompt
+    against the fp32 model made from the same draws
+    (``init_params_on_device`` at ``dtype="float32"``: plain route, TF32
+    off), through the kernels and through the plain route.  A token whose
+    top-k margin is within bf16's error routes otherwise in bf16, and a
+    flipped expert moves that token's output by far more than rounding
+    does; the flips follow the attention outputs' last bits, so the two
+    bf16 routes flip different tokens.  The gate (phase 3l's rule,
+    ``DENSE_LOGITS_VS_PLAIN``) therefore holds both bf16 routes to the fp32
+    model's routing (``routing(held=...)``): the kernels' route's error
+    may be at most that multiple of the plain route's.  The free-routing
+    errors and the router choices the bf16 model flips against fp32, layer
+    by layer (tokens whose top-k set differs), are measured beside it."""
+    import torch
+    from repro_torch.models import forward, init_params_on_device
+    toks = torch.from_numpy(prompt[None]).to(DEVICE)
+
+    def last(c, p, held=None):
+        with routing(held) as r, torch.no_grad():
+            lg = forward(p, c, {"tokens": toks}, mode="prefill")[
+                "logits"][0, 0]
+        return lg, r.seen
+    c32 = cfg.replace(dtype="float32")
+    with plain_route():
+        p32 = init_params_on_device(c32, seed=SEED, device=DEVICE)
+        exact, e32 = last(c32, p32)
+        del p32
+        free_card()
+        plain, _ = last(cfg, params, e32)
+        plain_free, _ = last(cfg, params)
+    kern, _ = last(cfg, params, e32)
+    kern_free, e16 = last(cfg, params)
+
+    def off(a):
+        return float((a - exact).abs().max())
+    err, plain_err = off(kern), off(plain)
+    flips = [int((a.sort(dim=-1).values != b.sort(dim=-1).values)
+                 .any(dim=-1).sum()) for a, b in zip(e16, e32)]
+    if not (bool(torch.isfinite(kern).all())
+            and bool(torch.isfinite(kern_free).all())
+            and err <= DENSE_LOGITS_VS_PLAIN * plain_err):
+        raise AssertionError(f"{cfg.name}: held to the fp32 model's routing,"
+                             f" the kernels' route is off by {err}, the "
+                             f"plain route by {plain_err} (allowed "
+                             f"{DENSE_LOGITS_VS_PLAIN}x it)")
+    return {"prompt_tokens": len(prompt), "layers": cfg.n_layers,
+            "logits_err": err, "plain_err": plain_err,
+            "kernel_vs_plain": float((kern - plain).abs().max()),
+            "free_logits_err": off(kern_free),
+            "free_plain_err": off(plain_free),
+            "logits_scale": float(exact.abs().max()),
+            "router_flips_by_layer": flips}
+
+
+def moe_path(arch: str, phase: str, fp32_layers=None) -> dict:
+    """Phases 3p (OLMoE-1B-7B) and 3q (Qwen2-MoE-A2.7B): the model at full
+    width and depth in bf16, its weights made on the card
+    (``init_params_on_device``), served with 3k's knobs (8 slots,
+    ``max_context`` 1,024, 8 random-id prompts of 64-768 tokens, 32 new
+    tokens): the ring, then the prefix-cached paged cache; under injected
+    uniforms ring == paged bit for bit on all 8 requests and chunked (64
+    tokens a step) == unchunked bit for bit on the shortest and the
+    longest, each served alone; one host copy a tick and an admission
+    batch, the pool drained, flash 1 launch a layer an admission batch (a
+    chunk when chunked), paged 1 a layer a tick, ``tte_sample`` none; the
+    peak memory under the card's; a profiled ring window (3o's); the last
+    logits of the longest prompt against the fp32 model (with
+    ``fp32_layers``, of a model cut to that depth at full width: 3q's)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params_on_device
+    cfg = get_config(arch)
+    stage = {}
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params_on_device(cfg, seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = stage["init"] = time.perf_counter() - t0
+    weight_bytes = sum(v.numel() * v.element_size() for v in params.values())
+    prompts = lm_long_prompts(cfg.vocab_size)
+    kw = dict(max_new=DENSE_MAX_NEW, slots=DENSE_SLOTS,
+              max_context=DENSE_CONTEXT)
+    t0 = time.perf_counter()
+    # first use of cuBLAS at these shapes, through the same entry point
+    lm_serve(params, cfg, prompts[:2], max_new=2, slots=DENSE_SLOTS,
+             max_context=DENSE_CONTEXT)
+    stage["warmup"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs = {}
+    for name, extra in (("ring", {}),
+                        ("paged", dict(cache="paged", prefix_cache=True))):
+        eng, reqs, sec, counts = lm_serve(params, cfg, prompts, **kw,
+                                          **extra)
+        check_lm_run(eng, reqs, counts, cfg, DENSE_MAX_NEW,
+                     f"{phase} {name}")
+        runs[name] = {"seconds": sec, "launches": counts,
+                      "tokens": len(reqs) * DENSE_MAX_NEW,
+                      "tokens_per_s": len(reqs) * DENSE_MAX_NEW / sec,
+                      "ticks": eng.ticks, "admit_batches": eng.admit_batches,
+                      "host_syncs": eng.host_syncs,
+                      "prefill_shapes": sorted(eng.prefill_shapes)}
+        if name == "ring":
+            saved = layer0(eng)
+        del eng
+    stage["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    us = lm_uniforms(len(prompts), DENSE_MAX_NEW, cfg.vocab_size, SEED + 9)
+    exact = {}
+    chunked = dict(cache="paged", prefill_chunk_tokens=DENSE_CHUNK)
+    for name, extra in (("ring", {}), ("paged", dict(cache="paged"))):
+        eng, reqs, _, counts = lm_serve(params, cfg, prompts, uniforms=us,
+                                        **kw, **extra)
+        check_lm_run(eng, reqs, counts, cfg, DENSE_MAX_NEW,
+                     f"{phase} injected {name}")
+        exact[name] = [r.out_tokens for r in reqs]
+        del eng
+    if exact["ring"] != exact["paged"]:
+        raise AssertionError(f"{phase}: ring and paged tokens differ")
+    order = np.argsort([len(p) for p in prompts])
+    solo = [int(order[0]), int(order[-1])]      # the shortest, the longest
+    for i in solo:
+        one = {}
+        for name, extra in (("paged", dict(cache="paged")),
+                            ("chunked", chunked)):
+            eng, reqs, _, counts = lm_serve(params, cfg, [prompts[i]],
+                                            uniforms=[us[i]], **kw, **extra)
+            check_lm_run(eng, reqs, counts, cfg, DENSE_MAX_NEW,
+                         f"{phase} solo {name}")
+            one[name] = reqs[0].out_tokens
+            del eng
+        if one["paged"] != one["chunked"]:
+            raise AssertionError(f"{phase}: request {i} alone: chunked "
+                                 f"tokens differ from unchunked")
+    stage["exact"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prof = window_profile(lambda: lm_serve(
+        params, cfg, prompts[:PROFILE_REQUESTS], max_new=PROFILE_MAX_NEW,
+        slots=DENSE_SLOTS, max_context=DENSE_CONTEXT)[2])
+    stage["profile"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    card = torch.cuda.get_device_properties(0).total_memory
+    if not peak < card:
+        raise AssertionError(f"{phase}: peak memory {peak} past the card's "
+                             f"{card}")
+    t0 = time.perf_counter()
+    longest = max(prompts, key=len)
+    if fp32_layers is not None:
+        del params
+        free_card()
+        cut = cfg.replace(n_layers=fp32_layers)
+        params = init_params_on_device(cut, seed=SEED, device=DEVICE)
+        logits = moe_logits(params, cut, longest)
+    else:
+        logits = moe_logits(params, cfg, longest)
+    stage["logits"] = time.perf_counter() - t0
+    del params
+    free_card()
+    return {"runs": runs, "profile": prof, "layer0": saved,
+            "init_s": init_s, "weight_bytes": weight_bytes,
+            "peak_memory_bytes": peak, "card_memory_bytes": card,
+            "exact_tokens": sum(len(t) for t in exact["ring"]),
+            "solo_prompt_lengths": [len(prompts[i]) for i in solo],
+            "logits": logits, "cfg": cfg, "stage_s": stage}
+
+
+def log_moe(res: dict, phase: str, smi: str, t_start: float) -> None:
+    cfg = res["cfg"]
+    for name, r in res["runs"].items():
+        log(f"  {name}: {r['tokens']} tokens, {r['ticks']} ticks, "
+            f"{r['admit_batches']} admission batches in {r['seconds']:.3f}s:"
+            f" {r['tokens_per_s']:.1f} tokens/s; host_syncs "
+            f"{r['host_syncs']}; prefill shapes {r['prefill_shapes']}; "
+            f"launches {r['launches']} ({cfg.n_layers} flash an admission "
+            f"batch, {cfg.n_layers} paged a tick, no tte_sample)")
+    p, lg = res["profile"], res["logits"]
+    idle = ("not measured" if p["idle_share"] is None
+            else format(p["idle_share"], ".3f"))
+    log(f"  under injected uniforms: ring == paged bit for bit "
+        f"({res['exact_tokens']} tokens); chunked ({DENSE_CHUNK} tokens a "
+        f"step) == unchunked bit for bit on the requests of "
+        f"{res['solo_prompt_lengths']} tokens served alone; pool drained")
+    log(f"  weights made on the card in {res['init_s']:.1f}s "
+        f"({res['weight_bytes'] / 1e9:.2f} GB); peak memory "
+        f"{res['peak_memory_bytes'] / 2**30:.2f} GiB of the card's "
+        f"{res['card_memory_bytes'] / 2**30:.2f} GiB")
+    log(f"  the first {PROFILE_REQUESTS} prompts x {PROFILE_MAX_NEW} tokens "
+        f"on the ring under the profiler: device busy "
+        f"{p['device_busy_s']:.4f}s of {p['wall_s']:.3f}s wall, idle share "
+        f"{idle}, {p['launches']} device activities; top by device time:")
+    for t in p["top"]:
+        log(f"    {t['ms']:9.3f} ms  {t['launches']:6d}x  {t['kernel']}")
+    log(f"  last prefill position's logits of a {lg['prompt_tokens']}-token "
+        f"prompt ({lg['layers']} layers) against the fp32 model (plain route,"
+        f" TF32 off; largest |logit| {lg['logits_scale']:.4g}), held to its "
+        f"routing: kernels' route in bf16 off by {lg['logits_err']:.4g}, the "
+        f"plain route in bf16 by {lg['plain_err']:.4g} (allowed "
+        f"{DENSE_LOGITS_VS_PLAIN}x it), kernels vs plain "
+        f"{lg['kernel_vs_plain']:.4g}; routing freely: kernels "
+        f"{lg['free_logits_err']:.4g}, plain {lg['free_plain_err']:.4g}; "
+        f"router choices the bf16 model flips against fp32, by layer, of "
+        f"{lg['prompt_tokens']} tokens: {lg['router_flips_by_layer']}")
+    log(f"  phase {phase} took {time.perf_counter() - t_start:.1f}s (" +
+        ", ".join(f"{k} {v:.1f}s" for k, v in res["stage_s"].items())
+        + f"; {smi})")
 
 
 def ssm_grads(arch: str) -> dict:
@@ -3917,6 +4265,16 @@ def paged_pool_row(gen, eng) -> dict:
         "max_abs_err": err}
 
 
+def moe_rows(gen, cfg, ring) -> dict:
+    """Phase 5's rows at the MoE LMs' shapes: flash at their largest
+    prefill bucket (B 8, MHA 16/16, S 1,024, hd 128, causal, bf16) and
+    paged on a ring the 3q run left (B 8, Hkv 16, G 1, hd 128, W 1,024)."""
+    return {"flash_attention 3q": flash_row(gen, DENSE_SLOTS, cfg.n_heads,
+                                            DENSE_CONTEXT, cfg.head_dim),
+            "paged_decode_attention 3q": paged_row(
+                gen, *ring, "phase 3q's ring", G=cfg.q_per_kv)}
+
+
 def times(main: dict, mamba: dict, gen, dense=None) -> dict:
     """Kernel, plain version and library call at the main paths' shapes:
     device time per call (profiler) and per-call time (CUDA events).  The
@@ -4131,6 +4489,7 @@ def main() -> int:
             "paged_decode_attention": check_paged(gen)}
     ssd_errs = check_ssd(gen)
     errs["ssd_intra"] = ssd_errs["main"]
+    moe_check = check_moe(gen)
 
     log("== phase 3: Delphi path (Delphi-2M bf16, ring BatchedEngine, 16 "
         "slots)")
@@ -4326,7 +4685,8 @@ def main() -> int:
         f" {'not measured' if tp['idle_share'] is None else format(tp['idle_share'], '.3f')}"
         f"; weights made in {tiny['init_s']:.1f}s; phase 3k took "
         f"{time.perf_counter() - t3k:.1f}s ({smi})")
-    log(f"== phase 3l: H2O-Danube-1.8B at full width (24 layers, d_model "
+    log(f"== phase 3l: H2O-Danube-1.8B at full width ({DANUBE_LAYERS} of 24 "
+        f"layers, d_model "
         f"2560, 32/8 heads, hd 80, window 4096; bf16): one "
         f"{DANUBE_PROMPT}-token prompt, max_context {DANUBE_CONTEXT}, "
         f"{DANUBE_MAX_NEW} new tokens, ring and paged")
@@ -4573,7 +4933,7 @@ def main() -> int:
     log(f"  launch floor [one-element zero_()]: {fmt(floor)}")
     floor_txt = ("not measured" if floor_ms is None
                  else f"{floor_ms:.6f} ms")
-    for name, t in tm.items():
+    def log_row(name, t):
         warm = (f" (after a read flush: {fmt(t['kernel cold, read flush'])};"
                 f" warm: {fmt(t['kernel warm'])})" if "kernel warm" in t
                 else "")
@@ -4588,6 +4948,8 @@ def main() -> int:
                 f"{bt['bytes_ms']:.6f} ms at 3.35 TB/s; {bt['flops'] / 1e9:.4f}"
                 f" GFLOP -> {bt['ops_ms']:.6f} ms at 165 TFLOP/s (3xTF32), "
                 f"{bt['ops_simt_ms']:.6f} ms at 67 TFLOP/s (fp32 CUDA cores)")
+    for name, t in tm.items():
+        log_row(name, t)
     prof = path_profile(
         lambda: launch.serve(serve_args(32, 48))["seconds"], sec)
     pprof = path_profile(
@@ -4620,6 +4982,31 @@ def main() -> int:
     log(f"  Mamba2 path: ssd_intra kernels {mprof['ssd_intra']['ms']:.3f} ms "
         f"of device time over {mprof['ssd_intra']['launches']} launches")
 
+    # the MoE LMs last: in one whole run with them ahead of phase 5 (their
+    # whole ring runs profiled, ~50,000 and ~80,000 device activities)
+    # every hand-written kernel's row there lost its profiler device time
+    moe = {}
+    for ph, arch, cut, desc in (
+            ("3p", "olmoe-1b-7b", None, "16 layers, d_model 2048, 16/16 "
+             "heads of 128, 64 experts of 1024, top-8, V 50304"),
+            ("3q", "qwen2-moe-a2.7b", MOE_FP32_LAYERS, "24 layers, d_model "
+             "2048, 16/16 heads of 128, QKV biases, 60 experts of 1408, "
+             "top-4, 4 shared, V 151936")):
+        log(f"== phase {ph}: {arch} at full width ({desc}; bf16, weights made"
+            f" on the card), BatchedEngine(slots={DENSE_SLOTS}, max_context="
+            f"{DENSE_CONTEXT}): {DENSE_REQUESTS} requests of seeded random "
+            f"ids (64-768 tokens), {DENSE_MAX_NEW} new tokens each, ring "
+            f"then prefix-cached paged")
+        t_ph = time.perf_counter()
+        moe[ph] = moe_path(arch, ph, fp32_layers=cut)
+        log_moe(moe[ph], ph, smi, t_ph)
+
+    log("== phase 5 (MoE): flash and paged at the MoE LMs' shapes")
+    for name, t in moe_rows(gen, moe["3q"]["cfg"], moe["3q"]["layer0"]
+                            ).items():
+        tm[name] = t
+        log_row(name, t)
+
     def ms(m):
         """Device time where the profiler saw it, else the per-call time."""
         if m is None:
@@ -4638,6 +5025,8 @@ def main() -> int:
                    "3l": danube["runs"]["ring"]["launches"],
                    "3m": d100["launches"], "3n": lmart["launches"],
                    "3o": zamba["run"]["launches"],
+                   "3p": moe["3p"]["runs"]["ring"]["launches"],
+                   "3q": moe["3q"]["runs"]["ring"]["launches"],
                    "6f": ssm_train["6f"]["cli"]["launches"],
                    "6g": ssm_train["6g"]["cli"]["launches"]}
 
@@ -4671,11 +5060,13 @@ def main() -> int:
         "library_ms": ms(prow["library"]),
         "call_ms": prow["kernel"]["call_ms"]})
     # the two attention kernels at the dense LMs' shapes, with their
-    # launches on those paths' ring runs (3k, 3l), and the three kernels of
-    # the Zamba2 path at its shapes (3o)
-    for name, ph in [(n, p) for n in ("flash_attention",
-                                      "paged_decode_attention")
-                     for p in ("3k", "3l", "3o")] + [("ssd_intra", "3o")]:
+    # launches on those paths' ring runs (3k, 3l), at the MoE LMs' (3q's
+    # ring run; 3p's launches are in launches_by_path), and the three
+    # kernels of the Zamba2 path at its shapes (3o)
+    attention_rows = [(n, p) for n in ("flash_attention",
+                                       "paged_decode_attention")
+                      for p in ("3k", "3l", "3o", "3q")]
+    for name, ph in attention_rows + [("ssd_intra", "3o")]:
         row = rows[f"{name} {ph}"]
         kernels.append({
             "name": f"{name} {ph}", "route": "cuda",
@@ -4691,6 +5082,9 @@ def main() -> int:
         d["cfg"] = d["cfg"].name
     zamba.pop("ring0")
     zamba["cfg"] = zamba["cfg"].name
+    for m in moe.values():
+        m.pop("layer0")
+        m["cfg"] = m["cfg"].name
     record = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_seconds": build.last_build.get("seconds"),
@@ -4730,6 +5124,8 @@ def main() -> int:
         "delphi100m_path": d100, "lm_artifact_path": lmart,
         "long_grads_path": lgr, "long_train_path": ltr,
         "zamba2_path": zamba, "ssm_train_paths": ssm_train,
+        "moe_check": moe_check, "olmoe_path": moe["3p"],
+        "qwen2_moe_path": moe["3q"],
         "main_path": {"requests": len(main_res["done"]),
                       "events": main_res["events"], "seconds": sec,
                       "ticks": eng.ticks, "admit_batches": eng.admit_batches,

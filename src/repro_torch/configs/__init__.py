@@ -2,18 +2,21 @@
 
 ``get_config(arch_id)`` returns the full :class:`ModelConfig`;
 ``get_config(arch_id, reduced=True)`` its small test variant.  The port
-registers the architectures its model code serves: Delphi (2M and 100M),
-the generic dense LMs (TinyLlama, H2O-Danube, Qwen2.5, DeepSeek), Mamba2
-and the Mamba2/attention hybrid Zamba2.  ``qwen2.5-32b`` runs reduced
-only: its fp32 masters (~131 GB) do not fit one 80 GB card.
+registers the architectures its model code serves (10 of the JAX
+package's 12): Delphi (2M and 100M), the generic dense LMs (TinyLlama,
+H2O-Danube, Qwen2.5, DeepSeek), the mixtures of experts (OLMoE-1B-7B,
+Qwen2-MoE-A2.7B), Mamba2 and the Mamba2/attention hybrid Zamba2.
+``qwen2.5-32b`` runs reduced only: its fp32 masters (~131 GB) do not fit
+one 80 GB card.  The MoE models serve on the card from weights made there
+in bf16 (``models.params.init_params_on_device``).
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict
 
-from repro_torch.configs.base import (DENSE, HYBRID, SSM,  # noqa: F401
-                                      ModelConfig)
+from repro_torch.configs.base import (DENSE, HYBRID, MOE,  # noqa: F401
+                                      SSM, ModelConfig)
 
 _REGISTRY: Dict[str, str] = {
     "delphi-2m": "delphi_2m",
@@ -24,6 +27,8 @@ _REGISTRY: Dict[str, str] = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "deepseek-7b": "deepseek_7b",
     "zamba2-1.2b": "zamba2_1_2b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
 }
 
 ALL_ARCHS = list(_REGISTRY)

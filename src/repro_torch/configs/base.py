@@ -2,13 +2,16 @@
 
 The JAX package's configuration, cut to the fields the port reads: the
 dense transformer core (RoPE, GQA, SwiGLU or GELU, RMSNorm or LayerNorm,
-sliding windows, QKV biases, tied or untied heads), the Mamba2 (SSD) block
-and Delphi's knobs.  Field names and defaults are the JAX package's, so
-the same values describe the same model in both.  The model code serves
-the dense family (Delphi and the generic dense LMs), the pure SSM family
-(Mamba2) and the hybrid family (Zamba2: Mamba2 layers with a weight-shared
-attention block every ``attn_every`` layers) and raises
-``NotImplementedError`` for the rest (``repro_torch.models.model``).
+sliding windows, QKV biases, tied or untied heads), the mixture of experts
+(routed experts, top-k, shared experts, the router's aux-loss weight), the
+Mamba2 (SSD) block and Delphi's knobs.  Field names and defaults are the
+JAX package's, so the same values describe the same model in both.  The
+model code serves the dense family (Delphi and the generic dense LMs), the
+MoE family (OLMoE, Qwen2-MoE: the dense block with its MLP replaced by the
+experts), the pure SSM family (Mamba2) and the hybrid family (Zamba2:
+Mamba2 layers with a weight-shared attention block every ``attn_every``
+layers) and raises ``NotImplementedError`` for the rest
+(``repro_torch.models.model``).
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
-# Architecture families (the port serves DENSE, SSM and HYBRID)
+# Architecture families (the port serves DENSE, MOE, SSM and HYBRID)
 DENSE = "dense"
 MOE = "moe"
 SSM = "ssm"
@@ -49,6 +52,13 @@ class ModelConfig:
     tie_embeddings: bool = False
     sliding_window: Optional[int] = None
 
+    # MoE ------------------------------------------------------------------
+    n_experts: int = 0                 # routed experts (0 = dense MLP)
+    top_k: int = 0
+    n_shared_experts: int = 0          # always-on experts (qwen2-moe style)
+    moe_d_ff: int = 0                  # per-expert hidden dim
+    router_aux_coef: float = 0.01
+
     # SSM / Mamba2 (SSD) -----------------------------------------------------
     ssm_state: int = 0                 # N: state size per head
     ssm_expand: int = 2                # d_inner = expand * d_model
@@ -76,6 +86,13 @@ class ModelConfig:
             raise ValueError(f"unknown arch_type {self.arch_type!r}")
         if self.n_heads and self.n_heads % max(self.n_kv_heads, 1) != 0:
             raise ValueError("GQA requires n_heads % n_kv_heads == 0")
+        if self.n_experts and not 0 < self.top_k <= self.n_experts:
+            raise ValueError(f"MoE requires 0 < top_k <= n_experts: top_k "
+                             f"{self.top_k}, n_experts {self.n_experts}")
+        if self.arch_type == MOE and not self.n_experts:
+            # the JAX package lets this through and then builds MoE layers
+            # of zero experts; the port refuses it where it is made
+            raise ValueError("arch_type 'moe' requires n_experts > 0")
 
     @property
     def d_inner(self) -> int:
@@ -96,14 +113,18 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: 2 layers, d_model 256, 4 heads (attention
-        models), SSM state 16 / head dim 32 / chunk 32 (SSM models), the
-        shared block before every layer (hybrid), vocab <= 512 (the JAX
+        models), 4 experts of width 128, top-k <= 2 and at most one shared
+        expert (MoE), SSM state 16 / head dim 32 / chunk 32 (SSM models),
+        the shared block before every layer (hybrid), vocab <= 512 (the JAX
         package's ``reduced()`` for the families this port covers)."""
         kw = dict(n_layers=2, d_model=256, head_dim=64, d_ff=512,
                   vocab_size=min(self.vocab_size, 512), max_seq_len=256)
         if self.n_heads:
             kw["n_heads"] = 4
             kw["n_kv_heads"] = max(1, 4 // min(self.q_per_kv, 4))
+        if self.n_experts:
+            kw.update(n_experts=4, top_k=min(self.top_k, 2), moe_d_ff=128,
+                      n_shared_experts=min(self.n_shared_experts, 1))
         if self.ssm_state:
             kw.update(ssm_state=16, ssm_head_dim=32, ssm_chunk=32)
         if self.attn_every:

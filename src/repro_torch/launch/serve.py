@@ -9,20 +9,26 @@
         [--max-context 4096] ...
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         [--max-context 1024] ...
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
+        --max-context 1024 ...      (or --arch olmoe-1b-7b)
 
 The command line of ``repro.launch.serve``, plus ``--device``, ``--cache``,
 ``--prefill-chunk-tokens`` and ``--max-context``.  The prompts are the
 first halves of synthetic patient histories for Delphi, Mamba2 and
 Zamba2 (which read their event ids as tokens and ignore the ages, as the
 JAX launcher serves every architecture), and seeded random token ids of
-16-128 tokens for a generic dense LM (TinyLlama, H2O-Danube, Qwen2.5,
-DeepSeek: their vocabularies are not the event vocabulary).  The engine's
-``max_context`` is ``--max-context``, by default ``cfg.max_seq_len``
-(32,768 for the generic LMs: pass a smaller one to keep the ring small;
-Zamba2's 1,048,576 costs nothing, its rings are the window's 4,096
-wide).  On ``cuda`` activations run in ``cfg.dtype`` (bf16); on the CPU
-in fp32.  Parameters stay fp32 and come from ``--ckpt`` (a JAX
-``params.npz`` checkpoint) or from ``init_params(seed)``.  ``--cache
+16-128 tokens for a generic dense or MoE LM (TinyLlama, H2O-Danube,
+Qwen2.5, DeepSeek, OLMoE, Qwen2-MoE: their vocabularies are not the event
+vocabulary).  The engine's ``max_context`` is ``--max-context``, by
+default ``cfg.max_seq_len`` (32,768 for the generic LMs: pass a smaller
+one to keep the ring small, e.g. 1,024: Qwen2-MoE's ring at 32,768 is 6.3
+GB a slot; Zamba2's 1,048,576 costs nothing, its rings are the window's
+4,096 wide).  On ``cuda`` activations run in ``cfg.dtype`` (bf16); on the
+CPU in fp32.  Parameters come from ``--ckpt`` (a JAX ``params.npz``
+checkpoint, fp32), from ``init_params(seed)`` (fp32 on the host, then
+the device) or, for the MoE configs, from ``init_params_on_device(seed)``
+(made on the device in the dtype each weight is used in: Qwen2-MoE's fp32
+tree would not fit the card beside its bf16 copy).  ``--cache
 paged`` serves from a pool of 16-token blocks with the ring's bytes (an
 attention model only), and
 ``--prefill-chunk-tokens N`` prefills its prompts in chunks of at most N
@@ -43,10 +49,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import ALL_ARCHS, HYBRID, SSM, get_config
+from repro_torch.configs import ALL_ARCHS, HYBRID, MOE, SSM, get_config
 from repro_torch.data import SimulatorConfig, generate_dataset
 from repro_torch.data import vocab as V
-from repro_torch.models import init_params, load_checkpoint
+from repro_torch.models import (init_params, init_params_on_device,
+                                load_checkpoint)
 from repro_torch.serve import BatchedEngine, Request
 
 
@@ -114,6 +121,8 @@ def serve(args: argparse.Namespace) -> Dict[str, Any]:
         cfg = cfg.replace(dtype="float32")
     if args.ckpt:
         params = load_checkpoint(args.ckpt, cfg, device)
+    elif cfg.arch_type == MOE:
+        params = init_params_on_device(cfg, args.seed, device)
     else:
         params = init_params(cfg, args.seed, device)
     max_context = getattr(args, "max_context", None) or cfg.max_seq_len

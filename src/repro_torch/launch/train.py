@@ -13,10 +13,12 @@ checkpoint layout (``params.npz``, ``meta.json`` with the config) and
 repro_torch.serve.server --config ARCH --ckpt DIR``, the shapes from
 ``meta.json``) and the JAX package's ``restore`` and ``load_config`` read
 it.  ``--reduced`` Delphi keeps the simulator's full event vocabulary.
-A generic LM (``--arch tinyllama-1.1b`` and the other dense LMs,
-``--arch mamba2-780m``, ``--arch zamba2-1.2b``) trains the ``lm``
-objective on seeded random token ids; Mamba2 layers take the plain SSD
-route (``models.ssm``).  Past 512 x 512 attention scores (``--arch
+A generic LM (``--arch tinyllama-1.1b`` and the other dense LMs, the MoE
+LMs ``--arch olmoe-1b-7b`` and ``--arch qwen2-moe-a2.7b``, ``--arch
+mamba2-780m``, ``--arch zamba2-1.2b``) trains the ``lm`` objective on
+seeded random token ids (an MoE LM's loss adds ``router_aux_coef`` times
+the routers' aux loss); Mamba2 layers take the plain SSD route
+(``models.ssm``).  Past 512 x 512 attention scores (``--arch
 delphi-100m --seq-len 1024``) attention takes the blocked online-softmax
 route with recompute (``models.attention``).
 """

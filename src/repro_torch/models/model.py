@@ -1,5 +1,5 @@
 """Model entry points: prefill, decode and the cache helpers of the serving
-engine (the JAX package's ``models/model.py``) for three families.
+engine (the JAX package's ``models/model.py``) for four families.
 
 Parameters are the flat dict of ``models.params``; layer ``l`` of a stacked
 leaf is ``params[key][l]``.
@@ -16,6 +16,13 @@ leaf is ``params[key][l]``.
   ``{"self": LayerCache}``.  The suffix prefill of chunked admission
   (:func:`forward_suffix`) runs the flash kernel with position masks over
   context gathered from a paged pool.
+* MoE (``arch_type="moe"``: OLMoE, Qwen2-MoE): the dense LMs' block with
+  its MLP replaced by the experts (``models.moe.apply_moe``: an fp32
+  top-k router, all experts over every token as batched products, the
+  shared experts where configured).  Attention, caches and kernels are
+  the dense family's (the "attention stack": DENSE or MOE); ``forward``
+  returns the router's aux loss summed over the layers (0 for the other
+  families).
 * Mamba2 (``arch_type="ssm"``): pre-RMSNorm Mamba2 blocks
   (``models.ssm``; prefill's intra-chunk SSD runs the ``ssd_intra``
   kernel), then the untied head.  Cache: ``{"ssm": SSMCache}``.
@@ -28,9 +35,9 @@ leaf is ``params[key][l]``.
 
 Training (``forward(..., differentiable=True)``) takes plain torch ops in
 every family: ``attention.chunked_attention`` for attention and the plain
-SSD route of ``ssm.ssd_chunked`` for Mamba2 layers; no kernel has a
-backward.  The other families (MoE, enc-dec, VLM, audio) raise
-``NotImplementedError``.
+SSD route of ``ssm.ssd_chunked`` for Mamba2 layers, and the MoE
+routers and experts as serving runs them; no kernel has a backward.  The
+other families (enc-dec, VLM, audio) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -41,32 +48,25 @@ import torch
 from repro_torch.configs import base as cb
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import LayerCache, PagedCache
 from repro_torch.models.layers import (act_dtype, age_encoding, apply_mlp,
                                        apply_norm, apply_rope, apply_swiglu,
                                        embed_tokens, logits_head,
                                        untied_logits_head)
-from repro_torch.models.params import Params
+from repro_torch.models.params import MATMUL_KEYS, Params
 from repro_torch.models.ssm import SSMCache
 
-# weights that enter a matrix product, a bias added in the activation
-# dtype, or the activation-dtype conv (cast to the activation dtype); norms,
-# out_bias, A_log, dt_bias, D and norm_scale are used in fp32
-MATMUL_KEYS = ("embed/embed", "embed/lm_head", "layers/attn/wq",
-               "layers/attn/wk", "layers/attn/wv", "layers/attn/wo",
-               "layers/attn/bq", "layers/attn/bk", "layers/attn/bv",
-               "layers/mlp/w_fc", "layers/mlp/b_fc", "layers/mlp/w_proj",
-               "layers/mlp/b_proj", "layers/mlp/w_gate", "layers/mlp/w_up",
-               "layers/mlp/w_down", "layers/ssm/in_proj", "layers/ssm/conv_w",
-               "layers/ssm/conv_b", "layers/ssm/out_proj")
+# the families whose layers are transformer blocks with a KV cache a layer
+ATTENTION_STACKS = (cb.DENSE, cb.MOE)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not serve:
-    every family but the dense one (with any of its knobs), Mamba2 and the
-    Mamba2/attention hybrid."""
-    if cfg.arch_type not in (cb.DENSE, cb.SSM, cb.HYBRID):
+    every family but the dense one (with any of its knobs), the MoE one,
+    Mamba2 and the Mamba2/attention hybrid."""
+    if cfg.arch_type not in (cb.DENSE, cb.MOE, cb.SSM, cb.HYBRID):
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: arch_type={cfg.arch_type}")
 
@@ -74,7 +74,9 @@ def check_supported(cfg: ModelConfig) -> None:
 def cast_params(params: Params, cfg: ModelConfig) -> Params:
     """The same parameters with the matrix-product weights cast once to the
     activation dtype (what every forward would cast at use); the hybrid's
-    shared block casts as a stacked layer does."""
+    shared block casts as a stacked layer does.  Leaves already in the
+    activation dtype (``params.init_params_on_device``) are returned as
+    they are, not copied."""
     dt = act_dtype(cfg)
     return {k: (v.to(dt) if k.replace("shared_attn/", "layers/", 1)
                 in MATMUL_KEYS else v)
@@ -116,13 +118,19 @@ class Block:
         return self[name] if name in self else None
 
 
-def _mlp_block(blk: Block, x: torch.Tensor) -> torch.Tensor:
+def _mlp_block(blk: Block, x: torch.Tensor, cfg: ModelConfig):
+    """``x + MLP(norm(x))`` and the block's router aux loss (an fp32
+    scalar for an MoE block, else None): the experts where the block has a
+    router, else SwiGLU or GELU."""
     h = apply_norm(x, blk["mlp_norm/scale"], blk.get("mlp_norm/bias"))
+    if "moe/router" in blk:
+        y, aux = moe_lib.apply_moe(blk, h, cfg)
+        return x + y, aux
     if "mlp/w_gate" in blk:
         return x + apply_swiglu(h, blk["mlp/w_gate"], blk["mlp/w_up"],
-                                blk["mlp/w_down"])
+                                blk["mlp/w_down"]), None
     return x + apply_mlp(h, blk["mlp/w_fc"], blk["mlp/b_fc"],
-                         blk["mlp/w_proj"], blk["mlp/b_proj"])
+                         blk["mlp/w_proj"], blk["mlp/b_proj"]), None
 
 
 def _head(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -174,8 +182,9 @@ def _attn_block(blk: Block, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, differentiable: bool):
     """A whole pre-norm transformer block over a full sequence: causal
     attention (the flash kernel, or ``chunked_attention`` on the training
-    route) within the config's window, then the MLP.  Returns (x, k, v):
-    k and v for a prefill's ring."""
+    route) within the config's window, then the MLP.  Returns (x, k, v,
+    aux): k and v for a prefill's ring, aux the MLP's router loss (None
+    without a router)."""
     q, k, v = _qkv(blk, cfg, x, positions)
     if differentiable:
         o = attn.chunked_attention(q, k, v, positions, positions,
@@ -184,7 +193,8 @@ def _attn_block(blk: Block, cfg: ModelConfig, x: torch.Tensor,
     else:
         o = attn.prefill_attention(q, k, v, window=cfg.sliding_window)
     x = x + attn.output_projection(o, blk["attn/wo"])
-    return _mlp_block(blk, x), k, v
+    x, aux = _mlp_block(blk, x, cfg)
+    return x, k, v, aux
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
@@ -205,6 +215,9 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
     {"ssm": SSMCache} (Mamba2: the state after the whole sequence, so its
     rows must not be right-padded) or both kinds for the hybrid
     ({"ssm", "attn"}: one ring per application of the shared block).
+    Both modes return ``aux_loss``: the MoE routers' load-balance losses
+    summed over the layers (an fp32 scalar, 0 for the other families), as
+    the JAX package's ``forward``.
 
     batch: tokens (B, S) int, and for Delphi ages (B, S) float years."""
     check_supported(cfg)
@@ -221,23 +234,28 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     cache, ssm_cache = None, None
+    stack = t in ATTENTION_STACKS
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if prefill and t != cb.SSM:
         win = cfg.sliding_window
         W = cache_width or (win if win is not None else S)
-        n = cfg.n_layers if t == cb.DENSE else n_attn_apps(cfg)
+        n = cfg.n_layers if stack else n_attn_apps(cfg)
         cache = attn.empty_cache(n, B, cfg.n_kv_heads, W, cfg.head_dim,
                                  x.dtype, x.device)
 
     def attend(blk: Block, x, i: int):
         """Block ``blk`` over x; a prefill writes its ring ``i``."""
-        x, k, v = _attn_block(blk, cfg, x, positions, differentiable)
+        nonlocal aux
+        x, k, v, a = _attn_block(blk, cfg, x, positions, differentiable)
+        if a is not None:
+            aux = aux + a
         if cache is not None:
             ring = attn.cache_from_prefill(k, v, positions, cache.k.shape[3])
             cache.k[i] = ring.k
             cache.v[i] = ring.v
             cache.pos[i] = ring.pos
         return x
-    if t == cb.DENSE:
+    if stack:
         for l in range(cfg.n_layers):
             x = attend(Block(params, "layers/", l), x, l)
     else:
@@ -257,10 +275,11 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
             ssm_cache = SSMCache(h=torch.stack(hs), conv=torch.stack(convs))
     if prefill:
         x = _last_rows(x, last_index)
-        out["cache"] = ({"self": cache} if t == cb.DENSE else
+        out["cache"] = ({"self": cache} if stack else
                         {"ssm": ssm_cache} if t == cb.SSM else
                         {"ssm": ssm_cache, "attn": cache})
     out["logits"] = _head(params, x)
+    out["aux_loss"] = aux
     return out
 
 
@@ -298,7 +317,7 @@ def forward_suffix(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
                                   positions, ctx["pos"],
                                   window=cfg.sliding_window)
         x = x + attn.output_projection(o, blk["attn/wo"])
-        x = _mlp_block(blk, x)
+        x, _ = _mlp_block(blk, x, cfg)
         ks.append(k)
         vs.append(v)
     x = _last_rows(x, last_index)
@@ -336,7 +355,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
     step = torch.as_tensor(step, dtype=torch.int32, device=x.device)
     if step.dim() == 0:
         step = step.expand(B)
-    lc = cache["self"] if t == cb.DENSE else cache["attn"]
+    stack = t in ATTENTION_STACKS
+    lc = cache["self"] if stack else cache["attn"]
     win = cfg.sliding_window
     if isinstance(lc, PagedCache):
         # one position write a tick for all layers; per layer the pool
@@ -361,8 +381,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
         q, k, v = _qkv(blk, cfg, x, pos1)
         o = attend(q, k, v, i)
         x = x + attn.output_projection(o, blk["attn/wo"])
-        return _mlp_block(blk, x)
-    if t == cb.DENSE:
+        return _mlp_block(blk, x, cfg)[0]
+    if stack:
         for l in range(cfg.n_layers):
             x = block(Block(params, "layers/", l), x, l)
     else:
@@ -403,7 +423,8 @@ def ring_width(cfg: ModelConfig, context_len: int) -> int:
 def make_decode_cache(params: Params, cfg: ModelConfig, batch: int,
                       context_len: int):
     """An empty decode cache for ``batch`` slots on the parameters' device:
-    a ring of :func:`ring_width` per layer in the activation dtype (dense),
+    a ring of :func:`ring_width` per layer in the activation dtype (dense,
+    MoE),
     Mamba2's constant-size state (fp32 ``h``, conv inputs in the activation
     dtype), which does not depend on ``context_len``, or the hybrid's
     state per Mamba layer and ring per shared-block application."""
@@ -411,7 +432,7 @@ def make_decode_cache(params: Params, cfg: ModelConfig, batch: int,
     device = params["embed/embed"].device
     dt = act_dtype(cfg)
     W = ring_width(cfg, context_len)
-    if cfg.arch_type == cb.DENSE:
+    if cfg.arch_type in ATTENTION_STACKS:
         return {"self": attn.empty_cache(cfg.n_layers, batch,
                                          cfg.n_kv_heads, W, cfg.head_dim,
                                          dt, device)}

@@ -22,6 +22,15 @@ Delphi is LayerNorm, GELU, tied, with the dual head; the llama-family
 LMs (TinyLlama, H2O-Danube, Qwen2.5, DeepSeek) are RMSNorm, SwiGLU,
 untied, with GQA and, for Qwen2.5, QKV biases.
 
+MoE (OLMoE, Qwen2-MoE): the dense block with ``layers/moe/*`` in place of
+``layers/mlp/*`` (E routed experts of width f = ``moe_d_ff``; the shared
+experts, where the config has them, fused into one SwiGLU MLP of width
+fs = ``n_shared_experts * f``):
+
+    layers/moe/router (L, d, E)
+    layers/moe/{w_gate,w_up} (L, E, d, f)      layers/moe/w_down (L, E, f, d)
+    layers/moe/shared/{w_gate,w_up} (L, d, fs) layers/moe/shared/w_down (L, fs, d)
+
 Mamba2 (SSM, RMSNorm, untied head; di = d_inner, ch = di + 2N):
 
     embed/embed (V, d)            embed/lm_head (d, V)
@@ -52,15 +61,30 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import HYBRID, SSM, ModelConfig
+from repro_torch.configs.base import HYBRID, MOE, SSM, ModelConfig
 
 Params = Dict[str, torch.Tensor]
+
+# weights that enter a matrix product, a bias added in the activation
+# dtype, or the activation-dtype conv (cast to the activation dtype); norms,
+# out_bias, the MoE router, A_log, dt_bias, D and norm_scale are used in fp32
+MATMUL_KEYS = ("embed/embed", "embed/lm_head", "layers/attn/wq",
+               "layers/attn/wk", "layers/attn/wv", "layers/attn/wo",
+               "layers/attn/bq", "layers/attn/bk", "layers/attn/bv",
+               "layers/mlp/w_fc", "layers/mlp/b_fc", "layers/mlp/w_proj",
+               "layers/mlp/b_proj", "layers/mlp/w_gate", "layers/mlp/w_up",
+               "layers/mlp/w_down", "layers/moe/w_gate", "layers/moe/w_up",
+               "layers/moe/w_down", "layers/moe/shared/w_gate",
+               "layers/moe/shared/w_up", "layers/moe/shared/w_down",
+               "layers/ssm/in_proj", "layers/ssm/conv_w",
+               "layers/ssm/conv_b", "layers/ssm/out_proj")
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     """Key -> shape of every parameter: the dense family (pre-norm
     transformer blocks whose norm, MLP, QKV biases and head follow the
-    config's knobs), for ``arch_type="ssm"`` a stack of Mamba2 blocks with
+    config's knobs), for ``arch_type="moe"`` those blocks with the
+    experts in place of the MLP, for ``arch_type="ssm"`` a stack of Mamba2 blocks with
     an untied head, and for ``arch_type="hybrid"`` that stack and one
     shared transformer block (``shared_attn/*``, no layer axis)."""
     d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab_size
@@ -109,7 +133,16 @@ def _block_shapes(cfg: ModelConfig, prefix: str, lead: Tuple[int, ...]
     if cfg.qkv_bias:
         block.update({"attn/bq": (H, hd), "attn/bk": (Hkv, hd),
                       "attn/bv": (Hkv, hd)})
-    if cfg.activation == "swiglu":
+    if cfg.arch_type == MOE and prefix == "layers/":
+        E, f = cfg.n_experts, cfg.moe_d_ff
+        block.update({"moe/router": (d, E), "moe/w_gate": (E, d, f),
+                      "moe/w_up": (E, d, f), "moe/w_down": (E, f, d)})
+        if cfg.n_shared_experts:
+            fs = cfg.n_shared_experts * f
+            block.update({"moe/shared/w_gate": (d, fs),
+                          "moe/shared/w_up": (d, fs),
+                          "moe/shared/w_down": (fs, d)})
+    elif cfg.activation == "swiglu":
         block.update({"mlp/w_gate": (d, ff), "mlp/w_up": (d, ff),
                       "mlp/w_down": (ff, d)})
     else:
@@ -152,59 +185,118 @@ def load_checkpoint(path: str, cfg: ModelConfig, device="cuda") -> Params:
     return from_jax_flat(flat, cfg, device)
 
 
+def _init_rule(cfg: ModelConfig, full: str):
+    """How leaf ``full`` is initialised: ("normal", scale), ("full",
+    value) or ("a_log", None) (log 1..16 over the SSD heads), with the JAX
+    ``init_params`` scales."""
+    d, H, hd, ff = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
+    # the shared block initialises as a layer of a stack does
+    key = full.replace("shared_attn/", "layers/", 1)
+    if key == "embed/embed":
+        return "normal", 0.02
+    if key == "embed/out_bias":
+        # logits are log-hazards (1/years): start rates low so the total
+        # rate sum e^logit is O(0.1/yr), not O(vocab)
+        return "full", -8.0
+    if key in ("embed/lm_head", "layers/ssm/in_proj"):
+        return "normal", d ** -0.5
+    if key == "layers/ssm/conv_w":
+        return "normal", cfg.ssm_conv ** -0.5
+    if key == "layers/ssm/out_proj":
+        return "normal", cfg.d_inner ** -0.5
+    if key == "layers/ssm/A_log":
+        return "a_log", None
+    if key == "layers/ssm/dt_bias":     # softplus^-1(0.01)
+        return "full", float(np.log(np.expm1(np.float32(0.01))))
+    if key in ("layers/ssm/D", "layers/ssm/norm_scale") \
+            or key.endswith("/scale"):
+        return "full", 1.0
+    if key == "layers/ssm/conv_b" or key.endswith("/bias") \
+            or key.startswith("layers/mlp/b_") \
+            or key in ("layers/attn/bq", "layers/attn/bk", "layers/attn/bv"):
+        return "full", 0.0
+    if key in ("layers/attn/wq", "layers/attn/wk", "layers/attn/wv"):
+        return "normal", d ** -0.5
+    if key == "layers/attn/wo":
+        return "normal", (H * hd) ** -0.5
+    if key in ("layers/mlp/w_fc", "layers/mlp/w_gate", "layers/mlp/w_up",
+               "layers/moe/router", "layers/moe/w_gate", "layers/moe/w_up",
+               "layers/moe/shared/w_gate", "layers/moe/shared/w_up"):
+        return "normal", d ** -0.5
+    if key in ("layers/mlp/w_proj", "layers/mlp/w_down"):
+        return "normal", ff ** -0.5
+    if key == "layers/moe/w_down":
+        return "normal", cfg.moe_d_ff ** -0.5
+    if key == "layers/moe/shared/w_down":
+        return "normal", (cfg.n_shared_experts * cfg.moe_d_ff) ** -0.5
+    raise AssertionError(f"no initializer for {full}")
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     """Random weights with the JAX ``init_params`` keys, shapes and scales,
     drawn from ``numpy.random.default_rng(seed)`` (not JAX's stream: the
-    values differ from the reference's, their distribution does not)."""
+    values differ from the reference's, their distribution does not), in
+    fp32 on the host, then moved to ``device``.  Every config but the MoE
+    ones takes this route (their weights, and so the bits of every earlier
+    run, stay as they were); a model too large to pass through the host in
+    fp32 takes :func:`init_params_on_device`."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    d, H, hd, ff = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
-    di, Hs = cfg.d_inner, cfg.ssm_n_heads
-
-    def normal(shape, scale):
-        return (rng.standard_normal(shape, dtype=np.float32)
-                * np.float32(scale))
-
     flat: Dict[str, np.ndarray] = {}
     for full, shape in param_shapes(cfg).items():
-        # the shared block initialises as a layer of a stack does
-        key = full.replace("shared_attn/", "layers/", 1)
-        if key == "embed/embed":
-            flat[full] = normal(shape, 0.02)
-        elif key == "embed/out_bias":
-            # logits are log-hazards (1/years): start rates low so the total
-            # rate sum e^logit is O(0.1/yr), not O(vocab)
-            flat[full] = np.full(shape, -8.0, np.float32)
-        elif key in ("embed/lm_head", "layers/ssm/in_proj"):
-            flat[full] = normal(shape, d ** -0.5)
-        elif key == "layers/ssm/conv_w":
-            flat[full] = normal(shape, cfg.ssm_conv ** -0.5)
-        elif key == "layers/ssm/out_proj":
-            flat[full] = normal(shape, di ** -0.5)
-        elif key == "layers/ssm/A_log":
-            a_log = np.log(np.linspace(1.0, 16.0, Hs, dtype=np.float32))
+        kind, arg = _init_rule(cfg, full)
+        if kind == "normal":
+            flat[full] = (rng.standard_normal(shape, dtype=np.float32)
+                          * np.float32(arg))
+        elif kind == "a_log":
+            a_log = np.log(np.linspace(1.0, 16.0, cfg.ssm_n_heads,
+                                       dtype=np.float32))
             flat[full] = np.broadcast_to(a_log, shape).astype(np.float32)
-        elif key == "layers/ssm/dt_bias":     # softplus^-1(0.01)
-            flat[full] = np.full(shape, np.log(np.expm1(np.float32(0.01))),
-                                 np.float32)
-        elif key in ("layers/ssm/D", "layers/ssm/norm_scale") \
-                or key.endswith("/scale"):
-            flat[full] = np.ones(shape, np.float32)
-        elif key == "layers/ssm/conv_b":
-            flat[full] = np.zeros(shape, np.float32)
-        elif key.endswith("/bias") or key.startswith("layers/mlp/b_") \
-                or key in ("layers/attn/bq", "layers/attn/bk",
-                           "layers/attn/bv"):
-            flat[full] = np.zeros(shape, np.float32)
-        elif key in ("layers/attn/wq", "layers/attn/wk", "layers/attn/wv"):
-            flat[full] = normal(shape, d ** -0.5)
-        elif key == "layers/attn/wo":
-            flat[full] = normal(shape, (H * hd) ** -0.5)
-        elif key in ("layers/mlp/w_fc", "layers/mlp/w_gate",
-                     "layers/mlp/w_up"):
-            flat[full] = normal(shape, d ** -0.5)
-        elif key in ("layers/mlp/w_proj", "layers/mlp/w_down"):
-            flat[full] = normal(shape, ff ** -0.5)
         else:
-            raise AssertionError(f"no initializer for {full}")
+            flat[full] = np.full(shape, arg, np.float32)
     return from_jax_flat(flat, cfg, dev)
+
+
+def init_params_on_device(cfg: ModelConfig, seed: int = 0,
+                          device="cuda") -> Params:
+    """Random weights with :func:`init_params`' keys, shapes and scales,
+    made on ``device`` (the card unless the caller passes ``cpu``): the
+    route of the MoE configs, whose fp32 trees (OLMoE 27.7 GB, Qwen2-MoE
+    57 GB) would take minutes of host RNG and, beside the engine's cast
+    copy, more than the card's memory.
+
+    Each leaf is drawn from one ``torch.Generator`` on ``device`` seeded
+    with ``seed``, in fp32, one layer slice at a time (a whole
+    (24, 60, 2048, 1408) expert leaf would be 16.6 GB in fp32), and stored
+    in the dtype it is used in: ``MATMUL_KEYS`` leaves in the activation
+    dtype ``cfg.dtype``, the rest in fp32.  ``models.model.cast_params`` is
+    then a no-op on them (``Tensor.to`` returns the tensor itself), so an
+    engine holds one copy of the model and no fp32 copy of the whole
+    exists anywhere.  The values are not :func:`init_params`' (another
+    stream); the same config and seed give the same tensors, and a config
+    that differs only in ``dtype`` gets the same draws, rounded to its
+    dtype (the fp32 model beside the bf16 one)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    act = getattr(torch, cfg.dtype)
+    out: Params = {}
+    for full, shape in param_shapes(cfg).items():
+        key = full.replace("shared_attn/", "layers/", 1)
+        dtype = act if key in MATMUL_KEYS else torch.float32
+        kind, arg = _init_rule(cfg, full)
+        if kind == "full":
+            out[full] = torch.full(shape, arg, dtype=dtype, device=dev)
+            continue
+        if kind == "a_log":
+            a_log = torch.log(torch.linspace(1.0, 16.0, cfg.ssm_n_heads,
+                                             device=dev))
+            out[full] = a_log.expand(shape).to(dtype).clone()
+            continue
+        leaf = torch.empty(shape, dtype=dtype, device=dev)
+        stacked = full.startswith("layers/")
+        for sl in (leaf if stacked else (leaf,)):
+            sl.copy_(torch.randn(sl.shape, generator=gen, device=dev)
+                     .mul_(arg))
+        out[full] = leaf
+    return out

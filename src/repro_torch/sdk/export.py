@@ -26,10 +26,11 @@ position into those tensors in place and returns them: the list it returns
 is the list it was given, updated.
 
 Graphs are traced on the CPU at the configuration's dtype, so a machine
-with no card can export.  The dense family is exported: Delphi, whose
-graphs take ages beside the tokens, and the generic dense LMs (RoPE,
-GQA, SwiGLU, RMSNorm, windows, QKV biases), whose graphs take tokens only
-(the decode graph ``(token, step)``).  A Mamba2 recurrent state cannot
+with no card can export.  The attention stacks are exported: Delphi,
+whose graphs take ages beside the tokens, and the generic dense LMs (RoPE,
+GQA, SwiGLU, RMSNorm, windows, QKV biases) and the MoE LMs (whose
+all-expert dispatch has no data-dependent shape), whose graphs take
+tokens only (the decode graph ``(token, step)``).  A Mamba2 recurrent state cannot
 take the right-padded fixed-shape prompt of the graphs' signature: it is
 refused.
 """
@@ -200,15 +201,16 @@ class _Graph(torch.nn.Module):
 def _check_exportable(cfg: ModelConfig) -> None:
     if cfg.arch_type in (cb.SSM, cb.HYBRID):
         raise NotImplementedError(
-            f"{cfg.name}: export_model exports the dense family only: a "
+            f"{cfg.name}: export_model exports the attention stacks (dense "
+            f"and MoE) only: a "
             f"Mamba2 recurrent state (arch_type={cfg.arch_type}) cannot "
             f"take the right-padded fixed-shape prompt of the artifact's "
             f"graphs (the state after the padding is not the state after "
             f"the prompt)")
-    if cfg.arch_type != cb.DENSE:
+    if cfg.arch_type not in (cb.DENSE, cb.MOE):
         raise NotImplementedError(
-            f"{cfg.name}: export_model exports the dense family only; "
-            f"arch_type={cfg.arch_type} is not ported")
+            f"{cfg.name}: export_model exports the attention stacks (dense "
+            f"and MoE) only; arch_type={cfg.arch_type} is not ported")
     check_supported(cfg)
 
 

@@ -1,7 +1,7 @@
 """Batched serving engine: device-resident continuous batching over a
 per-slot ring KV cache or a paged block pool (the JAX package's
 ``serve/engine.py``), for Delphi and for generic LMs (the dense LMs with
-RoPE, Mamba2, and the Mamba2/attention hybrid Zamba2).
+RoPE, the MoE LMs, Mamba2, and the Mamba2/attention hybrid Zamba2).
 
 * Each tick runs ONE batched ``decode_step`` over all slots, each at its own
   absolute position, then samples, then ``advance_trajectory_state``

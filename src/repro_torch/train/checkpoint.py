@@ -6,9 +6,12 @@ The two packages read each other's directories: the port's flat keys are the
 JAX pytree's paths, and every field of the port's ``ModelConfig`` is a field
 of JAX's, so JAX's ``load_config`` builds its config from the port's
 ``meta.json``; the port's :func:`load_config` keeps the fields it has
-(``rope_theta`` among them: a Qwen2.5 checkpoint keeps its 10^6) and drops
-the JAX-only ones (MoE, encoder, frontend and compile knobs, which the
-configurations the port serves leave at their defaults).
+(``rope_theta`` among them: a Qwen2.5 checkpoint keeps its 10^6; the MoE
+fields ``n_experts``, ``top_k``, ``n_shared_experts``, ``moe_d_ff`` and
+``router_aux_coef``, without which an MoE checkpoint would load with the
+wrong shapes) and drops the JAX-only ones (encoder, frontend and compile
+knobs, which the configurations the port serves leave at their
+defaults).
 """
 from __future__ import annotations
 

@@ -4,12 +4,14 @@
 Two objectives share one step factory:
 * ``objective="delphi"``: the paper's dual loss over (tokens, ages, targets,
   target_dt, loss_mask) batches (``core.delphi.loss_fn``).
-* ``objective="lm"``: next-token CE over the token stream.
+* ``objective="lm"``: next-token CE over the token stream, plus the MoE
+  routers' aux loss weighted by ``cfg.router_aux_coef``.
 
 Both differentiate through ``forward(..., differentiable=True)``: plain
 torch ops, attention by ``models.attention.chunked_attention`` and Mamba2
 layers (Mamba2, the hybrid Zamba2) by the plain SSD route of
-``models.ssm.ssd_chunked``; no kernel has a backward.  Gradients are
+``models.ssm.ssd_chunked``, MoE layers by ``models.moe.apply_moe`` (its
+fp32 router, top-k and combine included); no kernel has a backward.  Gradients are
 taken with respect to detached copies of the fp32 masters, and the
 update returns tensors that do not require grad, so the parameters a
 step or ``train_loop`` hands back can go straight to an engine or a
@@ -38,16 +40,18 @@ Tensors = Dict[str, torch.Tensor]
 
 def lm_loss(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]
             ) -> Tensors:
-    """Next-token CE over the token stream.  The port's families (dense,
-    Mamba2, hybrid) have no router, so ``aux_loss`` is 0 and ``loss`` is
-    the CE."""
+    """Next-token CE over the token stream, as the JAX package's
+    ``lm_loss``: ``loss = CE + cfg.router_aux_coef * aux_loss``, where
+    ``aux_loss`` is the MoE routers' load-balance loss summed over the
+    layers (0 for the families without a router, whose ``loss`` is the
+    CE); ``event_ce`` is the CE."""
     inputs = {k: batch[k] for k in ("tokens", "ages") if k in batch}
-    logits = forward(params, cfg, inputs, mode="train",
-                     differentiable=True)["logits"]
+    out = forward(params, cfg, inputs, mode="train", differentiable=True)
+    logits = out["logits"]
     tokens = batch["tokens"]
-    loss = losses_lib.event_ce(logits[:, :-1], tokens[:, 1:]).mean()
-    return {"loss": loss, "event_ce": loss,
-            "aux_loss": torch.zeros((), device=loss.device)}
+    ce = losses_lib.event_ce(logits[:, :-1], tokens[:, 1:]).mean()
+    return {"loss": ce + cfg.router_aux_coef * out["aux_loss"],
+            "event_ce": ce, "aux_loss": out["aux_loss"]}
 
 
 def make_loss_fn(cfg: ModelConfig, objective: str = "lm") -> Callable:

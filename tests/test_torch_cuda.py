@@ -194,6 +194,9 @@ def test_tte_sample_kernel_strided_and_misaligned_rows(gen, V):
     # Zamba2's shared block: MHA 32/32 at hd 64 (its window of 4096 does
     # not bite at 1024 tokens)
     (1, 32, 32, 1024, 64, 4096, True, torch.bfloat16),
+    # the MoE LMs' prefill (OLMoE, Qwen2-MoE): MHA 16/16 at hd 128, the
+    # kernels' largest head
+    (2, 16, 16, 1024, 128, None, True, torch.bfloat16),
 ])
 def test_flash_attention_kernel_vs_plain(gen, B, Hq, Hkv, S, hd, window,
                                          causal, dtype):
@@ -289,6 +292,8 @@ def test_head_chunk_by_position_equals_index_route(gen, S, n, dtype):
     (2, 8, 4, 80, 16, 320, 4096, torch.float32),
     # Zamba2's ring: 8 slots x 32 kv heads, G 1 at hd 64, W = window 4096
     (8, 32, 1, 64, 4096, 1, 4096, torch.bfloat16),
+    # the MoE LMs' ring: 8 slots x 16 kv heads, G 1 at hd 128, W 1024
+    (8, 16, 1, 128, 1024, 1, None, torch.bfloat16),
 ])
 def test_paged_decode_kernel_vs_plain(gen, B, Hkv, G, hd, bs, nbs, window,
                                       dtype):
@@ -463,6 +468,77 @@ def test_generic_lm_engine_ring_equals_paged_on_card(gen):
         counts = ops.launch_counts()
         assert all(r.done and r.error is None and len(r.out_tokens) == 10
                    for r in reqs)
+        assert counts["paged_decode_attention"] == 2 * eng.ticks
+        assert counts["tte_sample"] == 0
+        if "prefill_chunk_tokens" not in kw:
+            assert counts["flash_attention"] == 2 * eng.admit_batches
+        outs.append([r.out_tokens for r in reqs])
+    assert outs[0] == outs[1] == outs[2]
+
+
+@pytest.mark.parametrize("arch,change", [
+    ("qwen2-moe-a2.7b", {}),
+    ("qwen2-moe-a2.7b", dict(n_experts=16, top_k=4))], ids=["reduced", "wide"])
+def test_apply_moe_on_card_equals_cpu(gen, arch, change):
+    """``models.moe.apply_moe`` in fp32 (TF32 off) on the card against the
+    CPU on the same weights and inputs: the same experts, y within 1e-5
+    (the CPU tests' allowance against JAX), the aux within 1e-6."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models import moe
+    from repro_torch.models.model import Block
+    cfg = get_config(arch, reduced=True).replace(dtype="float32", **change)
+    params = init_params(cfg, seed=5, device="cpu")
+    x = torch.randn((3, 40, cfg.d_model), generator=gen, device="cuda")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cuda = {k: v.cuda() for k, v in params.items()}
+        y, aux = moe.apply_moe(Block(cuda, "layers/", 0), x, cfg)
+        e = moe.route(cuda["layers/moe/router"][0],
+                      x.reshape(-1, cfg.d_model), cfg.top_k)[1]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    y2, aux2 = moe.apply_moe(Block(params, "layers/", 0), x.cpu(), cfg)
+    e2 = moe.route(params["layers/moe/router"][0],
+                   x.cpu().reshape(-1, cfg.d_model), cfg.top_k)[1]
+    assert torch.equal(e.cpu(), e2)
+    torch.testing.assert_close(y.cpu(), y2, atol=1e-5, rtol=0)
+    torch.testing.assert_close(aux.cpu(), aux2, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-moe-a2.7b"])
+def test_moe_engine_ring_equals_paged_on_card(gen, arch):
+    """The reduced MoE LMs in bf16 on the card (weights made there by
+    ``init_params_on_device``), injected uniforms: the paged engine's
+    tokens, and the paged engine's with 32-token chunked prefill, equal
+    the ring engine's bit for bit; 2 flash launches an admission batch, 2
+    paged a tick, no ``tte_sample``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params_on_device
+    from repro_torch.serve import BatchedEngine, Request
+    cfg = get_config(arch, reduced=True)
+    params = init_params_on_device(cfg, seed=3, device="cuda")
+    rng = np.random.default_rng(1)
+    prompts = [(rng.integers(0, cfg.vocab_size, S).astype(np.int32),
+                rng.random((10, cfg.vocab_size), dtype=np.float32))
+               for S in (5, 20, 33, 70, 90, 120)]
+    outs = []
+    for kw in ({}, {"cache": "paged"},
+               {"cache": "paged", "prefill_chunk_tokens": 32}):
+        eng = BatchedEngine(params, cfg, slots=3, max_context=256,
+                            device="cuda", **kw)
+        reqs = [Request(tokens=t, max_new=10, uniforms=u)
+                for t, u in prompts]
+        for r in reqs:
+            eng.submit(r)
+        ops.reset_launch_counts()
+        eng.run()
+        counts = ops.launch_counts()
+        assert all(r.done and r.error is None and len(r.out_tokens) == 10
+                   for r in reqs)
+        assert eng.host_syncs == eng.ticks + eng.admit_batches
         assert counts["paged_decode_attention"] == 2 * eng.ticks
         assert counts["tte_sample"] == 0
         if "prefill_chunk_tokens" not in kw:

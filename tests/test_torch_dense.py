@@ -348,7 +348,8 @@ def test_bridge_round_trip_new_archs(arch, tmp_path):
 def test_registry_and_refusals():
     assert sorted(ALL_ARCHS) == sorted(
         ["delphi-2m", "delphi-100m", "mamba2-780m", "tinyllama-1.1b",
-         "h2o-danube-1.8b", "qwen2.5-32b", "deepseek-7b", "zamba2-1.2b"])
+         "h2o-danube-1.8b", "qwen2.5-32b", "deepseek-7b", "zamba2-1.2b",
+         "olmoe-1b-7b", "qwen2-moe-a2.7b"])
     for arch in ALL_ARCHS:
         full, red = get_config(arch), get_config(arch, reduced=True)
         jfull, jred = jax_config(arch), jax_config(arch, reduced=True)
@@ -357,7 +358,8 @@ def test_registry_and_refusals():
                   "rope_theta", "max_seq_len", "tie_embeddings",
                   "sliding_window", "age_encoding", "dual_head", "citation",
                   "ssm_state", "ssm_expand", "ssm_head_dim", "ssm_conv",
-                  "ssm_chunk", "attn_every"):
+                  "ssm_chunk", "attn_every", "n_experts", "top_k",
+                  "n_shared_experts", "moe_d_ff", "router_aux_coef"):
             assert getattr(full, f) == getattr(jfull, f), (arch, f)
             assert getattr(red, f) == getattr(jred, f), (arch, f)
         check_supported(full)
@@ -369,7 +371,13 @@ def test_registry_and_refusals():
     base = get_config("tinyllama-1.1b", reduced=True)
     check_supported(base.replace(arch_type="hybrid", attn_every=1,
                                  ssm_state=16))       # the hybrid is served
-    for t in ("moe", "enc_dec", "vlm", "audio"):
+    # MoE is served (tests/test_torch_moe.py); an MoE config with no
+    # experts, which JAX's config lets through, is refused where it is made
+    check_supported(base.replace(arch_type="moe", n_experts=4, top_k=2,
+                                 moe_d_ff=128))
+    with pytest.raises(ValueError, match="n_experts"):
+        base.replace(arch_type="moe")
+    for t in ("enc_dec", "vlm", "audio"):
         with pytest.raises(NotImplementedError):
             check_supported(base.replace(arch_type=t))
 

@@ -204,21 +204,24 @@ def test_engine_refuses_what_is_not_ported(kw, error):
 
 
 @pytest.mark.parametrize("change", [
-    dict(age_encoding=False, dual_head=False), dict(arch_type="moe")],
+    dict(age_encoding=False, dual_head=False),
+    dict(age_encoding=False, dual_head=False, arch_type="moe", n_experts=4,
+         top_k=2, moe_d_ff=64)],
     ids=["generic-dense", "moe"])
 def test_engine_refuses_hold_fork_and_generic_sampling(change):
     """Hold, fork and ``sample_futures`` are ported (tests/test_torch_prefix
-    .py), and so is generic (Gumbel) sampling, for Mamba2 and for a generic
-    dense LM (RoPE): reduced Delphi with no age encoding and no dual head
-    serves token-only requests, and its tokens are held step by step against
-    the JAX model's Gumbel scores under the same uniforms (margin 2e-3).
-    MoE is not ported: the engine refuses it."""
+    .py), and so is generic (Gumbel) sampling, for Mamba2, for a generic
+    dense LM (RoPE) and for an MoE LM: reduced Delphi with no age encoding
+    and no dual head (and, for "moe", 4 experts of width 64, top-2, in
+    place of its MLP) serves token-only requests, and its tokens are held
+    step by step against the JAX model's Gumbel scores under the same
+    uniforms (margin 2e-3).  An MoE config with no experts is refused
+    where it is made (``ModelConfig``), before any engine."""
     cfg, jcfg, params, _ = _setup()
+    if cfg.replace(**change).arch_type == "moe":
+        with pytest.raises(ValueError, match="n_experts"):
+            cfg.replace(arch_type="moe")
     cfg = cfg.replace(**change)
-    if cfg.arch_type != "dense":
-        with pytest.raises(NotImplementedError):
-            BatchedEngine(params, cfg, slots=2, max_context=W, device="cpu")
-        return
     params = init_params(cfg, seed=3, device="cpu")
     jcfg = jcfg.replace(**change)
     jp = jax_params(to_flat_numpy(params))

@@ -180,26 +180,24 @@ def test_make_decode_cache_shapes():
 
 @pytest.mark.parametrize("change", [
     dict(age_encoding=False), dict(n_kv_heads=2), dict(activation="swiglu"),
-    dict(norm="rmsnorm"), dict(sliding_window=64), dict(arch_type="moe"),
+    dict(norm="rmsnorm"), dict(sliding_window=64),
+    dict(arch_type="moe", n_experts=4, top_k=2, moe_d_ff=64),
     dict(arch_type="hybrid", attn_every=1, ssm_state=16),
 ])
 def test_configs_outside_the_slice_raise(change):
-    """MoE stacks are refused.  The knobs that this test once held refused
-    (RoPE, GQA, SwiGLU, RMSNorm, a sliding window, and the hybrid stack:
-    Mamba2 layers with the shared attention block before each) are
-    served: on reduced Delphi with that one knob changed, the prefill
-    logits at the last position of an 80-event history (longer than the
-    window of 64) match the JAX package's within ``LOGITS_ATOL``."""
+    """The knobs that this test once held refused (RoPE, GQA, SwiGLU,
+    RMSNorm, a sliding window, the MoE stack: 4 experts, top-2, in place
+    of the MLP, and the hybrid stack: Mamba2 layers with the shared
+    attention block before each) are served: on reduced Delphi with that
+    one knob changed, the prefill logits at the last position of an
+    80-event history (longer than the window of 64) match the JAX
+    package's within ``LOGITS_ATOL``.  An MoE stack with no experts, which
+    JAX's config lets through, is refused where it is made."""
+    if change.get("arch_type") == "moe":
+        with pytest.raises(ValueError, match="n_experts"):
+            get_config("delphi-2m", reduced=True).replace(arch_type="moe")
     cfg = get_config("delphi-2m", reduced=True).replace(
         dtype="float32", **change)
-    if cfg.arch_type == "moe":
-        params = init_params(get_config("delphi-2m", reduced=True), seed=0,
-                             device="cpu")
-        batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
-                 "ages": torch.zeros((1, 4))}
-        with pytest.raises(NotImplementedError):
-            forward(params, cfg, batch, mode="prefill")
-        return
     jcfg = jax_config("delphi-2m", reduced=True).replace(
         dtype="float32", **change)
     params = init_params(cfg, seed=0, device="cpu")
