@@ -391,6 +391,10 @@ class LocalBackend(InferenceBackend):
 
     def __init__(self, params, cfg: ModelConfig, *,
                  seq_len: Optional[int] = None, device="cuda"):
+        if cfg.frontend is not None or cfg.arch_type in (cb.AUDIO,
+                                                          cb.ENC_DEC):
+            # the prefill and decode functions take tokens (and ages) only
+            raise ValueError("engine serves token-only architectures")
         self.device = resolve_device(device)
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.cfg = cfg
@@ -404,7 +408,7 @@ class LocalBackend(InferenceBackend):
         self.death_token = cfg.death_token
         # recurrent state cannot mask padding: such a model prefills its
         # prompt at its exact length
-        self._padded = cfg.arch_type in (cb.DENSE, cb.MOE, cb.VLM)
+        self._padded = cfg.arch_type in (cb.DENSE, cb.MOE)
         self._fns = build_inference_fns(cfg, self.seq_len)
 
     def _tensors(self, *arrays) -> List[torch.Tensor]:

@@ -4,14 +4,17 @@ The JAX package's configuration, cut to the fields the port reads: the
 dense transformer core (RoPE, GQA, SwiGLU or GELU, RMSNorm or LayerNorm,
 sliding windows, QKV biases, tied or untied heads), the mixture of experts
 (routed experts, top-k, shared experts, the router's aux-loss weight), the
-Mamba2 (SSD) block and Delphi's knobs.  Field names and defaults are the
-JAX package's, so the same values describe the same model in both.  The
-model code serves the dense family (Delphi and the generic dense LMs), the
-MoE family (OLMoE, Qwen2-MoE: the dense block with its MLP replaced by the
-experts), the pure SSM family (Mamba2) and the hybrid family (Zamba2:
-Mamba2 layers with a weight-shared attention block every ``attn_every``
-layers) and raises ``NotImplementedError`` for the rest
-(``repro_torch.models.model``).
+Mamba2 (SSD) block, the encoder-decoder (encoder depth, encoder memory
+length), the modality frontends (audio frames, vision patches) and
+Delphi's knobs.  Field names and defaults are the JAX package's, so the
+same values describe the same model in both.  The model code
+(``repro_torch.models.model``) serves every family: dense (Delphi and the
+generic dense LMs), MoE (OLMoE, Qwen2-MoE: the dense block with its MLP
+replaced by the experts), SSM (Mamba2), hybrid (Zamba2: Mamba2 layers with
+a weight-shared attention block every ``attn_every`` layers), VLM
+(InternVL2: the dense decoder over patch embeddings put before the text)
+and audio / enc-dec (SeamlessM4T: a bidirectional encoder over frame
+embeddings and a decoder with cross-attention to its output).
 """
 from __future__ import annotations
 
@@ -19,14 +22,14 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
-# Architecture families (the port serves DENSE, MOE, SSM and HYBRID)
+# Architecture families
 DENSE = "dense"
 MOE = "moe"
 SSM = "ssm"
 HYBRID = "hybrid"
-ENC_DEC = "enc_dec"
-VLM = "vlm"
-AUDIO = "audio"
+ENC_DEC = "enc_dec"  # seq2seq (audio backbone)
+VLM = "vlm"          # decoder-only with a vision-patch frontend
+AUDIO = "audio"      # enc-dec with an audio-frame frontend
 
 
 @dataclass(frozen=True)
@@ -69,6 +72,15 @@ class ModelConfig:
     # hybrid (zamba2-style): shared attention block applied every k SSM layers
     attn_every: int = 0                # 0 = never (pure SSM)
 
+    # encoder-decoder --------------------------------------------------------
+    n_encoder_layers: int = 0          # >0 => enc-dec; decoder gets cross-attn
+    enc_len_ratio: int = 8             # encoder frames = seq_len // ratio (audio)
+    dec_enc_len: int = 4096            # encoder memory length for decode shapes
+
+    # modality frontend (audio frames / vision patches, given as embeddings)
+    frontend: Optional[str] = None     # None | "audio_frames" | "vision_patches"
+    n_frontend_tokens: int = 256       # VLM: patch tokens put before the text
+
     # Delphi -----------------------------------------------------------------
     dual_head: bool = False            # event+time competing-exponential head
     age_encoding: bool = False         # continuous age encoding (replaces pos enc)
@@ -95,6 +107,10 @@ class ModelConfig:
             raise ValueError("arch_type 'moe' requires n_experts > 0")
 
     @property
+    def has_encoder(self) -> bool:
+        return self.n_encoder_layers > 0
+
+    @property
     def d_inner(self) -> int:
         return self.ssm_expand * self.d_model
 
@@ -115,8 +131,9 @@ class ModelConfig:
         """Smoke-test variant: 2 layers, d_model 256, 4 heads (attention
         models), 4 experts of width 128, top-k <= 2 and at most one shared
         expert (MoE), SSM state 16 / head dim 32 / chunk 32 (SSM models),
-        the shared block before every layer (hybrid), vocab <= 512 (the JAX
-        package's ``reduced()`` for the families this port covers)."""
+        the shared block before every layer (hybrid), 2 encoder layers and
+        an encoder memory of 64 (enc-dec), 8 frontend tokens, vocab <= 512
+        (the JAX package's ``reduced()``)."""
         kw = dict(n_layers=2, d_model=256, head_dim=64, d_ff=512,
                   vocab_size=min(self.vocab_size, 512), max_seq_len=256)
         if self.n_heads:
@@ -129,6 +146,10 @@ class ModelConfig:
             kw.update(ssm_state=16, ssm_head_dim=32, ssm_chunk=32)
         if self.attn_every:
             kw.update(attn_every=1, n_layers=2)
+        if self.n_encoder_layers:
+            kw.update(n_encoder_layers=2, dec_enc_len=64)
         if self.sliding_window:
             kw["sliding_window"] = 64
+        if self.frontend:
+            kw["n_frontend_tokens"] = 8
         return self.replace(**kw)

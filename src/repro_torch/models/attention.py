@@ -30,6 +30,14 @@ queries attend over the slot's context blocks, gathered from the pool
 (:func:`gather_context`), and the chunk itself, by absolute position
 (:func:`suffix_attention`, the flash kernel with position masks).
 
+The encoder-decoder's cross-attention has a ring of its own per layer
+(``cache["cross"]``): the prefill packs the projected encoder memory's K/V
+into it at positions 0..M-1 (no RoPE), and decode reads it and never
+writes it (:func:`cross_decode_attention`).  Bidirectional attention (the
+encoder's self-attention, and cross-attention's prefill, where the T keys
+of the memory differ in number from the S queries) takes the flash
+kernel's non-causal route (:func:`full_attention`).
+
 Training attends through :func:`chunked_attention`, a differentiable masked
 softmax in plain torch ops (the JAX package trains through its jnp
 ``chunked_attention`` too, never through a Pallas kernel); no kernel has a
@@ -62,19 +70,32 @@ class LayerCache(NamedTuple):
     pos: torch.Tensor     # (L, B, W) int32 absolute positions, -1 = empty
 
 
-def project_qkv(x: torch.Tensor, wq, wk, wv, bq=None, bk=None, bv=None):
-    """x (B, S, d) -> q (B, S, Hq, hd), k and v (B, S, Hkv, hd); the QKV
-    biases (Hq|Hkv, hd), where given, are added in x's dtype."""
+def project_qkv(x: torch.Tensor, wq, wk, wv, bq=None, bk=None, bv=None,
+                xkv: Optional[torch.Tensor] = None):
+    """x (B, S, d) -> q (B, S, Hq, hd), k and v (B, T, Hkv, hd), k and v
+    from ``xkv`` (B, T, d) where given (cross-attention: the encoder's
+    memory), else from x; the QKV biases (Hq|Hkv, hd), where given, are
+    added in x's dtype."""
     dt = x.dtype
-    B, S, d = x.shape
-    q = (x @ wq.to(dt).reshape(d, -1)).view(B, S, wq.shape[1], wq.shape[2])
-    k = (x @ wk.to(dt).reshape(d, -1)).view(B, S, wk.shape[1], wk.shape[2])
-    v = (x @ wv.to(dt).reshape(d, -1)).view(B, S, wv.shape[1], wv.shape[2])
-    if bq is not None:
-        q = q + bq.to(dt)
+    d = x.shape[2]
+    xkv = x if xkv is None else xkv.to(dt)
+    B, T = xkv.shape[:2]
+    q = project_q(x, wq, bq)
+    k = (xkv @ wk.to(dt).reshape(d, -1)).view(B, T, wk.shape[1], wk.shape[2])
+    v = (xkv @ wv.to(dt).reshape(d, -1)).view(B, T, wv.shape[1], wv.shape[2])
+    if bk is not None:
         k = k + bk.to(dt)
         v = v + bv.to(dt)
     return q, k, v
+
+
+def project_q(x: torch.Tensor, wq, bq=None) -> torch.Tensor:
+    """x (B, S, d) -> q (B, S, Hq, hd), with the bias (Hq, hd) where
+    given, in x's dtype."""
+    dt = x.dtype
+    B, S, d = x.shape
+    q = (x @ wq.to(dt).reshape(d, -1)).view(B, S, wq.shape[1], wq.shape[2])
+    return q if bq is None else q + bq.to(dt)
 
 
 def output_projection(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -185,6 +206,16 @@ def prefill_attention(q, k, v, window: Optional[int] = None
     return o.transpose(1, 2)
 
 
+def full_attention(q, k, v) -> torch.Tensor:
+    """Bidirectional attention: every query sees every key (the encoder's
+    self-attention over its frames; cross-attention's prefill over the
+    encoder memory, T keys for S queries), no window.
+    q: (B, S, Hq, hd), k, v: (B, T, Hkv, hd) -> (B, S, Hq, hd)."""
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=False)
+    return o.transpose(1, 2)
+
+
 def suffix_attention(q, k, v, ctx_k, ctx_v, positions, ctx_pos,
                      window: Optional[int] = None) -> torch.Tensor:
     """One layer's suffix-prefill attention (mode "suffix" of the JAX
@@ -266,6 +297,29 @@ def ring_decode_attention(q, k_new, v_new, cache: LayerCache, layer: int,
     vl[rows, :, slot] = v_new[:, 0].to(vl.dtype)
     o = ops.paged_decode_attention(q[:, 0], kl, vl, table, cache.pos[layer],
                                    step, window=window)
+    return o[:, None]
+
+
+def cross_decode_attention(q, cache: LayerCache, layer: int,
+                           table: torch.Tensor) -> torch.Tensor:
+    """One layer's decode cross-attention against its cross ring, which
+    it reads and never writes: the projected memory K/V at positions
+    0..W-1, W the ring's width (a ring from the prefill, or an empty one,
+    every position -1).
+
+    The reference decodes with step ``2**30`` and no ring eviction
+    (``decode_attention`` applies ``pos > step - W`` only to a self ring's
+    deferred write); the paged kernel always applies it, so at that step
+    every position would be masked.  The step here is the largest memory
+    position, W - 1: its mask ``W - 1 - W < pos <= W - 1`` keeps every
+    position 0..W-1, the reference's token set.
+    q: (B, 1, Hq, hd); ``table`` = arange(B)[:, None] int32.  Returns
+    (B, 1, Hq, hd)."""
+    W = cache.pos.shape[-1]
+    step = torch.full((q.shape[0],), W - 1, dtype=torch.int32,
+                      device=q.device)
+    o = ops.paged_decode_attention(q[:, 0], cache.k[layer], cache.v[layer],
+                                   table, cache.pos[layer], step)
     return o[:, None]
 
 

@@ -1,5 +1,5 @@
 """Model entry points: prefill, decode and the cache helpers of the serving
-engine (the JAX package's ``models/model.py``) for four families.
+engine (the JAX package's ``models/model.py``) for every family.
 
 Parameters are the flat dict of ``models.params``; layer ``l`` of a stacked
 leaf is ``params[key][l]``.
@@ -32,12 +32,28 @@ leaf is ``params[key][l]``.
   each at the same absolute positions, RoPE included).  Cache:
   ``{"ssm": SSMCache (L, ...), "attn": LayerCache (n_apps, ...)}``: one
   ring per application, indexed by ``layer // attn_every``.
+* VLM (``arch_type="vlm"``: InternVL2): the dense LMs' stack over the
+  batch's ``patches`` (B, n_frontend_tokens, d), cast to the activation
+  dtype and put before the text embeddings; positions run over patches
+  and text, so text position p is absolute position ``text_offset + p``
+  (``forward`` returns ``text_offset``; ``last_index`` counts text tokens;
+  a decode step is the absolute position).  Cache: ``{"self":
+  LayerCache}`` over both.
+* Encoder-decoder (``arch_type="audio"`` or ``"enc_dec"``: SeamlessM4T):
+  the encoder runs its own stack (``encoder/*``) over the batch's
+  ``frames`` (B, M, d) bidirectionally, with RoPE at frame positions
+  0..M-1, then ``enc_norm``; each decoder block takes, between its causal
+  self-attention and its MLP, a pre-norm cross-attention to that memory
+  (q from the decoder, k and v from the memory, no RoPE, every key
+  visible).  Cache: ``{"self": LayerCache, "cross": LayerCache}``, the
+  cross rings holding the memory's K/V at positions 0..M-1, read by decode
+  and never written.
 
 Training (``forward(..., differentiable=True)``) takes plain torch ops in
-every family: ``attention.chunked_attention`` for attention and the plain
-SSD route of ``ssm.ssd_chunked`` for Mamba2 layers, and the MoE
-routers and experts as serving runs them; no kernel has a backward.  The
-other families (enc-dec, VLM, audio) raise ``NotImplementedError``.
+every family: ``attention.chunked_attention`` for attention (causal or
+not) and the plain SSD route of ``ssm.ssd_chunked`` for Mamba2 layers,
+and the MoE routers and experts as serving runs them; no kernel has a
+backward.
 """
 from __future__ import annotations
 
@@ -58,17 +74,11 @@ from repro_torch.models.layers import (act_dtype, age_encoding, apply_mlp,
 from repro_torch.models.params import MATMUL_KEYS, Params
 from repro_torch.models.ssm import SSMCache
 
-# the families whose layers are transformer blocks with a KV cache a layer
-ATTENTION_STACKS = (cb.DENSE, cb.MOE)
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this port does not serve:
-    every family but the dense one (with any of its knobs), the MoE one,
-    Mamba2 and the Mamba2/attention hybrid."""
-    if cfg.arch_type not in (cb.DENSE, cb.MOE, cb.SSM, cb.HYBRID):
-        raise NotImplementedError(
-            f"{cfg.name}: not ported yet: arch_type={cfg.arch_type}")
+# the decoder-only families whose layers are transformer blocks with a KV
+# cache a layer
+ATTENTION_STACKS = (cb.DENSE, cb.MOE, cb.VLM)
+# the encoder-decoder families: a decoder block also cross-attends
+ENC_DEC_STACKS = (cb.AUDIO, cb.ENC_DEC)
 
 
 def cast_params(params: Params, cfg: ModelConfig) -> Params:
@@ -88,6 +98,17 @@ def _embed(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
     if cfg.age_encoding:
         x = x + age_encoding(batch["ages"], cfg.d_model).to(x.dtype)
     return x
+
+
+def _embed_input(params: Params, cfg: ModelConfig, batch):
+    """(x (B, S', d), text_offset): the tokens' embeddings, after a VLM's
+    ``patches`` (B, P, d) cast to the activation dtype (S' = P + S,
+    text_offset = P), else alone (text_offset 0)."""
+    x = _embed(params, cfg, batch)
+    if cfg.frontend != "vision_patches":
+        return x, 0
+    patches = batch["patches"].to(x.dtype)
+    return torch.cat([patches, x], dim=1), patches.shape[1]
 
 
 def n_attn_apps(cfg: ModelConfig) -> int:
@@ -179,22 +200,77 @@ def _qkv(blk: Block, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _attn_block(blk: Block, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, differentiable: bool):
+                positions: torch.Tensor, differentiable: bool, *,
+                causal: bool = True, memory: Optional[torch.Tensor] = None):
     """A whole pre-norm transformer block over a full sequence: causal
-    attention (the flash kernel, or ``chunked_attention`` on the training
-    route) within the config's window, then the MLP.  Returns (x, k, v,
-    aux): k and v for a prefill's ring, aux the MLP's router loss (None
-    without a router)."""
+    attention within the config's window (or, with ``causal=False``,
+    bidirectional: the encoder's), with ``memory`` (B, M, d) a
+    cross-attention to it, then the MLP; each attention through the flash
+    kernel, or ``chunked_attention`` on the training route.  Returns (x, k,
+    v, aux, cross): k and v for a prefill's ring, aux the MLP's router loss
+    (None without a router), cross the memory's (k, v) for a prefill's
+    cross ring (None without ``memory``)."""
     q, k, v = _qkv(blk, cfg, x, positions)
+    window = cfg.sliding_window if causal else None
     if differentiable:
         o = attn.chunked_attention(q, k, v, positions, positions,
-                                   causal=True, window=cfg.sliding_window,
+                                   causal=causal, window=window,
+                                   q_per_kv=cfg.q_per_kv)
+    elif causal:
+        o = attn.prefill_attention(q, k, v, window=window)
+    else:
+        o = attn.full_attention(q, k, v)
+    x = x + attn.output_projection(o, blk["attn/wo"])
+    cross = None
+    if memory is not None:
+        x, cross = _cross_block(blk, cfg, x, memory, differentiable)
+    x, aux = _mlp_block(blk, x, cfg)
+    return x, k, v, aux, cross
+
+
+def _cross_block(blk: Block, cfg: ModelConfig, x: torch.Tensor,
+                 memory: torch.Tensor, differentiable: bool):
+    """``x + CrossAttn(cross_norm(x), memory)``: q from x, k and v from the
+    memory (B, M, d), no RoPE, every key visible (T = M keys for S
+    queries).  Returns (x, (k, v))."""
+    h = apply_norm(x, blk["cross_norm/scale"], blk.get("cross_norm/bias"))
+    q, k, v = attn.project_qkv(h, blk["cross_attn/wq"], blk["cross_attn/wk"],
+                               blk["cross_attn/wv"], blk.get("cross_attn/bq"),
+                               blk.get("cross_attn/bk"),
+                               blk.get("cross_attn/bv"), xkv=memory)
+    if differentiable:
+        qpos = torch.arange(x.shape[1], device=x.device)
+        mpos = torch.arange(memory.shape[1], device=x.device)
+        o = attn.chunked_attention(q, k, v, qpos, mpos, causal=False,
                                    q_per_kv=cfg.q_per_kv)
     else:
-        o = attn.prefill_attention(q, k, v, window=cfg.sliding_window)
-    x = x + attn.output_projection(o, blk["attn/wo"])
-    x, aux = _mlp_block(blk, x, cfg)
-    return x, k, v, aux
+        o = attn.full_attention(q, k, v)
+    return x + attn.output_projection(o, blk["cross_attn/wo"]), (k, v)
+
+
+def _encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
+            differentiable: bool) -> torch.Tensor:
+    """The encoder's memory (B, M, d): frame embeddings (B, M, d), cast to
+    the activation dtype, through the ``encoder/*`` blocks bidirectionally
+    (RoPE at frame positions 0..M-1, as every self-attention of a config
+    without age encoding), then ``enc_norm``."""
+    x = frames.to(act_dtype(cfg))
+    B, M = x.shape[:2]
+    fpos = torch.arange(M, dtype=torch.int32, device=x.device).expand(B, M)
+    for l in range(cfg.n_encoder_layers):
+        x = _attn_block(Block(params, "encoder/", l), cfg, x, fpos,
+                        differentiable, causal=False)[0]
+    return apply_norm(x, params["enc_norm/scale"], params.get("enc_norm/bias"))
+
+
+def _cross_decode(blk: Block, cfg: ModelConfig, x: torch.Tensor,
+                  cross: LayerCache, l: int, table: torch.Tensor):
+    """Decode's ``x + CrossAttn(cross_norm(x))`` against layer ``l``'s
+    cross ring, which it does not write."""
+    h = apply_norm(x, blk["cross_norm/scale"], blk.get("cross_norm/bias"))
+    q = attn.project_q(h, blk["cross_attn/wq"], blk.get("cross_attn/bq"))
+    o = attn.cross_decode_attention(q, cross, l, table)
+    return x + attn.output_projection(o, blk["cross_attn/wo"])
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
@@ -209,32 +285,38 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
     flash kernel, and Mamba2 layers by the plain SSD route instead of the
     ``ssd_intra`` kernel.
     mode "prefill": logits (B, 1, V) at ``last_index`` (B,) — each row's
-    last valid token of a right-padded batch — or at the last position,
-    plus ``cache``: {"self": LayerCache} rings of width ``cache_width``
-    (default: the window where the config has one, else S, as JAX),
-    {"ssm": SSMCache} (Mamba2: the state after the whole sequence, so its
-    rows must not be right-padded) or both kinds for the hybrid
-    ({"ssm", "attn"}: one ring per application of the shared block).
-    Both modes return ``aux_loss``: the MoE routers' load-balance losses
-    summed over the layers (an fp32 scalar, 0 for the other families), as
-    the JAX package's ``forward``.
+    last valid text token of a right-padded batch — or at the last
+    position, plus ``cache``: {"self": LayerCache} rings of width
+    ``cache_width`` (default: the window where the config has one, else
+    S', as JAX), {"ssm": SSMCache} (Mamba2: the state after the whole
+    sequence, so its rows must not be right-padded), both kinds for the
+    hybrid ({"ssm", "attn"}: one ring per application of the shared
+    block), or for an encoder-decoder {"self", "cross"} (the cross rings
+    M wide).  Both modes return ``aux_loss``: the MoE routers'
+    load-balance losses summed over the layers (an fp32 scalar, 0 for the
+    other families), and ``text_offset``: the number of patch positions
+    before the text (0 but for a VLM), as the JAX package's ``forward``.
 
-    batch: tokens (B, S) int, and for Delphi ages (B, S) float years."""
-    check_supported(cfg)
+    batch: tokens (B, S) int; for Delphi ages (B, S) float years; for a
+    VLM patches (B, n_frontend_tokens, d); for an encoder-decoder frames
+    (B, M, d)."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be 'train' or 'prefill': {mode!r}")
     if differentiable and mode != "train":
         raise ValueError("differentiable=True is the training route: "
                          "mode 'train' only")
-    x = _embed(params, cfg, batch)
+    x, offset = _embed_input(params, cfg, batch)
     B, S = x.shape[:2]
-    out: Dict[str, Any] = {}
+    out: Dict[str, Any] = {"text_offset": offset}
     prefill = mode == "prefill"
     t = cfg.arch_type
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
-    cache, ssm_cache = None, None
-    stack = t in ATTENTION_STACKS
+    cache, ssm_cache, cross = None, None, None
+    enc_dec = t in ENC_DEC_STACKS
+    stack = t in ATTENTION_STACKS or enc_dec
+    memory = (_encode(params, cfg, batch["frames"], differentiable)
+              if enc_dec else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if prefill and t != cb.SSM:
         win = cfg.sliding_window
@@ -242,18 +324,31 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
         n = cfg.n_layers if stack else n_attn_apps(cfg)
         cache = attn.empty_cache(n, B, cfg.n_kv_heads, W, cfg.head_dim,
                                  x.dtype, x.device)
+        if enc_dec:
+            M = memory.shape[1]
+            cross = attn.empty_cache(n, B, cfg.n_kv_heads, M, cfg.head_dim,
+                                     x.dtype, x.device)
+            mpos = torch.arange(M, dtype=torch.int32,
+                                device=x.device).expand(B, M)
+
+    def fill(rings: LayerCache, i: int, k, v, pos):
+        ring = attn.cache_from_prefill(k, v, pos, rings.k.shape[3])
+        rings.k[i] = ring.k
+        rings.v[i] = ring.v
+        rings.pos[i] = ring.pos
 
     def attend(blk: Block, x, i: int):
-        """Block ``blk`` over x; a prefill writes its ring ``i``."""
+        """Block ``blk`` over x; a prefill writes its ring ``i`` (and its
+        cross ring ``i``)."""
         nonlocal aux
-        x, k, v, a = _attn_block(blk, cfg, x, positions, differentiable)
+        x, k, v, a, kv = _attn_block(blk, cfg, x, positions, differentiable,
+                                     memory=memory)
         if a is not None:
             aux = aux + a
         if cache is not None:
-            ring = attn.cache_from_prefill(k, v, positions, cache.k.shape[3])
-            cache.k[i] = ring.k
-            cache.v[i] = ring.v
-            cache.pos[i] = ring.pos
+            fill(cache, i, k, v, positions)
+        if cross is not None:
+            fill(cross, i, *kv, mpos)
         return x
     if stack:
         for l in range(cfg.n_layers):
@@ -274,8 +369,10 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
         if prefill:
             ssm_cache = SSMCache(h=torch.stack(hs), conv=torch.stack(convs))
     if prefill:
-        x = _last_rows(x, last_index)
-        out["cache"] = ({"self": cache} if stack else
+        x = _last_rows(x, None if last_index is None
+                       else last_index + offset)
+        out["cache"] = ({"self": cache, "cross": cross} if enc_dec else
+                        {"self": cache} if stack else
                         {"ssm": ssm_cache} if t == cb.SSM else
                         {"ssm": ssm_cache, "attn": cache})
     out["logits"] = _head(params, x)
@@ -299,12 +396,12 @@ def forward_suffix(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
 
     Returns {"logits": (B, 1, V) fp32, "k"/"v": (L, B, Sc, Hkv, hd)}: the
     chunk's K/V for the caller's block write.  Attention-cache
-    architectures only, as :func:`make_paged_decode_cache`."""
-    if cfg.arch_type not in (cb.DENSE, cb.MOE, cb.VLM):
+    architectures only, as :func:`make_paged_decode_cache` (a VLM's
+    chunk is text: the patches sit in the context, as JAX's)."""
+    if cfg.arch_type not in ATTENTION_STACKS:
         raise ValueError(f"suffix prefill supports attention-cache "
                          f"architectures (dense/moe/vlm), not "
                          f"{cfg.arch_type}")
-    check_supported(cfg)
     x = _embed(params, cfg, batch)
     positions = batch["positions"]
     ks, vs = [], []
@@ -340,10 +437,11 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
                 step) -> Dict[str, Any]:
     """One-token decode.  batch: tokens (B, 1), and for Delphi ages (B, 1);
     ``step``: (B,) absolute position of each row's new token (or one int
-    for all rows; the SSM state does not read it).  The cache is updated in
-    place (and returned as ``cache``).  Returns {"logits": (B, 1, V) fp32,
-    "cache": cache}."""
-    check_supported(cfg)
+    for all rows; the SSM state does not read it; a VLM's counts the
+    patches: ``text_offset`` + the text position).  The cache is updated
+    in place (and returned as ``cache``); an encoder-decoder's cross rings
+    are read, not written.  Returns {"logits": (B, 1, V) fp32, "cache":
+    cache}."""
     x = _embed(params, cfg, batch)
     t = cfg.arch_type
     if t == cb.SSM:
@@ -355,8 +453,10 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
     step = torch.as_tensor(step, dtype=torch.int32, device=x.device)
     if step.dim() == 0:
         step = step.expand(B)
-    stack = t in ATTENTION_STACKS
+    stack = t in ATTENTION_STACKS or t in ENC_DEC_STACKS
     lc = cache["self"] if stack else cache["attn"]
+    cross = cache.get("cross")
+    rows = torch.arange(B, dtype=torch.int32, device=x.device)[:, None]
     win = cfg.sliding_window
     if isinstance(lc, PagedCache):
         # one position write a tick for all layers; per layer the pool
@@ -370,17 +470,18 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
         # one position write a tick for every ring (a layer's, or a shared
         # block application's)
         slot = attn.write_ring_positions(lc, step)
-        table = torch.arange(B, dtype=torch.int32, device=x.device)[:, None]
 
         def attend(q, k, v, l):
             return attn.ring_decode_attention(q, k, v, lc, l, slot, step,
-                                              table, window=win)
+                                              rows, window=win)
     pos1 = step[:, None]                # each row's own position (B, 1)
 
     def block(blk: Block, x, i: int):
         q, k, v = _qkv(blk, cfg, x, pos1)
         o = attend(q, k, v, i)
         x = x + attn.output_projection(o, blk["attn/wo"])
+        if cross is not None:
+            x = _cross_decode(blk, cfg, x, cross, i, rows)
         return _mlp_block(blk, x, cfg)[0]
     if stack:
         for l in range(cfg.n_layers):
@@ -399,17 +500,22 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
 def mask_padded_positions(cache, last_idx: torch.Tensor):
     """Invalidate ring positions past each row's true last token (right-
     padded batched prefill wrote garbage K/V there): pos -> -1 until decode
-    writes reclaim the slots.  SSM state passes through unchanged (the
-    engine never right-pads a recurrent architecture).  last_idx: (B,) int."""
+    writes reclaim the slots.  ``last_idx`` (B,) int is an absolute
+    position (a VLM's counts its patches).  SSM state passes through
+    unchanged (the engine never right-pads a recurrent architecture), and
+    so do an encoder-decoder's cross rings: their positions are the
+    memory's, not the decoder's (the JAX package's function masks every
+    ring it is given, the cross ones too, which no caller of the reference
+    reaches).  last_idx: (B,) int."""
     li = last_idx.reshape(1, -1, 1).to(torch.int32)
 
-    def fix(v):
-        if isinstance(v, LayerCache):
+    def fix(k, v):
+        if isinstance(v, LayerCache) and k != "cross":
             return v._replace(pos=torch.where((v.pos >= 0) & (v.pos <= li),
                                               v.pos,
                                               torch.full_like(v.pos, -1)))
         return v
-    return {k: fix(v) for k, v in cache.items()}
+    return {k: fix(k, v) for k, v in cache.items()}
 
 
 def ring_width(cfg: ModelConfig, context_len: int) -> int:
@@ -424,18 +530,22 @@ def make_decode_cache(params: Params, cfg: ModelConfig, batch: int,
                       context_len: int):
     """An empty decode cache for ``batch`` slots on the parameters' device:
     a ring of :func:`ring_width` per layer in the activation dtype (dense,
-    MoE),
-    Mamba2's constant-size state (fp32 ``h``, conv inputs in the activation
-    dtype), which does not depend on ``context_len``, or the hybrid's
-    state per Mamba layer and ring per shared-block application."""
-    check_supported(cfg)
+    MoE, VLM; an encoder-decoder also a cross ring of ``dec_enc_len`` per
+    layer), Mamba2's constant-size state (fp32 ``h``, conv inputs in the
+    activation dtype), which does not depend on ``context_len``, or the
+    hybrid's state per Mamba layer and ring per shared-block
+    application."""
     device = params["embed/embed"].device
     dt = act_dtype(cfg)
     W = ring_width(cfg, context_len)
+
+    def rings(width: int) -> LayerCache:
+        return attn.empty_cache(cfg.n_layers, batch, cfg.n_kv_heads, width,
+                                cfg.head_dim, dt, device)
     if cfg.arch_type in ATTENTION_STACKS:
-        return {"self": attn.empty_cache(cfg.n_layers, batch,
-                                         cfg.n_kv_heads, W, cfg.head_dim,
-                                         dt, device)}
+        return {"self": rings(W)}
+    if cfg.arch_type in ENC_DEC_STACKS:
+        return {"self": rings(W), "cross": rings(cfg.dec_enc_len)}
     out = {"ssm": ssm_lib.empty_ssm_cache(cfg, cfg.n_layers, batch, dt,
                                           device)}
     if cfg.arch_type == cb.HYBRID:
@@ -452,12 +562,12 @@ def make_paged_decode_cache(params: Params, cfg: ModelConfig, batch: int,
     ``num_blocks`` blocks of ``block_size`` tokens (block 0 is the trash
     block) and all-unallocated tables of ``context_len / block_size``
     entries for ``batch`` slots.  Attention caches only: a recurrent
-    state has nothing to page."""
-    if cfg.arch_type not in (cb.DENSE, cb.MOE, cb.VLM):
+    state has nothing to page, and an encoder-decoder's cross rings are
+    not paged (as JAX)."""
+    if cfg.arch_type not in ATTENTION_STACKS:
         raise ValueError(f"paged KV cache supports attention-cache "
                          f"architectures (dense/moe/vlm), not "
                          f"{cfg.arch_type}")
-    check_supported(cfg)
     return {"self": attn.empty_paged_cache(
         cfg.n_layers, num_blocks, batch, cfg.n_kv_heads, context_len,
         block_size, cfg.head_dim, act_dtype(cfg),

@@ -49,6 +49,19 @@ block shared by every application, unstacked (no layer axis):
     shared_attn/attn/wo (H, hd, d)
     shared_attn/mlp/{w_gate,w_up} (d, ff)   shared_attn/mlp/w_down (ff, d)
 
+InternVL2 (VLM) has the dense family's leaves and no more: its patch
+embeddings are an input, not a weight.  The encoder-decoder (SeamlessM4T,
+``arch_type="audio"``; Le = ``n_encoder_layers``) adds a stack of dense
+blocks under ``encoder/``, the encoder's final norm, and in each decoder
+block a cross-attention with its own pre-norm:
+
+    encoder/{attn_norm,mlp_norm}/{scale,bias} (Le, d)
+    encoder/attn/{wq,wk,wv,wo}, encoder/mlp/* (Le, ...), as layers/*
+    enc_norm/scale (d,)           enc_norm/bias (d,)    (LayerNorm only)
+    layers/cross_norm/{scale,bias} (L, d)
+    layers/cross_attn/wq (L, d, H, hd)  layers/cross_attn/{wk,wv} (L, d, Hkv, hd)
+    layers/cross_attn/wo (L, H, hd, d)  (and b{q,k,v} with qkv_bias)
+
 The same weights therefore load into both packages, which is what the
 parity tests and the serving CLI's ``--ckpt`` rest on.
 """
@@ -61,23 +74,29 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import HYBRID, MOE, SSM, ModelConfig
+from repro_torch.configs.base import (AUDIO, ENC_DEC, HYBRID, MOE, SSM,
+                                      ModelConfig)
 
 Params = Dict[str, torch.Tensor]
 
 # weights that enter a matrix product, a bias added in the activation
 # dtype, or the activation-dtype conv (cast to the activation dtype); norms,
 # out_bias, the MoE router, A_log, dt_bias, D and norm_scale are used in fp32
-MATMUL_KEYS = ("embed/embed", "embed/lm_head", "layers/attn/wq",
-               "layers/attn/wk", "layers/attn/wv", "layers/attn/wo",
-               "layers/attn/bq", "layers/attn/bk", "layers/attn/bv",
-               "layers/mlp/w_fc", "layers/mlp/b_fc", "layers/mlp/w_proj",
-               "layers/mlp/b_proj", "layers/mlp/w_gate", "layers/mlp/w_up",
-               "layers/mlp/w_down", "layers/moe/w_gate", "layers/moe/w_up",
-               "layers/moe/w_down", "layers/moe/shared/w_gate",
-               "layers/moe/shared/w_up", "layers/moe/shared/w_down",
-               "layers/ssm/in_proj", "layers/ssm/conv_w",
-               "layers/ssm/conv_b", "layers/ssm/out_proj")
+_ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+_MLP = ("w_fc", "b_fc", "w_proj", "b_proj", "w_gate", "w_up", "w_down")
+MATMUL_KEYS = (("embed/embed", "embed/lm_head")
+               + tuple(f"{stack}/attn/{w}" for stack in ("layers", "encoder")
+                       for w in _ATTN)
+               + tuple(f"layers/cross_attn/{w}" for w in _ATTN)
+               + tuple(f"{stack}/mlp/{w}" for stack in ("layers", "encoder")
+                       for w in _MLP)
+               + ("layers/moe/w_gate", "layers/moe/w_up",
+                  "layers/moe/w_down", "layers/moe/shared/w_gate",
+                  "layers/moe/shared/w_up", "layers/moe/shared/w_down",
+                  "layers/ssm/in_proj", "layers/ssm/conv_w",
+                  "layers/ssm/conv_b", "layers/ssm/out_proj"))
+# the stacks of blocks: a leaf under these prefixes has a leading layer axis
+STACKS = ("layers/", "encoder/")
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
@@ -86,7 +105,10 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     config's knobs), for ``arch_type="moe"`` those blocks with the
     experts in place of the MLP, for ``arch_type="ssm"`` a stack of Mamba2 blocks with
     an untied head, and for ``arch_type="hybrid"`` that stack and one
-    shared transformer block (``shared_attn/*``, no layer axis)."""
+    shared transformer block (``shared_attn/*``, no layer axis); a VLM
+    is the dense family, and an encoder-decoder (``audio``, ``enc_dec``)
+    adds the ``encoder/*`` stack, ``enc_norm/*`` and each decoder block's
+    cross-attention."""
     d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab_size
     norm_keys = ("scale",) if cfg.norm == "rmsnorm" else ("scale", "bias")
     shapes = {"embed/embed": (V, d)}
@@ -114,25 +136,35 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         if cfg.arch_type == HYBRID:
             shapes.update(_block_shapes(cfg, "shared_attn/", ()))
         return shapes
-    shapes.update(_block_shapes(cfg, "layers/", (L,)))
+    enc_dec = cfg.arch_type in (AUDIO, ENC_DEC)
+    if enc_dec:
+        shapes.update(_block_shapes(cfg, "encoder/",
+                                    (cfg.n_encoder_layers,)))
+        for k in norm_keys:
+            shapes[f"enc_norm/{k}"] = (d,)
+    shapes.update(_block_shapes(cfg, "layers/", (L,), cross=enc_dec))
     return shapes
 
 
-def _block_shapes(cfg: ModelConfig, prefix: str, lead: Tuple[int, ...]
-                  ) -> Dict[str, Tuple[int, ...]]:
+def _block_shapes(cfg: ModelConfig, prefix: str, lead: Tuple[int, ...],
+                  cross: bool = False) -> Dict[str, Tuple[int, ...]]:
     """A pre-norm transformer block's parameters under ``prefix``, each
     with the leading axes ``lead`` (``(L,)`` for a stack, ``()`` for the
-    hybrid's shared block)."""
+    hybrid's shared block); with ``cross`` also a cross-attention and its
+    norm (a decoder block of the encoder-decoder)."""
     d, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd, ff = cfg.head_dim, cfg.d_ff
     norm_keys = ("scale",) if cfg.norm == "rmsnorm" else ("scale", "bias")
+    norms = ("attn_norm", "mlp_norm") + (("cross_norm",) if cross else ())
     shapes = {f"{prefix}{norm}/{k}": lead + (d,)
-              for norm in ("attn_norm", "mlp_norm") for k in norm_keys}
-    block = {"attn/wq": (d, H, hd), "attn/wk": (d, Hkv, hd),
-             "attn/wv": (d, Hkv, hd), "attn/wo": (H, hd, d)}
-    if cfg.qkv_bias:
-        block.update({"attn/bq": (H, hd), "attn/bk": (Hkv, hd),
-                      "attn/bv": (Hkv, hd)})
+              for norm in norms for k in norm_keys}
+    block = {}
+    for a in ("attn",) + (("cross_attn",) if cross else ()):
+        block.update({f"{a}/wq": (d, H, hd), f"{a}/wk": (d, Hkv, hd),
+                      f"{a}/wv": (d, Hkv, hd), f"{a}/wo": (H, hd, d)})
+        if cfg.qkv_bias:
+            block.update({f"{a}/bq": (H, hd), f"{a}/bk": (Hkv, hd),
+                          f"{a}/bv": (Hkv, hd)})
     if cfg.arch_type == MOE and prefix == "layers/":
         E, f = cfg.n_experts, cfg.moe_d_ff
         block.update({"moe/router": (d, E), "moe/w_gate": (E, d, f),
@@ -190,8 +222,11 @@ def _init_rule(cfg: ModelConfig, full: str):
     value) or ("a_log", None) (log 1..16 over the SSD heads), with the JAX
     ``init_params`` scales."""
     d, H, hd, ff = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
-    # the shared block initialises as a layer of a stack does
-    key = full.replace("shared_attn/", "layers/", 1)
+    # the shared block and the encoder's blocks initialise as a layer of
+    # the stack does, and a cross-attention as a self-attention
+    key = (full.replace("shared_attn/", "layers/", 1)
+           .replace("encoder/", "layers/", 1)
+           .replace("/cross_attn/", "/attn/", 1))
     if key == "embed/embed":
         return "normal", 0.02
     if key == "embed/out_bias":
@@ -237,9 +272,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     drawn from ``numpy.random.default_rng(seed)`` (not JAX's stream: the
     values differ from the reference's, their distribution does not), in
     fp32 on the host, then moved to ``device``.  Every config but the MoE
-    ones takes this route (their weights, and so the bits of every earlier
-    run, stay as they were); a model too large to pass through the host in
-    fp32 takes :func:`init_params_on_device`."""
+    ones, InternVL2 and SeamlessM4T takes this route (their weights, and
+    so the bits of every earlier run, stay as they were); a model too
+    large to pass through the host in fp32 takes
+    :func:`init_params_on_device`."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     flat: Dict[str, np.ndarray] = {}
@@ -261,8 +297,9 @@ def init_params_on_device(cfg: ModelConfig, seed: int = 0,
                           device="cuda") -> Params:
     """Random weights with :func:`init_params`' keys, shapes and scales,
     made on ``device`` (the card unless the caller passes ``cpu``): the
-    route of the MoE configs, whose fp32 trees (OLMoE 27.7 GB, Qwen2-MoE
-    57 GB) would take minutes of host RNG and, beside the engine's cast
+    route of the MoE configs, InternVL2-26B and SeamlessM4T-large-v2,
+    whose fp32 trees (OLMoE 27.7 GB, Qwen2-MoE 57 GB, InternVL2 79 GB,
+    SeamlessM4T 6.5 GB) would take minutes of host RNG and, beside a cast
     copy, more than the card's memory.
 
     Each leaf is drawn from one ``torch.Generator`` on ``device`` seeded
@@ -294,7 +331,7 @@ def init_params_on_device(cfg: ModelConfig, seed: int = 0,
             out[full] = a_log.expand(shape).to(dtype).clone()
             continue
         leaf = torch.empty(shape, dtype=dtype, device=dev)
-        stacked = full.startswith("layers/")
+        stacked = full.startswith(STACKS)
         for sl in (leaf if stacked else (leaf,)):
             sl.copy_(torch.randn(sl.shape, generator=gen, device=dev)
                      .mul_(arg))

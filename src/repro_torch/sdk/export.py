@@ -49,7 +49,6 @@ from repro_torch.models import (decode_step, forward, mask_padded_positions,
                                 to_flat_numpy)
 from repro_torch.models.attention import LayerCache
 from repro_torch.models.layers import act_dtype
-from repro_torch.models.model import check_supported
 from repro_torch.models.ssm import SSMCache
 from repro_torch.sdk.manifest import (SPEC_V1, SPEC_V2, build_manifest,
                                       write_manifest)
@@ -207,11 +206,13 @@ def _check_exportable(cfg: ModelConfig) -> None:
             f"take the right-padded fixed-shape prompt of the artifact's "
             f"graphs (the state after the padding is not the state after "
             f"the prompt)")
-    if cfg.arch_type not in (cb.DENSE, cb.MOE):
+    if cfg.arch_type in (cb.VLM, cb.AUDIO, cb.ENC_DEC):
         raise NotImplementedError(
             f"{cfg.name}: export_model exports the attention stacks (dense "
-            f"and MoE) only; arch_type={cfg.arch_type} is not ported")
-    check_supported(cfg)
+            f"and MoE) only: the artifact's graphs take tokens (and Delphi's "
+            f"ages), and arch_type={cfg.arch_type} also needs the "
+            f"{'patches' if cfg.arch_type == cb.VLM else 'frames'} of its "
+            f"modality frontend, which no graph signature carries")
 
 
 def export_model(params, cfg: ModelConfig, out_dir: str, *,

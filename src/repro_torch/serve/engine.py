@@ -205,7 +205,7 @@ MIN_SEQ_BUCKET = 8       # smallest padded prompt width of a prefill
 # right-padding a prefill is sound only where padded positions can be
 # masked out of the state: KV-cache attention (pos = -1), not recurrent SSM
 # state (Mamba2, the hybrid), which admits unbucketed
-_BUCKETED = (cb.DENSE, cb.MOE, cb.VLM)
+_BUCKETED = (cb.DENSE, cb.MOE)
 
 
 def _next_pow2(n: int) -> int:
@@ -539,6 +539,9 @@ class BatchedEngine:
                  prefix_cache: bool = False,
                  prefill_chunk_tokens: Optional[int] = None,
                  device="cuda"):
+        if cfg.frontend is not None or cfg.arch_type in (cb.AUDIO,
+                                                          cb.ENC_DEC):
+            raise ValueError("engine serves token-only architectures")
         if cache not in ("ring", "paged"):
             raise ValueError(f"cache must be 'ring' or 'paged': {cache!r}")
         if prefill_chunk_tokens is not None:

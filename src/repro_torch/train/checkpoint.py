@@ -5,13 +5,17 @@ holding ``{"config": dataclasses.asdict(cfg), "extra": {...}}``.
 The two packages read each other's directories: the port's flat keys are the
 JAX pytree's paths, and every field of the port's ``ModelConfig`` is a field
 of JAX's, so JAX's ``load_config`` builds its config from the port's
-``meta.json``; the port's :func:`load_config` keeps the fields it has
-(``rope_theta`` among them: a Qwen2.5 checkpoint keeps its 10^6; the MoE
-fields ``n_experts``, ``top_k``, ``n_shared_experts``, ``moe_d_ff`` and
-``router_aux_coef``, without which an MoE checkpoint would load with the
-wrong shapes) and drops the JAX-only ones (encoder, frontend and compile
-knobs, which the configurations the port serves leave at their
-defaults).
+``meta.json``; the port's :func:`load_config` keeps every field it has:
+those that shape a model (``rope_theta``: a Qwen2.5 checkpoint keeps its
+10^6; the MoE fields ``n_experts``, ``top_k``, ``n_shared_experts``,
+``moe_d_ff`` and ``router_aux_coef``; the encoder and frontend fields
+``n_encoder_layers``, ``enc_len_ratio``, ``dec_enc_len``, ``frontend`` and
+``n_frontend_tokens``, without which an MoE, VLM or encoder-decoder
+checkpoint would load with the wrong shapes or inputs) among them.  It
+drops only the fields the port does not read (``param_dtype``,
+``use_pallas``, ``remat``, ``unroll_layers``, ``attn_direct``,
+``seq_shard_attn``, ``no_event_token``: JAX's compile, sharding and
+precision knobs and a padding id no port code uses).
 """
 from __future__ import annotations
 

@@ -40,14 +40,17 @@ Tensors = Dict[str, torch.Tensor]
 
 def lm_loss(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]
             ) -> Tensors:
-    """Next-token CE over the token stream, as the JAX package's
+    """Next-token CE over the text stream, as the JAX package's
     ``lm_loss``: ``loss = CE + cfg.router_aux_coef * aux_loss``, where
     ``aux_loss`` is the MoE routers' load-balance loss summed over the
     layers (0 for the families without a router, whose ``loss`` is the
-    CE); ``event_ce`` is the CE."""
-    inputs = {k: batch[k] for k in ("tokens", "ages") if k in batch}
+    CE); ``event_ce`` is the CE.  A VLM's patches and an
+    encoder-decoder's frames go through with the tokens, and the logits
+    at the patch positions (the first ``text_offset``) are left out."""
+    inputs = {k: batch[k] for k in ("tokens", "ages", "patches", "frames")
+              if k in batch}
     out = forward(params, cfg, inputs, mode="train", differentiable=True)
-    logits = out["logits"]
+    logits = out["logits"][:, out["text_offset"]:]
     tokens = batch["tokens"]
     ce = losses_lib.event_ce(logits[:, :-1], tokens[:, 1:]).mean()
     return {"loss": ce + cfg.router_aux_coef * out["aux_loss"],

@@ -45,11 +45,11 @@ from repro.train import checkpoint as jax_ckpt
 from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.models import (PagedCache, decode_step, forward,
                                 from_jax_flat, init_params,
-                                mask_padded_positions, to_flat_numpy)
+                                make_decode_cache, mask_padded_positions,
+                                to_flat_numpy)
 from repro_torch.models.attention import chunked_attention
 from repro_torch.models.layers import (apply_rope, apply_swiglu,
                                        rope_frequencies)
-from repro_torch.models.model import check_supported
 from repro_torch.train import checkpoint
 
 torch.set_num_threads(2)
@@ -253,7 +253,6 @@ def test_reduced_arch_vs_jax(arch, kind):
     decode steps from that prefill (padded positions masked) on the ring
     and on a paged pool holding the same tokens in shuffled blocks."""
     cfg, jcfg, params, jp = _arch(arch)
-    check_supported(cfg)
     atol = _atol(cfg)
     b = _batch(cfg)
     if kind == "train":
@@ -349,7 +348,10 @@ def test_registry_and_refusals():
     assert sorted(ALL_ARCHS) == sorted(
         ["delphi-2m", "delphi-100m", "mamba2-780m", "tinyllama-1.1b",
          "h2o-danube-1.8b", "qwen2.5-32b", "deepseek-7b", "zamba2-1.2b",
-         "olmoe-1b-7b", "qwen2-moe-a2.7b"])
+         "olmoe-1b-7b", "qwen2-moe-a2.7b", "internvl2-26b",
+         "seamless-m4t-large-v2"])
+    # a stand-in for the parameters: make_decode_cache reads their device
+    stub = {"embed/embed": torch.zeros(1)}
     for arch in ALL_ARCHS:
         full, red = get_config(arch), get_config(arch, reduced=True)
         jfull, jred = jax_config(arch), jax_config(arch, reduced=True)
@@ -359,27 +361,38 @@ def test_registry_and_refusals():
                   "sliding_window", "age_encoding", "dual_head", "citation",
                   "ssm_state", "ssm_expand", "ssm_head_dim", "ssm_conv",
                   "ssm_chunk", "attn_every", "n_experts", "top_k",
-                  "n_shared_experts", "moe_d_ff", "router_aux_coef"):
+                  "n_shared_experts", "moe_d_ff", "router_aux_coef",
+                  "n_encoder_layers", "enc_len_ratio", "dec_enc_len",
+                  "frontend", "n_frontend_tokens"):
             assert getattr(full, f) == getattr(jfull, f), (arch, f)
             assert getattr(red, f) == getattr(jred, f), (arch, f)
-        check_supported(full)
+        assert make_decode_cache(stub, red, 1, 8)
     dan = get_config("h2o-danube-1.8b", reduced=True)
     assert dan.sliding_window == 64 and dan.q_per_kv == 4
     assert get_config("tinyllama-1.1b", reduced=True).q_per_kv == 4
     zam = get_config("zamba2-1.2b", reduced=True)
     assert (zam.arch_type, zam.attn_every, zam.n_layers) == ("hybrid", 1, 2)
     base = get_config("tinyllama-1.1b", reduced=True)
-    check_supported(base.replace(arch_type="hybrid", attn_every=1,
-                                 ssm_state=16))       # the hybrid is served
-    # MoE is served (tests/test_torch_moe.py); an MoE config with no
-    # experts, which JAX's config lets through, is refused where it is made
-    check_supported(base.replace(arch_type="moe", n_experts=4, top_k=2,
-                                 moe_d_ff=128))
+    # every arch type is served: the hybrid, MoE (tests/test_torch_moe.py),
+    # the VLM (tests/test_torch_vlm.py) and the encoder-decoders
+    # (tests/test_torch_encdec.py); each builds its decode cache
+    kinds = {"hybrid": dict(attn_every=1, ssm_state=16),
+             "moe": dict(n_experts=4, top_k=2, moe_d_ff=128),
+             "vlm": dict(frontend="vision_patches"),
+             "audio": dict(n_encoder_layers=2, dec_enc_len=16),
+             "enc_dec": dict(n_encoder_layers=2, dec_enc_len=16),
+             "dense": {}, "ssm": dict(ssm_state=16)}
+    want = {"hybrid": {"ssm", "attn"}, "ssm": {"ssm"},
+            "audio": {"self", "cross"}, "enc_dec": {"self", "cross"}}
+    for t, kw in kinds.items():
+        cache = make_decode_cache(stub, base.replace(arch_type=t, **kw), 1, 8)
+        assert set(cache) == want.get(t, {"self"}), t
+    # an MoE config with no experts, which JAX's config lets through, and
+    # an unknown arch type are refused where they are made
     with pytest.raises(ValueError, match="n_experts"):
         base.replace(arch_type="moe")
-    for t in ("enc_dec", "vlm", "audio"):
-        with pytest.raises(NotImplementedError):
-            check_supported(base.replace(arch_type=t))
+    with pytest.raises(ValueError, match="arch_type"):
+        base.replace(arch_type="seq2seq")
 
 
 def test_load_config_keeps_rope_theta(tmp_path):

@@ -43,7 +43,7 @@ from repro_torch.models import (PagedCache, cast_params, decode_step, forward,
                                 init_params_on_device, mask_padded_positions,
                                 to_flat_numpy)
 from repro_torch.models import moe
-from repro_torch.models.model import Block, check_supported
+from repro_torch.models.model import Block
 from repro_torch.models.params import MATMUL_KEYS, param_shapes
 
 torch.set_num_threads(2)
@@ -231,7 +231,6 @@ def test_reduced_moe_vs_jax(arch, kind):
     positions masked) on the ring and on a paged pool holding the same
     tokens in shuffled blocks."""
     cfg, jcfg, params, jp = _arch(arch)
-    check_supported(cfg)
     rng = np.random.default_rng(0)
     toks = rng.integers(0, cfg.vocab_size, (2, 100)).astype(np.int32)
     if kind == "train":
