@@ -186,6 +186,32 @@ runs these phases; any failure exits non-zero:
    model made from the same draws); tokens/s, the idle share of a
    profiled window (the first ``PROFILE_REQUESTS``
    prompts, ``PROFILE_MAX_NEW`` tokens each), the weights' making time;
+3t. the recurrent artifact: Mamba2-780M and Zamba2-1.2B at full width,
+   their depths cut to ``SSM_ARTIFACT_LAYERS`` (4 of 48, 7 of 38 Mamba2
+   layers: 2 applications of the shared block), fp32 weights made on the
+   card, exported (spec v2, bf16, ``seq_len`` 1,024, ``verify_checksums``
+   strict) and loaded with ``ArtifactBackend``.  On seeded prompts of 96,
+   500 and 1,024 tokens: the full and prefill graphs == the eager
+   functions bit for bit (logits and every cache leaf), 8 decode steps
+   too on the prompts shorter than the axis; ``ssd_intra`` launched once
+   a Mamba layer a full or prefill call through ``repro_torch::ssd_intra``
+   and never in a decode step, Zamba2's flash once an application a full
+   or prefill call and paged once an application a decode step,
+   ``tte_sample`` never.  The padded prompt's masked prefill (its last
+   logits, and one decode step after it) against the fp32 model's
+   exact-length prefill and step (plain route, TF32 off) within
+   ``DENSE_LOGITS_VS_PLAIN`` times the eager kernel route's own bf16
+   error at the exact length (3l's rule); the control, the padded prompt
+   prefilled with no ``last_index`` (the state after the padding, as the
+   reference's artifact decodes), farther off than that at the decode step
+   on the 96- and 500-token prompts.  ``ArtifactBackend`` ==
+   ``LocalBackend.stream`` token for token under injected uniforms (16
+   tokens on the two shorter prompts), held margin-aware against the
+   eager model's scores (``LM_MARGIN``); export and load seconds, bytes,
+   ms a token of the drive and of a v2 decode step against an eager one in
+   turns, the drive's launches and idle share under the profiler; host
+   microseconds a call of ``ssd_intra`` through its wrapper and through
+   the operator at 3b's prefill shape;
 3p. OLMoE-1B-7B at full width (16 layers, d_model 2048, 16/16 heads of
    128, 64 experts of 1,024, top-8, V 50,304) in bf16, its weights made on
    the card (``init_params_on_device``), with 3k's knobs: the ring, then the
@@ -325,6 +351,7 @@ kernel's position-masked route with its launches on the chunked drive of
 phase 3e; each Delphi kernel's row also gives its launches on the sweep of
 phase 3i, on the audit of phase 6d, on the artifact drive of phase 3j and
 on the ring runs of 3k, 3l and 3m, the drive of 3n, the Zamba2 run of 3o,
+the drives of 3t (both models' counts summed; ``ssd_intra`` too),
 the MoE ring runs of 3p and 3q and the training CLIs of 6f and 6g
 (``launches_by_path``, counts zeroed just before each and read just after;
 6f and 6g read 0; 3r and 3s count the timed drive, prefill and decode);
@@ -3241,6 +3268,356 @@ def zamba2_path() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3t: the recurrent artifact (Mamba2-780M, Zamba2-1.2B) on the card
+# ---------------------------------------------------------------------------
+# depth cuts at full width (48 and 38 Mamba2 layers served whole by 3b and
+# 3o): Zamba2's 7 keep 2 applications of the shared block (before layers 0
+# and 6), so both kinds of cache leaves.  Export and load time follow the
+# graphs' node counts: cuts of 8 and 12 layers made the phase take 212.7 s
+# on an H100 host (700 W card), against ~120 s it may add to this script
+SSM_ARTIFACT_LAYERS = {"mamba2-780m": 4, "zamba2-1.2b": 7}
+SSM_ARTIFACT_SEQ, SSM_ARTIFACT_MAX_NEW = 1024, 16
+# under one chunk, ending inside a chunk, no padding
+SSM_ARTIFACT_PROMPTS = (96, 500, 1024)
+
+
+def ssm_artifact_op_us() -> dict:
+    """Host microseconds a call of ``ssd_intra`` at 3b's prefill shape (a
+    1024-token prompt: 8 chunks x 48 heads, fp32 xdt, bf16 B/C through a
+    stride-0 head axis), through its wrapper (the eager path) and through
+    ``repro_torch::ssd_intra`` (the artifact's graphs): 500 calls ending in
+    a synchronise, in turns (wrapper, operator, operator, wrapper)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as sk
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED + 31)
+    xdt = torch.randn(1, 8, 128, 48, 64, generator=g, device=DEVICE)
+    bc = torch.randn(2, 1, 8, 128, 1, 128, generator=g,
+                     device=DEVICE).to(torch.bfloat16)
+    Bm, Cm = (t.expand(1, 8, 128, 48, 128) for t in bc)
+    cum = -torch.cumsum(0.01 * torch.rand(1, 8, 128, 48, generator=g,
+                                          device=DEVICE), dim=2)
+    calls = {"wrapper": lambda: sk.ssd_intra_cuda(xdt, Bm, Cm, cum),
+             "operator": lambda: torch.ops.repro_torch.ssd_intra(
+                 xdt, Bm, Cm, cum)}
+    turns = []
+    for mode in ("wrapper", "operator", "operator", "wrapper"):
+        fn = calls[mode]
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            fn()
+        torch.cuda.synchronize()
+        turns.append((mode, 1e6 * (time.perf_counter() - t0) / 500))
+    return {"ssd_intra": turns}
+
+
+def ssm_artifact_path(arch: str, tmp: str) -> dict:
+    """Phase 3t for one model: at full width, its depth cut to
+    ``SSM_ARTIFACT_LAYERS``, fp32 weights made on the card, exported by
+    ``export_model`` (spec v2, bf16, ``seq_len`` 1,024, traced on the CPU),
+    ``verify_checksums`` strict, loaded with ``ArtifactBackend`` on the
+    card.  On seeded prompts of 96, 500 and 1,024 tokens: the full and
+    prefill graphs == the eager functions bit for bit (logits and every
+    cache leaf), and, on the prompts shorter than the axis, 8 decode steps
+    too; ``ssd_intra`` launched once a Mamba layer a full or prefill call
+    and never in a decode step, Zamba2's flash once an application a full
+    or prefill call and paged once an application a decode step,
+    ``tte_sample`` never.  The masked prefill against the exact prompt:
+    the prefill's last logits and one decode step after it, against the
+    fp32 model's exact-length prefill and step (plain route, TF32 off),
+    within ``DENSE_LOGITS_VS_PLAIN`` times the eager kernel route's own
+    bf16 error at the exact length (3l's rule); the control, the same
+    padded prompt prefilled with no ``last_index`` (the state after the
+    padding, the reference's artifact), farther off than that limit at the
+    decode step on the padded prompts.  Then ``ArtifactBackend`` ==
+    ``LocalBackend.stream`` token for token under injected uniforms, held
+    margin-aware against the eager model's scores (``LM_MARGIN``); the
+    launches of that drive (counts zeroed just before, read just after);
+    ms a token of a v2 decode step against an eager one, in turns; one
+    drive's idle share under the profiler."""
+    import numpy as np
+    import torch
+    from repro_torch.api import (ArtifactBackend, GenerateRequest,
+                                 LocalBackend)
+    from repro_torch.configs import get_config
+    from repro_torch.core import parity as par
+    from repro_torch.kernels import ops
+    from repro_torch.models import (decode_step, forward,
+                                    init_params_on_device,
+                                    mask_padded_positions, n_attn_apps)
+    from repro_torch.sdk import build_inference_fns, read_manifest
+    cfg = get_config(arch).replace(n_layers=SSM_ARTIFACT_LAYERS[arch])
+    hybrid = cfg.arch_type == "hybrid"
+    napps = n_attn_apps(cfg) if hybrid else 0
+    L, S = cfg.n_layers, SSM_ARTIFACT_SEQ
+    stage = {}
+    t0 = time.perf_counter()
+    c32 = cfg.replace(dtype="float32")
+    p32 = init_params_on_device(c32, seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    stage["init"] = time.perf_counter() - t0
+    d = os.path.join(tmp, arch)
+    t0 = time.perf_counter()
+    ex = artifact_export(p32, cfg, d, "2", seq_len=S)
+    stage["export"] = time.perf_counter() - t0
+    leaves = read_manifest(d)["graphs"]["cache"]["leaves"]
+    if len(leaves) != (5 if hybrid else 2):
+        raise AssertionError(f"3t {arch}: cache leaves {leaves}")
+    t0 = time.perf_counter()
+    art = ArtifactBackend(d, device=DEVICE)
+    load_s = time.perf_counter() - t0
+    stage["load"] = load_s
+    # the eager functions on the weights the graphs were given
+    params = art.runtime._params
+    rt, fns = art.runtime, build_inference_fns(cfg, S)
+
+    def dev(*arrays):
+        return [torch.from_numpy(np.asarray(x)).to(DEVICE) for x in arrays]
+
+    def counted(fn, want, what):
+        ops.reset_launch_counts()
+        out = fn()
+        c = ops.launch_counts()
+        if c != want:
+            raise AssertionError(f"3t {arch} {what}: launches {c}, "
+                                 f"expected {want}")
+        return out
+
+    def want(ssd, flash, paged):
+        return {"tte_sample": 0, "flash_attention": flash,
+                "paged_decode_attention": paged, "ssd_intra": ssd}
+    rng = np.random.default_rng(SEED + 41)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in SSM_ARTIFACT_PROMPTS]
+    t0 = time.perf_counter()
+    steps, gates = 0, []
+    for toks in prompts:
+        (t,) = art._pad_inputs(toks, None)
+        last = np.asarray([len(toks) - 1], np.int32)
+        got = counted(lambda: rt.run(t), want(L, napps, 0), "full graph")
+        with torch.no_grad():
+            ref_full = fns["full"](params, *dev(t)).cpu().numpy()
+        if not np.array_equal(got, ref_full):
+            raise AssertionError(f"3t {arch}: full graph != eager: "
+                                 f"{float(np.abs(got - ref_full).max())}")
+        lg, cache = counted(lambda: rt.prefill(t, last), want(L, napps, 0),
+                            "prefill")
+        with torch.no_grad():
+            lg_e, cache_e = fns["prefill"](params, *dev(t, last))
+        if not (np.array_equal(lg, lg_e.cpu().numpy()) and all(
+                torch.equal(x, y) for x, y in zip(cache, cache_e))):
+            raise AssertionError(f"3t {arch}: prefill graph != eager")
+        # the masked prefill against the exact prompt, and the control
+        tok = np.asarray([[int(rng.integers(0, cfg.vocab_size))]], np.int32)
+        step = np.asarray([len(toks)], np.int32)
+        exact = dev(toks[None])[0]
+
+        def exact_route(c, p=params):
+            with torch.no_grad():
+                out = forward(p, c, {"tokens": exact}, mode="prefill",
+                              cache_width=S)
+                d1 = decode_step(p, c, out["cache"], {"tokens": dev(tok)[0]},
+                                 dev(step)[0])
+            return out["logits"][0, 0], d1["logits"][0, 0]
+        with plain_route():
+            ref0, ref1 = exact_route(c32)
+        kern0, kern1 = exact_route(cfg)
+        gate = {"prompt_tokens": len(toks),
+                "logits_scale": float(ref0.abs().max())}
+        if len(toks) < S:
+            with torch.no_grad():
+                art1 = torch.from_numpy(rt.decode_step(
+                    [x.clone() for x in cache], tok, step)[0])[0]
+                out = forward(params, cfg, {"tokens": dev(t)[0]},
+                              mode="prefill", cache_width=S)
+                ctl = decode_step(params, cfg, mask_padded_positions(
+                    out["cache"], dev(last)[0]), {"tokens": dev(tok)[0]},
+                    dev(step)[0])["logits"][0, 0]
+            gate["control_err"] = float((ctl - ref1).abs().max())
+        else:
+            art1 = None
+        for k, (a, kern, ref) in enumerate(((torch.from_numpy(lg)[0], kern0,
+                                             ref0), (art1, kern1, ref1))):
+            if a is None:
+                continue
+            err = float((a.to(DEVICE) - ref).abs().max())
+            eager = float((kern - ref).abs().max())
+            gate[("prefill", "decode")[k]] = {"artifact_err": err,
+                                              "eager_err": eager}
+            if not (np.isfinite(err) and err <= DENSE_LOGITS_VS_PLAIN * eager):
+                raise AssertionError(
+                    f"3t {arch} {len(toks)} tokens: the padded prompt's "
+                    f"{('prefill', 'decode step')[k]} logits are off the "
+                    f"fp32 model's by {err}, the eager exact-length route's "
+                    f"by {eager} (allowed {DENSE_LOGITS_VS_PLAIN}x it)")
+        if "control_err" in gate and not gate["control_err"] > \
+                DENSE_LOGITS_VS_PLAIN * gate["decode"]["eager_err"]:
+            raise AssertionError(
+                f"3t {arch} {len(toks)} tokens: the unmasked control is off "
+                f"by only {gate['control_err']}: the mask does not bite")
+        gates.append(gate)
+        if len(toks) >= S:
+            continue
+        for k in range(ARTIFACT_DECODE_STEPS):
+            args = (np.asarray([[rng.integers(0, cfg.vocab_size)]], np.int32),
+                    np.asarray([len(toks) + k], np.int32))
+            lg, cache = counted(lambda: rt.decode_step(cache, *args),
+                                want(0, 0, napps), "decode step")
+            with torch.no_grad():
+                lg_e, cache_e = fns["decode"](params, cache_e, *dev(*args))
+            if not np.array_equal(lg, lg_e.cpu().numpy()):
+                raise AssertionError(
+                    f"3t {arch}: prompt of {len(toks)} tokens, decode step "
+                    f"{k} != eager")
+            steps += 1
+        if not all(torch.equal(x, y) for x, y in zip(cache, cache_e)):
+            raise AssertionError(f"3t {arch}: artifact cache != eager")
+    stage["gates"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served = [p for p in prompts if len(p) < S]
+    us = lm_uniforms(len(served), SSM_ARTIFACT_MAX_NEW, cfg.vocab_size,
+                     SEED + 42)
+    reqs = [GenerateRequest(tokens=[int(x) for x in toks],
+                            max_new=SSM_ARTIFACT_MAX_NEW, uniforms=u)
+            for toks, u in zip(served, us)]
+
+    def drive():
+        t1 = time.perf_counter()
+        outs = [art.generate(r).tokens for r in reqs]
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1, outs
+    drive()
+    ops.reset_launch_counts()
+    drive_s, outs = drive()
+    counts = ops.launch_counts()
+    n = len(reqs) * SSM_ARTIFACT_MAX_NEW
+    decodes = len(reqs) * (SSM_ARTIFACT_MAX_NEW - 1)
+    if counts != want(L * len(reqs), napps * len(reqs), napps * decodes) \
+            or [len(o) for o in outs] != [SSM_ARTIFACT_MAX_NEW] * len(reqs):
+        raise AssertionError(f"3t {arch}: drive launches {counts}, tokens "
+                             f"{[len(o) for o in outs]}")
+    local = LocalBackend(params, cfg, seq_len=S, device=DEVICE)
+    for r, o in zip(reqs, outs):
+        if [e.token for e in local.stream(r)] != o:
+            raise AssertionError(f"3t {arch}: ArtifactBackend != "
+                                 f"LocalBackend.stream")
+    held = par.check_lm_trajectories(
+        served, outs, us, par.port_logits_fn(params, cfg),
+        margin_tol=LM_MARGIN)
+    stage["drive"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    turns = ssm_artifact_step_ms(art, fns, params, served[-1])
+    prof = path_profile(lambda: drive()[0], drive_s)
+    stage["times"] = time.perf_counter() - t0
+    res = {"arch": arch, "layers": L, "napps": napps, "export": ex,
+           "load_s": load_s, "decode_steps": steps, "gates": gates,
+           "launches": counts, "tokens": n, "drive_s": drive_s,
+           "ms_per_token": 1e3 * drive_s / n, "turns": turns,
+           "held_steps": held["steps"],
+           "near_ties": len(held["near_ties"]), "profile": prof,
+           "stage_s": stage}
+    del art, local, params, p32, rt
+    free_card()
+    return res
+
+
+def ssm_artifact_step_ms(art, fns, params, toks) -> list:
+    """Host wall per decode step, each ending in its logits' copy to the
+    host (what a client waits for a token): the v2 decode graph through
+    the runtime against the eager decode function (what
+    ``LocalBackend.stream`` calls), ``SSM_ARTIFACT_MAX_NEW - 1`` steps each
+    after one prefill, in turns (v2, eager, eager, v2)."""
+    import numpy as np
+    import torch
+    (t,) = art._pad_inputs(toks, None)
+    last = np.asarray([len(toks) - 1], np.int32)
+    steps = [(np.asarray([[3 + k]], np.int32),
+              np.asarray([len(toks) + k], np.int32))
+             for k in range(SSM_ARTIFACT_MAX_NEW - 1)]
+
+    def v2():
+        _, cache = art.runtime.prefill(t, last)
+        t0 = time.perf_counter()
+        for args in steps:
+            _, cache = art.runtime.decode_step(cache, *args)
+        return time.perf_counter() - t0
+
+    def eager():
+        with torch.no_grad():
+            _, cache = fns["prefill"](params, *[
+                torch.from_numpy(x).to(DEVICE) for x in (t, last)])
+            t0 = time.perf_counter()
+            for args in steps:
+                lg, cache = fns["decode"](
+                    params, cache,
+                    *[torch.from_numpy(x).to(DEVICE) for x in args])
+                lg.cpu().numpy()
+        return time.perf_counter() - t0
+    runs = {"v2": v2, "eager": eager}
+    turns = []
+    for mode in ("v2", "eager", "eager", "v2"):
+        torch.cuda.synchronize()
+        turns.append((mode, 1e3 * runs[mode]() / len(steps)))
+    return turns
+
+
+def log_ssm_artifact(res: dict, smi: str) -> None:
+    """Phase 3t's lines for one model."""
+    ex = res["export"]
+    log(f"  {res['arch']} ({res['layers']} layers"
+        + (f", {res['napps']} shared-block applications" if res["napps"]
+           else "") + f"): exported in {ex['export_s']:.1f}s "
+        f"({ex['bytes']} bytes), loaded in {res['load_s']:.1f}s; full, "
+        f"prefill and {res['decode_steps']} decode steps == eager bit for "
+        f"bit through the repro_torch:: operators")
+    for g in res["gates"]:
+        dec = g.get("decode")
+        log(f"    {g['prompt_tokens']} tokens against the fp32 model "
+            f"(largest |logit| {g['logits_scale']:.4g}): prefill "
+            f"{g['prefill']['artifact_err']:.4g} (eager exact "
+            f"{g['prefill']['eager_err']:.4g})"
+            + (f", decode step {dec['artifact_err']:.4g} (eager exact "
+               f"{dec['eager_err']:.4g}), unmasked control "
+               f"{g['control_err']:.4g}" if dec else "")
+            + f" (allowed {DENSE_LOGITS_VS_PLAIN}x the eager error)")
+    pr = res["profile"]
+    idle = ("not measured" if pr["idle_share"] is None
+            else format(pr["idle_share"], ".3f"))
+    log(f"    ArtifactBackend == LocalBackend.stream, {res['held_steps']} "
+        f"tokens held against the eager model ({res['near_ties']} "
+        f"near-ties, margin {LM_MARGIN}); {res['ms_per_token']:.2f} ms a "
+        f"token on the drive; launches {res['launches']}; ms a decode step "
+        f"in turns {[(m, round(v, 3)) for m, v in res['turns']]}; drive "
+        f"under the profiler: device busy {pr['device_busy_s']:.4f}s of "
+        f"{pr['wall_s']:.3f}s, idle share {idle}; stages "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in res["stage_s"].items())
+        + f" ({smi})")
+
+
+def log_ssm_artifact_phase(res: dict, phase: str, smi: str,
+                           t_start: float) -> None:
+    """Phase 3t's lines: both models, then the operator's host cost."""
+    for arch in SSM_ARTIFACT_LAYERS:
+        log_ssm_artifact(res[arch], smi)
+    log(f"  ssd_intra host us a call at 3b's prefill shape (wrapper, "
+        f"operator in turns): "
+        f"{[(m, round(v, 2)) for m, v in res['op_us']['ssd_intra']]}; "
+        f"phase {phase} took {time.perf_counter() - t_start:.1f}s ({smi})")
+
+
+def ssm_artifact_phase() -> dict:
+    """Phase 3t: both models, then the operator's host cost."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {arch: ssm_artifact_path(arch, tmp)
+               for arch in SSM_ARTIFACT_LAYERS}
+    out["op_us"] = ssm_artifact_op_us()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 2's MoE check and phases 3p/3q: the MoE LMs at full width
 # (OLMoE-1B-7B, Qwen2-MoE-A2.7B), with 3k's knobs
 # ---------------------------------------------------------------------------
@@ -5316,6 +5693,14 @@ def main() -> int:
     for t in zp["top"]:
         log(f"    {t['ms']:9.3f} ms  {t['launches']:6d}x  {t['kernel']}")
 
+    log(f"== phase 3t: the recurrent artifact at full width (Mamba2-780M "
+        f"cut to {SSM_ARTIFACT_LAYERS['mamba2-780m']} layers, Zamba2-1.2B "
+        f"to {SSM_ARTIFACT_LAYERS['zamba2-1.2b']}; spec v2, bf16, seq_len "
+        f"{SSM_ARTIFACT_SEQ}), prompts of {SSM_ARTIFACT_PROMPTS} tokens")
+    t3t = time.perf_counter()
+    ssmart = ssm_artifact_phase()
+    log_ssm_artifact_phase(ssmart, "3t", smi, t3t)
+
     log("== phase 3b: Mamba2 path (Mamba2-780M bf16, BatchedEngine, 8 "
         "slots)")
     mamba = mamba_path()
@@ -5594,6 +5979,9 @@ def main() -> int:
                    "3l": danube["runs"]["ring"]["launches"],
                    "3m": d100["launches"], "3n": lmart["launches"],
                    "3o": zamba["run"]["launches"],
+                   "3t": {k: sum(ssmart[a]["launches"][k]
+                                 for a in SSM_ARTIFACT_LAYERS)
+                          for k in REPLACES},
                    "3p": moe["3p"]["runs"]["ring"]["launches"],
                    "3q": moe["3q"]["runs"]["ring"]["launches"],
                    "3r": zoo["3r"]["run"]["launches"],
@@ -5690,7 +6078,8 @@ def main() -> int:
         "tinyllama_path": tiny, "danube_path": danube,
         "delphi100m_path": d100, "lm_artifact_path": lmart,
         "long_grads_path": lgr, "long_train_path": ltr,
-        "zamba2_path": zamba, "ssm_train_paths": ssm_train,
+        "zamba2_path": zamba, "ssm_artifact_path": ssmart,
+        "ssm_train_paths": ssm_train,
         "moe_check": moe_check, "olmoe_path": moe["3p"],
         "qwen2_moe_path": moe["3q"], "internvl2_path": zoo["3r"],
         "seamless_path": zoo["3s"],

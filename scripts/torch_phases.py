@@ -7,16 +7,25 @@ times the kernels at a group's shapes once every phase of that group has
 run (``ROWS``: beside their bounds, plain versions and SDPA).  Every number
 goes to ``chiprun_out/phases.json`` with the card's name and power limit.
 
-Phases (``PHASES``): 3k TinyLlama-1.1B served, 3l H2O-Danube-1.8B past its
+Phases (``PHASES``): 3b Mamba2-780M served (with its profiled window's
+idle share), 3k TinyLlama-1.1B served, 3l H2O-Danube-1.8B past its
 window, 3m Delphi-100M served, 3n the generic-LM artifact, 6e Delphi-100M
-trained at S 1,024, 3o Zamba2-1.2B served, 6f Mamba2-780M and 6g
-Zamba2-1.2B trained, 3p OLMoE-1B-7B and 3q Qwen2-MoE-A2.7B served, 3r
-InternVL2-26B and 3s SeamlessM4T-large-v2 through the model-level path.
+trained at S 1,024, 3o Zamba2-1.2B served, 3t the Mamba2 and Zamba2
+artifact, 6f Mamba2-780M and 6g Zamba2-1.2B trained, 3p OLMoE-1B-7B and
+3q Qwen2-MoE-A2.7B served, 3r InternVL2-26B and 3s SeamlessM4T-large-v2
+through the model-level path.
+
+``--root DIR`` takes ``chip_smoke.py`` and the port from another checkout
+(a parent commit unpacked under the repository), so that two versions are
+compared in turns inside one call; ``--out`` names the JSON file.
 
 Run on the card, from the repository root:
     python3 scripts/torch_phases.py --only 3r,3s
+    python3 scripts/torch_phases.py --only 3b,3o --root _parent \
+        --out chiprun_out/phases_parent.json
 """
 import argparse
+import importlib
 import json
 import os
 import sys
@@ -24,9 +33,8 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
 
-import chip_smoke as cs  # noqa: E402
+cs = None    # the chip_smoke module of --root, imported by main()
 
 
 def _lm_artifact():
@@ -34,14 +42,52 @@ def _lm_artifact():
         return cs.lm_artifact_path(tmp)
 
 
+def _mamba():
+    """3b, and the idle share of its first prompts as chip_smoke profiles
+    them."""
+    m = cs.mamba_path()
+    eng = m["engine"]
+    prof = cs.window_profile(
+        lambda: cs.mamba_serve(m["params"], m["cfg"],
+                               m["prompts"][:cs.PROFILE_REQUESTS],
+                               cs.PROFILE_MAX_NEW)[2])
+    return {"tokens": m["tokens"], "seconds": m["seconds"],
+            "tokens_per_s": m["tokens"] / m["seconds"], "ticks": eng.ticks,
+            "host_syncs": eng.host_syncs, "launches": m["launches"],
+            "profile": prof}
+
+
+def _log_mamba(res, phase, smi, t_start):
+    p = res["profile"]
+    cs.log(f"  {res['tokens']} tokens, {res['ticks']} ticks in "
+           f"{res['seconds']:.3f}s: {res['tokens_per_s']:.1f} tokens/s; "
+           f"launches {res['launches']}; the first {cs.PROFILE_REQUESTS} "
+           f"prompts x {cs.PROFILE_MAX_NEW} tokens under the profiler: "
+           f"device busy {p['device_busy_s']:.4f}s of {p['wall_s']:.3f}s "
+           f"wall, idle share {p['idle_share']}, {p['launches']} device "
+           f"activities ({smi})")
+
+
+def _log_zamba2(res, phase, smi, t_start):
+    r, p = res["run"], res["profile"]
+    cs.log(f"  {r['tokens']} tokens, {r['ticks']} ticks in "
+           f"{r['seconds']:.3f}s: {r['tokens_per_s']:.1f} tokens/s; "
+           f"launches {r['launches']}; under the profiler: device busy "
+           f"{p['device_busy_s']:.4f}s of {p['wall_s']:.3f}s wall, idle "
+           f"share {p['idle_share']}, {p['launches']} device activities "
+           f"({smi})")
+
+
 PHASES = {
-    "3k": cs.tinyllama_path,
-    "3l": cs.danube_path,
-    "3m": cs.delphi100m_path,
+    "3b": _mamba,
+    "3k": lambda: cs.tinyllama_path(),
+    "3l": lambda: cs.danube_path(),
+    "3m": lambda: cs.delphi100m_path(),
     "3n": _lm_artifact,
     "6e": lambda: {"grads": cs.long_grads_path(),
                    "train": cs.long_train_path()},
-    "3o": cs.zamba2_path,
+    "3o": lambda: cs.zamba2_path(),
+    "3t": lambda: cs.ssm_artifact_phase(),
     "6f": lambda: cs.ssm_train_path("mamba2-780m"),
     "6g": lambda: cs.ssm_train_path("zamba2-1.2b"),
     "3p": lambda: cs.moe_path("olmoe-1b-7b", "3p"),
@@ -51,9 +97,12 @@ PHASES = {
                               fp32_layers=cs.MOE_FP32_LAYERS),
     "3s": lambda: cs.zoo_path("seamless-m4t-large-v2", "3s"),
 }
-# phases whose results chip_smoke prints with a logger of their own
-LOGGERS = {"3p": cs.log_moe, "3q": cs.log_moe, "3r": cs.log_zoo,
-           "3s": cs.log_zoo}
+# phases whose results are printed by a logger (chip_smoke's own where it
+# has one)
+LOGGERS = {"3b": _log_mamba, "3o": _log_zamba2,
+           "3p": lambda *a: cs.log_moe(*a), "3q": lambda *a: cs.log_moe(*a),
+           "3r": lambda *a: cs.log_zoo(*a), "3s": lambda *a: cs.log_zoo(*a),
+           "3t": lambda *a: cs.log_ssm_artifact_phase(*a)}
 
 
 def _zamba2_rows(gen, out, ssd_errs):
@@ -79,11 +128,21 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", required=True,
                     help="comma-separated phases: " + ",".join(PHASES))
+    ap.add_argument("--root", default=ROOT,
+                    help="checkout whose chip_smoke.py and port to run")
+    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
+                                                  "phases.json"))
+    ap.add_argument("--rows", action=argparse.BooleanOptionalAction,
+                    default=True, help="time the kernels at the phases' "
+                    "shapes (ROWS)")
     args = ap.parse_args(argv)
     only = [p for p in args.only.split(",") if p]
     unknown = sorted(set(only) - set(PHASES))
     if unknown:
         ap.error(f"unknown phases {unknown}")
+    global cs
+    sys.path.insert(0, os.path.abspath(args.root))
+    cs = importlib.import_module("chip_smoke")
     import torch
     if not torch.cuda.is_available():
         print("torch_phases: no CUDA device is available", file=sys.stderr)
@@ -106,7 +165,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=cs.DEVICE)
     gen.manual_seed(cs.SEED)
     checks = {"flash": cs.check_flash, "paged": cs.check_paged}
-    if "3o" in only:
+    if {"3b", "3o", "3t"} & set(only):
         checks["ssd_intra"] = cs.check_ssd
     if {"3p", "3q"} & set(only):
         checks["apply_moe"] = cs.check_moe
@@ -119,7 +178,7 @@ def main(argv=None) -> int:
         if ph in LOGGERS:
             LOGGERS[ph](out[ph], ph, smi, t0)
     for needs, fn in ROWS:
-        if set(needs) <= set(only):
+        if args.rows and set(needs) <= set(only):
             rows.update(timed(f"rows {'+'.join(needs)}", fn, gen, out,
                               phase2.get("ssd_intra")))
     for r in out.values():
@@ -132,11 +191,11 @@ def main(argv=None) -> int:
                f"{r['plain']}, library {r.get('library')}, bound "
                f"{r['bound_ms']:.6f} ms ({r['bound_by']}), max abs err "
                f"{r['max_abs_err']:.3g}")
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "phases.json"), "w") as f:
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
         json.dump({"card": smi, "seconds": seconds, "phase2": phase2,
                    "phases": out, "rows": rows}, f, indent=1, default=str)
-    cs.log(f"OK phases {only} ({smi})")
+    cs.log(f"OK phases {only} of {cs.ROOT} ({smi})")
     return 0
 
 

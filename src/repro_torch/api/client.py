@@ -386,6 +386,8 @@ class LocalBackend(InferenceBackend):
     serializes (``sdk.export.build_inference_fns``: a batch-1 prefill into a
     ring of ``seq_len``, then one decode step a token), with the host-side
     sampler, so the local decode path and an artifact's are one function.
+    Every prompt is right-padded to ``seq_len`` (default ``max_seq_len``;
+    a recurrent config's bounds nothing, so there it must be given).
     """
     name = "local"
 
@@ -398,6 +400,11 @@ class LocalBackend(InferenceBackend):
         self.device = resolve_device(device)
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.cfg = cfg
+        if seq_len is None and cfg.max_seq_len >= cb.UNBOUNDED_CONTEXT:
+            # every prompt is right-padded to seq_len: a recurrent config's
+            # max_seq_len is no width to prefill
+            raise ValueError(f"{cfg.name} bounds no context (max_seq_len="
+                             f"{cfg.max_seq_len}): pass seq_len")
         self.seq_len = int(seq_len or cfg.max_seq_len)
         if self.seq_len > cfg.max_seq_len:
             raise ValueError(f"seq_len={self.seq_len} exceeds "
@@ -406,9 +413,6 @@ class LocalBackend(InferenceBackend):
         self.has_ages = cfg.age_encoding
         self.max_age = cfg.max_age
         self.death_token = cfg.death_token
-        # recurrent state cannot mask padding: such a model prefills its
-        # prompt at its exact length
-        self._padded = cfg.arch_type in (cb.DENSE, cb.MOE)
         self._fns = build_inference_fns(cfg, self.seq_len)
 
     def _tensors(self, *arrays) -> List[torch.Tensor]:
@@ -423,8 +427,6 @@ class LocalBackend(InferenceBackend):
     def _next_decode_fn(self):
         @torch.no_grad()
         def prefill(inputs, last):
-            if not self._padded:
-                inputs = tuple(a[:, :last + 1] for a in inputs)
             lg, cache = self._fns["prefill"](
                 self.params, *self._tensors(*inputs,
                                             np.asarray([last], np.int32)))

@@ -31,6 +31,11 @@ ENC_DEC = "enc_dec"  # seq2seq (audio backbone)
 VLM = "vlm"          # decoder-only with a vision-patch frontend
 AUDIO = "audio"      # enc-dec with an audio-frame frontend
 
+# max_seq_len of the recurrent families: constant-state decode bounds no
+# context, so a prompt axis padded to it would be a million positions wide;
+# a caller that pads to a fixed axis names its own
+UNBOUNDED_CONTEXT = 1_048_576
+
 
 @dataclass(frozen=True)
 class ModelConfig:

@@ -3,7 +3,7 @@
 d_inner = 2 * 1536 = 3072, head_dim 64 -> 48 SSD heads, state N = 128,
 RMSNorm, untied head.
 """
-from repro_torch.configs.base import SSM, ModelConfig
+from repro_torch.configs.base import SSM, UNBOUNDED_CONTEXT, ModelConfig
 
 CONFIG = ModelConfig(
     name="mamba2-780m",
@@ -20,5 +20,5 @@ CONFIG = ModelConfig(
     ssm_head_dim=64,
     ssm_conv=4,
     ssm_chunk=128,
-    max_seq_len=1_048_576,  # constant-state decode: unbounded context
+    max_seq_len=UNBOUNDED_CONTEXT,
 )

@@ -6,7 +6,7 @@ d_ff 8192) applied before every 6th Mamba layer (7 applications).  The
 original interleaves two shared blocks with LoRA-specialised projections;
 the JAX package shares a single block, and so does this copy.
 """
-from repro_torch.configs.base import HYBRID, ModelConfig
+from repro_torch.configs.base import HYBRID, UNBOUNDED_CONTEXT, ModelConfig
 
 CONFIG = ModelConfig(
     name="zamba2-1.2b",
@@ -25,5 +25,5 @@ CONFIG = ModelConfig(
     ssm_chunk=128,
     attn_every=6,
     sliding_window=4096,  # the shared block's window at long context
-    max_seq_len=1_048_576,
+    max_seq_len=UNBOUNDED_CONTEXT,
 )

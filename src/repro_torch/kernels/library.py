@@ -1,15 +1,19 @@
-"""The attention kernels as exportable PyTorch operators.
+"""The kernels of the SDK artifact's graphs as exportable PyTorch operators.
 
 The wrappers launch through ``ctypes`` into fresh tensors
-(``flash_attention.py``, ``paged_attention.py``), which ``torch.export``
-cannot trace: a fake tensor has no ``data_ptr()``.  This module registers
-the two kernels of the SDK artifact's graphs as operators of the
+(``flash_attention.py``, ``paged_attention.py``, ``ssd_scan.py``), which
+``torch.export`` cannot trace: a fake tensor has no ``data_ptr()``.  This
+module registers the three kernels of the graphs as operators of the
 ``repro_torch`` namespace, each with a fake implementation that gives the
-output's shape, dtype and strides, so that an exported graph holds the
+outputs' shapes, dtypes and strides, so that an exported graph holds the
 operator as one node:
 
-* ``repro_torch::flash_attention`` (the ``full`` and ``prefill`` graphs)
-* ``repro_torch::paged_decode_attention`` (the ``decode`` graph)
+* ``repro_torch::flash_attention`` (the ``full`` and ``prefill`` graphs of
+  the attention stacks and of the hybrid's shared block)
+* ``repro_torch::paged_decode_attention`` (their ``decode`` graphs)
+* ``repro_torch::ssd_intra`` (the ``full`` and ``prefill`` graphs of
+  Mamba2 and of the hybrid's Mamba2 layers; B and C reach it as the
+  model's stride-0 ``expand`` over the heads, read once per batch row)
 
 On a CUDA tensor an operator calls the kernel's wrapper (which counts its
 ``launches``) or raises; on a CPU tensor it runs the plain version of
@@ -17,22 +21,22 @@ On a CUDA tensor an operator calls the kernel's wrapper (which counts its
 ``torch.compiler.is_exporting()``: the eager hot path calls the wrappers
 directly and pays no dispatcher cost.
 
-``tte_sample`` and ``ssd_intra`` have no operator: the artifact samples
-on the host (eq. 1, or Gumbel for a generic LM), and only the dense
-family is exported, which reaches no SSD kernel.
+``tte_sample`` has no operator: the artifact samples on the host (eq. 1,
+or Gumbel for a generic LM).
 
 A program that loads an artifact of the port imports this module first,
 so that the operators exist before ``torch.export.load`` resolves them.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 NAMESPACE = "repro_torch"
 
@@ -92,3 +96,39 @@ def _paged_cuda(q, k_pool, v_pool, table, pos, step, window):
 @paged_decode_attention.register_fake
 def _paged_fake(q, k_pool, v_pool, table, pos, step, window):
     return torch.empty_like(q)
+
+
+def _ssd_out(xdt: torch.Tensor, Bm: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``ssd_intra`` wrapper's output allocation: fp32, contiguous."""
+    b, c, Q, H, P = xdt.shape
+    N = Bm.shape[-1]
+    return (torch.empty((b, c, Q, H, P), dtype=torch.float32,
+                        device=xdt.device),
+            torch.empty((b, c, H, N, P), dtype=torch.float32,
+                        device=xdt.device))
+
+
+@torch.library.custom_op(f"{NAMESPACE}::ssd_intra", mutates_args=(),
+                         device_types="cpu")
+def ssd_intra(xdt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+              cum: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Intra-chunk SSD in the model's layout: xdt (b, c, Q, H, P); Bm, Cm
+    (b, c, Q, H, N), a stride-0 head axis shared by the heads; fp32 cum
+    (b, c, Q, H) -> (y_diag (b, c, Q, H, P), states (b, c, H, N, P)),
+    fp32, laid out as the kernel lays them out."""
+    y, st = _ssd_out(xdt, Bm)
+    y_ref, st_ref = ref.ssd_intra_heads_ref(xdt, Bm, Cm, cum)
+    y.copy_(y_ref)
+    st.copy_(st_ref)
+    return y, st
+
+
+@ssd_intra.register_kernel("cuda")
+def _ssd_cuda(xdt, Bm, Cm, cum):
+    return _ssd.ssd_intra_cuda(xdt, Bm, Cm, cum)
+
+
+@ssd_intra.register_fake
+def _ssd_fake(xdt, Bm, Cm, cum):
+    return _ssd_out(xdt, Bm)

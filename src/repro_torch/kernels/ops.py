@@ -15,9 +15,9 @@ the card.  Training takes the plain differentiable route instead
 (``models.attention.chunked_attention``).
 
 While ``torch.export`` traces (the SDK artifact's graphs), the two
-attention entry points go through the operators of ``kernels.library``
-instead, so that the exported graph calls the kernel (or, on the CPU, the
-plain version) as one node.
+attention entry points and ``ssd_intra_heads`` go through the operators of
+``kernels.library`` instead, so that the exported graph calls the kernel
+(or, on the CPU, the plain version) as one node.
 """
 from __future__ import annotations
 
@@ -165,10 +165,8 @@ def ssd_intra_heads(xdt, Bm, Cm, cum) -> Tuple[torch.Tensor, torch.Tensor]:
     tile among the heads; cum (b, c, Q, H).  Returns (y_diag
     (b, c, Q, H, P), states (b, c, H, N, P)), fp32."""
     _refuse_grad("ssd_intra", xdt, Bm, Cm, cum)
+    if torch.compiler.is_exporting():
+        return library.ssd_intra(xdt, Bm, Cm, cum.float())
     if _on_cuda(xdt):
         return _ssd.ssd_intra_cuda(xdt, Bm, Cm, cum.float())
-    if Bm.stride(3) == 0 and Cm.stride(3) == 0:    # broadcast, not H copies
-        Bm, Cm = Bm[:, :, :, :1], Cm[:, :, :, :1]
-    y, st = ref.ssd_intra_ref(xdt.transpose(2, 3), Bm.transpose(2, 3),
-                              Cm.transpose(2, 3), cum.transpose(2, 3))
-    return y.transpose(2, 3), st
+    return ref.ssd_intra_heads_ref(xdt, Bm, Cm, cum)

@@ -141,3 +141,15 @@ def ssd_intra_ref(xdt, Bm, Cm, cum) -> Tuple[torch.Tensor, torch.Tensor]:
     decay = torch.exp(cum[..., -1:] - cum)                 # (..., Q)
     state = Bm.transpose(-1, -2) @ (decay[..., None] * xdt)   # (..., N, P)
     return y, state
+
+
+def ssd_intra_heads_ref(xdt, Bm, Cm, cum) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssd_intra_ref` in the model's layout: xdt (b, c, Q, H, P);
+    Bm, Cm (b, c, Q, H, N), where a stride-0 head axis (``expand``) is
+    computed once and broadcast, not as H copies; cum (b, c, Q, H).
+    Returns (y_diag (b, c, Q, H, P), states (b, c, H, N, P)), fp32."""
+    if Bm.stride(3) == 0 and Cm.stride(3) == 0:    # broadcast, not H copies
+        Bm, Cm = Bm[:, :, :, :1], Cm[:, :, :, :1]
+    y, st = ssd_intra_ref(xdt.transpose(2, 3), Bm.transpose(2, 3),
+                          Cm.transpose(2, 3), cum.transpose(2, 3))
+    return y.transpose(2, 3), st

@@ -164,11 +164,13 @@ def _head(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def mamba_layer(params: Params, x: torch.Tensor, cfg: ModelConfig, l: int, *,
                 mode: str, cache: Optional[SSMCache] = None,
-                differentiable: bool = False):
+                differentiable: bool = False,
+                last_index: Optional[torch.Tensor] = None):
     """Layer ``l``: ``x + Mamba2(RMSNorm(x))``.  mode "train" returns the
     new x (``differentiable`` takes the plain SSD route); "prefill" (x,
-    (h, conv)) of this layer; "decode" updates layer ``l`` of ``cache`` in
-    place and returns the new x."""
+    (h, conv)) of this layer, the state at ``last_index`` (B,) where given
+    (``ssm.ssm_forward``'s masked prefill); "decode" updates layer ``l`` of
+    ``cache`` in place and returns the new x."""
     blk = Block(params, "layers/", l)
     h = apply_norm(x, blk["norm/scale"], blk.get("norm/bias"))
     p = ssm_lib.layer_params(params, l)
@@ -179,7 +181,8 @@ def mamba_layer(params: Params, x: torch.Tensor, cfg: ModelConfig, l: int, *,
         cache.conv[l] = conv
         return x + y
     if mode == "prefill":
-        y, state = ssm_lib.ssm_forward(p, h, cfg, return_state=True)
+        y, state = ssm_lib.ssm_forward(p, h, cfg, return_state=True,
+                                       last_index=last_index)
         return x + y, state
     return x + ssm_lib.ssm_forward(p, h, cfg, differentiable=differentiable)
 
@@ -288,14 +291,15 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
     last valid text token of a right-padded batch — or at the last
     position, plus ``cache``: {"self": LayerCache} rings of width
     ``cache_width`` (default: the window where the config has one, else
-    S', as JAX), {"ssm": SSMCache} (Mamba2: the state after the whole
-    sequence, so its rows must not be right-padded), both kinds for the
-    hybrid ({"ssm", "attn"}: one ring per application of the shared
-    block), or for an encoder-decoder {"self", "cross"} (the cross rings
-    M wide).  Both modes return ``aux_loss``: the MoE routers'
-    load-balance losses summed over the layers (an fp32 scalar, 0 for the
-    other families), and ``text_offset``: the number of patch positions
-    before the text (0 but for a VLM), as the JAX package's ``forward``.
+    S', as JAX), {"ssm": SSMCache} (Mamba2: the state at ``last_index``,
+    its padding masked by ``dt = 0``, or after the whole sequence without
+    it), both kinds for the hybrid ({"ssm", "attn"}: one ring per
+    application of the shared block), or for an encoder-decoder {"self",
+    "cross"} (the cross rings M wide).  Both modes return ``aux_loss``:
+    the MoE routers' load-balance losses summed over the layers (an fp32
+    scalar, 0 for the other families), and ``text_offset``: the number of
+    patch positions before the text (0 but for a VLM), as the JAX
+    package's ``forward``.
 
     batch: tokens (B, S) int; for Delphi ages (B, S) float years; for a
     VLM patches (B, n_frontend_tokens, d); for an encoder-decoder frames
@@ -360,7 +364,8 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
             if t == cb.HYBRID and l % cfg.attn_every == 0:
                 x = attend(shared, x, l // cfg.attn_every)
             if prefill:
-                x, (h, conv) = mamba_layer(params, x, cfg, l, mode="prefill")
+                x, (h, conv) = mamba_layer(params, x, cfg, l, mode="prefill",
+                                           last_index=last_index)
                 hs.append(h)
                 convs.append(conv)
             else:
@@ -502,8 +507,8 @@ def mask_padded_positions(cache, last_idx: torch.Tensor):
     padded batched prefill wrote garbage K/V there): pos -> -1 until decode
     writes reclaim the slots.  ``last_idx`` (B,) int is an absolute
     position (a VLM's counts its patches).  SSM state passes through
-    unchanged (the engine never right-pads a recurrent architecture), and
-    so do an encoder-decoder's cross rings: their positions are the
+    unchanged (``forward``'s prefill already masked it at ``last_index``),
+    and so do an encoder-decoder's cross rings: their positions are the
     memory's, not the decoder's (the JAX package's function masks every
     ring it is given, the cross ones too, which no caller of the reference
     reaches).  last_idx: (B,) int."""

@@ -147,12 +147,21 @@ def _dt_and_A(dt_raw, p):
 
 
 def ssm_forward(p, x, cfg: ModelConfig, h0=None, return_state: bool = False,
-                differentiable: bool = False):
+                differentiable: bool = False, last_index=None):
     """Full-sequence Mamba2 block.  ``p``: one layer's ``layers/ssm/*``
     tensors keyed by their last name; x: (B, S, d_model).  With
     ``return_state`` also returns this layer's (h (B, H, N, P) fp32,
     conv (B, conv, ch)) decode state.  ``differentiable=True`` takes the
-    plain SSD route (:func:`ssd_chunked`), which autograd can go through."""
+    plain SSD route (:func:`ssd_chunked`), which autograd can go through.
+
+    ``last_index`` (B,) masks a right-padded batch: ``dt`` is 0 past each
+    row's last valid position (identity steps, as the chunk padding), so
+    the state is the state at ``last_index``, and the conv tail is the
+    ``ssm_conv`` raw inputs ending there.  Shapes stay static (an exported
+    graph takes it); the outputs at valid positions do not change, and at
+    ``last_index = S - 1`` nothing does, bit for bit.  Without it (a row
+    prefilled at its exact length, as the engine's) neither the mask nor
+    the gather runs."""
     dt_act = x.dtype
     B_, S, _ = x.shape
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_n_heads, cfg.ssm_head_dim
@@ -163,6 +172,10 @@ def ssm_forward(p, x, cfg: ModelConfig, h0=None, return_state: bool = False,
                                         p["conv_b"].to(dt_act)))
     x_ssm, Bm, Cm = xBC[..., :di], xBC[..., di:di + N], xBC[..., di + N:]
     dt, A = _dt_and_A(dt_raw, p)                                   # (B,S,H)
+    if last_index is not None:
+        t = torch.arange(S, device=x.device)
+        valid = t[None, :] <= last_index.to(t.dtype)[:, None]      # (B,S)
+        dt = torch.where(valid[..., None], dt, torch.zeros_like(dt))
 
     xh = x_ssm.reshape(B_, S, H, P)
     Q = cfg.ssm_chunk
@@ -185,11 +198,27 @@ def ssm_forward(p, x, cfg: ModelConfig, h0=None, return_state: bool = False,
     if not return_state:
         return out
     W = cfg.ssm_conv
-    # the last W raw (pre-conv) xBC inputs, zero-padded on the left
-    x_tail = x[:, max(S - W, 0):, :]
-    tail = x_tail @ p["in_proj"][:, di:di + di + 2 * N].to(dt_act)
-    if S < W:
-        tail = F.pad(tail, (0, 0, W - S, 0))
+    w_xbc = p["in_proj"][:, di:di + di + 2 * N].to(dt_act)
+    if last_index is None:
+        # the last W raw (pre-conv) xBC inputs, zero-padded on the left
+        tail = x[:, max(S - W, 0):, :] @ w_xbc
+        if S < W:
+            tail = F.pad(tail, (0, 0, W - S, 0))
+        return out, (h_last, tail)
+    # the W raw inputs ending at last_index, zero before position 0; the
+    # product runs over the same rows as the slice above (W of x, or all
+    # S < W of them), so last_index = S - 1 gives its bits
+    idx = last_index.long()[:, None] - (W - 1) + torch.arange(
+        W, device=x.device)                                         # (B,W)
+    if S >= W:
+        rows = x.gather(1, idx.clamp(min=0)[..., None].expand(B_, W,
+                                                              x.shape[2]))
+        tail = rows @ w_xbc
+    else:
+        tail = F.pad(x @ w_xbc, (0, 0, W - S, 0))
+        tail = tail.gather(1, (idx + (W - S)).clamp(min=0)[..., None]
+                           .expand(B_, W, tail.shape[2]))
+    tail = torch.where((idx >= 0)[..., None], tail, torch.zeros_like(tail))
     return out, (h_last, tail)
 
 

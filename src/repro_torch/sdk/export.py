@@ -15,24 +15,34 @@ the JAX package's ``repro/sdk/export.py``):
 Each ``.bin`` holds one ``torch.export.save`` archive.  The parameters are
 graph inputs (a ``dict``), not constants of the graphs, so ``params.npz``
 is the one copy of the weights, readable by the JAX package's ``nest``.
-The attention inside a graph is one node per layer of an operator of
-``repro_torch.kernels.library``: the hand-written CUDA kernel on the card,
-its plain version on the CPU.  The loading side (``sdk.runtime``) imports
-no model code.
+The kernels inside a graph are one node per call of an operator of
+``repro_torch.kernels.library``: the attention kernels and ``ssd_intra``,
+the hand-written CUDA kernels on the card, their plain versions on the
+CPU.  The loading side (``sdk.runtime``) imports no model code.
 
-The cache crosses the graph boundary as the flat list ``[k, v, pos]`` of
-the model's ``LayerCache``.  The decode graph writes the new token's K/V and
-position into those tensors in place and returns them: the list it returns
-is the list it was given, updated.
+The cache crosses the graph boundary as a flat list of tensors, in the
+order of the JAX package's ``tree_leaves`` over the model's cache dict
+(its keys sorted): ``[k, v, pos]`` of the ``LayerCache`` rings for the
+attention stacks, ``[h, conv]`` of Mamba2's ``SSMCache``, ``[k, v, pos,
+h, conv]`` for the hybrid (``attn`` before ``ssm``).  The decode graph
+writes the new token's K/V and position, and the new recurrent state,
+into those tensors in place and returns them: the list it returns is the
+list it was given, updated.
 
 Graphs are traced on the CPU at the configuration's dtype, so a machine
-with no card can export.  The attention stacks are exported: Delphi,
-whose graphs take ages beside the tokens, and the generic dense LMs (RoPE,
-GQA, SwiGLU, RMSNorm, windows, QKV biases) and the MoE LMs (whose
-all-expert dispatch has no data-dependent shape), whose graphs take
-tokens only (the decode graph ``(token, step)``).  A Mamba2 recurrent state cannot
-take the right-padded fixed-shape prompt of the graphs' signature: it is
-refused.
+with no card can export.  Every token-only architecture is exported:
+Delphi, whose graphs take ages beside the tokens, the generic dense LMs
+(RoPE, GQA, SwiGLU, RMSNorm, windows, QKV biases), the MoE LMs (whose
+all-expert dispatch has no data-dependent shape), Mamba2 and the hybrid
+Zamba2, whose graphs take tokens only (the decode graph ``(token,
+step)``).  The prompt is right-padded to the fixed ``seq_len`` axis, and
+the prefill graph masks the padding with ``last_index``: attention rings
+by ``mask_padded_positions``, a recurrent state by the masked SSD prefill
+(``dt = 0`` past ``last_index`` and the conv tail gathered there,
+``models.ssm.ssm_forward``), so the state handed to decode is the state
+after the prompt, and the graphs' signatures are the reference's.  A VLM
+or an encoder-decoder is refused by name: no signature carries its
+patches or frames.
 """
 from __future__ import annotations
 
@@ -49,7 +59,8 @@ from repro_torch.models import (decode_step, forward, mask_padded_positions,
                                 to_flat_numpy)
 from repro_torch.models.attention import LayerCache
 from repro_torch.models.layers import act_dtype
-from repro_torch.models.ssm import SSMCache
+from repro_torch.models.model import n_attn_apps
+from repro_torch.models.ssm import SSMCache, empty_ssm_cache
 from repro_torch.sdk.manifest import (SPEC_V1, SPEC_V2, build_manifest,
                                       write_manifest)
 
@@ -71,10 +82,45 @@ def nest(flat: Dict[str, Any]) -> Dict:
     return root
 
 
-def _leaves(cache) -> List[torch.Tensor]:
+def _cache_kinds(cfg: ModelConfig):
+    """The model's cache dict as (key, leaf type) in the boundary's order:
+    the JAX package's ``tree_leaves`` order, its keys sorted."""
+    if cfg.arch_type == cb.SSM:
+        return (("ssm", SSMCache),)
+    if cfg.arch_type == cb.HYBRID:
+        return (("attn", LayerCache), ("ssm", SSMCache))
+    return (("self", LayerCache),)
+
+
+def _leaves(cfg: ModelConfig, cache) -> List[torch.Tensor]:
     """The model's cache dict as the flat tensor list of the boundary."""
-    (layer_cache,) = cache.values()
-    return list(layer_cache)
+    return [t for key, _ in _cache_kinds(cfg) for t in cache[key]]
+
+
+def _unflatten(cfg: ModelConfig, leaves) -> Dict[str, Any]:
+    """The boundary's flat tensor list as the model's cache dict."""
+    cache, i = {}, 0
+    for key, kind in _cache_kinds(cfg):
+        n = len(kind._fields)
+        cache[key] = kind(*leaves[i:i + n])
+        i += n
+    return cache
+
+
+def _example_cache(cfg: ModelConfig, S: int, device) -> Dict[str, Any]:
+    """An empty cache of the prefill graph's shapes: rings S wide, whatever
+    the window (a right-padded prompt longer than the window would evict
+    its own context from a narrower ring), and the recurrent state."""
+    dt = act_dtype(cfg)
+    cache = {}
+    for key, _ in _cache_kinds(cfg):
+        if key == "ssm":
+            cache[key] = empty_ssm_cache(cfg, cfg.n_layers, 1, dt, device)
+        else:
+            n = n_attn_apps(cfg) if key == "attn" else cfg.n_layers
+            cache[key] = attn.empty_cache(n, 1, cfg.n_kv_heads, S,
+                                          cfg.head_dim, dt, device)
+    return cache
 
 
 def build_inference_fns(cfg: ModelConfig, seq_len: int) -> Dict[str, Any]:
@@ -88,13 +134,11 @@ def build_inference_fns(cfg: ModelConfig, seq_len: int) -> Dict[str, Any]:
       ``full(p, tokens[, ages]) -> logits (1, S, V)``
       ``prefill(p, tokens[, ages], last_index) -> (logits (1, V), [cache])``
       ``decode(p, [cache], token[, age], step) -> (logits (1, V), [cache])``
-    where ``[cache]`` is ``[k, v, pos]`` of the ring (width ``seq_len``) or
-    ``[h, conv]`` of a Mamba2 state, and ``decode`` updates it in place.
+    where ``[cache]`` is the flat leaf list of the module docstring (rings
+    of width ``seq_len``), and ``decode`` updates it in place.
     """
     S = seq_len
     delphi = cfg.age_encoding
-    wrap = SSMCache if cfg.arch_type == cb.SSM else LayerCache
-    key = "ssm" if cfg.arch_type == cb.SSM else "self"
 
     def _batch(tokens, ages):
         b = {"tokens": tokens}
@@ -106,17 +150,18 @@ def build_inference_fns(cfg: ModelConfig, seq_len: int) -> Dict[str, Any]:
         return forward(p, cfg, _batch(tokens, ages), mode="train")["logits"]
 
     def _prefill(p, tokens, ages, last_index):
+        # a recurrent state is masked at last_index inside the prefill
         out = forward(p, cfg, _batch(tokens, ages), mode="prefill",
                       cache_width=S, last_index=last_index)
         # right-padded positions hold garbage K/V: invalidate them so that
         # decode never attends past the prompt's true last token
         cache = mask_padded_positions(out["cache"], last_index)
-        return out["logits"][:, 0], _leaves(cache)
+        return out["logits"][:, 0], _leaves(cfg, cache)
 
     def _decode(p, cache_leaves, token, age, step):
-        d = decode_step(p, cfg, {key: wrap(*cache_leaves)},
+        d = decode_step(p, cfg, _unflatten(cfg, cache_leaves),
                         _batch(token, age), step)
-        return d["logits"][:, 0], _leaves(d["cache"])
+        return d["logits"][:, 0], _leaves(cfg, d["cache"])
 
     if delphi:
         def full_fn(p, tokens, ages):
@@ -198,19 +243,11 @@ class _Graph(torch.nn.Module):
 
 
 def _check_exportable(cfg: ModelConfig) -> None:
-    if cfg.arch_type in (cb.SSM, cb.HYBRID):
-        raise NotImplementedError(
-            f"{cfg.name}: export_model exports the attention stacks (dense "
-            f"and MoE) only: a "
-            f"Mamba2 recurrent state (arch_type={cfg.arch_type}) cannot "
-            f"take the right-padded fixed-shape prompt of the artifact's "
-            f"graphs (the state after the padding is not the state after "
-            f"the prompt)")
     if cfg.arch_type in (cb.VLM, cb.AUDIO, cb.ENC_DEC):
         raise NotImplementedError(
-            f"{cfg.name}: export_model exports the attention stacks (dense "
-            f"and MoE) only: the artifact's graphs take tokens (and Delphi's "
-            f"ages), and arch_type={cfg.arch_type} also needs the "
+            f"{cfg.name}: export_model exports the token-only architectures "
+            f"only: the artifact's graphs take tokens (and Delphi's ages), "
+            f"and arch_type={cfg.arch_type} also needs the "
             f"{'patches' if cfg.arch_type == cb.VLM else 'frames'} of its "
             f"modality frontend, which no graph signature carries")
 
@@ -276,12 +313,7 @@ def export_model(params, cfg: ModelConfig, out_dir: str, *,
     if spec_version == SPEC_V2:
         last = torch.zeros((1,), dtype=torch.int32)
         _export_graph(fns["prefill"], full_args + (last,), PREFILL_GRAPH)
-        # the prefill graph's ring is S wide, whatever the window: a
-        # right-padded prompt longer than the window would evict its own
-        # context from a narrower ring.  The decode graph takes that ring.
-        leaves = _leaves({"self": attn.empty_cache(
-            cfg.n_layers, 1, cfg.n_kv_heads, S, cfg.head_dim, act_dtype(cfg),
-            p["embed/embed"].device)})
+        leaves = _leaves(cfg, _example_cache(cfg, S, p["embed/embed"].device))
         token = torch.zeros((1, 1), dtype=torch.int32)
         age = torch.zeros((1, 1), dtype=torch.float32)
         step_args = (token, age, last) if delphi else (token, last)

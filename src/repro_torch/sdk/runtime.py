@@ -6,15 +6,16 @@ executes its ``torch.export`` graphs.  It imports no model code (nothing of
 ``api``): the graph semantics live in the serialized programs, the
 parameters in ``params.npz`` and the metadata in ``manifest.json``.  What it
 does import, besides PyTorch and numpy, is ``repro_torch.kernels.library``:
-the graphs call its ``repro_torch::`` attention operators, which must exist
-before ``torch.export.load`` resolves them.  On the card they launch the
+the graphs call its ``repro_torch::`` operators (the attention kernels and,
+in Mamba2's and Zamba2's graphs, ``ssd_intra``), which must exist before
+``torch.export.load`` resolves them.  On the card they launch the
 hand-written CUDA kernels; on the CPU they run the plain versions.
 
 Spec dispatch: v1 artifacts carry only the full-sequence graph (``run``);
-v2 artifacts also expose ``prefill`` and ``decode_step``, whose KV cache is
-a plain list of tensors threaded through by the caller.  The decode graph
-updates the cache tensors in place: the list ``decode_step`` returns holds
-the tensors it was given.
+v2 artifacts also expose ``prefill`` and ``decode_step``, whose cache (KV
+rings, a recurrent state, or both) is a plain list of tensors threaded
+through by the caller.  The decode graph updates the cache tensors in
+place: the list ``decode_step`` returns holds the tensors it was given.
 
 Graphs are traced on the CPU; at load each program moves to the runtime's
 device (``move_to_device_pass``: its constants and the devices written into

@@ -305,8 +305,11 @@ def _prefill_core(params, tokens, ages, last_idx, age0, lengths, max_new, u,
     batch = {"tokens": tokens}
     if cfg.age_encoding:
         batch["ages"] = ages
+    # a recurrent row is prefilled at its exact length: its last position
+    # is its last valid one, and its Mamba layers need no masked prefill
     out = forward(params, cfg, batch, mode="prefill",
-                  cache_width=kn.prefill_width, last_index=last_idx)
+                  cache_width=kn.prefill_width,
+                  last_index=last_idx if cfg.arch_type in _BUCKETED else None)
     cache_rows = mask_padded_positions(out["cache"], last_idx)
     lg = out["logits"][:, 0]
     rows, packed = _fork_rows_core(lg, u, age0, lengths, max_new, kn)

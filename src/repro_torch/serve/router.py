@@ -75,14 +75,19 @@ ROUTER_NAME = "repro-router/0.1"
 def _get_json(url: str, path: str, timeout: float) -> dict:
     """One lightweight GET round-trip (no RemoteBackend handshake) — the
     health-probe primitive.  Raises ``OSError`` on any transport or
-    non-200 condition so the prober counts it as a single failure."""
+    non-200 condition so the prober counts it as a single failure (a body
+    cut short by a dying replica, ``http.client.IncompleteRead``, included:
+    an ``HTTPException`` escaping here would end the prober's thread)."""
     sp = urlsplit(url if "//" in url else "http://" + url)
     conn = http.client.HTTPConnection(sp.hostname or "127.0.0.1",
                                       sp.port or 80, timeout=timeout)
     try:
-        conn.request("GET", (sp.path.rstrip("/")) + path)
-        resp = conn.getresponse()
-        raw = resp.read()
+        try:
+            conn.request("GET", (sp.path.rstrip("/")) + path)
+            resp = conn.getresponse()
+            raw = resp.read()
+        except http.client.HTTPException as e:
+            raise OSError(f"broken healthz from {url}: {e!r}") from None
         if resp.status != 200:
             raise OSError(f"HTTP {resp.status} from {url}{path}")
         try:
@@ -136,6 +141,7 @@ class ReplicaHandle:
         self._prev_prefix: Optional[dict] = None    # guarded-by: _lock
         self._prefix_delta: Optional[dict] = None   # guarded-by: _lock
         self._dialed = 0                            # guarded-by: _lock
+        self._deaths = 0                            # guarded-by: _lock
 
     # -- connection pool ------------------------------------------------------
     def acquire(self):
@@ -204,16 +210,26 @@ class ReplicaHandle:
         with self._lock:
             self._accepting = flag
 
-    def probe_ok(self, health: dict) -> None:
+    def deaths(self) -> int:
+        """Transport failures seen so far: a probe reads it before its GET
+        and hands it to :meth:`probe_ok`."""
+        with self._lock:
+            return self._deaths
+
+    def probe_ok(self, health: dict, deaths: int) -> None:
         """A healthz probe landed: restore health, compute the prefix
         hit-rate delta vs the previous probe (affinity effectiveness as
-        the replica itself observed it)."""
+        the replica itself observed it).  A probe that began before a
+        transport failure (``deaths`` read before its GET, now stale)
+        answered for the replica as it was, and restores nothing."""
         prefix = None
         eng = health.get("engine") if isinstance(health, dict) else None
         if isinstance(eng, dict):
             mem = eng.get("memory") or {}
             prefix = mem.get("prefix_cache")
         with self._lock:
+            if deaths != self._deaths:
+                return
             self._failures = 0
             self._healthy = True
             self._last_health = health
@@ -246,6 +262,7 @@ class ReplicaHandle:
         edge."""
         with self._lock:
             self._failures = max(self._failures, self.max_failures)
+            self._deaths += 1
             was = self._healthy
             self._healthy = False
         return was
@@ -442,6 +459,7 @@ class ReplicaSupervisor:
     # -- probing --------------------------------------------------------------
     def probe_once(self) -> None:
         for r in self.replicas:
+            deaths = r.deaths()
             try:
                 h = _get_json(r.url, "/v1/healthz",
                               timeout=self.probe_timeout)
@@ -449,7 +467,7 @@ class ReplicaSupervisor:
                 if r.probe_failed() and self.on_unhealthy is not None:
                     self.on_unhealthy(r.name)
             else:
-                r.probe_ok(h)
+                r.probe_ok(h, deaths)
 
     def _probe_loop(self) -> None:
         while not self._stop_evt.wait(self.probe_interval):
@@ -1145,7 +1163,7 @@ def _shared_params_backend_factory(args) -> Callable[[int], object]:
             if made:
                 return made.pop()
             return LocalBackend(first.params, first.cfg,
-                                device=first.device)
+                                seq_len=first.seq_len, device=first.device)
         return make_backend
     assert isinstance(first, EngineBackend)
     params, cfg = first.params, first.cfg

@@ -494,7 +494,9 @@ def _build_backend(args):
     else:
         params = init_params(cfg, args.seed, device)
     if args.backend == "local":
-        return LocalBackend(params, cfg, device=device)
+        return LocalBackend(params, cfg,
+                            seq_len=min(args.max_context, cfg.max_seq_len),
+                            device=device)
     # the prefix cache rides the paged pool: on by default there, refused
     # on a ring engine (no shareable blocks to index)
     prefix_cache = (args.cache == "paged" if args.prefix_cache is None
@@ -558,7 +560,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--slots", type=int, default=8,
                     help="decode batch width (max concurrent requests)")
     ap.add_argument("--max-context", type=int, default=512,
-                    help="per-request KV context (ring width / table span)")
+                    help="per-request KV context (ring width / table "
+                         "span); --backend local pads prompts to it, at "
+                         "most the config's max_seq_len")
     ap.add_argument("--cache", choices=("ring", "paged"), default="ring",
                     help="KV layout: dense per-slot ring, or a shared "
                          "block pool with free-block admission + preemption")

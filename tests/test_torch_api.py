@@ -23,6 +23,7 @@ from repro.api import errors as jax_errors
 from repro.api import schemas as jax_schemas
 from repro.configs import get_config as jax_config
 from repro.core import init_delphi
+from repro.models import decode_step as jax_decode_step
 from repro.models import forward as jax_forward
 from repro.serve import BatchedEngine as JaxEngine
 from repro.train import checkpoint as jax_checkpoint
@@ -31,9 +32,9 @@ from repro_torch.api import errors, schemas
 from repro_torch.configs import get_config
 from repro_torch.core.parity import (check_lm_trajectories,
                                      check_trajectories, compare_runs,
-                                     port_logits_fn)
+                                     gumbel_scores, port_logits_fn)
 from repro_torch.core.risk import analytic_next_event_risk_np
-from repro_torch.models import init_params, load_checkpoint
+from repro_torch.models import init_params, load_checkpoint, to_flat_numpy
 from repro_torch.serve import BatchedEngine, ring_reference_futures
 
 torch.set_num_threads(2)
@@ -379,3 +380,88 @@ def test_mamba2_through_engine_backend():
                                  port_logits_fn(params, cfg),
                                  margin_tol=1e-4)
     assert held["steps"] == 6
+
+
+# the Zamba2 tests' logits tolerance against JAX (tests/test_torch_hybrid.py)
+HYBRID_LOGITS_ATOL = 1e-4
+
+
+def test_hybrid_local_backend_streams_as_jax_exact_length():
+    """Reduced Zamba2 (the shared block before each Mamba2 layer: a cache
+    of rings and a recurrent state) through ``LocalBackend``: ``stream``
+    and ``generate`` give the same tokens, and every step's logits (the
+    padded prompt's masked prefill, then the decode steps) are JAX's
+    eager exact-length ``forward(mode="prefill")`` and ``decode_step``
+    within ``HYBRID_LOGITS_ATOL``; the tokens are held to JAX's scores
+    margin-aware.  The backend once failed here: its cache boundary knew
+    one cache kind of the two."""
+    cfg = get_config("zamba2-1.2b", reduced=True).replace(dtype="float32")
+    jcfg = jax_config("zamba2-1.2b", reduced=True).replace(dtype="float32")
+    params = init_params(cfg, seed=3, device="cpu")
+    jp = {}
+    for key, arr in to_flat_numpy(params).items():
+        node = jp
+        *path, leaf = key.split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = jnp.asarray(arr)
+    S, prompt, n = 32, [5, 17, 29], 6
+    u = _uniforms((n, cfg.vocab_size), seed=8)
+    b = api.LocalBackend(params, cfg, seq_len=S, device="cpu")
+    req = api.GenerateRequest(tokens=prompt, max_new=n, uniforms=u)
+    toks = [e.token for e in b.stream(req)]
+    assert len(toks) == n and b.generate(req).tokens == toks
+    step = b._next_decode_fn()
+    state, got = None, []
+    for i in range(n):
+        lg, state = step(prompt + toks[:i], [], state)
+        got.append(np.asarray(lg))
+    out = jax_forward(jp, jcfg, {"tokens": jnp.asarray([prompt], jnp.int32)},
+                      mode="prefill", cache_width=S)
+    want, cache = [np.asarray(out["logits"])[0, 0]], out["cache"]
+    for i, tok in enumerate(toks[:-1]):
+        d = jax_decode_step(jp, jcfg, cache,
+                            {"tokens": jnp.asarray([[tok]], jnp.int32)},
+                            jnp.int32(len(prompt) + i))
+        want.append(np.asarray(d["logits"])[0, 0])
+        cache = d["cache"]
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g, w, atol=HYBRID_LOGITS_ATOL, rtol=0)
+        sc = gumbel_scores(w, u[i])
+        assert sc[int(np.argmax(sc))] - sc[toks[i]] <= 2 * HYBRID_LOGITS_ATOL
+
+
+def test_server_local_backend_pads_a_recurrent_model_to_max_context(
+        monkeypatch):
+    """``--backend local`` gives the backend the CLI's ``--max-context`` as
+    its padded prompt axis: reduced Mamba2 with its config's real,
+    unbounded ``max_seq_len`` builds a server's (and each router replica's)
+    local backend 64 wide, not a million, and streams a short prompt.  A
+    ``LocalBackend`` given no ``seq_len`` for such a config raises."""
+    from repro_torch import configs
+    from repro_torch.configs import base as cb
+    from repro_torch.serve import router as router_mod
+    from repro_torch.serve import server as server_mod
+    real = configs.get_config
+
+    def unbounded(name, reduced=False):
+        return real(name, reduced=reduced).replace(
+            max_seq_len=cb.UNBOUNDED_CONTEXT)
+    monkeypatch.setattr(configs, "get_config", unbounded)
+    args = server_mod.parse_args(
+        ["--config", "mamba2-780m", "--reduced", "--device", "cpu",
+         "--backend", "local", "--max-context", "64"])
+    make_backend = router_mod._shared_params_backend_factory(args)
+    backends = [make_backend(0), make_backend(1)]
+    for b in backends:
+        assert isinstance(b, api.LocalBackend)
+        assert b.cfg.max_seq_len == cb.UNBOUNDED_CONTEXT and b.seq_len == 64
+    n = 4
+    u = _uniforms((n, backends[0].cfg.vocab_size), seed=2)
+    req = api.GenerateRequest(tokens=[5, 17, 29], max_new=n, uniforms=u)
+    toks = [e.token for e in backends[0].stream(req)]
+    assert len(toks) == n
+    for b in backends:
+        assert b.generate(req).tokens == toks
+    with pytest.raises(ValueError, match="pass seq_len"):
+        api.LocalBackend(backends[0].params, backends[0].cfg, device="cpu")

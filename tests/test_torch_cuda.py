@@ -866,6 +866,41 @@ def test_ssd_intra_kernel_zamba2_tile_with_shared_bc(gen):
     torch.testing.assert_close(st, sr, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("C", [1, 8], ids=["96-tokens", "1024-tokens"])
+@pytest.mark.parametrize("H,N", [(48, 128), (64, 64)],
+                         ids=["mamba2-780m", "zamba2-1.2b"])
+def test_ssd_intra_operator_equals_the_wrapper(gen, H, N, C):
+    """``repro_torch::ssd_intra`` (the artifact's graphs call it) launches
+    the kernel once through the wrapper and gives its bits, at 3b's and
+    3o's prefill shapes: one or 8 chunks of 128, fp32 xdt, bf16 B/C read
+    once per batch row through a stride-0 head axis."""
+    from repro_torch.kernels import library
+    xdt, Bm, Cm, cum = _ssd_inputs(gen, 1, C, 128, H, 64, N, torch.float32,
+                                   shared_bc=True, bc_dtype=torch.bfloat16)
+    y0, s0 = sk.ssd_intra_cuda(xdt, Bm, Cm, cum)
+    n0 = sk.launches
+    y1, s1 = library.ssd_intra(xdt, Bm, Cm, cum)
+    assert sk.launches == n0 + 1
+    assert torch.equal(y0, y1) and torch.equal(s0, s1)
+
+
+@pytest.mark.parametrize("H,N", [(48, 128), (64, 64)],
+                         ids=["mamba2-780m", "zamba2-1.2b"])
+def test_ssd_intra_operator_fake_is_the_cuda_output(gen, H, N):
+    """The operator's fake implementation (what ``torch.export`` traces)
+    gives the CUDA output's shapes, dtypes and strides."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import library
+    args = _ssd_inputs(gen, 1, 8, 128, H, 64, N, torch.float32,
+                       shared_bc=True, bc_dtype=torch.bfloat16)
+    real = library.ssd_intra(*args)
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake = library.ssd_intra(*[mode.from_tensor(a) for a in args])
+    for f, r in zip(fake, real):
+        assert (f.shape, f.dtype, f.stride(), f.device) == \
+            (r.shape, r.dtype, r.stride(), r.device)
+
+
 @pytest.mark.parametrize("H,N", [(48, 128), (64, 64)],
                          ids=["mamba2-780m", "zamba2-1.2b"])
 def test_plain_ssd_route_equals_kernel_route_on_card(gen, H, N):

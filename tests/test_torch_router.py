@@ -11,6 +11,7 @@ request at a time, and the same wire errors.  Every wait has a timeout and
 every router stops in teardown.
 """
 import json
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -355,11 +356,43 @@ def test_remote_backend_timeout_split(router2):
 # ---------------------------------------------------------------------------
 # Failover: a replica dies mid-stream (destructive — own router)
 # ---------------------------------------------------------------------------
+def _park_after_first_event(sup, request_id):
+    """Park the engine that serves ``request_id`` after its first event
+    (the request's ``on_event`` hook blocks the loop's thread) until its
+    replica's connections are severed: a kill then lands mid-stream
+    whatever the host's load, never after the stream ran to its end.
+    Returns the event that releases the engine (set it in teardown)."""
+    release = threading.Event()
+    for r in sup.replicas:
+        engine = r.server.backend.engine
+        submit = engine.submit
+
+        def submit_parking(er, submit=submit):
+            if er.request_id == request_id:
+                on_event = er.on_event
+
+                def on_event_then_park(token, age):
+                    on_event(token, age)
+                    release.wait()
+                er.on_event = on_event_then_park
+            return submit(er)
+        engine.submit = submit_parking
+        httpd = r.server.httpd
+        sever = httpd.sever_connections
+
+        def sever_then_release(sever=sever):
+            sever()
+            release.set()
+        httpd.sever_connections = sever_then_release
+    return release
+
+
 def test_failover_mid_stream_kill(setup):
     params, cfg = setup
     sup = ReplicaSupervisor.in_process(
         _make_backend_factory(params, cfg), 2, probe_interval=0.1)
     router = RouterServer(sup, port=0).start()
+    release = _park_after_first_event(sup, "doomed-stream")
     try:
         remote = Client.connect(router.address)
         u = _long_running_uniforms(40, cfg)
@@ -391,7 +424,52 @@ def test_failover_mid_stream_kill(setup):
         st = eng.pool_stats()
         assert st["blocks_used"] == 0 and st["shared_blocks"] == 0
     finally:
+        release.set()
         router.stop()
+
+
+def test_a_probe_from_before_a_transport_failure_restores_nothing():
+    """A healthz probe that began before a proxied call saw the replica
+    die answered for the replica as it was: it must not mark the dead
+    replica healthy again (the next probe, begun after, may)."""
+    from repro_torch.serve.router import ReplicaHandle
+    r = ReplicaHandle("r0", "http://127.0.0.1:1")
+    before = r.deaths()
+    assert r.mark_unhealthy() and not r.healthy
+    r.probe_ok({"ok": True}, before)
+    assert not r.healthy and r.snapshot()["consecutive_failures"] == 3
+    r.probe_ok({"ok": True}, r.deaths())
+    assert r.healthy and r.snapshot()["consecutive_failures"] == 0
+
+
+def test_prober_counts_a_cut_healthz_body_as_a_failure():
+    """A replica that dies while it writes its healthz leaves a body cut
+    short: ``http.client.IncompleteRead``, which the prober counts as one
+    failure instead of ending its thread."""
+    import socket
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(4)
+    url = "http://127.0.0.1:%d" % srv.getsockname()[1]
+
+    def serve_cut():
+        for _ in range(2):
+            conn, _ = srv.accept()
+            conn.recv(4096)
+            conn.sendall(b"HTTP/1.1 200 OK\r\nContent-Length: 100\r\n"
+                         b"\r\n{\"ok\": tr")
+            conn.close()
+    t = threading.Thread(target=serve_cut, daemon=True)
+    t.start()
+    try:
+        with pytest.raises(OSError, match="IncompleteRead"):
+            router_mod._get_json(url, "/v1/healthz", timeout=10.0)
+        sup = ReplicaSupervisor.adopt([url], probe_interval=0.1)
+        sup.probe_once()
+        assert sup.replicas[0].snapshot()["consecutive_failures"] == 1
+    finally:
+        t.join(timeout=10.0)
+        srv.close()
 
 
 def test_all_replicas_down_is_structured_503(setup):

@@ -492,22 +492,34 @@ def test_custom_logits_fn_exports_v1(setup, tmp_path):
     ("zamba2-1.2b", "recurrent state"),
     ("rope", "RoPE")])
 def test_export_refuses_what_it_cannot_serve(tmp_path, arch, match):
-    """Mamba2 and the hybrid Zamba2 are refused: their recurrent state
-    cannot take a padded prompt.  A dense model
-    with RoPE (reduced Delphi with no age encoding: a generic LM's
-    signature) is exported: its graphs take no ages, its full graph equals
-    eager ``forward`` bit for bit, and v2 decode gives the full graph's
-    tokens (Gumbel sampling, injected uniforms)."""
-    if arch != "rope":
+    """Generic-LM signatures, exported (only a VLM and an encoder-decoder
+    are refused: ``tests/test_torch_vlm.py``, ``tests/test_torch_encdec.py``).
+    Mamba2 and the hybrid Zamba2, which were refused until the prefill
+    graph masked a recurrent state at ``last_index``, and a dense model
+    with RoPE (reduced Delphi with no age encoding).  ``match`` names what
+    the cache carries besides rings: a recurrent state (``[h, conv]``
+    after the hybrid's ``[k, v, pos]``), or RoPE'd keys only.  Each exports
+    at ``seq_len`` 32: its graphs take no ages, its full graph equals eager
+    ``forward`` bit for bit, and v2 decode gives the full graph's tokens
+    (Gumbel sampling, injected uniforms)."""
+    if arch == "rope":
+        cfg = _cfgs(32)[0].replace(age_encoding=False, dual_head=False)
+        params = init_params(cfg, seed=5, device="cpu")
+    else:
         cfg = get_config(arch, reduced=True).replace(dtype="float32")
-        with pytest.raises(NotImplementedError, match=match):
-            export_model({}, cfg, str(tmp_path / "refused"))
-        return
-    cfg = _cfgs(32)[0].replace(age_encoding=False, dual_head=False)
-    params = init_params(cfg, seed=5, device="cpu")
-    d = str(tmp_path / "rope")
-    export_model(params, cfg, d)
+        params = init_params(cfg, seed=5, device="cpu")
+    d = str(tmp_path / arch)
+    export_model(params, cfg, d, seq_len=32)
     m = read_manifest(d)
+    leaves = m["graphs"]["cache"]["leaves"]
+    if match == "recurrent state":
+        h, conv = leaves[-2:]
+        assert h["dtype"] == "float32" and len(h["shape"]) == 5
+        assert conv["shape"][2] == cfg.ssm_conv
+        assert len(leaves) == (5 if cfg.arch_type == "hybrid" else 2)
+    else:
+        assert [l["dtype"] for l in leaves] == ["float32", "float32",
+                                                "int32"]
     assert [i["name"] for i in m["signature"]["inputs"]] == ["tokens"]
     assert [i["name"] for i in m["graphs"]["decode_step"]["inputs"]] == [
         "cache", "token", "step"]
@@ -569,19 +581,33 @@ def _paged_inputs(seed=0, B=2, Hkv=3, G=2, hd=5, NB=4, bs=4):
     return q, kp, vp, table, pos, step
 
 
-@pytest.mark.parametrize("op", ["flash", "paged"])
+def _ssd_inputs(seed=0, b=2, c=3, Q=8, H=4, P=5, N=6):
+    """The model's layout: B and C one tile per batch row, broadcast over
+    the heads by a stride-0 axis."""
+    g = torch.Generator().manual_seed(seed)
+    xdt = torch.randn(b, c, Q, H, P, generator=g)
+    Bm = torch.randn(b, c, Q, 1, N, generator=g).expand(b, c, Q, H, N)
+    Cm = torch.randn(b, c, Q, 1, N, generator=g).expand(b, c, Q, H, N)
+    cum = -torch.cumsum(0.2 * torch.rand(b, c, Q, H, generator=g), dim=2)
+    return xdt, Bm, Cm, cum
+
+
+@pytest.mark.parametrize("op", ["flash", "paged", "ssd"])
 def test_operator_fake_matches_the_real_output(op):
     from torch._subclasses.fake_tensor import FakeTensorMode
     if op == "flash":
         fn, args = library.flash_attention, (*_flash_inputs(), True, None)
-    else:
+    elif op == "paged":
         fn, args = library.paged_decode_attention, (*_paged_inputs(), None)
+    else:
+        fn, args = library.ssd_intra, _ssd_inputs()
     real = fn(*args)
     with FakeTensorMode(allow_non_fake_inputs=True) as mode:
         fake = fn(*[mode.from_tensor(a) if isinstance(a, torch.Tensor)
                     else a for a in args])
-    assert (fake.shape, fake.dtype, fake.stride()) == \
-        (real.shape, real.dtype, real.stride())
+    for f, r in (zip(fake, real) if op == "ssd" else [(fake, real)]):
+        assert (f.shape, f.dtype, f.stride()) == \
+            (r.shape, r.dtype, r.stride())
     if op == "flash":       # the kernel's layout: q's strides
         assert real.stride() == args[0].stride()
 
@@ -597,6 +623,10 @@ def test_operator_equals_ref_on_the_cpu():
         got = library.paged_decode_attention(*args, window)
         want = ref.paged_decode_attention_ref(*args, window=window)
         assert torch.equal(got, want)
+    args = _ssd_inputs(seed=3)
+    for got, want in zip(library.ssd_intra(*args),
+                         ref.ssd_intra_heads_ref(*args)):
+        assert got.is_contiguous() and torch.equal(got, want)
 
 
 def test_export_holds_the_operator_nodes():
