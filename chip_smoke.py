@@ -34,7 +34,13 @@ runs these phases; any failure exits non-zero:
    ``models/moe.py::apply_moe`` at Qwen2-MoE's widths, one layer, at T 8
    and T 2,048: the bf16 route against the same weights in fp32 (TF32
    off), within ``MOE_BF16_REL`` of the output's scale on the tokens whose
-   routing cannot flip (the near-ties counted and left out);
+   routing cannot flip (the near-ties counted and left out); and its
+   dispatches on the same layer at both T: ``ragged`` and
+   ``dense_einsum`` against ``dense_scan`` in fp32 (TF32 off) within the
+   CPU test's 1e-5, and in bf16 against the fp32 ``dense_scan`` within
+   ``MOE_BF16_REL`` (near-ties left out), with the grouped product
+   ``ragged`` ran (``torch._grouped_mm`` or the plain loop), each route's
+   ms a layer, and whether ``ragged``'s rows keep their bits across T;
 3. the Delphi path at full width: Delphi-2M (12 layers, d_model 120) from
    ``init_params(seed)`` in bf16, served by the ring-cache ``BatchedEngine``
    through ``repro_torch.launch.serve`` (32 synthetic patient prompts, 16
@@ -110,28 +116,37 @@ runs these phases; any failure exits non-zero:
    the prefix cache once per arm; patients/s, events/s, the prefix hit rate,
    the three kernels' launches on the sweep, and the idle share of its first
    16 patients under the profiler;
+3u. the reference engine: the seed host-loop ``ReferenceEngine``
+   (full-width Delphi-2M, bf16, 8 slots, ``max_context`` 128, as
+   ``benchmarks/run.py``'s ``bench_serving_engine``) on 16 synthetic
+   prompts cut to 64 events, 24 new events each, after a warm drive:
+   every request done, flash 12 launches an admission, paged 12 a decode
+   call, ``tte_sample`` one an emitted event (counts zeroed just before
+   and read just after); its events/s beside the ring ``BatchedEngine``'s
+   on the same prompts, in turns, and each engine's idle share of a drive;
 3j. the SDK artifact at full width: Delphi-2M exported by
-   ``repro_torch.sdk.export_model`` (``torch.export`` traced on the CPU),
-   spec v2 and v1, in bf16 and in fp32 (the fp32 export's depth cut to
+   ``repro_torch.sdk.export_model`` (``torch.export`` traced on the CPU,
+   in phase 1 while ``nvcc`` builds the kernels), spec v2 in bf16 at full
+   depth, spec v2 and v1 in fp32 (the fp32 exports' depth cut to
    ``ARTIFACT_FP32_LAYERS`` layers), checked with ``verify_checksums``
    (strict) and loaded with ``ArtifactBackend(device="cuda")``.  On 4
    patients: the full graph's logits == eager ``forward(mode="train")``
-   bit for bit (and v1's == v2's), prefill and 8 decode steps == the same
-   functions run eagerly bit for bit (logits and cache), with flash
-   launched 12 times a full or prefill call and the paged kernel 12 times
-   a decode step through the ``repro_torch::`` operators; then
-   ``ArtifactBackend`` == ``LocalBackend.stream`` token for token and age
-   for age under injected uniforms, one request at a time.  Export
-   seconds, artifact bytes and load seconds; in bf16: ms per event of a
-   request through v2 decode, the v1 full graph and
-   ``LocalBackend.stream``, ms per call of a v2 decode step, a v1 full
-   graph and an eager decode step, and of the decode graph's ``forward``
-   against the eager function on the card's inputs, each in turns; the
-   kernels' launches on a drive of the bf16 v2 artifact, one request's
-   idle share, and the host cost a call of each attention kernel through
-   its wrapper and through its operator; the server CLI on
-   ``--artifact`` as a subprocess answers ``/v1/manifest`` (with the
-   artifact's manifest) and a generate, and exits 0 on SIGINT;
+   bit for bit (and in fp32 v1's == v2's), prefill and 8 decode steps ==
+   the same functions run eagerly bit for bit (logits and cache), with
+   flash launched once a layer a full or prefill call and the paged
+   kernel once a layer a decode step through the ``repro_torch::``
+   operators; then ``ArtifactBackend`` == ``LocalBackend.stream`` token
+   for token and age for age under injected uniforms, one request at a
+   time.  Export seconds, artifact bytes and load seconds; in bf16: ms per
+   event of a request through v2 decode and ``LocalBackend.stream``, ms
+   per call of a v2 decode step and an eager decode step, and of the
+   decode graph's ``forward`` against the eager function on the card's
+   inputs, each in turns; the kernels' launches on a drive of the bf16 v2
+   artifact, one request's idle share, and the host cost a call of each
+   attention kernel through its wrapper and through its operator; the
+   server CLI on ``--artifact`` (the fp32 v2 artifact) as a subprocess
+   answers ``/v1/manifest`` (with the artifact's manifest) and a
+   generate, and exits 0 on SIGINT;
 3k. TinyLlama-1.1B at full width (22 layers, d_model 2048, 32 query / 4
    key-value heads of 64, d_ff 5632, V 32000; RoPE, RMSNorm, SwiGLU, untied
    head) from ``init_params_on_device(seed)`` in bf16 on
@@ -190,7 +205,8 @@ runs these phases; any failure exits non-zero:
    their depths cut to ``SSM_ARTIFACT_LAYERS`` (4 of 48, 7 of 38 Mamba2
    layers: 2 applications of the shared block), fp32 weights made on the
    card, exported (spec v2, bf16, ``seq_len`` 1,024, ``verify_checksums``
-   strict) and loaded with ``ArtifactBackend``.  On seeded prompts of 96,
+   strict; in phase 1, by a process of their own beside ``nvcc``) and
+   loaded with ``ArtifactBackend``.  On seeded prompts of 96,
    500 and 1,024 tokens: the full and prefill graphs == the eager
    functions bit for bit (logits and every cache leaf), 8 decode steps
    too on the prompts shorter than the axis; ``ssd_intra`` launched once
@@ -307,11 +323,32 @@ runs these phases; any failure exits non-zero:
    ``GRAD_CARD_REL`` of each leaf's largest element); the plain SSD route's
    ``y`` and final state against the kernel route's within 1e-4 at full
    width and 1,024 tokens (dt ~ 0.01 as the init's); then ``python -m
-   repro_torch.launch.train --arch mamba2-780m`` at full depth for 20 bf16
+   repro_torch.launch.train --arch mamba2-780m`` at full depth for 10 bf16
    steps of 4 x 512: no kernel launched, the loss finite, steps/s, target
    tokens/s, peak memory, and the idle share of one step under the
    profiler;
 6g. Zamba2-1.2B training: 6f's checks and CLI for ``--arch zamba2-1.2b``;
+6h. MoE training: Qwen2-MoE-A2.7B at full width cut to 2 layers (~1.76 B
+   parameters, fp32 masters made on the card), bf16 activations, 2 x 256
+   seeded ids: at one layer, both dispatches' bf16 gradients against the
+   fp32 ``dense_scan`` ones within ``MOE_GRAD_REL`` of each leaf's largest
+   |g| (the tokens whose experts flip in bf16 left out); one model
+   gradient each with ``moe_impl="dense_scan"`` and ``"ragged"`` from the
+   same weights and batch, the losses within ``MOE_TRAIN_LOSS_REL`` of
+   each other, every gradient finite, the largest relative gradient
+   difference printed beside the routing flips by layer, and with
+   ``ragged`` held to ``dense_scan``'s experts every leaf within
+   ``MOE_GRAD_REL``, no kernel launched; one AdamW step
+   of each dispatch with ``remat`` off and on: step seconds and peak
+   memory;
+6i. the launch layer, in a subprocess: a process group of one (NCCL, the
+   loopback address), ``ensure_distributed(expect_devices=1)``, an
+   all-reduce, the 1 x 1 ``DeviceMesh`` on ``cuda``, full-width
+   Delphi-2M's parameters placed by ``param_shardings`` as DTensors (every
+   placement ``Replicate``), a forward through their local tensors == the
+   plain parameters' logits bit for bit, and the tied head (embedding
+   gather, product, bias) on the DTensors themselves == on the plain
+   tensors bit for bit;
 5. times at the main paths' shapes: each kernel, its plain version, one
    PyTorch library call where one computes the same function (a yardstick
    the port never calls), and the bound from bytes and operations (for
@@ -325,10 +362,10 @@ runs these phases; any failure exits non-zero:
    ``zero_()``, the least a launch costs on the device);
    device time per call from ``torch.profiler`` and per-call time from CUDA
    events (the ``kernels`` line's ``ms`` is the device time); then each path
-   once more under the profiler (the Mamba2 path over the same window as
-   3o's; device busy time, idle share, top kernels,
-   and the Mamba2 path's ``ssd_intra`` total), the paged, futures and both
-   mixed-traffic paths included; ``flash_attention`` also with position
+   once more under the profiler (the Delphi ring path and the Mamba2 path
+   over the same window as 3o's; device busy time, idle share, top
+   kernels, and the Mamba2 path's ``ssd_intra`` total; the paged, futures
+   and mixed drives of 3c-3e are not profiled again); ``flash_attention`` also with position
    masks at phase 3e's chunk (64 queries over 128 + 64 keys), its library
    call SDPA with the boolean mask built from the positions; flash and
    paged at the dense LMs' shapes: phase 3k's largest prefill bucket (GQA
@@ -346,6 +383,9 @@ runs these phases; any failure exits non-zero:
    3r's ring after the run (B 8, Hkv 8, G 6, hd 128, W 1,280) and on 3s's
    cross ring (B 8, Hkv 16, G 1, hd 64, W 4,096, step W - 1).
 
+Each phase's wall seconds are printed on a line of their own as it ends
+(``phase 3j 171.4 s``: the time since the previous phase ended, so they
+add up to the run) and kept in the JSON record's ``phase_seconds``.
 The ``kernels`` line holds the four kernels and, as a fifth row, the flash
 kernel's position-masked route with its launches on the chunked drive of
 phase 3e; each Delphi kernel's row also gives its launches on the sweep of
@@ -371,6 +411,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -405,6 +446,21 @@ MAMBA_SLOTS, MAMBA_REQUESTS, MAMBA_MAX_NEW = 8, 16, 32
 
 def log(msg: str = "") -> None:
     print(msg, flush=True)
+
+
+# wall seconds of each phase, in the order run: each phase's time is the
+# time since the previous one ended, so the phases add up to the run
+PHASE_S: dict = {}
+_PHASE_T = [time.perf_counter()]
+
+
+def phase_done(name: str) -> None:
+    """Log the wall seconds since the previous phase ended (or since the
+    script started) on a line of its own: ``phase 3j 171.4 s``."""
+    now = time.perf_counter()
+    PHASE_S[name] = now - _PHASE_T[0]
+    _PHASE_T[0] = now
+    log(f"phase {name} {PHASE_S[name]:.1f} s")
 
 
 def nvidia_smi() -> str:
@@ -1227,8 +1283,7 @@ def mixed_path() -> dict:
         raise AssertionError(f"chunked prefills {st['chunked_prefills']}")
     return {"runs": runs, "launches": counts, "stats": st,
             "chunk_shapes": sorted(ceng.prefill_shapes),
-            "monolithic_shapes": sorted(engs["monolithic"].prefill_shapes),
-            "engines": engs}
+            "monolithic_shapes": sorted(engs["monolithic"].prefill_shapes)}
 
 
 def suffix_path(params, cfg) -> dict:
@@ -3098,7 +3153,7 @@ def long_train_path() -> dict:
 ZAMBA_SLOTS, ZAMBA_MAX_NEW, ZAMBA_CONTEXT = 8, 32, 4096
 ZAMBA_FORKS, ZAMBA_FORK_NEW = 4, 8
 # phases 6f/6g: the CLI's batch at full depth, and the card-vs-CPU step's
-SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 4, 512, 20
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 4, 512, 10
 SSM_GRAD_BATCH, SSM_GRAD_SEQ, SSM_GRAD_LAYERS = 2, 256, 2
 SSM_ROUTE_SEQ, SSM_ROUTE_TOL = 1024, 1e-4
 
@@ -3314,7 +3369,50 @@ def ssm_artifact_op_us() -> dict:
     return {"ssd_intra": turns}
 
 
-def ssm_artifact_path(arch: str, tmp: str) -> dict:
+def ssm_artifact_export(arch: str, d: str) -> dict:
+    """3t's export of ``arch`` into ``d``: fp32 weights made on the card
+    (seeded) and exported (spec v2, bf16, ``seq_len``
+    ``SSM_ARTIFACT_SEQ``, traced on the CPU): ``artifact_export``'s
+    seconds and bytes, and the weights' making seconds."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params_on_device
+    cfg = get_config(arch).replace(n_layers=SSM_ARTIFACT_LAYERS[arch])
+    t0 = time.perf_counter()
+    p32 = init_params_on_device(cfg.replace(dtype="float32"), seed=SEED,
+                                device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ex = artifact_export(p32, cfg, d, "2", seq_len=SSM_ARTIFACT_SEQ)
+    del p32
+    return dict(ex, init_s=init_s)
+
+
+def start_ssm_artifact_exports(tmp: str):
+    """3t's two exports (``ssm_artifact_export``) in a process of their own,
+    started in phase 1: they trace on the CPU beside ``nvcc`` and phase
+    3j's exports (a thread would share this process's interpreter lock)."""
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke as cs; print(json.dumps({a: "
+            "cs.ssm_artifact_export(a, cs.os.path.join(sys.argv[2], a)) "
+            "for a in cs.SSM_ARTIFACT_LAYERS}))")
+    return subprocess.Popen(
+        [sys.executable, "-c", code, ROOT, tmp], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+
+
+def finish_ssm_artifact_exports(proc) -> dict:
+    """Wait for :func:`start_ssm_artifact_exports`' process: {arch: its
+    export's numbers}, from the last line it printed."""
+    out, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"3t's exports exited {proc.returncode}: "
+                             f"{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def ssm_artifact_path(arch: str, tmp: str, ex=None) -> dict:
     """Phase 3t for one model: at full width, its depth cut to
     ``SSM_ARTIFACT_LAYERS``, fp32 weights made on the card, exported by
     ``export_model`` (spec v2, bf16, ``seq_len`` 1,024, traced on the CPU),
@@ -3346,23 +3444,17 @@ def ssm_artifact_path(arch: str, tmp: str) -> dict:
     from repro_torch.core import parity as par
     from repro_torch.kernels import ops
     from repro_torch.models import (decode_step, forward,
-                                    init_params_on_device,
                                     mask_padded_positions, n_attn_apps)
     from repro_torch.sdk import build_inference_fns, read_manifest
     cfg = get_config(arch).replace(n_layers=SSM_ARTIFACT_LAYERS[arch])
     hybrid = cfg.arch_type == "hybrid"
     napps = n_attn_apps(cfg) if hybrid else 0
     L, S = cfg.n_layers, SSM_ARTIFACT_SEQ
-    stage = {}
-    t0 = time.perf_counter()
     c32 = cfg.replace(dtype="float32")
-    p32 = init_params_on_device(c32, seed=SEED, device=DEVICE)
-    torch.cuda.synchronize()
-    stage["init"] = time.perf_counter() - t0
     d = os.path.join(tmp, arch)
-    t0 = time.perf_counter()
-    ex = artifact_export(p32, cfg, d, "2", seq_len=S)
-    stage["export"] = time.perf_counter() - t0
+    if ex is None:       # not exported yet (phase 1 exports for the script)
+        ex = ssm_artifact_export(arch, d)
+    stage = {"init": ex["init_s"], "export": ex["export_s"]}
     leaves = read_manifest(d)["graphs"]["cache"]["leaves"]
     if len(leaves) != (5 if hybrid else 2):
         raise AssertionError(f"3t {arch}: cache leaves {leaves}")
@@ -3519,7 +3611,7 @@ def ssm_artifact_path(arch: str, tmp: str) -> dict:
            "held_steps": held["steps"],
            "near_ties": len(held["near_ties"]), "profile": prof,
            "stage_s": stage}
-    del art, local, params, p32, rt
+    del art, local, params, rt
     free_card()
     return res
 
@@ -3608,11 +3700,16 @@ def log_ssm_artifact_phase(res: dict, phase: str, smi: str,
         f"phase {phase} took {time.perf_counter() - t_start:.1f}s ({smi})")
 
 
-def ssm_artifact_phase() -> dict:
-    """Phase 3t: both models, then the operator's host cost."""
-    with tempfile.TemporaryDirectory() as tmp:
-        out = {arch: ssm_artifact_path(arch, tmp)
-               for arch in SSM_ARTIFACT_LAYERS}
+def ssm_artifact_phase(tmp=None, exports=None) -> dict:
+    """Phase 3t: both models, then the operator's host cost.  ``tmp`` and
+    ``exports`` are the directory and numbers of exports made before
+    (``start_ssm_artifact_exports``); without them the phase exports
+    itself."""
+    if tmp is None:
+        with tempfile.TemporaryDirectory() as own:
+            return ssm_artifact_phase(own, {})
+    out = {arch: ssm_artifact_path(arch, tmp, exports.get(arch))
+           for arch in SSM_ARTIFACT_LAYERS}
     out["op_us"] = ssm_artifact_op_us()
     return out
 
@@ -3677,8 +3774,90 @@ def check_moe(gen, cfg=None) -> dict:
             f"{MOE_BF16_REL} x it); router prob err {router_err:.3g}, "
             f"{out[T]['near_ties']} near-tie tokens left out (their err "
             f"<= {out[T]['err_near_ties']:.3g})")
+    out["dispatch"] = check_moe_dispatch(gen, w32, cfg)
     del w32, blk32, blk16
     free_card()
+    return out
+
+
+# phase 2's MoE dispatch check: ``ragged`` and ``dense_einsum`` against
+# ``dense_scan`` at Qwen2-MoE's widths; in fp32 (TF32 off) within the CPU
+# test's tolerance (tests/test_torch_moe_impl.py), in bf16 against the fp32
+# ``dense_scan`` within MOE_BF16_REL on the tokens whose routing cannot flip
+MOE_DISPATCH_FP32_ATOL = 1e-5
+MOE_DISPATCH_MS_ITERS = 10
+
+
+def check_moe_dispatch(gen, w32, cfg) -> dict:
+    """``apply_moe``'s ``ragged`` and ``dense_einsum`` against its default
+    ``dense_scan`` on one layer (``w32``, fp32 weights; ``cfg`` the bf16
+    config) at T 8 and T 2,048: fp32 within ``MOE_DISPATCH_FP32_ATOL``; bf16
+    against the fp32 ``dense_scan`` within ``MOE_BF16_REL`` of its largest
+    |y|, the near-tie tokens counted and left out (as :func:`check_moe`).
+    Prints which grouped product ``ragged`` ran, each route's ms a layer in
+    bf16 (CUDA events, ``MOE_DISPATCH_MS_ITERS`` calls) and whether
+    ``ragged``'s rows keep their bits across T (the first 8 tokens at T 8
+    and inside T 2,048)."""
+    import torch
+    from repro_torch.models import cast_params, moe
+    from repro_torch.models.model import Block
+    c32 = cfg.replace(dtype="float32")
+    blk32 = Block(w32, "layers/", 0)
+    blk16 = Block(cast_params(w32, cfg), "layers/", 0)
+    x_all = torch.randn((1, max(MOE_CHECK_TOKENS), cfg.d_model),
+                        generator=gen, device=DEVICE)
+    out, rows = {}, {}
+    routes = ("dense_scan", "dense_einsum", "ragged")
+    for T in MOE_CHECK_TOKENS:
+        x = x_all[:, :T]
+        x16 = x.to(torch.bfloat16)
+        y32 = {r: moe.apply_moe(blk32, x, c32, impl=r)[0] for r in routes}
+        y16 = {r: moe.apply_moe(blk16, x16, cfg, impl=r)[0] for r in routes}
+        router = blk32["moe/router"]
+        p32 = torch.softmax(moe.router_logits(router, x[0]), dim=-1)
+        p16 = torch.softmax(moe.router_logits(router, x16[0]), dim=-1)
+        router_err = float((p16 - p32).abs().max())
+        top = p32.sort(dim=-1, descending=True).values
+        keep = (top[:, cfg.top_k - 1] - top[:, cfg.top_k]) >= router_err
+        scale = float(y32["dense_scan"].abs().max())
+        res = {"near_ties": int((~keep).sum()), "scale": scale}
+        for r in ("dense_einsum", "ragged"):
+            e32 = float((y32[r] - y32["dense_scan"]).abs().max())
+            e16 = float((y16[r][0].float() - y32["dense_scan"][0]).abs()
+                        .amax(dim=-1)[keep].max())
+            ok = (e32 <= MOE_DISPATCH_FP32_ATOL
+                  and e16 <= MOE_BF16_REL * scale
+                  and bool(torch.isfinite(y16[r]).all()))
+            if not ok:
+                raise AssertionError(
+                    f"apply_moe impl={r} T={T}: fp32 err {e32} (tol "
+                    f"{MOE_DISPATCH_FP32_ATOL}), bf16 err {e16} (tol "
+                    f"{MOE_BF16_REL} x {scale})")
+            res[r] = {"fp32_err": e32, "bf16_err": e16}
+        rows[T] = y16["ragged"][0]
+        flat16 = x16.reshape(-1, cfg.d_model)
+        res["grouped_product"] = moe.grouped_route(flat16,
+                                                   blk16["moe/w_gate"])
+        res["ms"] = {r: cuda_ms(lambda r=r: moe.apply_moe(blk16, x16, cfg,
+                                                          impl=r),
+                                iters=MOE_DISPATCH_MS_ITERS, warmup=2)
+                     for r in routes}
+        out[T] = res
+        log(f"  apply_moe dispatch T={T} (bf16 and fp32, TF32 off): ragged "
+            f"fp32 err {res['ragged']['fp32_err']:.3g}, dense_einsum fp32 "
+            f"err {res['dense_einsum']['fp32_err']:.3g} (tol "
+            f"{MOE_DISPATCH_FP32_ATOL}); against the fp32 dense_scan in "
+            f"bf16: ragged {res['ragged']['bf16_err']:.3g}, dense_einsum "
+            f"{res['dense_einsum']['bf16_err']:.3g} of |y| <= {scale:.3g} "
+            f"(tol {MOE_BF16_REL} x it; {res['near_ties']} near-tie tokens "
+            f"left out); ragged's grouped product: "
+            f"{res['grouped_product']}; ms a layer in bf16: " + ", ".join(
+                f"{r} {v:.4f}" for r, v in res["ms"].items()))
+    lo, hi = min(MOE_CHECK_TOKENS), max(MOE_CHECK_TOKENS)
+    same = bool(torch.equal(rows[lo], rows[hi][:lo]))
+    out["ragged_rows_keep_bits"] = same
+    log(f"  ragged's first {lo} rows at T={hi} == at T={lo} bit for bit: "
+        f"{same}")
     return out
 
 
@@ -4507,7 +4686,8 @@ def artifact_gates(params, cfg, art, full, local, patients) -> dict:
             raise AssertionError(
                 f"artifact full graph != eager forward: max diff "
                 f"{float(np.abs(got - want).max())}")
-        if not np.array_equal(full.runtime.run(t, a), got):
+        if full is not None and not np.array_equal(full.runtime.run(t, a),
+                                                   got):
             raise AssertionError("v1 full graph != v2 full graph")
         last = np.asarray([len(toks) - 1], np.int32)
         lg, cache = counted(lambda: rt.prefill(t, a, last), L, 0, "prefill")
@@ -4568,12 +4748,12 @@ def artifact_drive(backend, cfg, patients, stream: bool = False) -> dict:
             "ms_per_event": 1e3 * wall / max(events, 1)}
 
 
-def artifact_step_ms(art, full, params, cfg, patient) -> dict:
+def artifact_step_ms(art, params, cfg, patient) -> dict:
     """Host wall per call, each call ending in its logits' copy to the
-    host (what a client waits for a token): a v2 decode step, a v1 full
-    graph and an eager decode step (the function ``LocalBackend.stream``
-    calls), ``ARTIFACT_MAX_NEW - 1`` calls each after one prefill, in turns
-    (v2, v1, eager, eager, v1, v2).  Then the decode graph's ``forward``
+    host (what a client waits for a token): a v2 decode step and an eager
+    decode step (the function ``LocalBackend.stream`` calls),
+    ``ARTIFACT_MAX_NEW - 1`` calls each after one prefill, in turns (v2,
+    eager, eager, v2).  Then the decode graph's ``forward``
     against the eager decode function on inputs already on the card, with
     no copy to the host and one synchronise at the end (the graph's own
     execution, without the runtime's input copies and checks), in turns;
@@ -4600,12 +4780,6 @@ def artifact_step_ms(art, full, params, cfg, patient) -> dict:
         for args in steps:
             _, cache = art.runtime.decode_step(cache, *args)
         return time.perf_counter() - t1
-
-    def v1():
-        t0 = time.perf_counter()
-        for _ in steps:
-            full.runtime.run(t, a)
-        return time.perf_counter() - t0
 
     def eager():
         dev = [torch.from_numpy(x).to(DEVICE) for x in (t, a, last)]
@@ -4642,11 +4816,11 @@ def artifact_step_ms(art, full, params, cfg, patient) -> dict:
                 _, cache = fns["decode"](params, cache, *args)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
-    runs = {"v2": v2, "v1": v1, "eager": eager, "graph.forward": graph_forward,
+    runs = {"v2": v2, "eager": eager, "graph.forward": graph_forward,
             "eager fn": eager_fn}
     turns = []
-    for mode in ("v2", "v1", "eager", "eager", "v1", "v2", "graph.forward",
-                 "eager fn", "eager fn", "graph.forward"):
+    for mode in ("v2", "eager", "eager", "v2", "graph.forward", "eager fn",
+                 "eager fn", "graph.forward"):
         torch.cuda.synchronize()
         turns.append((mode, 1e3 * runs[mode]() / n))
     nodes = {name: len(list(g.graph.nodes))
@@ -4698,49 +4872,90 @@ def artifact_op_us() -> dict:
     return out
 
 
-def artifact_path(tmp: str) -> dict:
-    """Phase 3j: full-width Delphi-2M exported (spec v2 and v1, bf16 and
-    fp32), loaded with ``Runtime(device="cuda")``, gated against the eager
-    model and ``LocalBackend``; the kernels' launches on one drive of the
-    bf16 v2 artifact (counts zeroed just before, read just after); the
-    per-event time of v2 decode, the v1 full graph and
-    ``LocalBackend.stream`` in turns; the server CLI on ``--artifact``."""
+def artifact_config(dtype: str):
+    """Phase 3j's config in ``dtype``: full-width Delphi-2M, the fp32
+    one's depth cut to ``ARTIFACT_FP32_LAYERS``."""
+    from repro_torch.configs import get_config
+    cfg = get_config("delphi-2m").replace(dtype=dtype)
+    if dtype == "float32":
+        cfg = cfg.replace(n_layers=ARTIFACT_FP32_LAYERS)
+    return cfg
+
+
+def artifact_exports(tmp: str) -> dict:
+    """Phase 3j's exports, traced on the CPU (no kernel is needed, so
+    ``main`` runs this while ``nvcc`` builds the kernels): spec v2 in
+    bf16 at full depth, and spec v2 and v1 in fp32 at
+    ``ARTIFACT_FP32_LAYERS`` layers (the pair that holds v1 == v2 on the
+    card).  Returns {dtype: {"v2": dir, "v1": dir or None, "export_v2":
+    ..., "export_v1": ...}}."""
+    from repro_torch.models import init_params
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = artifact_config(dtype)
+        params = init_params(cfg, seed=SEED, device="cpu")
+        d2 = os.path.join(tmp, f"artifact_{dtype}_v2")
+        d1 = os.path.join(tmp, f"artifact_{dtype}_v1")
+        res = {"v2": d2, "export_v2": artifact_export(params, cfg, d2, "2"),
+               "v1": None, "export_v1": None}
+        if dtype == "float32":
+            res["v1"] = d1
+            res["export_v1"] = artifact_export(params, cfg, d1, "1")
+        out[dtype] = res
+    return out
+
+
+def artifact_path(exports: dict) -> dict:
+    """Phase 3j: full-width Delphi-2M's artifacts (``artifact_exports``)
+    loaded with ``Runtime(device="cuda")`` and gated against the eager
+    model and ``LocalBackend`` (v1 == v2 in fp32); the kernels' launches on
+    one drive of the bf16 v2 artifact (counts zeroed just before, read
+    just after); the per-event time of v2 decode and
+    ``LocalBackend.stream`` in turns; the server CLI on ``--artifact``
+    (the fp32 v2 artifact: the CLI's route does not depend on the
+    depth)."""
     import torch
     from repro_torch.api import ArtifactBackend, LocalBackend
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import init_params
     patients = futures_patients()
     out = {"dtypes": {}}
+    stage = out["stage_s"] = {}
+    t_stage = [time.perf_counter()]
+
+    def staged(name):
+        now = time.perf_counter()
+        stage[name] = now - t_stage[0]
+        t_stage[0] = now
     for dtype in ("bfloat16", "float32"):
-        cfg = get_config("delphi-2m").replace(dtype=dtype)
-        if dtype == "float32":      # the fp32 export's depth is cut
-            cfg = cfg.replace(n_layers=ARTIFACT_FP32_LAYERS)
+        cfg = artifact_config(dtype)
+        ex = exports[dtype]
         params = init_params(cfg, seed=SEED, device=DEVICE)
-        d2 = os.path.join(tmp, f"artifact_{dtype}_v2")
-        d1 = os.path.join(tmp, f"artifact_{dtype}_v1")
-        ex2 = artifact_export(params, cfg, d2, "2")
-        ex1 = artifact_export(params, cfg, d1, "1")
         t0 = time.perf_counter()
-        art = ArtifactBackend(d2, device=DEVICE)
+        art = ArtifactBackend(ex["v2"], device=DEVICE)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
-        full = ArtifactBackend(d1, device=DEVICE)
-        if not (art.use_decode_graph and not full.use_decode_graph):
+        full = ArtifactBackend(ex["v1"], device=DEVICE) if ex["v1"] else None
+        if not (art.use_decode_graph
+                and (full is None or not full.use_decode_graph)):
             raise AssertionError("v2 must decode, v1 must fall back")
         local = LocalBackend(params, cfg, device=DEVICE)
         gates = artifact_gates(params, cfg, art, full, local, patients)
-        res = {"export_v2": ex2, "export_v1": ex1, "load_v2_s": load_s,
-               "gates": gates}
-        if dtype == "bfloat16":
+        staged(f"{dtype} load and gates")
+        res = {"export_v2": ex["export_v2"], "export_v1": ex["export_v1"],
+               "load_v2_s": load_s, "gates": gates}
+        if dtype == "float32":
+            res["cli"] = cli_boot(("--artifact", ex["v2"]), "artifact")
+            staged("fp32 CLI")
+        else:
             # the kernels' launches on one drive, its idle share, the
-            # operators' host cost, the CLI and the times (one dtype)
+            # operators' host cost and the times (one dtype)
             ops.reset_launch_counts()
             drive = artifact_drive(art, cfg, patients)
             res["launches"] = ops.launch_counts()
-            n = len(patients)
-            want = {"flash_attention": 12 * n, "tte_sample": 0,
-                    "paged_decode_attention": 12 * (drive["events"] - n)}
+            n, L = len(patients), cfg.n_layers
+            want = {"flash_attention": L * n, "tte_sample": 0,
+                    "paged_decode_attention": L * (drive["events"] - n)}
             if any(res["launches"][k] != v for k, v in want.items()):
                 raise AssertionError(f"artifact drive: launches "
                                      f"{res['launches']}, want {want}")
@@ -4748,18 +4963,19 @@ def artifact_path(tmp: str) -> dict:
             res["profile"] = path_profile(
                 lambda: artifact_drive(art, cfg, one)["wall_s"],
                 artifact_drive(art, cfg, one)["wall_s"])
+            staged("bf16 drive and profile")
             res["op_us"] = artifact_op_us()
-            res["cli"] = cli_boot(("--artifact", d2), "artifact")
             two = patients[:2]
             turns = []
-            for mode in ("v2", "v1", "local", "local", "v1", "v2"):
+            for mode in ("v2", "local", "local", "v2"):
                 r = (artifact_drive(local, cfg, two, stream=True)
-                     if mode == "local" else
-                     artifact_drive(art if mode == "v2" else full, cfg, two))
+                     if mode == "local" else artifact_drive(art, cfg, two))
                 turns.append((mode, r["ms_per_event"]))
             res["ms_per_event_turns"] = turns
-            res["ms_per_call"] = artifact_step_ms(art, full, params, cfg,
+            staged("bf16 ms an event")
+            res["ms_per_call"] = artifact_step_ms(art, params, cfg,
                                                   patients[0])
+            staged("bf16 ms a call")
         out["dtypes"][dtype] = res
     return out
 
@@ -4768,32 +4984,37 @@ def log_artifact(art: dict) -> None:
     """Phase 3j's lines."""
     for dtype, r in art["dtypes"].items():
         g = r["gates"]
+        v1 = r["export_v1"]
         log(f"  {dtype}: export v2 {r['export_v2']['export_s']:.2f}s "
-            f"({r['export_v2']['bytes']} bytes), v1 "
-            f"{r['export_v1']['export_s']:.2f}s ({r['export_v1']['bytes']} "
-            f"bytes); load v2 {r['load_v2_s']:.2f}s; full graph == eager "
-            f"and v1 == v2 on {g['prompts']} prompts, "
+            f"({r['export_v2']['bytes']} bytes), "
+            + (f"v1 {v1['export_s']:.2f}s ({v1['bytes']} bytes)" if v1
+               else "no v1")
+            + f" (traced on the CPU during the kernels' build); load v2 "
+            f"{r['load_v2_s']:.2f}s; full graph == eager "
+            f"{'and v1 == v2 ' if v1 else ''}on {g['prompts']} prompts, "
             f"prefill + {g['decode_steps']} decode steps == eager bit for "
             f"bit, {g['layers']} flash launches a full or prefill call and "
             f"{g['layers']} paged a decode step ({g['layers']} layers); "
             f"ArtifactBackend == LocalBackend.stream on "
             f"{g['generate_events']} events")
     bart = art["dtypes"]["bfloat16"]
-    log("  bf16, ms per event of a request (v2 and v1 ArtifactBackend, "
+    cli = art["dtypes"]["float32"]["cli"]
+    log("  bf16, ms per event of a request (v2 ArtifactBackend, "
         "LocalBackend.stream; 2 requests), in turns: " + ", ".join(
             f"{m} {v:.4f}" for m, v in bart["ms_per_event_turns"]))
     mc = bart["ms_per_call"]
-    log("  bf16, ms per call (v2 decode step, v1 full graph, eager decode "
-        "step, each to the host's logits; then the decode graph's forward "
-        "and the eager decode function on the card's inputs), in turns: "
+    log("  bf16, ms per call (v2 decode step, eager decode step, each to "
+        "the host's logits; then the decode graph's forward and the eager "
+        "decode function on the card's inputs), in turns: "
         + ", ".join(f"{m} {v:.4f}" for m, v in mc["turns"])
         + "; v2 prefill " + ", ".join(f"{v:.4f}" for v in mc["v2_prefill_ms"])
         + f"; graph nodes {mc['graph_nodes']}")
     log(f"  launches on the bf16 v2 drive ({FUTURES_PATIENTS} requests x "
         f"{ARTIFACT_MAX_NEW} events): {bart['launches']}; the CLI on "
-        f"--artifact booted in {bart['cli']['boot_s']:.1f}s, answered "
-        f"/v1/manifest and a generate, exit {bart['cli']['exit_code']} on "
-        f"SIGINT")
+        f"--artifact (fp32 v2) booted in {cli['boot_s']:.1f}s, answered "
+        f"/v1/manifest and a generate, exit {cli['exit_code']} on SIGINT")
+    log("  stage seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in art["stage_s"].items()))
     ap = bart["profile"]
     log(f"  one bf16 v2 request under the profiler: device busy "
         f"{ap['device_busy_s']:.4f}s of {ap['wall_s']:.3f}s wall, idle "
@@ -5364,9 +5585,456 @@ PROFILE_REQUESTS, PROFILE_MAX_NEW = 4, 8
 
 def window_profile(run) -> dict:
     """``path_profile`` of ``run()`` (which returns its wall seconds), the
-    wall time from one unprofiled run after a warm one."""
+    wall time from one unprofiled run after a warm one (the window's
+    admissions take shapes the whole drive may not have taken)."""
     run()
     return path_profile(run, run())
+
+
+# ---------------------------------------------------------------------------
+# phase 3u: the reference engine; phase 6h: MoE training; the launch check
+# ---------------------------------------------------------------------------
+# benchmarks/run.py's bench_serving_engine knobs: 8 slots, max_context 128
+REF_SLOTS, REF_CONTEXT = 8, 128
+REF_PROMPTS, REF_MAX_EVENTS, REF_MAX_NEW = 16, 64, 24
+
+
+def reference_prompts(n: int, seed: int):
+    """``n`` synthetic patient histories (seeded), each cut to at most
+    ``REF_MAX_EVENTS`` events."""
+    from repro_torch.data import SimulatorConfig, generate_dataset
+    trajs, _ = generate_dataset(SimulatorConfig(n_train=n, n_val=1,
+                                                seed=seed))
+    return [(t[:REF_MAX_EVENTS], a[:REF_MAX_EVENTS]) for t, a in trajs]
+
+
+def reference_drive(eng, prompts) -> dict:
+    """Submit every prompt (``REF_MAX_NEW`` events each) and tick until all
+    are done; wall seconds ending in a synchronise, ticks that decoded."""
+    import torch
+    from repro_torch.serve import Request
+    reqs = [Request(tokens=t, ages=a, max_new=REF_MAX_NEW)
+            for t, a in prompts]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decodes = 0
+    if hasattr(eng, "slot_step"):     # ReferenceEngine: count its decodes
+        while eng.pending or any(r is not None for r in eng.slot_req):
+            decodes += bool(eng.step())
+    else:
+        eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = sum(len(r.out_tokens) for r in reqs)
+    return {"reqs": reqs, "wall_s": wall, "events": events,
+            "events_per_s": events / wall, "decodes": decodes}
+
+
+def reference_engine_path() -> dict:
+    """Phase 3u: the seed host-loop ``ReferenceEngine`` (full-width
+    Delphi-2M, bf16, ``REF_SLOTS`` slots, ``max_context`` ``REF_CONTEXT``)
+    on ``REF_PROMPTS`` synthetic prompts of at most ``REF_MAX_EVENTS``
+    events, ``REF_MAX_NEW`` new events each, after a warm drive of 4 on the
+    same instance.  Gates (counts zeroed just before the timed drive and
+    read just after): every request done; flash 12 launches an admission
+    (one admission a request); paged 12 a decode call; ``tte_sample`` one
+    an emitted event (each slot sampled on its own).  Then the ring
+    ``BatchedEngine`` (the same knobs, generator uniforms) on the same
+    prompts, warmed the same way: events/s of both, in turns (reference,
+    batched, batched, reference), and each engine's idle share over one
+    more drive (:func:`window_profile`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serve import BatchedEngine, ReferenceEngine
+    cfg = get_config("delphi-2m")
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    prompts = reference_prompts(REF_PROMPTS, SEED + 91)
+    warm = reference_prompts(4, SEED + 92)
+    ref = ReferenceEngine(params, cfg, slots=REF_SLOTS,
+                          max_context=REF_CONTEXT, seed=SEED, device=DEVICE)
+    bat = BatchedEngine(params, cfg, slots=REF_SLOTS, max_context=REF_CONTEXT,
+                        seed=SEED, device=DEVICE)
+    for eng in (ref, bat):
+        reference_drive(eng, warm)
+    ops.reset_launch_counts()
+    run = reference_drive(ref, prompts)
+    counts = ops.launch_counts()
+    L = cfg.n_layers
+    want = {"flash_attention": L * len(prompts),
+            "paged_decode_attention": L * run["decodes"],
+            "tte_sample": run["events"], "ssd_intra": 0}
+    done = [r for r in run["reqs"] if r.done]
+    if len(done) != len(prompts) or counts != want:
+        raise AssertionError(f"reference engine: {len(done)} of "
+                             f"{len(prompts)} done; launches {counts}, "
+                             f"want {want}")
+    turns = [("reference", run["events_per_s"])]
+    for eng, name in ((bat, "batched"), (bat, "batched"), (ref, "reference")):
+        turns.append((name, reference_drive(eng, prompts)["events_per_s"]))
+    rate = {n: [v for m, v in turns if m == n]
+            for n in ("reference", "batched")}
+    prof = {name: window_profile(
+        lambda e=eng: reference_drive(e, prompts)["wall_s"])
+        for eng, name in ((ref, "reference"), (bat, "batched"))}
+    out = {"requests": len(prompts), "events": run["events"],
+           "wall_s": run["wall_s"], "decodes": run["decodes"],
+           "launches": counts, "turns": turns,
+           "batched_over_reference": (sum(rate["batched"])
+                                      / sum(rate["reference"])),
+           "idle_share": {n: p["idle_share"] for n, p in prof.items()},
+           "device_busy_s": {n: p["device_busy_s"] for n, p in prof.items()},
+           "profiled_wall_s": {n: p["wall_s"] for n, p in prof.items()}}
+    del ref, bat, params
+    free_card()
+    return out
+
+
+# phase 6h: Qwen2-MoE-A2.7B at full width cut to MOE_TRAIN_LAYERS layers,
+# MOE_TRAIN_BATCH x MOE_TRAIN_SEQ seeded random ids, bf16 over fp32 masters;
+# the two dispatches' losses within MOE_TRAIN_LOSS_REL of each other (their
+# bf16 products round differently)
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 2, 256
+MOE_TRAIN_LOSS_REL = 1e-2
+# 6h's gradient gate, at one MoE layer (layer 0 of 6h's weights) on
+# MOE_TRAIN_BATCH x MOE_TRAIN_SEQ seeded tokens and a seeded cotangent: the
+# bf16 gradients of both dispatches against the fp32 dense_scan ones (TF32
+# off), each leaf's largest difference over its largest |g| (the input's
+# gradient a leaf too) within MOE_GRAD_REL; a token whose top-k experts
+# differ between the fp32 and the bf16 router is left out (its cotangent
+# is zero, so it adds nothing to any gradient).  On the H100 the sound
+# routes read 0.0144 and ragged with a backward whose weight gradient
+# takes group boundaries one row off (:func:`grouped_mm_rows_off`, run
+# beside the gate, which must miss the limit) 0.92; the 2-layer model's
+# gradients with ragged held to dense_scan's experts are held to the same
+# limit
+MOE_GRAD_REL = 3e-2
+MOE_GRAD_LEAVES = ("moe/router", "moe/w_gate", "moe/w_up", "moe/w_down",
+                   "moe/shared/w_gate", "moe/shared/w_up",
+                   "moe/shared/w_down")
+
+
+def grouped_mm_rows_off(shift: int):
+    """A stand-in for ``models.moe.grouped_mm`` with the same forward and
+    a faulty backward: the weight gradient of group e sums the rows
+    between the boundaries ``offs`` moved ``shift`` rows down (each
+    group's first rows counted to the group before).  The control that
+    :func:`moe_layer_grads` holds against ``MOE_GRAD_REL``."""
+    import torch
+    from repro_torch.models import moe
+    real = moe.grouped_mm
+
+    class RowsOff(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w, offs):
+            ctx.save_for_backward(x, w, offs)
+            return real(x, w, offs)
+
+        @staticmethod
+        def backward(ctx, gy):
+            x, w, offs = ctx.saved_tensors
+            b = offs.tolist()
+            bw = [max(h - shift, 0) for h in b[:-1]] + b[-1:]
+            gx, gw = torch.zeros_like(x), torch.zeros_like(w)
+            lo = low = 0
+            for e in range(len(b)):
+                if b[e] > lo:
+                    gx[lo:b[e]] = gy[lo:b[e]] @ w[e].t()
+                if bw[e] > low:
+                    gw[e] = x[low:bw[e]].t() @ gy[low:bw[e]]
+                lo, low = b[e], bw[e]
+            return gx, gw, None
+    return lambda x, w, offs, bounds=None: RowsOff.apply(x, w, offs)
+
+
+def moe_layer_grads(params, cfg, gen) -> dict:
+    """The readings of 6h's gradient gate (``MOE_GRAD_REL``, which the
+    caller holds): for ``dense_scan`` and ``ragged`` in bf16, and for
+    ``ragged`` through :func:`grouped_mm_rows_off` (one row), each leaf's
+    largest gradient difference from the fp32 ``dense_scan`` over that
+    leaf's largest |g|; the tokens left out as flips."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.model import Block
+    blk = Block(params, "layers/", 0)
+    names = [n for n in MOE_GRAD_LEAVES if n in blk]
+    T = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    x = torch.randn((1, T, cfg.d_model), generator=gen, device=DEVICE)
+    x16 = x.to(torch.bfloat16)
+    router = blk["moe/router"]
+    e32 = moe.route(router, x[0], cfg.top_k)[1].sort(dim=-1).values
+    e16 = moe.route(router, x16[0], cfg.top_k)[1].sort(dim=-1).values
+    keep = (e32 == e16).all(dim=-1)
+    dy = (torch.randn((1, T, cfg.d_model), generator=gen, device=DEVICE)
+          * keep[None, :, None])
+
+    def grads(xin, c, impl):
+        leaves = {n: blk[n].detach().requires_grad_(True) for n in names}
+        xi = xin.detach().requires_grad_(True)
+        with torch.enable_grad():
+            y, _ = moe.apply_moe(leaves, xi, c, impl=impl)
+            g = torch.autograd.grad(y, [xi, *leaves.values()],
+                                    grad_outputs=dy.to(y.dtype))
+        return dict(zip(["input", *names], g))
+
+    def faulty(xin, c, impl):
+        real = moe.grouped_mm
+        moe.grouped_mm = grouped_mm_rows_off(1)
+        try:
+            return grads(xin, c, impl)
+        finally:
+            moe.grouped_mm = real
+
+    g32 = grads(x, cfg.replace(dtype="float32"), "dense_scan")
+    out = {"tokens": T, "flips": int((~keep).sum())}
+    for impl, run in (("dense_scan", grads), ("ragged", grads),
+                      ("ragged_rows_off", faulty)):
+        g16 = run(x16, cfg, impl.split("_rows")[0])
+        rel = {}
+        for n, g in g32.items():
+            if not bool(torch.isfinite(g16[n]).all()):
+                raise AssertionError(f"6h: {impl} {n}: gradient not finite")
+            rel[n] = (float((g16[n].float() - g).abs().max())
+                      / float(g.abs().max()))
+        worst = max(rel, key=rel.get)
+        out[impl] = {"rel": rel, "worst": rel[worst], "worst_leaf": worst}
+        del g16
+    del g32
+    return out
+
+
+def moe_train_path() -> dict:
+    """Phase 6h: Qwen2-MoE-A2.7B at full width, ``MOE_TRAIN_LAYERS``
+    layers (~1.8 B parameters; fp32 masters made on the card).  First the
+    gradient gate at one layer (:func:`moe_layer_grads`, within
+    ``MOE_GRAD_REL``).  Then one bf16 ``lm`` gradient each with
+    ``moe_impl="dense_scan"`` and ``"ragged"`` from the same weights and
+    batch: the losses within ``MOE_TRAIN_LOSS_REL`` of each other (a loose
+    gate: an untrained model's loss sits near ln V whatever its MoE layers
+    return; the layer gate holds the dispatch), every gradient finite, the
+    largest difference of a leaf's gradients relative to its largest |g|
+    stated, with the tokens whose experts differ between the two runs
+    counted by layer; with ``ragged`` held to ``dense_scan``'s experts
+    (:class:`routing`) every leaf's difference within ``MOE_GRAD_REL``
+    (without the hold, the few tokens that flip in layer 1 move whole
+    rows of an expert's gradient); no kernel launched.  Then
+    one AdamW step of each dispatch with ``remat`` off and on (a warm step
+    first): each step's wall seconds and peak memory above what was held
+    before it."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params_on_device, moe
+    from repro_torch.train import (OptimizerConfig, init_opt_state,
+                                   loss_and_grads, make_loss_fn,
+                                   make_train_step)
+    from repro_torch.train.trainer import to_device
+    free_card()
+    cfg = get_config("qwen2-moe-a2.7b").replace(n_layers=MOE_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params_on_device(cfg.replace(dtype="float32"), seed=SEED,
+                                   device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in params.values())
+    rng = np.random.default_rng(SEED + 101)
+    batch = to_device({"tokens": rng.integers(0, cfg.vocab_size, (
+        MOE_TRAIN_BATCH, MOE_TRAIN_SEQ)).astype(np.int32)}, DEVICE)
+    ops.reset_launch_counts()
+    layer = moe_layer_grads(params, cfg, torch.Generator(DEVICE)
+                            .manual_seed(SEED + 102))
+    for impl in ("dense_scan", "ragged"):
+        r = layer[impl]
+        if not r["worst"] <= MOE_GRAD_REL:
+            raise AssertionError(f"6h: one layer's {impl} bf16 gradient of "
+                                 f"{r['worst_leaf']} off the fp32 "
+                                 f"dense_scan's by {r['worst']:.3g} of its "
+                                 f"largest |g| (> {MOE_GRAD_REL})")
+    if not layer["ragged_rows_off"]["worst"] > MOE_GRAD_REL:
+        raise AssertionError(f"6h: a ragged backward one row off reads "
+                             f"{layer['ragged_rows_off']['worst']:.3g}, "
+                             f"inside the gate's {MOE_GRAD_REL}")
+    with routing() as seen_d:
+        g_d, m_d = loss_and_grads(make_loss_fn(cfg, "lm"), params, batch)
+    with routing() as seen_r:
+        g_r, m_r = loss_and_grads(make_loss_fn(cfg, "lm", moe_impl="ragged"),
+                                  params, batch)
+    # the same ragged gradient with each layer held to dense_scan's experts
+    with routing(held=seen_d.seen):
+        g_h, _ = loss_and_grads(make_loss_fn(cfg, "lm", moe_impl="ragged"),
+                                params, batch)
+    flips = [int((a.sort(dim=-1).values != b.sort(dim=-1).values)
+                 .any(dim=-1).sum())
+             for a, b in zip(seen_d.seen, seen_r.seen)]
+    worst, worst_key, held = 0.0, None, {}
+    for k, g in g_d.items():
+        scale = float(g.abs().max())
+        if not (bool(torch.isfinite(g_r[k]).all()) and scale > 0):
+            raise AssertionError(f"6h: {k}: gradient not finite or zero")
+        rel = float((g_r[k] - g).abs().max()) / scale
+        held[k] = float((g_h[k] - g).abs().max()) / scale
+        if rel > worst:
+            worst, worst_key = rel, k
+    del g_d, g_r, g_h
+    held_key = max(held, key=held.get)
+    if held[held_key] > MOE_GRAD_REL:
+        raise AssertionError(f"6h: ragged held to dense_scan's experts: "
+                             f"{held_key}'s gradient off by "
+                             f"{held[held_key]:.3g} of its largest |g| "
+                             f"(> {MOE_GRAD_REL})")
+    loss_d, loss_r = float(m_d["loss"]), float(m_r["loss"])
+    loss_rel = abs(loss_r - loss_d) / abs(loss_d)
+    if loss_rel > MOE_TRAIN_LOSS_REL or not np.isfinite(loss_r):
+        raise AssertionError(f"6h: ragged loss {loss_r} vs dense_scan "
+                             f"{loss_d} (rel {loss_rel:.3g} > "
+                             f"{MOE_TRAIN_LOSS_REL})")
+    runs = {}
+    ocfg = OptimizerConfig(lr=1e-5)
+    for impl in ("dense_scan", "ragged"):
+        for remat in (False, True):
+            step = make_train_step(cfg.replace(remat=remat), ocfg, "lm",
+                                   moe_impl=impl)
+            opt = init_opt_state(params)
+            step(params, opt, batch)            # warm: cuBLAS plans, caches
+            free_card()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            _, _, m = step(params, opt, batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            runs[f"{impl} remat {'on' if remat else 'off'}"] = {
+                "step_s": time.perf_counter() - t1, "loss": loss,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated()
+                - base}
+            del opt
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"6h: training launched a kernel: {counts}")
+    grouped = moe.grouped_route(
+        torch.empty((1, cfg.d_model), dtype=torch.bfloat16, device=DEVICE),
+        params["layers/moe/w_gate"][0].to(torch.bfloat16))
+    out = {"layers": MOE_TRAIN_LAYERS, "n_params": n_params,
+           "batch": MOE_TRAIN_BATCH, "seq": MOE_TRAIN_SEQ, "init_s": init_s,
+           "loss_dense_scan": loss_d, "loss_ragged": loss_r,
+           "loss_rel_err": loss_rel, "grad_max_rel_err": worst,
+           "grad_worst_leaf": worst_key, "flips_by_layer": flips,
+           "grad_held_rel_err": held[worst_key],
+           "grad_held_max_rel_err": max(held.values()), "layer": layer,
+           "grouped_product": grouped, "runs": runs}
+    del params, batch
+    free_card()
+    return out
+
+
+def launch_check_child() -> dict:
+    """Run in its own process (``launch_check``): a process group of one on
+    the card (NCCL, the loopback address from ``MASTER_ADDR``/
+    ``MASTER_PORT``), ``ensure_distributed(expect_devices=1)``, an
+    all-reduce, the 1 x 1 ``DeviceMesh`` on ``cuda``, full-width
+    Delphi-2M's parameters placed by ``param_shardings`` as DTensors (each
+    placement ``Replicate``); a bf16 forward through the placed
+    parameters' local tensors against the plain parameters' logits, bit
+    for bit (a smoke test of ``distribute_tensor``/``to_local``: on 1 x 1
+    the local tensors are the parameters), and the tied head (embedding
+    gather, product with the table, bias) run on the DTensors themselves
+    against the same ops on the plain tensors, bit for bit."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.distributed import ensure_distributed
+    from repro_torch.launch.mesh import device_mesh, make_host_mesh
+    from repro_torch.models import forward, init_params
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=(f"tcp://{os.environ['MASTER_ADDR']}:"
+                             f"{os.environ['MASTER_PORT']}"),
+        world_size=int(os.environ["WORLD_SIZE"]),
+        rank=int(os.environ["RANK"]), device_id=torch.device("cuda", 0))
+    try:
+        n = ensure_distributed(expect_devices=1)
+        one = torch.ones(1, device=DEVICE)
+        dist.all_reduce(one)
+        mesh = make_host_mesh()
+        dm = device_mesh(mesh, "cuda")
+        cfg = get_config("delphi-2m")
+        params = init_params(cfg, seed=SEED, device=DEVICE)
+        placed, kinds = {}, set()
+        for k, spec in sh.param_shardings(mesh, params).items():
+            pl = sh.to_placements(spec, dm)
+            kinds.update(type(p).__name__ for p in pl)
+            if pl != [Replicate(), Replicate()]:
+                raise AssertionError(f"{k}: placements {pl} on 1 x 1")
+            placed[k] = distribute_tensor(params[k], dm, pl)
+        rng = np.random.default_rng(SEED + 111)
+        toks = rng.integers(3, cfg.vocab_size, (4, 48)).astype(np.int32)
+        ages = np.sort(rng.uniform(30, 70, (4, 48)), axis=1)
+        batch = {"tokens": torch.from_numpy(toks).to(DEVICE),
+                 "ages": torch.from_numpy(ages.astype(np.float32)).to(DEVICE)}
+        with torch.no_grad():
+            want = forward(params, cfg, batch)["logits"]
+            got = forward({k: v.to_local() for k, v in placed.items()}, cfg,
+                          batch)["logits"]
+            # the tied head on the DTensors themselves: the embedding
+            # gather, the bf16 product with the table and the output bias
+            tok = distribute_tensor(batch["tokens"], dm, pl)
+
+            def head(emb, bias, t):
+                e16 = emb.to(torch.bfloat16)
+                return (torch.nn.functional.embedding(t, e16) @ e16.t()
+                        + bias.to(torch.bfloat16))
+            dt_out = head(placed["embed/embed"], placed["embed/out_bias"],
+                          tok)
+            dt_equal = bool(torch.equal(
+                dt_out.full_tensor(), head(params["embed/embed"],
+                                           params["embed/out_bias"],
+                                           batch["tokens"])))
+        equal = bool(torch.equal(got, want))
+        if not (equal and dt_equal and n == 1 and float(one) == 1.0):
+            raise AssertionError(f"launch check: devices {n}, all-reduce "
+                                 f"{float(one)}, logits equal {equal}, "
+                                 f"DTensor head equal {dt_equal}")
+        return {"devices": n, "mesh": str(dm), "placements": sorted(kinds),
+                "leaves": len(placed), "logits_equal": equal,
+                "dtensor_head_equal": dt_equal,
+                "dtensor_head_type": type(dt_out).__name__,
+                "all_reduce": float(one)}
+    finally:
+        dist.destroy_process_group()
+
+
+def launch_check() -> dict:
+    """The launch layer on the card, in a subprocess (a process group is
+    the process's for good): :func:`launch_check_child` with a world of
+    one on a free loopback port; its JSON result is the last line it
+    prints."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               WORLD_SIZE="1", RANK="0",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; "
+            "print(json.dumps(chip_smoke.launch_check_child()))")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, ROOT], env=env,
+                          capture_output=True, text=True, timeout=300,
+                          cwd=ROOT)
+    if proc.returncode != 0:
+        raise AssertionError(f"launch check exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["wall_s"] = time.perf_counter() - t0
+    return out
 
 
 def main() -> int:
@@ -5385,7 +6053,35 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    build.library()
+    # nvcc runs in its own processes: phase 3j's exports, which trace on
+    # the CPU and need no kernel, run meanwhile (the build's wall time)
+    built = {}
+
+    def build_kernels():
+        try:
+            build.library()
+        except BaseException as e:  # noqa: BLE001  (re-raised below)
+            built["error"] = e
+    build_thread = threading.Thread(target=build_kernels, daemon=True)
+    build_thread.start()
+    ssm_tmp = tempfile.TemporaryDirectory()
+    ssm_proc = start_ssm_artifact_exports(ssm_tmp.name)
+    try:
+        art_tmp = tempfile.TemporaryDirectory()
+        exports = artifact_exports(art_tmp.name)
+        log(f"  phase 3j's exports traced in {time.perf_counter() - t0:.1f}s"
+            f" while the kernels built")
+        build_thread.join()
+        if "error" in built:
+            raise built["error"]
+        ssm_exports = finish_ssm_artifact_exports(ssm_proc)
+    finally:
+        if ssm_proc.poll() is None:
+            ssm_proc.kill()
+            ssm_proc.wait(timeout=60)
+    log(f"  phase 3t's exports (a process of their own) done at "
+        f"{time.perf_counter() - t0:.1f}s: " + ", ".join(
+            f"{a} {e['export_s']:.1f}s" for a, e in ssm_exports.items()))
     log(f"  kernels built in {time.perf_counter() - t0:.1f}s "
         f"(nvcc {build.last_build.get('seconds', 0.0):.1f}s)")
     for line in str(build.last_build.get("log", "")).splitlines():
@@ -5394,6 +6090,7 @@ def main() -> int:
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
+    phase_done("1")
     log("== phase 2: kernels against their plain versions on the card")
     errs = {"tte_sample": check_tte(gen), "flash_attention": check_flash(gen),
             "flash_attention positions": check_flash_positions(gen),
@@ -5402,6 +6099,7 @@ def main() -> int:
     errs["ssd_intra"] = ssd_errs["main"]
     moe_check = check_moe(gen)
 
+    phase_done("2")
     log("== phase 3: Delphi path (Delphi-2M bf16, ring BatchedEngine, 16 "
         "slots)")
     main_res = main_path()
@@ -5413,6 +6111,7 @@ def main() -> int:
         f"prefill shapes {sorted(eng.prefill_shapes)}; launches "
         f"{main_res['launches']}")
 
+    phase_done("3")
     log("== phase 3c: paged Delphi path (Delphi-2M bf16, paged "
         "BatchedEngine, 16 slots, 16-token blocks, 257 blocks)")
     paged = main_path("paged")
@@ -5442,6 +6141,7 @@ def main() -> int:
     log("  in turns, events/s: " + ", ".join(f"{c} {r:.1f}"
                                              for c, r in turns))
 
+    phase_done("3c")
     log("== phase 3d: futures (Delphi-2M bf16, prefix-cached paged "
         f"BatchedEngine, 16 slots): {FUTURES_PATIENTS} patients x "
         f"{FUTURES_N} futures x {FUTURES_MAX_NEW} events, each patient twice")
@@ -5460,6 +6160,7 @@ def main() -> int:
         f"{sorted(feng.prefill_shapes)}; launches {fut['launches']}; no "
         f"block or refcount left after drop_prefix_cache()")
 
+    phase_done("3d")
     log(f"== phase 3e: mixed long/short traffic (Delphi-2M bf16, paged "
         f"BatchedEngine, {MIXED_SLOTS} slots, max_context 256, 16-token "
         f"blocks, {MIXED_BLOCKS} blocks): {MIXED_SHORT} short requests "
@@ -5484,6 +6185,7 @@ def main() -> int:
         f"{mixed['monolithic_shapes']}; launches of the first timed chunked "
         f"drive {mixed['launches']}")
 
+    phase_done("3e")
     log("== phase 3f: partial-hit suffix prefill (prefix-cached chunked "
         "engine): a 200-event prompt, then a 240-event prompt extending it")
     sfx = suffix_path(fut["params"], fut["cfg"])
@@ -5493,6 +6195,7 @@ def main() -> int:
         f"{sfx['stats']['prefix_cache']['partial_hits']}; shapes "
         f"{sfx['shapes']}; no block left after drop_prefix_cache()")
 
+    phase_done("3f")
     log("== phase 3g: HTTP serving (Delphi-2M bf16, EngineBackend on its "
         "background loop behind InferenceServer: 16 slots, paged, prefix "
         f"cache): {HTTP_REQUESTS} prompts x {HTTP_MAX_NEW} events from "
@@ -5526,6 +6229,7 @@ def main() -> int:
         f"{http['cli']['boot_s']:.1f}s, exit {http['cli']['exit_code']} on "
         f"SIGINT ({http['cli']['lines'][0]})")
     log(f"  phase 3g took {time.perf_counter() - t3g:.1f}s")
+    phase_done("3g")
     log("== phase 3h: the router on one card (RouterServer over 2 "
         "in-process paged replicas)")
     t3h = time.perf_counter()
@@ -5535,6 +6239,7 @@ def main() -> int:
         f"under load with every request answered; router == direct bit "
         f"for bit on {rtr['exact_prompts']} prompts")
     log(f"  phase 3h took {time.perf_counter() - t3h:.1f}s")
+    phase_done("3h")
     log(f"== phase 3i: cohort sweep (Delphi-2M bf16, ScenarioEngine over "
         f"EngineBackend, phase 3d's knobs): {SWEEP_PATIENTS} patients x "
         f"{SWEEP_FUTURES} futures x {SWEEP_MAX_NEW} events, "
@@ -5559,17 +6264,38 @@ def main() -> int:
         f"{cp['device_busy_s']:.4f}s of {cp['wall_s']:.3f}s wall, idle share"
         f" {'not measured' if cp['idle_share'] is None else format(cp['idle_share'], '.3f')}")
     log(f"  phase 3i took {time.perf_counter() - t3i:.1f}s ({smi})")
+    phase_done("3i")
+    log(f"== phase 3u: the reference engine (the seed host-loop "
+        f"ReferenceEngine, full-width Delphi-2M bf16, {REF_SLOTS} slots, "
+        f"max_context {REF_CONTEXT}): {REF_PROMPTS} synthetic prompts of at "
+        f"most {REF_MAX_EVENTS} events, {REF_MAX_NEW} new events each; the "
+        f"ring BatchedEngine on the same prompts")
+    refe = reference_engine_path()
+    log(f"  {refe['requests']} requests, {refe['events']} events in "
+        f"{refe['wall_s']:.3f}s, {refe['decodes']} decode calls; launches "
+        f"{refe['launches']} (12 flash an admission, 12 paged a decode "
+        f"call, one tte_sample an event)")
+    log("  in turns, events/s: " + ", ".join(
+        f"{m} {v:.1f}" for m, v in refe["turns"])
+        + f"; batched / reference {refe['batched_over_reference']:.2f}x "
+        f"({smi})")
+    log("  idle share of a drive: " + ", ".join(
+        f"{n} {refe['idle_share'][n]} (device busy "
+        f"{refe['device_busy_s'][n]:.4f}s of {refe['profiled_wall_s'][n]:.3f}"
+        f"s)" for n in ("reference", "batched")))
+    phase_done("3u")
     log(f"== phase 3j: the SDK artifact (full-width Delphi-2M through "
-        f"torch.export, spec v2 and v1, bf16 and fp32 (its depth cut to "
-        f"{ARTIFACT_FP32_LAYERS} layers), traced on the CPU; Runtime on the "
-        f"card)")
+        f"torch.export, spec v2 in bf16, v2 and v1 in fp32 (its depth cut "
+        f"to {ARTIFACT_FP32_LAYERS} layers), traced on the CPU in phase 1; "
+        f"Runtime on the card)")
     t3j = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        art = artifact_path(tmp)
+    art = artifact_path(exports)
+    art_tmp.cleanup()
     bart = art["dtypes"]["bfloat16"]
     log_artifact(art)
     log(f"  phase 3j took {time.perf_counter() - t3j:.1f}s ({smi})")
 
+    phase_done("3j")
     log(f"== phase 3k: TinyLlama-1.1B at full width (22 layers, d_model "
         f"2048, 32/4 heads, hd 64, V 32000; bf16), BatchedEngine("
         f"slots={DENSE_SLOTS}, max_context={DENSE_CONTEXT}): "
@@ -5596,6 +6322,7 @@ def main() -> int:
         f" {'not measured' if tp['idle_share'] is None else format(tp['idle_share'], '.3f')}"
         f"; weights made in {tiny['init_s']:.1f}s; phase 3k took "
         f"{time.perf_counter() - t3k:.1f}s ({smi})")
+    phase_done("3k")
     log(f"== phase 3l: H2O-Danube-1.8B at full width ({DANUBE_LAYERS} of 24 "
         f"layers, d_model "
         f"2560, 32/8 heads, hd 80, window 4096; bf16): one "
@@ -5624,6 +6351,7 @@ def main() -> int:
         f"{danube['near_ties']} (score margin {danube['margin']:.4g}, twice "
         f"the kernels' bf16 logits error); phase 3l took "
         f"{time.perf_counter() - t3l:.1f}s ({smi})")
+    phase_done("3l")
     log("== phase 3m: Delphi-100M served at full width (16 layers, d_model "
         "768, hd 64; bf16) through repro_torch.launch.serve: 32 patient "
         "prompts, 16 slots, 48 new events, ring")
@@ -5635,6 +6363,7 @@ def main() -> int:
         f"{d100['host_syncs']}; prefill shapes {d100['prefill_shapes']}; "
         f"launches {d100['launches']}; took "
         f"{time.perf_counter() - t3m:.1f}s")
+    phase_done("3m")
     log(f"== phase 3n: the generic-LM artifact (TinyLlama at full width, "
         f"depth cut to {LM_ARTIFACT_LAYERS} layers, spec v2, bf16, seq_len "
         f"{LM_ARTIFACT_SEQ})")
@@ -5653,6 +6382,7 @@ def main() -> int:
         f"{lmart['launches']}; took {time.perf_counter() - t3n:.1f}s "
         f"({smi})")
 
+    phase_done("3n")
     log(f"== phase 3o: Zamba2-1.2B at full width (38 Mamba2 layers, d_model "
         f"2048, N 64, 64 SSD heads; one shared attention block, 32/32 heads "
         f"of 64, window 4096, applied 7 times; V 32000; bf16), BatchedEngine("
@@ -5693,14 +6423,17 @@ def main() -> int:
     for t in zp["top"]:
         log(f"    {t['ms']:9.3f} ms  {t['launches']:6d}x  {t['kernel']}")
 
+    phase_done("3o")
     log(f"== phase 3t: the recurrent artifact at full width (Mamba2-780M "
         f"cut to {SSM_ARTIFACT_LAYERS['mamba2-780m']} layers, Zamba2-1.2B "
         f"to {SSM_ARTIFACT_LAYERS['zamba2-1.2b']}; spec v2, bf16, seq_len "
         f"{SSM_ARTIFACT_SEQ}), prompts of {SSM_ARTIFACT_PROMPTS} tokens")
     t3t = time.perf_counter()
-    ssmart = ssm_artifact_phase()
+    ssmart = ssm_artifact_phase(ssm_tmp.name, ssm_exports)
+    ssm_tmp.cleanup()
     log_ssm_artifact_phase(ssmart, "3t", smi, t3t)
 
+    phase_done("3t")
     log("== phase 3b: Mamba2 path (Mamba2-780M bf16, BatchedEngine, 8 "
         "slots)")
     mamba = mamba_path()
@@ -5711,6 +6444,7 @@ def main() -> int:
         f"ticks/s; host_syncs {meng.host_syncs}; prefill shapes "
         f"{sorted(meng.prefill_shapes)}; launches {mamba['launches']}")
 
+    phase_done("3b")
     log("== phase 4: end-to-end parity, fp32, card vs CPU")
     par = parity()
     mpar = mamba_parity()
@@ -5723,6 +6457,7 @@ def main() -> int:
     log("== phase 4 (risk): risk on the card")
     rsk = risk_checks(fut)
 
+    phase_done("4")
     log("== phase 6a: gradients on the card (Delphi-2M fp32, TF32 off, "
         f"{TRAIN_BATCH} x {TRAIN_SEQ}) against the CPU port")
     t6 = time.perf_counter()
@@ -5733,6 +6468,7 @@ def main() -> int:
         f"its leaf's largest element ({grd['grad_worst_leaf']}; allowed "
         f"{GRAD_CARD_REL}); no kernel launched; took "
         f"{time.perf_counter() - t6:.1f}s")
+    phase_done("6a")
     log(f"== phase 6b: training at full width (python -m "
         f"repro_torch.launch.train --arch delphi-2m, bf16 over fp32 "
         f"masters, {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}, "
@@ -5758,12 +6494,14 @@ def main() -> int:
         log(f"  the server on --ckpt answered a generate "
             f"({trn['served_events']} events); took "
             f"{time.perf_counter() - t6:.1f}s ({smi})")
+        phase_done("6b")
         log(f"== phase 6c: federated fine-tuning ({FED_CLIENTS} clients, "
             f"{FED_ROUNDS} rounds x {FED_LOCAL_STEPS} local steps, delta "
             f"clip {FED_CLIP})")
         fedr = federated_path()
         log(f"  mean client loss by round {fedr['client_loss']}; "
             f"{fedr['seconds_per_round']:.3f}s a round ({smi})")
+        phase_done("6c")
         log(f"== phase 6d: the canary loop over HTTP ({CANARIES} canaries, "
             f"{CANARIES // 2} planted x {CANARY_REPEATS}, full-width Delphi "
             f"trained {CANARY_STEPS} steps, EngineBackend behind "
@@ -5779,6 +6517,7 @@ def main() -> int:
         f"{can['launches']}; took {time.perf_counter() - t6:.1f}s ({smi})")
     trn.pop("params")
     trn.pop("cfg")
+    phase_done("6d")
     log(f"== phase 6e: Delphi-100M training at S {LONG_SEQ} (the blocked "
         f"attention route)")
     t6 = time.perf_counter()
@@ -5798,6 +6537,7 @@ def main() -> int:
         f"{ltr['loss_first']:.4f} -> {ltr['loss_last']:.4f}; took "
         f"{time.perf_counter() - t6:.1f}s ({smi})")
 
+    phase_done("6e")
     ssm_train = {}
     for ph, arch in (("6f", "mamba2-780m"), ("6g", "zamba2-1.2b")):
         log(f"== phase {ph}: {arch} training (the plain SSD route)")
@@ -5833,6 +6573,53 @@ def main() -> int:
             + f"; {smi})")
         for t in cp["top"]:
             log(f"    {t['ms']:9.3f} ms  {t['launches']:6d}x  {t['kernel']}")
+        phase_done(ph)
+
+    log(f"== phase 6h: MoE training (Qwen2-MoE-A2.7B at full width cut to "
+        f"{MOE_TRAIN_LAYERS} layers, {MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ}, "
+        f"bf16 over fp32 masters): moe_impl dense_scan and ragged, remat "
+        f"off and on")
+    mtr = moe_train_path()
+    ly = mtr["layer"]
+    log(f"  one layer, {ly['tokens']} tokens ({ly['flips']} whose experts "
+        f"flip in bf16 left out), bf16 gradients against the fp32 "
+        f"dense_scan's, largest difference of a leaf's largest |g| (allowed "
+        f"{MOE_GRAD_REL}): " + "; ".join(
+            f"{impl} {ly[impl]['worst']:.3g} ({ly[impl]['worst_leaf']}; "
+            + ", ".join(f"{n.split('/', 1)[-1]} {v:.3g}"
+                        for n, v in ly[impl]["rel"].items()) + ")"
+            for impl in ("dense_scan", "ragged"))
+        + f"; ragged with its weight gradient's group boundaries one row "
+        f"off would read {ly['ragged_rows_off']['worst']:.3g} "
+        f"({ly['ragged_rows_off']['worst_leaf']})")
+    log(f"  {mtr['n_params'] / 1e9:.3f} B parameters made in "
+        f"{mtr['init_s']:.1f}s; loss dense_scan {mtr['loss_dense_scan']:.6f},"
+        f" ragged {mtr['loss_ragged']:.6f} (rel {mtr['loss_rel_err']:.3g}, "
+        f"allowed {MOE_TRAIN_LOSS_REL}); largest gradient difference "
+        f"{mtr['grad_max_rel_err']:.3g} of its leaf's largest |g| "
+        f"({mtr['grad_worst_leaf']}); tokens whose experts differ by "
+        f"layer {mtr['flips_by_layer']}; with ragged held to dense_scan's "
+        f"experts {mtr['grad_held_rel_err']:.3g} on that leaf, "
+        f"{mtr['grad_held_max_rel_err']:.3g} at most (allowed "
+        f"{MOE_GRAD_REL}); ragged's grouped "
+        f"product {mtr['grouped_product']}; no kernel launched")
+    for name, r in mtr["runs"].items():
+        log(f"  {name}: one step {r['step_s']:.3f}s, peak memory "
+            f"{r['peak_memory_bytes'] / 2**30:.2f} GiB, loss "
+            f"{r['loss']:.6f} ({smi})")
+    phase_done("6h")
+    log("== phase 6i: the launch layer on the card (a subprocess: NCCL "
+        "group of one on the loopback address, ensure_distributed, 1 x 1 "
+        "DeviceMesh, Delphi-2M's parameters as DTensors)")
+    lch = launch_check()
+    log(f"  devices {lch['devices']}, all-reduce {lch['all_reduce']}, "
+        f"{lch['mesh']}, {lch['leaves']} leaves placed as "
+        f"{lch['placements']}; logits through the placed parameters' local "
+        f"tensors == the plain ones bit for bit: {lch['logits_equal']}; the "
+        f"tied head on the DTensors ({lch['dtensor_head_type']} out) == on "
+        f"the plain tensors bit for bit: {lch['dtensor_head_equal']}; "
+        f"{lch['wall_s']:.1f}s")
+    phase_done("6i")
 
     log("== phase 5: times at the main paths' shapes")
     tm = times(main_res, mamba, gen, {"3k": tiny, "3l": danube, "3o": zamba})
@@ -5869,25 +6656,16 @@ def main() -> int:
                 f"{bt['ops_simt_ms']:.6f} ms at 67 TFLOP/s (fp32 CUDA cores)")
     for name, t in tm.items():
         log_row(name, t)
+    # the main path and the Mamba2 window once more under the profiler (the
+    # paged, futures and mixed drives are not profiled again: each repeats
+    # a drive phases 3c-3e timed, and together they took ~47 s)
     prof = path_profile(
         lambda: launch.serve(serve_args(32, 48))["seconds"], sec)
-    pprof = path_profile(
-        lambda: launch.serve(serve_args(32, 48, "paged"))["seconds"], psec)
-    fprof = path_profile(
-        lambda: futures_run(fut["params"], fut["cfg"], fut["patients"])[2],
-        fsec)
     mprof = window_profile(
         lambda: mamba_serve(mamba["params"], mamba["cfg"],
                             mamba["prompts"][:PROFILE_REQUESTS],
                             PROFILE_MAX_NEW)[2])
-    xwall = {m: r["wall_s"] for m, r in mixed["runs"]}
-    xprof = {m: path_profile(
-        lambda m=m: mixed_drive(mixed["engines"][m])["wall_s"], xwall[m])
-        for m in ("monolithic", "chunked")}
-    for name, p, ph in (("Delphi", prof, "3"), ("paged Delphi", pprof, "3c"),
-                        ("futures", fprof, "3d"),
-                        ("mixed monolithic", xprof["monolithic"], "3e"),
-                        ("mixed chunked", xprof["chunked"], "3e"),
+    for name, p, ph in (("Delphi", prof, "3"),
                         ("Mamba2", mprof, f"3b's first {PROFILE_REQUESTS} "
                          f"prompts x {PROFILE_MAX_NEW} tokens")):
         idle = ("not measured" if p["idle_share"] is None
@@ -5901,6 +6679,7 @@ def main() -> int:
     log(f"  Mamba2 path: ssd_intra kernels {mprof['ssd_intra']['ms']:.3f} ms "
         f"of device time over {mprof['ssd_intra']['launches']} launches")
 
+    phase_done("5")
     # the MoE LMs last: in one whole run with them ahead of phase 5 (their
     # whole ring runs profiled, ~50,000 and ~80,000 device activities)
     # every hand-written kernel's row there lost its profiler device time
@@ -5919,6 +6698,7 @@ def main() -> int:
         t_ph = time.perf_counter()
         moe[ph] = moe_path(arch, ph, fp32_layers=cut)
         log_moe(moe[ph], ph, smi, t_ph)
+        phase_done(ph)
 
     # the rest of the zoo, through the model-level path, after the MoE LMs
     zoo = {}
@@ -5937,17 +6717,20 @@ def main() -> int:
         t_ph = time.perf_counter()
         zoo[ph] = zoo_path(arch, ph, fp32_layers=cut)
         log_zoo(zoo[ph], ph, smi, t_ph)
+        phase_done(ph)
 
     log("== phase 5 (MoE): flash and paged at the MoE LMs' shapes")
     for name, t in moe_rows(gen, moe["3q"]["cfg"], moe["3q"]["layer0"]
                             ).items():
         tm[name] = t
         log_row(name, t)
+    phase_done("5 MoE rows")
     log("== phase 5 (zoo): flash and paged at InternVL2's and SeamlessM4T's "
         "shapes")
     for name, t in zoo_rows(gen, zoo["3r"], zoo["3s"]).items():
         tm[name] = t
         log_row(name, t)
+    phase_done("5 zoo rows")
 
     def timings(row):
         """The row's ms, plain_ms and library_ms: the profiler's device time
@@ -6046,7 +6829,6 @@ def main() -> int:
         "kernel_errors": errs, "times": tm, "launch_floor": floor,
         "kernels": kernels,
         "main_path_profile": prof, "mamba_path_profile": mprof,
-        "paged_path_profile": pprof, "futures_path_profile": fprof,
         "paged_path": {"requests": len(paged["done"]),
                        "events": paged["events"], "seconds": psec,
                        "ticks": peng.ticks,
@@ -6068,8 +6850,7 @@ def main() -> int:
         "paged_parity": ppar, "chunked_parity": cpar, "risk": rsk,
         "mixed_path": {"runs": mixed["runs"], "launches": mixed["launches"],
                        "pool": mst, "chunk_shapes": mixed["chunk_shapes"],
-                       "monolithic_shapes": mixed["monolithic_shapes"],
-                       "profiles": xprof},
+                       "monolithic_shapes": mixed["monolithic_shapes"]},
         "suffix_path": {"pool": sfx["stats"], "matched": sfx["matched"],
                         "suffix_chunks": sfx["suffix_chunks"]},
         "http_path": http, "router_path": rtr, "cohort_path": coh,
@@ -6080,7 +6861,9 @@ def main() -> int:
         "long_grads_path": lgr, "long_train_path": ltr,
         "zamba2_path": zamba, "ssm_artifact_path": ssmart,
         "ssm_train_paths": ssm_train,
-        "moe_check": moe_check, "olmoe_path": moe["3p"],
+        "moe_check": moe_check, "reference_engine_path": refe,
+        "moe_train_path": mtr, "launch_check": lch,
+        "olmoe_path": moe["3p"],
         "qwen2_moe_path": moe["3q"], "internvl2_path": zoo["3r"],
         "seamless_path": zoo["3s"],
         "main_path": {"requests": len(main_res["done"]),
@@ -6106,6 +6889,8 @@ def main() -> int:
                    "divergences": par["free"]["divergences"]}}
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
+    phase_done("record")
+    record["phase_seconds"] = PHASE_S
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
     log(json.dumps({"kernels": kernels}))

@@ -1,11 +1,12 @@
 """Run chosen phases of ``chip_smoke.py`` alone on the card.
 
 Builds the kernels and holds flash and paged against their plain versions
-at every phase-2 case (``ssd_intra`` too when 3o runs, ``apply_moe`` when
-3p or 3q does), then runs the chosen phases, each with its gates, and
+at every phase-2 case (``ssd_intra`` too when 3b, 3o or 3t runs), then runs the chosen phases, each with its gates, and
 times the kernels at a group's shapes once every phase of that group has
-run (``ROWS``: beside their bounds, plain versions and SDPA).  Every number
-goes to ``chiprun_out/phases.json`` with the card's name and power limit.
+run (``ROWS``: beside their bounds, plain versions and SDPA).  Phase 2's
+``apply_moe`` check (with its dispatch check) runs with 3p, 3q or 6h.
+Every number goes to ``chiprun_out/phases.json`` with the card's name and
+power limit.
 
 Phases (``PHASES``): 3b Mamba2-780M served (with its profiled window's
 idle share), 3k TinyLlama-1.1B served, 3l H2O-Danube-1.8B past its
@@ -13,7 +14,10 @@ window, 3m Delphi-100M served, 3n the generic-LM artifact, 6e Delphi-100M
 trained at S 1,024, 3o Zamba2-1.2B served, 3t the Mamba2 and Zamba2
 artifact, 6f Mamba2-780M and 6g Zamba2-1.2B trained, 3p OLMoE-1B-7B and
 3q Qwen2-MoE-A2.7B served, 3r InternVL2-26B and 3s SeamlessM4T-large-v2
-through the model-level path.
+through the model-level path, 3u the reference engine beside the batched
+one, 6h Qwen2-MoE-A2.7B trained at 2 layers under both MoE dispatches with
+remat off and on, 6i the launch layer (a process group of one, the 1 x 1
+``DeviceMesh``, parameters as DTensors) in a subprocess.
 
 ``--root DIR`` takes ``chip_smoke.py`` and the port from another checkout
 (a parent commit unpacked under the repository), so that two versions are
@@ -96,6 +100,9 @@ PHASES = {
     "3r": lambda: cs.zoo_path("internvl2-26b", "3r",
                               fp32_layers=cs.MOE_FP32_LAYERS),
     "3s": lambda: cs.zoo_path("seamless-m4t-large-v2", "3s"),
+    "3u": lambda: cs.reference_engine_path(),
+    "6h": lambda: cs.moe_train_path(),
+    "6i": lambda: cs.launch_check(),
 }
 # phases whose results are printed by a logger (chip_smoke's own where it
 # has one)
@@ -167,7 +174,7 @@ def main(argv=None) -> int:
     checks = {"flash": cs.check_flash, "paged": cs.check_paged}
     if {"3b", "3o", "3t"} & set(only):
         checks["ssd_intra"] = cs.check_ssd
-    if {"3p", "3q"} & set(only):
+    if {"3p", "3q", "6h"} & set(only):
         checks["apply_moe"] = cs.check_moe
     phase2 = timed(f"phase 2 ({', '.join(checks)})",
                    lambda: {k: fn(gen) for k, fn in checks.items()})

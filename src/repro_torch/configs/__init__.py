@@ -15,10 +15,12 @@ activation dtype (``models.params.init_params_on_device``).
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, List
 
-from repro_torch.configs.base import (AUDIO, DENSE, ENC_DEC,  # noqa: F401
-                                      HYBRID, MOE, SSM, VLM, ModelConfig)
+from repro_torch.configs.base import (  # noqa: F401  (re-exported)
+    AUDIO, DECODE_32K, DENSE, ENC_DEC, HYBRID, INPUT_SHAPES, LONG_500K, MOE,
+    PREFILL_32K, SHAPES_BY_NAME, SSM, TRAIN_4K, VLM, InputShape, ModelConfig,
+    get_shape)
 
 _REGISTRY: Dict[str, str] = {
     "delphi-2m": "delphi_2m",
@@ -34,6 +36,21 @@ _REGISTRY: Dict[str, str] = {
     "internvl2-26b": "internvl2_26b",
     "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
+
+# the 10 architectures of the zoo (the two Delphi models are the paper's
+# own), the JAX package's list, which the dry run sweeps
+ASSIGNED_ARCHS: List[str] = [
+    "seamless-m4t-large-v2",
+    "zamba2-1.2b",
+    "qwen2.5-32b",
+    "qwen2-moe-a2.7b",
+    "mamba2-780m",
+    "internvl2-26b",
+    "tinyllama-1.1b",
+    "h2o-danube-1.8b",
+    "olmoe-1b-7b",
+    "deepseek-7b",
+]
 
 ALL_ARCHS = list(_REGISTRY)
 

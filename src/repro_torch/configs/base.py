@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 # Architecture families
 DENSE = "dense"
@@ -92,8 +92,10 @@ class ModelConfig:
     death_token: int = 1
     max_age: float = 85.0
 
-    # numerics -----------------------------------------------------------------
+    # numerics / runtime -------------------------------------------------------
     dtype: str = "bfloat16"            # activation dtype on the card
+    remat: bool = False                # training: recompute each layer's
+    #                                    activations in the backward
 
     def __post_init__(self):
         if self.head_dim is None:
@@ -158,3 +160,31 @@ class ModelConfig:
         if self.frontend:
             kw["n_frontend_tokens"] = 8
         return self.replace(**kw)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """A named (seq_len, global_batch, mode) workload (the JAX package's
+    shapes, which its dry run and ``launch.dryrun`` of the port size)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str            # "train" | "prefill" | "decode"
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+TRAIN_4K = InputShape("train_4k", 4_096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
+
+INPUT_SHAPES: Tuple[InputShape, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                        LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in INPUT_SHAPES}
+
+
+def get_shape(name: str) -> InputShape:
+    return SHAPES_BY_NAME[name]

@@ -60,9 +60,12 @@ def _refuse_grad(name: str, *tensors) -> None:
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
+    """True on the card (the kernel); False on the CPU and on the meta
+    device (the plain version: the dry run's shape and FLOP accounting
+    runs no kernel, and counts the same work whatever implements it)."""
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"no kernel for device {t.device}")
 

@@ -53,13 +53,21 @@ Training (``forward(..., differentiable=True)``) takes plain torch ops in
 every family: ``attention.chunked_attention`` for attention (causal or
 not) and the plain SSD route of ``ssm.ssd_chunked`` for Mamba2 layers,
 and the MoE routers and experts as serving runs them; no kernel has a
-backward.
+backward.  With ``cfg.remat`` each layer of that route (decoder, encoder,
+Mamba2 and shared-block applications) runs under
+``torch.utils.checkpoint`` (non-reentrant): its activations are
+recomputed in the backward instead of kept, as the JAX package's
+``_maybe_remat`` does; the serving routes ignore it.
+
+``moe_impl`` (``forward``, ``forward_suffix``, ``decode_step``) picks the
+MoE layers' dispatch, ``models.moe.apply_moe``'s ``impl``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs import base as cb
 from repro_torch.configs.base import ModelConfig
@@ -139,13 +147,27 @@ class Block:
         return self[name] if name in self else None
 
 
-def _mlp_block(blk: Block, x: torch.Tensor, cfg: ModelConfig):
+def _remat(fn, cfg: ModelConfig, differentiable: bool):
+    """``fn``, or with ``cfg.remat`` on the training route ``fn`` under a
+    non-reentrant activation checkpoint (recomputed in the backward)."""
+    if not (cfg.remat and differentiable):
+        return fn
+
+    def checkpointed(*args, **kwargs):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False,
+                                                 **kwargs)
+    return checkpointed
+
+
+def _mlp_block(blk: Block, x: torch.Tensor, cfg: ModelConfig,
+               moe_impl: str = "dense_scan"):
     """``x + MLP(norm(x))`` and the block's router aux loss (an fp32
-    scalar for an MoE block, else None): the experts where the block has a
-    router, else SwiGLU or GELU."""
+    scalar for an MoE block, else None): the experts (dispatched by
+    ``moe_impl``) where the block has a router, else SwiGLU or GELU."""
     h = apply_norm(x, blk["mlp_norm/scale"], blk.get("mlp_norm/bias"))
     if "moe/router" in blk:
-        y, aux = moe_lib.apply_moe(blk, h, cfg)
+        y, aux = moe_lib.apply_moe(blk, h, cfg, impl=moe_impl)
         return x + y, aux
     if "mlp/w_gate" in blk:
         return x + apply_swiglu(h, blk["mlp/w_gate"], blk["mlp/w_up"],
@@ -204,7 +226,8 @@ def _qkv(blk: Block, cfg: ModelConfig, x: torch.Tensor,
 
 def _attn_block(blk: Block, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, differentiable: bool, *,
-                causal: bool = True, memory: Optional[torch.Tensor] = None):
+                causal: bool = True, memory: Optional[torch.Tensor] = None,
+                moe_impl: str = "dense_scan"):
     """A whole pre-norm transformer block over a full sequence: causal
     attention within the config's window (or, with ``causal=False``,
     bidirectional: the encoder's), with ``memory`` (B, M, d) a
@@ -227,7 +250,7 @@ def _attn_block(blk: Block, cfg: ModelConfig, x: torch.Tensor,
     cross = None
     if memory is not None:
         x, cross = _cross_block(blk, cfg, x, memory, differentiable)
-    x, aux = _mlp_block(blk, x, cfg)
+    x, aux = _mlp_block(blk, x, cfg, moe_impl)
     return x, k, v, aux, cross
 
 
@@ -260,9 +283,10 @@ def _encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
     x = frames.to(act_dtype(cfg))
     B, M = x.shape[:2]
     fpos = torch.arange(M, dtype=torch.int32, device=x.device).expand(B, M)
+    block = _remat(_attn_block, cfg, differentiable)
     for l in range(cfg.n_encoder_layers):
-        x = _attn_block(Block(params, "encoder/", l), cfg, x, fpos,
-                        differentiable, causal=False)[0]
+        x = block(Block(params, "encoder/", l), cfg, x, fpos,
+                  differentiable, causal=False)[0]
     return apply_norm(x, params["enc_norm/scale"], params.get("enc_norm/bias"))
 
 
@@ -279,7 +303,8 @@ def _cross_decode(blk: Block, cfg: ModelConfig, x: torch.Tensor,
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
             mode: str = "train", cache_width: Optional[int] = None,
             last_index: Optional[torch.Tensor] = None,
-            differentiable: bool = False) -> Dict[str, Any]:
+            differentiable: bool = False,
+            moe_impl: str = "dense_scan") -> Dict[str, Any]:
     """mode "train": (B, S, V) fp32 logits at every position.  With
     ``differentiable=True`` (mode "train" only) the forward takes plain
     torch ops that autograd can go through (the training route; the
@@ -299,7 +324,8 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
     the MoE routers' load-balance losses summed over the layers (an fp32
     scalar, 0 for the other families), and ``text_offset``: the number of
     patch positions before the text (0 but for a VLM), as the JAX
-    package's ``forward``.
+    package's ``forward``.  ``moe_impl`` picks the MoE dispatch; with
+    ``cfg.remat`` the training route checkpoints each layer.
 
     batch: tokens (B, S) int; for Delphi ages (B, S) float years; for a
     VLM patches (B, n_frontend_tokens, d); for an encoder-decoder frames
@@ -341,12 +367,15 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
         rings.v[i] = ring.v
         rings.pos[i] = ring.pos
 
+    block = _remat(_attn_block, cfg, differentiable)
+    mamba = _remat(mamba_layer, cfg, differentiable)
+
     def attend(blk: Block, x, i: int):
         """Block ``blk`` over x; a prefill writes its ring ``i`` (and its
         cross ring ``i``)."""
         nonlocal aux
-        x, k, v, a, kv = _attn_block(blk, cfg, x, positions, differentiable,
-                                     memory=memory)
+        x, k, v, a, kv = block(blk, cfg, x, positions, differentiable,
+                               memory=memory, moe_impl=moe_impl)
         if a is not None:
             aux = aux + a
         if cache is not None:
@@ -369,8 +398,8 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
                 hs.append(h)
                 convs.append(conv)
             else:
-                x = mamba_layer(params, x, cfg, l, mode="train",
-                                differentiable=differentiable)
+                x = mamba(params, x, cfg, l, mode="train",
+                          differentiable=differentiable)
         if prefill:
             ssm_cache = SSMCache(h=torch.stack(hs), conv=torch.stack(convs))
     if prefill:
@@ -387,7 +416,8 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
 
 def forward_suffix(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
                    ctx: Dict[str, torch.Tensor], *,
-                   last_index: torch.Tensor) -> Dict[str, Any]:
+                   last_index: torch.Tensor,
+                   moe_impl: str = "dense_scan") -> Dict[str, Any]:
     """Chunked-prefill forward over a prompt suffix: the chunk's tokens
     attend over context already in the cache (earlier chunks, or blocks
     lent by the prefix index) and over themselves, by absolute position.
@@ -419,7 +449,7 @@ def forward_suffix(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
                                   positions, ctx["pos"],
                                   window=cfg.sliding_window)
         x = x + attn.output_projection(o, blk["attn/wo"])
-        x, _ = _mlp_block(blk, x, cfg)
+        x, _ = _mlp_block(blk, x, cfg, moe_impl)
         ks.append(k)
         vs.append(v)
     x = _last_rows(x, last_index)
@@ -439,7 +469,7 @@ def _last_rows(x: torch.Tensor, last_index: Optional[torch.Tensor]):
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
-                step) -> Dict[str, Any]:
+                step, *, moe_impl: str = "dense_scan") -> Dict[str, Any]:
     """One-token decode.  batch: tokens (B, 1), and for Delphi ages (B, 1);
     ``step``: (B,) absolute position of each row's new token (or one int
     for all rows; the SSM state does not read it; a VLM's counts the
@@ -487,7 +517,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
         x = x + attn.output_projection(o, blk["attn/wo"])
         if cross is not None:
             x = _cross_decode(blk, cfg, x, cross, i, rows)
-        return _mlp_block(blk, x, cfg)[0]
+        return _mlp_block(blk, x, cfg, moe_impl)[0]
     if stack:
         for l in range(cfg.n_layers):
             x = block(Block(params, "layers/", l), x, l)

@@ -1803,3 +1803,132 @@ class BatchedEngine:
             self.step()
             ticks += 1
         return self.completed
+
+
+# ===========================================================================
+# The reference engine: the JAX package's seed host-loop engine, the slow
+# baseline a serving benchmark measures the batched engine against.
+# ===========================================================================
+class ReferenceEngine:
+    """The seed slot engine (the JAX package's ``ReferenceEngine``): slots
+    admitted one by one with a batch-1 prefill at the prompt's exact
+    length into a ring of ``max_context`` (the window where narrower, as
+    :func:`~repro_torch.models.ring_width`), one ``decode_step`` a tick
+    over every slot at its own step (the reference vmaps a single-slot
+    decode over the slots; one batched call with per-row steps computes
+    the same function), then host-side sampling slot by slot: a host round
+    trip per active slot per tick.
+
+    Delphi samples eq. 1 (``sample_next_event``) on a (V,) uniform row
+    drawn from the engine's ``torch.Generator(seed)``; a generic LM samples
+    the categorical at ``temperature`` (Gumbel-argmax on such a row).  It
+    keeps the reference's pre-parity-fix max-age rule: the event whose
+    waiting time takes the age past ``cfg.max_age`` is still emitted, and
+    ends the request (``BatchedEngine`` censors it).  A request is done at
+    Death, past ``max_age``, at ``max_new`` events or at the context's
+    end.  This engine is the baseline; it is not made fast."""
+
+    def __init__(self, params, cfg: ModelConfig, *, slots: int = 8,
+                 max_context: int = 512, temperature: float = 1.0,
+                 seed: int = 0, device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.slots = slots
+        self.max_context = max_context
+        self.temperature = temperature
+        self.is_delphi = cfg.age_encoding
+        self.params = cast_params({k: v.to(self.device)
+                                   for k, v in params.items()}, cfg)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+        self.cache = make_decode_cache(self.params, cfg, slots, max_context)
+        self.slot_req: List[Optional[Request]] = [None] * slots
+        self.slot_step = np.zeros(slots, np.int64)    # abs position per slot
+        self.slot_age = np.zeros(slots, np.float64)
+        self.slot_last = np.zeros(slots, np.int32)    # last emitted token
+        self.pending: List[Request] = []
+        self.completed: List[Request] = []
+
+    def submit(self, req: Request) -> None:
+        req.out_tokens, req.out_ages = [], []
+        self.pending.append(req)
+
+    @torch.no_grad()
+    def _admit(self) -> None:
+        dev = self.device
+        for slot in range(self.slots):
+            if self.slot_req[slot] is None and self.pending:
+                req = self.pending.pop(0)
+                S = len(req.tokens)
+                batch = {"tokens": torch.as_tensor(
+                    np.asarray(req.tokens, np.int32)[None], device=dev)}
+                if self.is_delphi:
+                    batch["ages"] = torch.as_tensor(
+                        np.asarray(req.ages, np.float32)[None], device=dev)
+                out = forward(self.params, self.cfg, batch, mode="prefill",
+                              cache_width=ring_width(self.cfg,
+                                                     self.max_context))
+                for name, rows in out["cache"].items():
+                    for dst, row in zip(self.cache[name], rows):
+                        dst[:, slot] = row[:, 0]
+                self.slot_req[slot] = req
+                self.slot_step[slot] = S
+                self.slot_age[slot] = (float(req.ages[-1])
+                                       if req.ages is not None else 0.0)
+                # the first event from the prefill logits
+                self._emit(slot, out["logits"][0, -1])
+
+    def _emit(self, slot: int, logits: torch.Tensor) -> None:
+        req = self.slot_req[slot]
+        cfg = self.cfg
+        u = torch.rand((cfg.vocab_size,), generator=self._gen,
+                       device=self.device)
+        if self.is_delphi:
+            evt, tmin = sample_next_event(logits[None], u[None])
+            evt, tmin = int(evt[0]), float(tmin[0])
+            self.slot_age[slot] += tmin
+            done = (evt == cfg.death_token
+                    or self.slot_age[slot] > cfg.max_age
+                    or len(req.out_tokens) + 1 >= req.max_new)
+            req.out_tokens.append(evt)
+            req.out_ages.append(float(self.slot_age[slot]))
+        else:
+            evt = int(gumbel_sample(logits[None], u[None],
+                                    1.0 / max(self.temperature, 1e-6))[0][0])
+            done = len(req.out_tokens) + 1 >= req.max_new
+            req.out_tokens.append(evt)
+        self.slot_last[slot] = evt
+        if done or self.slot_step[slot] + 1 >= self.max_context:
+            req.done = True
+            self.completed.append(req)
+            self.slot_req[slot] = None
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        """One tick: admit pending requests, decode every slot, sample each
+        active one."""
+        self._admit()
+        active = [i for i in range(self.slots) if self.slot_req[i] is not None]
+        if not active:
+            return False
+        dev = self.device
+        batch = {"tokens": torch.as_tensor(self.slot_last[:, None],
+                                           device=dev)}
+        if self.is_delphi:
+            batch["ages"] = torch.as_tensor(
+                self.slot_age[:, None].astype(np.float32), device=dev)
+        steps = torch.as_tensor(self.slot_step.astype(np.int32), device=dev)
+        logits = decode_step(self.params, self.cfg, self.cache, batch,
+                             steps)["logits"]
+        for slot in active:
+            self.slot_step[slot] += 1
+            self._emit(slot, logits[slot, 0])
+        return True
+
+    def run(self, max_ticks: int = 10_000) -> List[Request]:
+        ticks = 0
+        while (self.pending or any(r is not None for r in self.slot_req)) \
+                and ticks < max_ticks:
+            self.step()
+            ticks += 1
+        return self.completed

@@ -38,18 +38,20 @@ from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
 Tensors = Dict[str, torch.Tensor]
 
 
-def lm_loss(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]
-            ) -> Tensors:
+def lm_loss(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], *,
+            moe_impl: str = "dense_scan") -> Tensors:
     """Next-token CE over the text stream, as the JAX package's
     ``lm_loss``: ``loss = CE + cfg.router_aux_coef * aux_loss``, where
     ``aux_loss`` is the MoE routers' load-balance loss summed over the
     layers (0 for the families without a router, whose ``loss`` is the
     CE); ``event_ce`` is the CE.  A VLM's patches and an
     encoder-decoder's frames go through with the tokens, and the logits
-    at the patch positions (the first ``text_offset``) are left out."""
+    at the patch positions (the first ``text_offset``) are left out.
+    ``moe_impl`` picks the MoE layers' dispatch (``models.moe``)."""
     inputs = {k: batch[k] for k in ("tokens", "ages", "patches", "frames")
               if k in batch}
-    out = forward(params, cfg, inputs, mode="train", differentiable=True)
+    out = forward(params, cfg, inputs, mode="train", differentiable=True,
+                  moe_impl=moe_impl)
     logits = out["logits"][:, out["text_offset"]:]
     tokens = batch["tokens"]
     ce = losses_lib.event_ce(logits[:, :-1], tokens[:, 1:]).mean()
@@ -57,11 +59,12 @@ def lm_loss(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]
             "event_ce": ce, "aux_loss": out["aux_loss"]}
 
 
-def make_loss_fn(cfg: ModelConfig, objective: str = "lm") -> Callable:
+def make_loss_fn(cfg: ModelConfig, objective: str = "lm", *,
+                 moe_impl: str = "dense_scan") -> Callable:
     if objective == "delphi":
         return lambda p, b: delphi_loss_fn(p, cfg, b)
     if objective == "lm":
-        return lambda p, b: lm_loss(p, cfg, b)
+        return lambda p, b: lm_loss(p, cfg, b, moe_impl=moe_impl)
     raise ValueError(f"objective must be 'delphi' or 'lm': {objective!r}")
 
 
@@ -79,10 +82,11 @@ def loss_and_grads(loss_fn: Callable, params: Mapping[str, torch.Tensor],
 
 
 def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
-                    objective: str = "lm") -> Callable:
+                    objective: str = "lm", *, moe_impl: str = "dense_scan"
+                    ) -> Callable:
     """fn(params, opt_state, batch) -> (params, opt_state, metrics): one
     gradient of the objective and one AdamW update, no host sync."""
-    loss_fn = make_loss_fn(cfg, objective)
+    loss_fn = make_loss_fn(cfg, objective, moe_impl=moe_impl)
 
     def train_step(params, opt_state, batch):
         grads, metrics = loss_and_grads(loss_fn, params, batch)

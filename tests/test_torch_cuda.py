@@ -606,6 +606,96 @@ def test_apply_moe_on_card_equals_cpu(gen, arch, change):
     torch.testing.assert_close(aux.cpu(), aux2, atol=1e-6, rtol=0)
 
 
+def _grouped_rows(gen, E, M, K, N, dtype):
+    """Rows (M, K) sorted into E groups of seeded sizes (some empty), a
+    stack (E, K, N) and the int32 cumulative group sizes, on the card."""
+    ids = torch.randint(0, E, (M,), generator=gen, device="cuda")
+    ids = torch.where(ids % 7 == 1, ids - 1, ids)   # experts 1, 8, ... empty
+    offs = torch.cumsum(torch.bincount(ids, minlength=E), 0).to(torch.int32)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((E, K, N), generator=gen, device="cuda")
+         * K ** -0.5).to(dtype)
+    return x, w, offs
+
+
+def _plain_grouped(x, w, offs):
+    bounds, lo, outs = offs.tolist(), 0, []
+    for e, hi in enumerate(bounds):
+        outs.append(x[lo:hi] @ w[e])
+        lo = hi
+    return torch.cat(outs)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-moe-a2.7b"])
+def test_grouped_product_on_card_meets_the_plain_one(gen, arch, dtype):
+    """``models.moe.grouped_mm`` at the arch's widths (gate/up d -> f and
+    down f -> d, its E experts, 2,048 tokens x top-k rows with empty
+    groups) against a loop of per-expert products on the same rows, TF32
+    off.  bf16 takes ``torch._grouped_mm``: within 1e-2 of the plain
+    result's largest value (bf16 outputs of fp32 sums; the probe on the
+    H100 measured 1.6e-2 absolute at |y| ~5.6 against an fp32 loop); fp32
+    takes the plain loop (equal bits), and ``torch._grouped_mm`` in fp32
+    meets it within 1e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(arch)
+    dt = getattr(torch, dtype)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for K, N in ((cfg.d_model, cfg.moe_d_ff), (cfg.moe_d_ff, cfg.d_model)):
+            x, w, offs = _grouped_rows(gen, cfg.n_experts,
+                                       2048 * cfg.top_k, K, N, dt)
+            want = _plain_grouped(x, w, offs)
+            got = moe.grouped_mm(x, w, offs)
+            if dtype == "bfloat16":
+                assert moe.grouped_route(x, w) == "torch._grouped_mm"
+                scale = float(want.float().abs().max())
+                assert float((got.float() - want.float()).abs().max()) \
+                    <= 1e-2 * scale
+            else:
+                assert moe.grouped_route(x, w) == "plain"
+                assert torch.equal(got, want)
+                lib = torch._grouped_mm(x, w, offs=offs)
+                torch.testing.assert_close(lib, want, atol=1e-5, rtol=0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_ragged_dispatch_on_card_repeats_its_bits(gen):
+    """``apply_moe(impl="ragged")`` at Qwen2-MoE's widths (one layer, bf16
+    weights made on the card, 512 tokens): two runs give the same bits
+    (the scatter back is a gather and adds in a fixed order, no atomics);
+    in fp32 (TF32 off) it meets ``dense_scan`` within 1e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params_on_device, moe
+    from repro_torch.models.model import Block
+    cfg = get_config("qwen2-moe-a2.7b").replace(n_layers=1)
+    params = init_params_on_device(cfg, seed=3, device="cuda")
+    blk = Block(params, "layers/", 0)
+    x = torch.randn((2, 256, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    y1, a1 = moe.apply_moe(blk, x, cfg, impl="ragged")
+    y2, a2 = moe.apply_moe(blk, x, cfg, impl="ragged")
+    assert torch.equal(y1, y2) and torch.equal(a1, a2)
+    del params, blk
+    small = get_config("qwen2-moe-a2.7b", reduced=True).replace(
+        dtype="float32", n_experts=16, top_k=4)
+    p32 = init_params_on_device(small, seed=4, device="cuda")
+    b32 = Block(p32, "layers/", 0)
+    x32 = torch.randn((3, 40, small.d_model), generator=gen, device="cuda")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yr, ar = moe.apply_moe(b32, x32, small, impl="ragged")
+        yd, ad = moe.apply_moe(b32, x32, small)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.testing.assert_close(yr, yd, atol=1e-5, rtol=0)
+    torch.testing.assert_close(ar, ad, atol=0, rtol=0)
+
+
 @pytest.mark.parametrize("arch", ["internvl2-26b", "seamless-m4t-large-v2"])
 def test_zoo_model_path_on_card_equals_cpu(gen, arch):
     """The reduced InternVL2 and SeamlessM4T in fp32 (TF32 off) through the
