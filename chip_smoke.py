@@ -98,9 +98,10 @@ runs these phases; any failure exits non-zero:
    time under injected uniforms: ``/v1/generate`` == the twin's generate
    bit for bit, ``/v1/stream`` == it, ``/v1/futures`` ==
    ``ring_reference_futures``; ``/v1/risk`` == ``core/risk.py`` on the
-   card's logits.  Then the server's CLI boots as a subprocess (fp32 on
-   the card), answers ``/v1/healthz`` and a generate, and exits 0 on
-   SIGINT;
+   card's logits.  The server's CLI boots as a subprocess (fp32 on the
+   card) beside the futures, risk and exactness checks (after every
+   timed run), then answers ``/v1/healthz`` and a generate, and exits 0
+   on SIGINT;
 3h. the router on one card: ``RouterServer`` over 2 in-process paged
    replicas; each of phase 3d's patients asked for futures twice, the
    second visit routed by affinity to the replica holding its prefix
@@ -111,7 +112,7 @@ runs these phases; any failure exits non-zero:
    (phase 3d's knobs, its background loop) samples 8 futures x 32 events
    for each of 64 patients (the first halves of ``patient(i,
    SimulatorConfig(seed=7))``), 4 in flight, in bf16; ``assert_sweep_parity``
-   holds bit for bit on the first 8 patients in bf16 and in fp32; a paired
+   holds bit for bit on the first 4 patients in bf16 and in fp32; a paired
    counterfactual (two edits of a 40-event history) on a fresh engine hits
    the prefix cache once per arm; patients/s, events/s, the prefix hit rate,
    the three kernels' launches on the sweep, and the idle share of its first
@@ -144,9 +145,9 @@ runs these phases; any failure exits non-zero:
    inputs, each in turns; the kernels' launches on a drive of the bf16 v2
    artifact, one request's idle share, and the host cost a call of each
    attention kernel through its wrapper and through its operator; the
-   server CLI on ``--artifact`` (the fp32 v2 artifact) as a subprocess
-   answers ``/v1/manifest`` (with the artifact's manifest) and a
-   generate, and exits 0 on SIGINT;
+   server CLI on ``--artifact`` (the fp32 v2 artifact) as a subprocess,
+   booted while the fp32 artifact is gated, answers ``/v1/manifest``
+   (with the artifact's manifest) and a generate, and exits 0 on SIGINT;
 3k. TinyLlama-1.1B at full width (22 layers, d_model 2048, 32 query / 4
    key-value heads of 64, d_ff 5632, V 32000; RoPE, RMSNorm, SwiGLU, untied
    head) from ``init_params_on_device(seed)`` in bf16 on
@@ -177,8 +178,8 @@ runs these phases; any failure exits non-zero:
    16 slots, 48 new events, ring): one host copy a tick and an admission
    batch, all three Delphi kernels launched, ages monotone;
 3n. the generic-LM artifact: TinyLlama at full width with its depth cut to
-   2 layers, exported (spec v2, bf16, ``seq_len`` 256) and loaded on the
-   card; on two prompts the full, prefill and 8 decode-step graphs ==
+   2 layers, exported (spec v2, bf16, ``seq_len`` 256; traced in phase 1,
+   in 3t's export process beside ``nvcc``) and loaded on the card; on two prompts the full, prefill and 8 decode-step graphs ==
    the eager functions bit for bit, flash 2 launches a full or prefill
    call and paged 2 a decode step through the ``repro_torch::``
    operators, the decode graph's inputs ``(cache, token, step)``;
@@ -296,7 +297,7 @@ runs these phases; any failure exits non-zero:
    gradient against the CPU port's on the same batch, every gradient finite
    and non-zero, no kernel launched (the training route is plain torch);
 6b. training at full width: ``python -m repro_torch.launch.train --arch
-   delphi-2m`` (its ``main``) for 200 steps of 32 x 128 over 2,048 simulated
+   delphi-2m`` (its ``main``) for 100 steps of 32 x 128 over 2,048 simulated
    patients, bf16 activations over fp32 masters; the loss of the last 20
    steps below the first 20's; steps/s, target tokens/s, peak memory, the
    idle share of 10 steps under the profiler; the server built from
@@ -323,7 +324,7 @@ runs these phases; any failure exits non-zero:
    ``GRAD_CARD_REL`` of each leaf's largest element); the plain SSD route's
    ``y`` and final state against the kernel route's within 1e-4 at full
    width and 1,024 tokens (dt ~ 0.01 as the init's); then ``python -m
-   repro_torch.launch.train --arch mamba2-780m`` at full depth for 10 bf16
+   repro_torch.launch.train --arch mamba2-780m`` at full depth for 5 bf16
    steps of 4 x 512: no kernel launched, the loss finite, steps/s, target
    tokens/s, peak memory, and the idle share of one step under the
    profiler;
@@ -341,14 +342,44 @@ runs these phases; any failure exits non-zero:
    ``MOE_GRAD_REL``, no kernel launched; one AdamW step
    of each dispatch with ``remat`` off and on: step seconds and peak
    memory;
-6i. the launch layer, in a subprocess: a process group of one (NCCL, the
-   loopback address), ``ensure_distributed(expect_devices=1)``, an
-   all-reduce, the 1 x 1 ``DeviceMesh`` on ``cuda``, full-width
+6i. the launch layer, in a subprocess run beside phase 4's untimed
+   checks (its result logged in its own place): a process group of one
+   (NCCL, the loopback address), ``ensure_distributed(expect_devices=1)``,
+   an all-reduce, the 1 x 1 ``DeviceMesh`` on ``cuda``, full-width
    Delphi-2M's parameters placed by ``param_shardings`` as DTensors (every
    placement ``Replicate``), a forward through their local tensors == the
    plain parameters' logits bit for bit, and the tied head (embedding
    gather, product, bias) on the DTensors themselves == on the plain
    tensors bit for bit;
+6j. SeamlessM4T-large-v2 training (after phase 5's rows, as 6k and 3v),
+   on the plain route: one fp32 ``lm`` step (TF32 off) at full width cut
+   to 2 encoder and 2 decoder layers, 2 x 128 tokens over 16 frames, its
+   loss (within 1e-5) and every gradient (within ``GRAD_CARD_REL`` of its
+   leaf's largest element) against the CPU port's; then at full depth (24
+   + 24), fp32 masters made on the card, bf16 activations,
+   ``make_train_step`` with AdamW: a warm step and 10 steps of 4 x 512
+   tokens over 64 frames, every loss finite, steps/s, target tokens/s,
+   peak memory and the idle share of one step under the profiler; no
+   kernel launched by any step (counts zeroed just before, read just
+   after); the trained masters saved by ``train.checkpoint.save`` and
+   loaded by ``load_checkpoint`` in bf16: every leaf == its master in its
+   use dtype bit for bit, the load's device peak within the tree + its
+   largest fp32 piece + 1 GiB, and 3s's model-level prefill on the loaded
+   tree == on ``cast_params(masters)`` bit for bit;
+6k. InternVL2-26B training: 6j's fp32 gate at 1 layer, 1 x (256 patches +
+   64 text tokens), and its bf16 steps at 2 layers (1.92 B parameters), 2
+   x (256 + 768) tokens (3r's bucket);
+3v. a full-width OLMoE-1B-7B checkpoint: its fp32 masters (27.7 GB) made
+   on the card and saved by the port's ``save`` (the free disk checked
+   first; no kernel launched), then ``python -m repro_torch.launch.serve
+   --arch olmoe-1b-7b --ckpt DIR`` with 3p's knobs run through the CLI's
+   ``main`` in a subprocess: 3p's gates on the 8 requests (launch counts
+   zeroed before ``main``, read after), the engine holding the loaded
+   tensors as its working weights, every leaf ==
+   ``init_params_on_device`` in bf16 bit for bit, and the load's device
+   peak within the bf16 tree + its largest fp32 layer slice + 1 GiB; the
+   save's and the load's seconds and rates, the child's ``VmHWM`` (its
+   ``VmRSS`` after the load where the kernel lists no ``VmHWM``);
 5. times at the main paths' shapes: each kernel, its plain version, one
    PyTorch library call where one computes the same function (a yardstick
    the port never calls), and the bound from bytes and operations (for
@@ -392,9 +423,11 @@ phase 3e; each Delphi kernel's row also gives its launches on the sweep of
 phase 3i, on the audit of phase 6d, on the artifact drive of phase 3j and
 on the ring runs of 3k, 3l and 3m, the drive of 3n, the Zamba2 run of 3o,
 the drives of 3t (both models' counts summed; ``ssd_intra`` too),
-the MoE ring runs of 3p and 3q and the training CLIs of 6f and 6g
+the MoE ring runs of 3p and 3q, the training CLIs of 6f and 6g, the
+training steps of 6j and 6k and the CLI's serving in 3v
 (``launches_by_path``, counts zeroed just before each and read just after;
-6f and 6g read 0; 3r and 3s count the timed drive, prefill and decode);
+6f, 6g, 6j and 6k read 0; 3r and 3s count the timed drive, prefill and
+decode);
 fourteen more rows give flash and paged at the shapes of 3k, 3l, 3o, 3q
 and 3r, flash at 3s's encoder and cross prefill (both with 3s's flash
 launches, which count the two together with the decoder's self
@@ -1936,71 +1969,94 @@ def http_risk(url, params, cfg, prompts) -> float:
     return worst
 
 
-def cli_boot(source=("--config", "delphi-2m"), backend="engine") -> dict:
+class CliServer:
     """``python -m repro_torch.serve.server <source> --port 0 --device
     cuda`` as a subprocess (``--config delphi-2m``: the CLI's fp32 route;
-    ``--artifact DIR``: an exported artifact): its address line,
-    ``/v1/healthz`` (the engine running) or ``/v1/manifest`` (the FAIR
-    manifest of an artifact), one ``/v1/generate``, SIGINT, exit code 0."""
-    import queue
-    import signal
-    import threading
-    from urllib.request import urlopen
-    from repro_torch.api import Client
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.serve.server", *source,
-         "--port", "0", "--device", DEVICE],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=env, cwd=ROOT)
-    lines: "queue.Queue" = queue.Queue()
-    reader = threading.Thread(
-        target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True)
-    reader.start()
-    try:
-        url, seen = None, []
+    ``--artifact DIR``: an exported artifact), started here so that it
+    boots while its phase goes on; :meth:`check` then waits for its
+    address line and holds ``/v1/healthz`` (the engine running) or
+    ``/v1/manifest`` (the FAIR manifest of an artifact), one
+    ``/v1/generate``, SIGINT, exit code 0.  The process is killed on any
+    failure."""
+
+    def __init__(self, source=("--config", "delphi-2m")):
+        import queue
+        import threading
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.serve.server", *source,
+             "--port", "0", "--device", DEVICE],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+            cwd=ROOT)
+        self.lines: "queue.Queue" = queue.Queue()
+
+        def read():
+            # each line with the seconds since the start (the boot's end
+            # is the address line's arrival, however late it is read)
+            for ln in self.proc.stdout:
+                self.lines.put((time.perf_counter() - self.t0, ln))
+        self.reader = threading.Thread(target=read, daemon=True)
+        self.reader.start()
+
+        self.url, self.seen, self.boot_s = None, [], None
+
+    def booted(self) -> str:
+        """Wait (up to 180 s) for the address line; its URL."""
+        import queue
         deadline = time.monotonic() + 180
-        while url is None and time.monotonic() < deadline:
+        while self.url is None and time.monotonic() < deadline:
             try:
-                ln = lines.get(timeout=max(deadline - time.monotonic(), 0.1))
+                self.boot_s, ln = self.lines.get(
+                    timeout=max(deadline - time.monotonic(), 0.1))
             except queue.Empty:
                 break
-            seen.append(ln.rstrip())
+            self.seen.append(ln.rstrip())
             if " backend on http://" in ln:
-                url = ln.split(" backend on ")[1].split()[0]
-        if url is None:
+                self.url = ln.split(" backend on ")[1].split()[0]
+        if self.url is None:
+            self.close()
             raise AssertionError("the server CLI printed no address: "
-                                 + " | ".join(seen))
-        boot = time.perf_counter() - t0
-        if backend == "engine":
-            with urlopen(url + "/v1/healthz", timeout=60) as r:
-                health = json.loads(r.read())
-            if not health["engine"]["running"]:
-                raise AssertionError(f"healthz: {health}")
-        else:
-            with urlopen(url + "/v1/manifest", timeout=60) as r:
-                manifest = json.loads(r.read())
-            if (manifest["backend"] != backend
-                    or "provenance" not in manifest.get("artifact", {})):
-                raise AssertionError(f"manifest: {manifest}")
-        res = Client.connect(url).generate(tokens=[3, 10, 20],
-                                           ages=[0.0, 15.0, 28.0],
-                                           max_new=8)
-        if res.backend != f"remote[{backend}]":
-            raise AssertionError(f"CLI generate: {res}")
-        proc.send_signal(signal.SIGINT)
-        rc = proc.wait(timeout=60)
-        if rc != 0:
-            raise AssertionError(f"the server CLI exited {rc} on SIGINT")
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(timeout=60)
-        reader.join(timeout=10)
-        proc.stdout.close()
-    return {"boot_s": boot, "lines": seen[:2], "events": len(res.tokens),
-            "exit_code": rc}
+                                 + " | ".join(self.seen))
+        return self.url
+
+    def check(self, backend: str = "engine") -> dict:
+        import signal
+        from urllib.request import urlopen
+        from repro_torch.api import Client
+        try:
+            url = self.booted()
+            if backend == "engine":
+                with urlopen(url + "/v1/healthz", timeout=60) as r:
+                    health = json.loads(r.read())
+                if not health["engine"]["running"]:
+                    raise AssertionError(f"healthz: {health}")
+            else:
+                with urlopen(url + "/v1/manifest", timeout=60) as r:
+                    manifest = json.loads(r.read())
+                if (manifest["backend"] != backend
+                        or "provenance" not in manifest.get("artifact", {})):
+                    raise AssertionError(f"manifest: {manifest}")
+            res = Client.connect(url).generate(tokens=[3, 10, 20],
+                                               ages=[0.0, 15.0, 28.0],
+                                               max_new=8)
+            if res.backend != f"remote[{backend}]":
+                raise AssertionError(f"CLI generate: {res}")
+            self.proc.send_signal(signal.SIGINT)
+            rc = self.proc.wait(timeout=60)
+            if rc != 0:
+                raise AssertionError(f"the server CLI exited {rc} on SIGINT")
+        finally:
+            self.close()
+        return {"boot_s": self.boot_s, "lines": self.seen[:2],
+                "events": len(res.tokens), "exit_code": rc}
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self.reader.join(timeout=10)
+        self.proc.stdout.close()
 
 
 def http_path(params, cfg, patients) -> dict:
@@ -2024,6 +2080,7 @@ def http_path(params, cfg, patients) -> dict:
     finally:
         server_mod._TrackingHTTPServer.request_queue_size = port_backlog
     eng = backend.engine
+    cli = None
     try:
         url = server.address
         # first use of every shape, on both engines
@@ -2048,6 +2105,12 @@ def http_path(params, cfg, patients) -> dict:
             at = url if backlog == port_backlog else backlog5.address
             ttfe[backlog] += stream_traffic(at, prompts[:HTTP_STREAMS],
                                             cfg)["ttfe_s"]
+        prof = path_profile(
+            lambda: generate_traffic(lambda: RemoteBackend(url), prompts,
+                                     cfg)["wall_s"], first["wall_s"])
+        # the server CLI boots while the futures, risk and exactness
+        # checks run (none of them timed)
+        cli = CliServer()
         futs = []
         remote = RemoteBackend(url)
         for t, a in patients:
@@ -2058,11 +2121,12 @@ def http_path(params, cfg, patients) -> dict:
                 check_result(r, cfg, FUTURES_MAX_NEW)
             futs.append(sum(len(r.tokens) for r in fr.trajectories))
         risk_err = http_risk(url, params, cfg, prompts)
-        prof = path_profile(
-            lambda: generate_traffic(lambda: RemoteBackend(url), prompts,
-                                     cfg)["wall_s"], first["wall_s"])
         health = remote.healthz()
         remote.close()
+    except BaseException:
+        if cli is not None:
+            cli.close()
+        raise
     finally:
         server.stop()
         backlog5.stop()
@@ -2076,8 +2140,12 @@ def http_path(params, cfg, patients) -> dict:
     eng.drop_prefix_cache()
     if eng.allocator.used or eng.pool._refs:
         raise AssertionError("the server's engine leaked blocks")
-    exact = http_exact(params, cfg, prompts, patients)
-    cli = cli_boot()
+    try:
+        exact = http_exact(params, cfg, prompts, patients)
+    except BaseException:
+        cli.close()
+        raise
+    cli_res = cli.check()
     return {"events": first["events"], "wall_s": first["wall_s"],
             "events_per_s": first["events_per_s"],
             "ticks": eng.ticks - t0, "host_syncs": eng.host_syncs - s0,
@@ -2094,7 +2162,7 @@ def http_path(params, cfg, patients) -> dict:
             "sse_ttfe_backlog5_p95_ms": 1e3 * pct(ttfe[5], 95),
             "sse_ttfe_s": {str(k): v for k, v in ttfe.items()},
             "futures_events": futs, "risk_max_rel_err": risk_err,
-            "profile": prof, "exact": exact, "cli": cli,
+            "profile": prof, "exact": exact, "cli": cli_res,
             "healthz_engine": health["engine"]}
 
 
@@ -2205,7 +2273,8 @@ def router_path(params, cfg, patients) -> dict:
 # phases 6a-6d and 3i: training, federated fine-tuning, the cohort sweep and
 # the canary loop on the card
 # ---------------------------------------------------------------------------
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_PATIENTS = 32, 128, 200, 2048
+# 6b's steps cut from 200 to 100 to make room for 6j, 6k and 3v
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_PATIENTS = 32, 128, 100, 2048
 # card against CPU, fp32 with TF32 off: the same arithmetic summed in other
 # orders (cuBLAS, reductions) and sin/cos of the ~1e4-1e5 rad age angles on
 # two libraries (the frequency table itself is the same bits, built on the
@@ -2214,7 +2283,9 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_PATIENTS = 32, 128, 200, 2048
 GRAD_CARD_REL = 1e-3
 FED_CLIENTS, FED_ROUNDS, FED_LOCAL_STEPS, FED_CLIP = 3, 2, 2, 2.0
 SWEEP_PATIENTS, SWEEP_FUTURES, SWEEP_MAX_NEW = 64, 8, 32
-SWEEP_IN_FLIGHT, SWEEP_EXACT, SWEEP_SEED = 4, 8, 13
+# assert_sweep_parity's patients cut from 8 to 4 to make room for 6j,
+# 6k and 3v
+SWEEP_IN_FLIGHT, SWEEP_EXACT, SWEEP_SEED = 4, 4, 13
 CANARIES, CANARY_SECRET, CANARY_PREFIX, CANARY_REPEATS = 8, 3, 6, 8
 CANARY_STEPS, CANARY_BATCH, CANARY_SEQ = 150, 32, 48
 
@@ -2291,7 +2362,7 @@ def grads_path() -> dict:
 
 def train_path(out_dir: str) -> dict:
     """Phase 6b: ``python -m repro_torch.launch.train --arch delphi-2m``
-    (its ``main``, in this process) for 200 steps of 32 x 128 in bf16
+    (its ``main``, in this process) for 100 steps of 32 x 128 in bf16
     activations over fp32 masters; the loss falls, no kernel launches on
     the training route; 10 steps once more for the device's idle share;
     the port's server boots on ``--ckpt`` and answers a generate."""
@@ -2437,7 +2508,7 @@ def sweep_run(params, cfg, patients):
 
 
 def sweep_parity(res, params, cfg, patients) -> dict:
-    """``assert_sweep_parity`` on the sweep's first 8 patients."""
+    """``assert_sweep_parity`` on the sweep's first ``SWEEP_EXACT``."""
     import dataclasses
     from repro_torch.cohort import assert_sweep_parity
     head = dataclasses.replace(res, results=res.results[:SWEEP_EXACT])
@@ -2451,7 +2522,7 @@ def sweep_parity(res, params, cfg, patients) -> dict:
 def cohort_path(params, cfg) -> dict:
     """Phase 3i: a ``ScenarioEngine`` sweep of 64 patients x 8 futures x
     32 events through ``EngineBackend`` (its background loop, 4 patients
-    in flight) in bf16; ``assert_sweep_parity`` bit for bit on the first 8
+    in flight) in bf16; ``assert_sweep_parity`` bit for bit on the first 4
     patients in bf16 and in fp32; a paired counterfactual hits the prefix
     cache once per arm; the sweep once more (its first 16 patients) under
     the profiler for the idle share."""
@@ -2949,10 +3020,27 @@ def delphi100m_path() -> dict:
     return res
 
 
-def lm_artifact_path(tmp: str) -> dict:
+def lm_artifact_config():
+    from repro_torch.configs import get_config
+    return get_config("tinyllama-1.1b").replace(n_layers=LM_ARTIFACT_LAYERS)
+
+
+def lm_artifact_export(d: str) -> dict:
+    """3n's export into ``d``: ``init_params(seed)`` of
+    ``lm_artifact_config`` exported by ``artifact_export`` (spec v2, bf16,
+    ``seq_len`` ``LM_ARTIFACT_SEQ``, traced on the CPU)."""
+    from repro_torch.models import init_params
+    cfg = lm_artifact_config()
+    return artifact_export(init_params(cfg, seed=SEED, device=DEVICE), cfg,
+                           d, "2", seq_len=LM_ARTIFACT_SEQ)
+
+
+def lm_artifact_path(tmp: str, ex=None) -> dict:
     """Phase 3n: TinyLlama at full width cut to 2 layers, exported by
-    ``export_model`` (spec v2, bf16, ``seq_len`` 256, traced on the CPU)
-    and loaded with ``ArtifactBackend`` on the card.  On two prompts: the
+    ``export_model`` (spec v2, bf16, ``seq_len`` 256, traced on the CPU;
+    ``ex``: the numbers of ``lm_artifact_export`` made before into
+    ``tmp/tinyllama``, else it exports here) and loaded with
+    ``ArtifactBackend`` on the card.  On two prompts: the
     full, prefill and 8 decode-step graphs' logits == the eager functions'
     bit for bit, flash launched 2 times a full or prefill call and paged 2
     times a decode step through the ``repro_torch::`` operators, the decode
@@ -2963,15 +3051,15 @@ def lm_artifact_path(tmp: str) -> dict:
     import torch
     from repro_torch.api import (ArtifactBackend, GenerateRequest,
                                  LocalBackend)
-    from repro_torch.configs import get_config
     from repro_torch.core import parity as par
     from repro_torch.kernels import ops
     from repro_torch.models import init_params
     from repro_torch.sdk import build_inference_fns, read_manifest
-    cfg = get_config("tinyllama-1.1b").replace(n_layers=LM_ARTIFACT_LAYERS)
+    cfg = lm_artifact_config()
     params = init_params(cfg, seed=SEED, device=DEVICE)
     d = os.path.join(tmp, "tinyllama")
-    ex = artifact_export(params, cfg, d, "2", seq_len=LM_ARTIFACT_SEQ)
+    if ex is None:
+        ex = lm_artifact_export(d)
     sig = read_manifest(d)["graphs"]["decode_step"]["inputs"]
     if [i["name"] for i in sig] != ["cache", "token", "step"]:
         raise AssertionError(f"3n: decode graph inputs {sig}")
@@ -3153,7 +3241,8 @@ def long_train_path() -> dict:
 ZAMBA_SLOTS, ZAMBA_MAX_NEW, ZAMBA_CONTEXT = 8, 32, 4096
 ZAMBA_FORKS, ZAMBA_FORK_NEW = 4, 8
 # phases 6f/6g: the CLI's batch at full depth, and the card-vs-CPU step's
-SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 4, 512, 10
+# (the CLI's steps cut from 10 to 5 to make room for 6j, 6k and 3v)
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 4, 512, 5
 SSM_GRAD_BATCH, SSM_GRAD_SEQ, SSM_GRAD_LAYERS = 2, 256, 2
 SSM_ROUTE_SEQ, SSM_ROUTE_TOL = 1024, 1e-4
 
@@ -3388,14 +3477,23 @@ def ssm_artifact_export(arch: str, d: str) -> dict:
     return dict(ex, init_s=init_s)
 
 
+def side_exports(tmp: str) -> dict:
+    """3t's two exports (``ssm_artifact_export``, keyed by arch) and 3n's
+    (``lm_artifact_export``, key ``3n``) into ``tmp``."""
+    out = {a: ssm_artifact_export(a, os.path.join(tmp, a))
+           for a in SSM_ARTIFACT_LAYERS}
+    out["3n"] = lm_artifact_export(os.path.join(tmp, "tinyllama"))
+    return out
+
+
 def start_ssm_artifact_exports(tmp: str):
-    """3t's two exports (``ssm_artifact_export``) in a process of their own,
-    started in phase 1: they trace on the CPU beside ``nvcc`` and phase
-    3j's exports (a thread would share this process's interpreter lock)."""
+    """3t's and 3n's exports (``side_exports``) in a process of their
+    own, started in phase 1: they trace on the CPU beside ``nvcc`` and
+    phase 3j's exports (a thread would share this process's interpreter
+    lock)."""
     code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
-            "import chip_smoke as cs; print(json.dumps({a: "
-            "cs.ssm_artifact_export(a, cs.os.path.join(sys.argv[2], a)) "
-            "for a in cs.SSM_ARTIFACT_LAYERS}))")
+            "import chip_smoke as cs; "
+            "print(json.dumps(cs.side_exports(sys.argv[2])))")
     return subprocess.Popen(
         [sys.executable, "-c", code, ROOT, tmp], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, cwd=ROOT,
@@ -3403,8 +3501,8 @@ def start_ssm_artifact_exports(tmp: str):
 
 
 def finish_ssm_artifact_exports(proc) -> dict:
-    """Wait for :func:`start_ssm_artifact_exports`' process: {arch: its
-    export's numbers}, from the last line it printed."""
+    """Wait for :func:`start_ssm_artifact_exports`' process: {arch or
+    ``3n``: its export's numbers}, from the last line it printed."""
     out, err = proc.communicate(timeout=900)
     if proc.returncode != 0:
         raise AssertionError(f"3t's exports exited {proc.returncode}: "
@@ -4439,47 +4537,21 @@ def zoo_rows(gen, r3r: dict, r3s: dict) -> dict:
 def ssm_grads(arch: str) -> dict:
     """Phase 6f/6g, first part: the arch at full width cut to
     ``SSM_GRAD_LAYERS`` layers, one fp32 ``lm`` step (TF32 off) of
-    ``SSM_GRAD_BATCH`` x ``SSM_GRAD_SEQ`` seeded random ids on the card;
-    its loss and every gradient against the CPU port's, no kernel
-    launched."""
+    ``SSM_GRAD_BATCH`` x ``SSM_GRAD_SEQ`` seeded random ids on the card
+    against the CPU port's (``card_vs_cpu_grads``)."""
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models import init_params
-    from repro_torch.train import loss_and_grads, make_loss_fn
     from repro_torch.train.trainer import to_device
     cfg = get_config(arch).replace(n_layers=SSM_GRAD_LAYERS, dtype="float32")
-    host = init_params(cfg, seed=SEED, device="cpu")
-    params = {k: v.to(DEVICE) for k, v in host.items()}
+    params = init_params(cfg, seed=SEED, device=DEVICE)
     rng = np.random.default_rng(SEED + 61)
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (
         SSM_GRAD_BATCH, SSM_GRAD_SEQ)).astype(np.int32)}
-    loss_fn = make_loss_fn(cfg, "lm")
-    ops.reset_launch_counts()
-    g_card, m_card = loss_and_grads(loss_fn, params, to_device(batch, DEVICE))
-    if any(ops.launch_counts().values()):
-        raise AssertionError(f"{arch}: the training route launched a kernel")
-    g_cpu, m_cpu = loss_and_grads(loss_fn, host, to_device(batch, "cpu"))
-    worst, worst_key = 0.0, None
-    for k, g in g_card.items():
-        got, want = g.cpu().numpy(), g_cpu[k].numpy()
-        scale = float(np.abs(want).max())
-        if not np.isfinite(got).all() or (scale > 0 and not got.any()):
-            raise AssertionError(f"{arch}: {k}: gradient not finite or zero")
-        rel = float(np.abs(got - want).max()) / max(scale, 1e-30)
-        if rel > worst:
-            worst, worst_key = rel, k
-    loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) \
-        / abs(float(m_cpu["loss"]))
-    if worst > GRAD_CARD_REL or loss_rel > 1e-5:
-        raise AssertionError(f"{arch}: card vs CPU: loss rel {loss_rel:.3g}, "
-                             f"gradient {worst_key} {worst:.3g}")
+    out = card_vs_cpu_grads(cfg, params, to_device(batch, DEVICE), arch)
     del params
     free_card()
-    return {"loss_card": float(m_card["loss"]),
-            "loss_cpu": float(m_cpu["loss"]), "loss_rel_err": loss_rel,
-            "grad_max_rel_err": worst, "grad_worst_leaf": worst_key,
-            "leaves": len(g_card)}
+    return out
 
 
 def ssd_route_check(arch: str) -> dict:
@@ -4912,8 +4984,9 @@ def artifact_path(exports: dict) -> dict:
     one drive of the bf16 v2 artifact (counts zeroed just before, read
     just after); the per-event time of v2 decode and
     ``LocalBackend.stream`` in turns; the server CLI on ``--artifact``
-    (the fp32 v2 artifact: the CLI's route does not depend on the
-    depth)."""
+    (the fp32 v2 artifact: the CLI's route does not depend on the depth),
+    booted in a subprocess while the fp32 artifact is loaded and gated,
+    after every timed drive."""
     import torch
     from repro_torch.api import ArtifactBackend, LocalBackend
     from repro_torch.kernels import ops
@@ -4927,56 +5000,65 @@ def artifact_path(exports: dict) -> dict:
         now = time.perf_counter()
         stage[name] = now - t_stage[0]
         t_stage[0] = now
-    for dtype in ("bfloat16", "float32"):
-        cfg = artifact_config(dtype)
-        ex = exports[dtype]
-        params = init_params(cfg, seed=SEED, device=DEVICE)
-        t0 = time.perf_counter()
-        art = ArtifactBackend(ex["v2"], device=DEVICE)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        full = ArtifactBackend(ex["v1"], device=DEVICE) if ex["v1"] else None
-        if not (art.use_decode_graph
-                and (full is None or not full.use_decode_graph)):
-            raise AssertionError("v2 must decode, v1 must fall back")
-        local = LocalBackend(params, cfg, device=DEVICE)
-        gates = artifact_gates(params, cfg, art, full, local, patients)
-        staged(f"{dtype} load and gates")
-        res = {"export_v2": ex["export_v2"], "export_v1": ex["export_v1"],
-               "load_v2_s": load_s, "gates": gates}
-        if dtype == "float32":
-            res["cli"] = cli_boot(("--artifact", ex["v2"]), "artifact")
-            staged("fp32 CLI")
-        else:
-            # the kernels' launches on one drive, its idle share, the
-            # operators' host cost and the times (one dtype)
-            ops.reset_launch_counts()
-            drive = artifact_drive(art, cfg, patients)
-            res["launches"] = ops.launch_counts()
-            n, L = len(patients), cfg.n_layers
-            want = {"flash_attention": L * n, "tte_sample": 0,
-                    "paged_decode_attention": L * (drive["events"] - n)}
-            if any(res["launches"][k] != v for k, v in want.items()):
-                raise AssertionError(f"artifact drive: launches "
-                                     f"{res['launches']}, want {want}")
-            one = patients[:1]
-            res["profile"] = path_profile(
-                lambda: artifact_drive(art, cfg, one)["wall_s"],
-                artifact_drive(art, cfg, one)["wall_s"])
-            staged("bf16 drive and profile")
-            res["op_us"] = artifact_op_us()
-            two = patients[:2]
-            turns = []
-            for mode in ("v2", "local", "local", "v2"):
-                r = (artifact_drive(local, cfg, two, stream=True)
-                     if mode == "local" else artifact_drive(art, cfg, two))
-                turns.append((mode, r["ms_per_event"]))
-            res["ms_per_event_turns"] = turns
-            staged("bf16 ms an event")
-            res["ms_per_call"] = artifact_step_ms(art, params, cfg,
-                                                  patients[0])
-            staged("bf16 ms a call")
-        out["dtypes"][dtype] = res
+    cli = None
+    try:
+        for dtype in ("bfloat16", "float32"):
+            cfg = artifact_config(dtype)
+            ex = exports[dtype]
+            if dtype == "float32":
+                cli = CliServer(("--artifact", ex["v2"]))
+            params = init_params(cfg, seed=SEED, device=DEVICE)
+            t0 = time.perf_counter()
+            art = ArtifactBackend(ex["v2"], device=DEVICE)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            full = (ArtifactBackend(ex["v1"], device=DEVICE) if ex["v1"]
+                    else None)
+            if not (art.use_decode_graph
+                    and (full is None or not full.use_decode_graph)):
+                raise AssertionError("v2 must decode, v1 must fall back")
+            local = LocalBackend(params, cfg, device=DEVICE)
+            gates = artifact_gates(params, cfg, art, full, local, patients)
+            staged(f"{dtype} load and gates")
+            res = {"export_v2": ex["export_v2"], "export_v1": ex["export_v1"],
+                   "load_v2_s": load_s, "gates": gates}
+            if dtype == "float32":
+                res["cli"] = cli.check("artifact")
+                staged("fp32 CLI")
+            else:
+                # the kernels' launches on one drive, its idle share, the
+                # operators' host cost and the times (one dtype)
+                ops.reset_launch_counts()
+                drive = artifact_drive(art, cfg, patients)
+                res["launches"] = ops.launch_counts()
+                n, L = len(patients), cfg.n_layers
+                want = {"flash_attention": L * n, "tte_sample": 0,
+                        "paged_decode_attention": L * (drive["events"] - n)}
+                if any(res["launches"][k] != v for k, v in want.items()):
+                    raise AssertionError(f"artifact drive: launches "
+                                         f"{res['launches']}, want {want}")
+                one = patients[:1]
+                res["profile"] = path_profile(
+                    lambda: artifact_drive(art, cfg, one)["wall_s"],
+                    artifact_drive(art, cfg, one)["wall_s"])
+                staged("bf16 drive and profile")
+                res["op_us"] = artifact_op_us()
+                two = patients[:2]
+                turns = []
+                for mode in ("v2", "local", "local", "v2"):
+                    r = (artifact_drive(local, cfg, two, stream=True)
+                         if mode == "local"
+                         else artifact_drive(art, cfg, two))
+                    turns.append((mode, r["ms_per_event"]))
+                res["ms_per_event_turns"] = turns
+                staged("bf16 ms an event")
+                res["ms_per_call"] = artifact_step_ms(art, params, cfg,
+                                                      patients[0])
+                staged("bf16 ms a call")
+            out["dtypes"][dtype] = res
+    finally:
+        if cli is not None:
+            cli.close()
     return out
 
 
@@ -6010,11 +6092,10 @@ def launch_check_child() -> dict:
         dist.destroy_process_group()
 
 
-def launch_check() -> dict:
-    """The launch layer on the card, in a subprocess (a process group is
-    the process's for good): :func:`launch_check_child` with a world of
-    one on a free loopback port; its JSON result is the last line it
-    prints."""
+def start_launch_check():
+    """:func:`launch_check_child` started in its own process (a process
+    group is the process's for good) with a world of one on a free
+    loopback port: (the process, its start time)."""
     import socket
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -6025,16 +6106,471 @@ def launch_check() -> dict:
     code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
             "import chip_smoke; "
             "print(json.dumps(chip_smoke.launch_check_child()))")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", code, ROOT], env=env,
-                          capture_output=True, text=True, timeout=300,
-                          cwd=ROOT)
+    return (subprocess.Popen([sys.executable, "-c", code, ROOT], env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, cwd=ROOT), time.perf_counter())
+
+
+def launch_check(started=None) -> dict:
+    """The launch layer on the card: the result of the process that
+    :func:`start_launch_check` started (``started``, else one started
+    here), the last line it prints, with its wall seconds."""
+    proc, t0 = started or start_launch_check()
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
     if proc.returncode != 0:
         raise AssertionError(f"launch check exited {proc.returncode}: "
-                             f"{proc.stderr[-3000:]}")
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
-    out["wall_s"] = time.perf_counter() - t0
+                             f"{err[-3000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 6j and 6k: SeamlessM4T-large-v2 and InternVL2-26B trained; phase
+# 3v: a full-width OLMoE-1B-7B checkpoint served through the CLI
+# ---------------------------------------------------------------------------
+# the fp32 card-against-CPU step (TF32 off; the loss within 1e-5, each
+# gradient within GRAD_CARD_REL of its leaf's largest element): SeamlessM4T
+# at full width cut to 2 encoder and 2 decoder layers, 2 x 128 tokens over
+# 16 frames (S // enc_len_ratio); InternVL2 cut to 1 layer, 1 x (256
+# patches + 64 text tokens).  The bf16 steps over fp32 masters with AdamW
+# (one warm step, then ZOO_TRAIN_STEPS): SeamlessM4T at full depth (24 +
+# 24), 4 x 512 tokens over 64 frames; InternVL2 cut to 2 layers (1.92 B
+# parameters; its 48 layers' masters and AdamW state would not fit the
+# card), 2 x (256 + 768), 3r's bucket.  (layers, batch, text tokens)
+ZOO_GRAD = {"seamless-m4t-large-v2": (2, 2, 128), "internvl2-26b": (1, 1, 64)}
+ZOO_TRAIN = {"seamless-m4t-large-v2": (None, 4, 512),
+             "internvl2-26b": (2, 2, 768)}
+ZOO_TRAIN_STEPS = 10
+# 3v: OLMoE-1B-7B's fp32 masters (27.7 GB) saved by the port's save and
+# served by the CLI from --ckpt with 3p's knobs; the load's device peak
+# within the bf16 tree + its largest fp32 piece (a layer slice) + this
+CKPT_ARCH, CKPT_PEAK_SLACK = "olmoe-1b-7b", 2**30
+
+
+def zoo_cut(cfg, layers):
+    """``cfg`` cut to ``layers`` decoder layers (and as many encoder layers
+    for an encoder-decoder); ``None`` keeps the full depth."""
+    if layers is None:
+        return cfg
+    enc = {"n_encoder_layers": layers} if cfg.n_encoder_layers else {}
+    return cfg.replace(n_layers=layers, **enc)
+
+
+def zoo_train_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """A training batch on the card: (B, S) seeded random ids and the
+    frontend's seeded N(0, 1) fp32 embeddings, 256 patches a row for the
+    VLM, ``S // enc_len_ratio`` frames a row for the encoder-decoder."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    vlm = cfg.frontend == "vision_patches"
+    n = cfg.n_frontend_tokens if vlm else S // cfg.enc_len_ratio
+    return {"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (B, S)).astype(np.int32)).to(DEVICE),
+            "patches" if vlm else "frames": torch.randn(
+                (B, n, cfg.d_model), generator=g, device=DEVICE)}
+
+
+def card_vs_cpu_grads(cfg, params, batch, what: str) -> dict:
+    """One fp32 ``lm`` gradient (TF32 off) of ``params`` on the card and of
+    their CPU copy, on ``batch`` (on the card) and its CPU copy: no kernel
+    launched on the card, every gradient finite and non-zero, the losses
+    within 1e-5 of each other and each gradient within ``GRAD_CARD_REL`` of
+    its leaf's largest element (the differences taken on the card, the
+    CPU's gradients copied there: exact fp32 arithmetic either side)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.train import loss_and_grads, make_loss_fn
+    loss_fn = make_loss_fn(cfg, "lm")
+    ops.reset_launch_counts()
+    g_card, m_card = loss_and_grads(loss_fn, params, batch)
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"{what}: the training route launched a kernel")
+    g_cpu, m_cpu = loss_and_grads(
+        loss_fn, {k: v.cpu() for k, v in params.items()},
+        {k: v.cpu() for k, v in batch.items()})
+    worst, worst_key = 0.0, None
+    for k, got in g_card.items():
+        want = g_cpu.pop(k).to(DEVICE)
+        scale = float(want.abs().max())
+        if not bool(torch.isfinite(got).all()) or (
+                scale > 0 and not bool(got.any())):
+            raise AssertionError(f"{what}: {k}: gradient not finite or zero")
+        rel = float((got - want).abs().max()) / max(scale, 1e-30)
+        if rel > worst:
+            worst, worst_key = rel, k
+    loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) \
+        / abs(float(m_cpu["loss"]))
+    if worst > GRAD_CARD_REL or loss_rel > 1e-5:
+        raise AssertionError(f"{what}: card vs CPU: loss rel {loss_rel:.3g}, "
+                             f"gradient {worst_key} {worst:.3g}")
+    return {"loss_card": float(m_card["loss"]),
+            "loss_cpu": float(m_cpu["loss"]), "loss_rel_err": loss_rel,
+            "grad_max_rel_err": worst, "grad_worst_leaf": worst_key,
+            "leaves": len(g_card)}
+
+
+def largest_fp32_piece(cfg) -> int:
+    """Bytes of the largest piece ``load_checkpoint`` reads of an fp32
+    checkpoint of ``cfg``: a layer slice of a stacked leaf, or an
+    unstacked leaf whole."""
+    import math
+    from repro_torch.models.params import STACKS, param_shapes
+    return 4 * max(math.prod(s[1:] if k.startswith(STACKS) else s)
+                   for k, s in param_shapes(cfg).items())
+
+
+def checkpoint_roundtrip(cfg, masters, what: str) -> dict:
+    """6j's last part: ``masters`` saved by ``train.checkpoint.save`` and
+    read back by ``load_checkpoint`` in ``cfg.dtype`` (bf16): every leaf
+    equal to its master in its use dtype bit for bit, the load's device
+    peak within the tree + its largest fp32 piece + ``CKPT_PEAK_SLACK``, no
+    kernel launched by either; then 3s's model-level prefill
+    (``zoo_inputs``, ``last_index``) on the loaded tree gives the logits it
+    gives on ``cast_params(masters)`` bit for bit."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import (cast_params, forward, load_checkpoint)
+    from repro_torch.models.params import use_dtype
+    from repro_torch.train import checkpoint
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        checkpoint.save(d, masters, cfg)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(d, "params.npz"))
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loaded = load_checkpoint(d, cfg, DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"{what}: save or load launched a kernel")
+    for k, v in masters.items():
+        want = v.to(use_dtype(cfg, k))
+        if loaded[k].dtype != want.dtype or not torch.equal(loaded[k], want):
+            raise AssertionError(f"{what}: loaded {k} ({loaded[k].dtype}) != "
+                                 f"its master in {want.dtype}")
+    tree = sum(v.numel() * v.element_size() for v in loaded.values())
+    piece = largest_fp32_piece(cfg)
+    if peak > tree + piece + CKPT_PEAK_SLACK:
+        raise AssertionError(f"{what}: the load's device peak {peak} past "
+                             f"the tree {tree} + a piece {piece} + "
+                             f"{CKPT_PEAK_SLACK}")
+    batch, last = zoo_inputs(cfg)
+    with torch.no_grad():
+        a = forward(loaded, cfg, batch, mode="prefill",
+                    cache_width=AUDIO_CONTEXT, last_index=last)["logits"]
+        del loaded
+        b = forward(cast_params(masters, cfg), cfg, batch, mode="prefill",
+                    cache_width=AUDIO_CONTEXT, last_index=last)["logits"]
+    if not (bool(torch.isfinite(a).all()) and torch.equal(a, b)):
+        raise AssertionError(f"{what}: the loaded tree's prefill logits "
+                             f"differ from the in-memory tree's")
+    return {"file_bytes": nbytes, "save_s": save_s, "load_s": load_s,
+            "load_peak_bytes": peak, "tree_bytes": tree,
+            "largest_fp32_piece_bytes": piece,
+            "logits_shape": list(a.shape)}
+
+
+def zoo_train_path(arch: str, phase: str) -> dict:
+    """Phases 6j (SeamlessM4T-large-v2) and 6k (InternVL2-26B), on the
+    plain training route (``chunked_attention``; no kernel has a
+    backward): ``card_vs_cpu_grads`` at ``ZOO_GRAD``'s cut and batch; then
+    at ``ZOO_TRAIN``'s, fp32 masters made on the card
+    (``init_params_on_device``), bf16 activations, ``make_train_step``
+    (AdamW): one warm step, then ``ZOO_TRAIN_STEPS`` steps on fresh
+    seeded batches, every loss finite; steps/s, target tokens/s, the peak
+    memory of the masters, the AdamW state and the steps, and the idle
+    share of one step under the profiler; launch counts zeroed before the
+    first step and read after the last: none.  6j then saves the trained
+    masters and loads them in bf16 (``checkpoint_roundtrip``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params_on_device
+    from repro_torch.train import (OptimizerConfig, init_opt_state,
+                                   make_train_step)
+    full = get_config(arch)
+    stage = {}
+    t0 = time.perf_counter()
+    layers, B, S = ZOO_GRAD[arch]
+    c32 = zoo_cut(full, layers).replace(dtype="float32")
+    p32 = init_params_on_device(c32, seed=SEED, device=DEVICE)
+    grads = card_vs_cpu_grads(c32, p32, zoo_train_batch(c32, B, S, SEED + 111),
+                              phase)
+    del p32
+    free_card()
+    stage["grads"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    layers, B, S = ZOO_TRAIN[arch]
+    cfg = zoo_cut(full, layers)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    masters = init_params_on_device(cfg.replace(dtype="float32"), seed=SEED,
+                                    device=DEVICE)
+    n_params = sum(v.numel() for v in masters.values())
+    batches = [zoo_train_batch(cfg, B, S, SEED + 121 + i)
+               for i in range(ZOO_TRAIN_STEPS + 1)]
+    step = make_train_step(cfg, OptimizerConfig(lr=1e-5), "lm")
+    opt = init_opt_state(masters)
+    ops.reset_launch_counts()
+    masters, opt, m = step(masters, opt, batches[0])       # warm
+    losses = [m["loss"]]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for b in batches[1:]:
+        masters, opt, m = step(masters, opt, b)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = ops.launch_counts()
+    losses = torch.stack(losses).tolist()
+    if any(counts.values()) or not np.isfinite(losses).all():
+        raise AssertionError(f"{phase}: launches {counts}, losses {losses}")
+    stage["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    def one():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(masters, opt, batches[1])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+    prof = window_profile(one)
+    stage["profile"] = time.perf_counter() - t0
+    targets = ZOO_TRAIN_STEPS * B * (S - 1)
+    out = {"grads": grads, "layers": cfg.n_layers,
+           "encoder_layers": cfg.n_encoder_layers, "n_params": n_params,
+           "batch": B, "seq": S, "frontend_tokens": max(
+               v.shape[1] for k, v in batches[0].items() if k != "tokens"),
+           "steps": ZOO_TRAIN_STEPS, "seconds": sec,
+           "steps_per_s": ZOO_TRAIN_STEPS / sec,
+           "target_tokens_per_s": targets / sec,
+           "peak_memory_bytes": peak, "loss_first": losses[0],
+           "loss_last": losses[-1], "launches": counts, "profile": prof}
+    del opt, batches
+    free_card()
+    if cfg.n_encoder_layers:
+        t0 = time.perf_counter()
+        out["checkpoint"] = checkpoint_roundtrip(cfg, masters, phase)
+        stage["checkpoint"] = time.perf_counter() - t0
+    del masters
+    free_card()
+    out["stage_s"] = stage
     return out
+
+
+def log_zoo_train(res: dict, phase: str, smi: str, t_start: float) -> None:
+    g, p = res["grads"], res["profile"]
+    log(f"  one fp32 step against the CPU port (TF32 off; {g['leaves']} "
+        f"gradients): loss card {g['loss_card']:.6f}, CPU "
+        f"{g['loss_cpu']:.6f} (rel {g['loss_rel_err']:.3g}); largest "
+        f"gradient difference {g['grad_max_rel_err']:.3g} of its leaf's "
+        f"largest element ({g['grad_worst_leaf']}; allowed {GRAD_CARD_REL}); "
+        f"no kernel launched")
+    enc = (f" + {res['encoder_layers']} encoder" if res["encoder_layers"]
+           else "")
+    idle = ("not measured" if p["idle_share"] is None
+            else format(p["idle_share"], ".3f"))
+    log(f"  {res['layers']}{enc} layers, {res['n_params'] / 1e9:.3f} B "
+        f"parameters: {res['steps']} bf16 steps of {res['batch']} x "
+        f"{res['seq']} tokens (+ {res['frontend_tokens']} frontend "
+        f"embeddings a row) in {res['seconds']:.3f}s: "
+        f"{res['steps_per_s']:.2f} steps/s, {res['target_tokens_per_s']:.1f}"
+        f" target tokens/s; peak memory {res['peak_memory_bytes'] / 2**30:.2f}"
+        f" GiB (masters, AdamW state, steps); loss {res['loss_first']:.4f} "
+        f"-> {res['loss_last']:.4f}; launches {res['launches']}")
+    log(f"  one step: {p['wall_s']:.4f}s wall, device busy "
+        f"{p['device_busy_s']:.4f}s, idle share {idle}, {p['launches']} "
+        f"device activities; top by device time:")
+    for t in p["top"]:
+        log(f"    {t['ms']:9.3f} ms  {t['launches']:6d}x  {t['kernel']}")
+    if "checkpoint" in res:
+        c = res["checkpoint"]
+        log(f"  the trained masters saved ({c['file_bytes'] / 1e9:.3f} GB in "
+            f"{c['save_s']:.2f}s) and loaded in bf16 ({c['load_s']:.2f}s, "
+            f"device peak {c['load_peak_bytes'] / 2**30:.3f} GiB: the tree "
+            f"{c['tree_bytes'] / 2**30:.3f} + a piece "
+            f"{c['largest_fp32_piece_bytes'] / 2**30:.3f}): every leaf == its "
+            f"master in its use dtype bit for bit; 3s's prefill logits "
+            f"{c['logits_shape']} on the loaded tree == on cast_params("
+            f"masters) bit for bit")
+    log(f"  phase {phase} took {time.perf_counter() - t_start:.1f}s (" +
+        ", ".join(f"{k} {v:.1f}s" for k, v in res["stage_s"].items())
+        + f"; {smi})")
+
+
+def ckpt_child_boot() -> None:
+    """3v's child before its checkpoint exists: the port imported and the
+    card's context made."""
+    import torch
+    import repro_torch.launch.serve  # noqa: F401
+    torch.zeros(1, device=DEVICE)
+    torch.cuda.synchronize()
+
+
+def ckpt_serve_child(ckpt: str) -> dict:
+    """3v's child process: ``python -m repro_torch.launch.serve --arch
+    olmoe-1b-7b --ckpt CKPT`` with 3p's knobs (8 slots, ``max_context``
+    1,024, 8 requests, 32 new tokens), through the CLI's ``main``; every
+    request served with 3p's gates (``check_lm_run``, launch counts zeroed
+    before ``main`` and read after), the engine holding the loaded
+    tensors as its working weights (one copy), every loaded leaf ==
+    ``init_params_on_device(cfg, SEED)`` in bf16 bit for bit (the same
+    draws rounded), and the load's device peak within the tree + its
+    largest fp32 piece + ``CKPT_PEAK_SLACK``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import init_params_on_device
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = launch.main([
+        "--arch", CKPT_ARCH, "--ckpt", ckpt, "--slots", str(DENSE_SLOTS),
+        "--max-context", str(DENSE_CONTEXT), "--requests",
+        str(DENSE_REQUESTS), "--max-new", str(DENSE_MAX_NEW), "--seed",
+        str(SEED)])
+    main_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    eng, load = out["engine"], out["load"]
+    cfg = eng.cfg
+    check_lm_run(eng, out["done"], counts, cfg, DENSE_MAX_NEW, "3v")
+    if len(out["done"]) != DENSE_REQUESTS:
+        raise AssertionError(f"3v: {len(out['done'])} requests served")
+    held = eng.params
+    if any(eng._wparams[k].data_ptr() != v.data_ptr()
+           for k, v in held.items()):
+        raise AssertionError("3v: the engine holds a cast copy of the model")
+    ref = init_params_on_device(cfg, seed=SEED, device=DEVICE)
+    for k, v in ref.items():
+        if held[k].dtype != v.dtype or not torch.equal(held[k], v):
+            raise AssertionError(f"3v: loaded {k} != init_params_on_device's")
+    del ref
+    piece = largest_fp32_piece(cfg)
+    bound = load["tree_bytes"] + piece + CKPT_PEAK_SLACK
+    if load["device_peak_bytes"] > bound:
+        raise AssertionError(f"3v: the load's device peak "
+                             f"{load['device_peak_bytes']} past {bound}")
+    return {**load, "main_s": main_s,
+            "checks_s": time.perf_counter() - t0 - main_s,
+            "largest_fp32_piece_bytes": piece, "peak_bound": bound,
+            "requests": len(out["done"]), "tokens": out["events"],
+            "serve_s": out["seconds"], "ticks": eng.ticks,
+            "admit_batches": eng.admit_batches, "host_syncs": eng.host_syncs,
+            "launches": counts, "leaves": len(held)}
+
+
+def ckpt_serve_path() -> dict:
+    """Phase 3v: full-width OLMoE-1B-7B's fp32 masters made on the card
+    (``init_params_on_device``, seeded) and saved by the port's
+    ``train.checkpoint.save`` (one leaf, one layer slice at a time; the
+    free disk under the temporary directory checked first), then served
+    from ``--ckpt`` by the CLI in a subprocess (``ckpt_serve_child``,
+    started first: it imports the port and makes its card context while
+    the checkpoint is written); no kernel launched by the save; the save's
+    and the load's seconds and rates, the load's device peak and the
+    child's host memory."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params_on_device
+    from repro_torch.train import checkpoint
+    cfg = get_config(CKPT_ARCH)
+    free_card()
+    # the child imports torch and starts CUDA while the checkpoint is
+    # made, then waits for a line on its stdin before it runs the CLI
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; chip_smoke.ckpt_child_boot(); "
+            "sys.stdin.readline(); "
+            "print(json.dumps(chip_smoke.ckpt_serve_child(sys.argv[2])))")
+    with tempfile.TemporaryDirectory() as d:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", code, ROOT, d], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=ROOT, env=dict(os.environ,
+                               PYTHONPATH=os.path.join(ROOT, "src")))
+        try:
+            disk_free = shutil.disk_usage(d).free
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            p32 = init_params_on_device(cfg.replace(dtype="float32"),
+                                        seed=SEED, device=DEVICE)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            need = sum(v.numel() * v.element_size() for v in p32.values())
+            if disk_free < need + 2**30:
+                raise AssertionError(f"3v: {disk_free} bytes free under {d}, "
+                                     f"the checkpoint needs {need}")
+            t0 = time.perf_counter()
+            checkpoint.save(d, p32, cfg)
+            save_s = time.perf_counter() - t0
+            del p32
+            free_card()
+            if any(ops.launch_counts().values()):
+                raise AssertionError("3v: the save launched a kernel")
+            nbytes = os.path.getsize(os.path.join(d, "params.npz"))
+            t0 = time.perf_counter()
+            out, err = proc.communicate("go\n", timeout=600)
+            child_s = time.perf_counter() - t0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    if proc.returncode != 0:
+        raise AssertionError(f"3v: the serving CLI exited {proc.returncode}: "
+                             f"{err[-3000:]}")
+    lines = out.strip().splitlines()
+    res = json.loads(lines[-1])
+    return {**res, "cli_lines": [ln for ln in lines[:-1]
+                                 if ln.startswith(("loaded", "served"))],
+            "disk_free_bytes": disk_free, "file_bytes": nbytes,
+            "init_s": init_s, "save_s": save_s,
+            "write_bytes_per_s": nbytes / save_s,
+            "read_bytes_per_s": nbytes / res["seconds"], "child_s": child_s,
+            "fp32_tree_bytes": need}
+
+
+def log_ckpt_serve(res: dict, smi: str, t_start: float) -> None:
+    gib = 2**30
+    log(f"  fp32 masters made on the card in {res['init_s']:.2f}s; saved "
+        f"{res['file_bytes'] / 1e9:.2f} GB in {res['save_s']:.2f}s "
+        f"({res['write_bytes_per_s'] / 1e9:.2f} GB/s; "
+        f"{res['disk_free_bytes'] / 1e9:.1f} GB were free)")
+    for ln in res["cli_lines"]:
+        log(f"  CLI: {ln}")
+    log(f"  loaded in {res['seconds']:.2f}s ({res['read_bytes_per_s'] / 1e9:.2f}"
+        f" GB/s, the file written just before: a warm read): device peak "
+        f"{res['device_peak_bytes'] / gib:.3f} GiB (gate: the bf16 tree "
+        f"{res['tree_bytes'] / gib:.3f} + a piece "
+        f"{res['largest_fp32_piece_bytes'] / gib:.3f} + 1 = "
+        f"{res['peak_bound'] / gib:.3f} GiB; fp32 tree and a cast copy "
+        f"{(res['fp32_tree_bytes'] + res['tree_bytes']) / gib:.3f}); the "
+        f"child's {res['host_rss_kind']} after the load "
+        f"{res['host_rss_bytes'] / gib:.3f} GiB")
+    log(f"  {res['requests']} requests, {res['tokens']} tokens in "
+        f"{res['serve_s']:.3f}s, {res['ticks']} ticks, "
+        f"{res['admit_batches']} admission batches, host_syncs "
+        f"{res['host_syncs']}; launches {res['launches']}; {res['leaves']} "
+        f"leaves == init_params_on_device's bf16 bit for bit, held once; the "
+        f"child took {res['child_s']:.1f}s after the save (the CLI's main "
+        f"{res['main_s']:.1f}s, the checks {res['checks_s']:.1f}s); phase 3v "
+        f"took "
+        f"{time.perf_counter() - t_start:.1f}s ({smi})")
 
 
 def main() -> int:
@@ -6079,7 +6615,7 @@ def main() -> int:
         if ssm_proc.poll() is None:
             ssm_proc.kill()
             ssm_proc.wait(timeout=60)
-    log(f"  phase 3t's exports (a process of their own) done at "
+    log(f"  phase 3t's and 3n's exports (a process of their own) done at "
         f"{time.perf_counter() - t0:.1f}s: " + ", ".join(
             f"{a} {e['export_s']:.1f}s" for a, e in ssm_exports.items()))
     log(f"  kernels built in {time.perf_counter() - t0:.1f}s "
@@ -6368,9 +6904,8 @@ def main() -> int:
         f"depth cut to {LM_ARTIFACT_LAYERS} layers, spec v2, bf16, seq_len "
         f"{LM_ARTIFACT_SEQ})")
     t3n = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        lmart = lm_artifact_path(tmp)
-    log(f"  exported in {lmart['export']['export_s']:.1f}s "
+    lmart = lm_artifact_path(ssm_tmp.name, ssm_exports["3n"])
+    log(f"  exported in {lmart['export']['export_s']:.1f}s (phase 1) "
         f"({lmart['export']['bytes']} bytes), loaded in "
         f"{lmart['load_s']:.1f}s; full, prefill and "
         f"{lmart['decode_steps']} decode steps == eager bit for bit through "
@@ -6446,16 +6981,24 @@ def main() -> int:
 
     phase_done("3b")
     log("== phase 4: end-to-end parity, fp32, card vs CPU")
-    par = parity()
-    mpar = mamba_parity()
-    log("== phase 4 (paged): ring == paged and fork == oracle on the card, "
-        "injected uniforms")
-    ppar = paged_parity()
-    log("== phase 4 (chunked): the paged engine == chunked_reference_"
-        "trajectory on the card, injected uniforms")
-    cpar = chunked_parity()
-    log("== phase 4 (risk): risk on the card")
-    rsk = risk_checks(fut)
+    # phase 6i's subprocess runs beside phase 4's untimed checks
+    launch_started = start_launch_check()
+    try:
+        par = parity()
+        mpar = mamba_parity()
+        log("== phase 4 (paged): ring == paged and fork == oracle on the "
+            "card, injected uniforms")
+        ppar = paged_parity()
+        log("== phase 4 (chunked): the paged engine == chunked_reference_"
+            "trajectory on the card, injected uniforms")
+        cpar = chunked_parity()
+        log("== phase 4 (risk): risk on the card")
+        rsk = risk_checks(fut)
+    except BaseException:
+        launch_started[0].kill()
+        launch_started[0].wait(timeout=60)
+        raise
+    lch = launch_check(launch_started)
 
     phase_done("4")
     log("== phase 6a: gradients on the card (Delphi-2M fp32, TF32 off, "
@@ -6608,10 +7151,10 @@ def main() -> int:
             f"{r['peak_memory_bytes'] / 2**30:.2f} GiB, loss "
             f"{r['loss']:.6f} ({smi})")
     phase_done("6h")
-    log("== phase 6i: the launch layer on the card (a subprocess: NCCL "
-        "group of one on the loopback address, ensure_distributed, 1 x 1 "
-        "DeviceMesh, Delphi-2M's parameters as DTensors)")
-    lch = launch_check()
+    log("== phase 6i: the launch layer on the card (a subprocess, run "
+        "beside phase 4: NCCL group of one on the loopback address, "
+        "ensure_distributed, 1 x 1 DeviceMesh, Delphi-2M's parameters as "
+        "DTensors)")
     log(f"  devices {lch['devices']}, all-reduce {lch['all_reduce']}, "
         f"{lch['mesh']}, {lch['leaves']} leaves placed as "
         f"{lch['placements']}; logits through the placed parameters' local "
@@ -6732,6 +7275,29 @@ def main() -> int:
         log_row(name, t)
     phase_done("5 zoo rows")
 
+    # the last single-card paths: the two families' training and a
+    # full-width checkpoint served from --ckpt
+    zoo_train = {}
+    for ph, arch, desc in (
+            ("6j", "seamless-m4t-large-v2", "24 encoder + 24 decoder layers, "
+             "4 x 512 tokens over 64 frames"),
+            ("6k", "internvl2-26b", "cut to 2 layers, 2 x (256 patches + "
+             "768 text tokens)")):
+        log(f"== phase {ph}: {arch} training at full width ({desc}; bf16 over "
+            f"fp32 masters made on the card, AdamW; the plain route, no "
+            f"kernel)")
+        t_ph = time.perf_counter()
+        zoo_train[ph] = zoo_train_path(arch, ph)
+        log_zoo_train(zoo_train[ph], ph, smi, t_ph)
+        phase_done(ph)
+    log(f"== phase 3v: a full-width {CKPT_ARCH} checkpoint (fp32 masters, "
+        f"the port's save) served by python -m repro_torch.launch.serve "
+        f"--ckpt in a subprocess, 3p's knobs")
+    t_ph = time.perf_counter()
+    ckpt = ckpt_serve_path()
+    log_ckpt_serve(ckpt, smi, t_ph)
+    phase_done("3v")
+
     def timings(row):
         """The row's ms, plain_ms and library_ms: the profiler's device time
         where it read every call and not below the bound, else the per-call
@@ -6770,7 +7336,10 @@ def main() -> int:
                    "3r": zoo["3r"]["run"]["launches"],
                    "3s": zoo["3s"]["run"]["launches"],
                    "6f": ssm_train["6f"]["cli"]["launches"],
-                   "6g": ssm_train["6g"]["cli"]["launches"]}
+                   "6g": ssm_train["6g"]["cli"]["launches"],
+                   "6j": zoo_train["6j"]["launches"],
+                   "6k": zoo_train["6k"]["launches"],
+                   "3v": ckpt["launches"]}
 
     def by_path(name):
         out = ({} if name == "ssd_intra" else
@@ -6865,7 +7434,8 @@ def main() -> int:
         "moe_train_path": mtr, "launch_check": lch,
         "olmoe_path": moe["3p"],
         "qwen2_moe_path": moe["3q"], "internvl2_path": zoo["3r"],
-        "seamless_path": zoo["3s"],
+        "seamless_path": zoo["3s"], "zoo_train_paths": zoo_train,
+        "ckpt_serve_path": ckpt,
         "main_path": {"requests": len(main_res["done"]),
                       "events": main_res["events"], "seconds": sec,
                       "ticks": eng.ticks, "admit_batches": eng.admit_batches,

@@ -17,7 +17,10 @@ artifact, 6f Mamba2-780M and 6g Zamba2-1.2B trained, 3p OLMoE-1B-7B and
 through the model-level path, 3u the reference engine beside the batched
 one, 6h Qwen2-MoE-A2.7B trained at 2 layers under both MoE dispatches with
 remat off and on, 6i the launch layer (a process group of one, the 1 x 1
-``DeviceMesh``, parameters as DTensors) in a subprocess.
+``DeviceMesh``, parameters as DTensors) in a subprocess, 6j
+SeamlessM4T-large-v2 and 6k InternVL2-26B trained (with 6j's checkpoint
+round trip), 3v a full-width OLMoE-1B-7B checkpoint saved by the port and
+served by the CLI from ``--ckpt`` in a subprocess.
 
 ``--root DIR`` takes ``chip_smoke.py`` and the port from another checkout
 (a parent commit unpacked under the repository), so that two versions are
@@ -103,13 +106,19 @@ PHASES = {
     "3u": lambda: cs.reference_engine_path(),
     "6h": lambda: cs.moe_train_path(),
     "6i": lambda: cs.launch_check(),
+    "6j": lambda: cs.zoo_train_path("seamless-m4t-large-v2", "6j"),
+    "6k": lambda: cs.zoo_train_path("internvl2-26b", "6k"),
+    "3v": lambda: cs.ckpt_serve_path(),
 }
 # phases whose results are printed by a logger (chip_smoke's own where it
 # has one)
 LOGGERS = {"3b": _log_mamba, "3o": _log_zamba2,
            "3p": lambda *a: cs.log_moe(*a), "3q": lambda *a: cs.log_moe(*a),
            "3r": lambda *a: cs.log_zoo(*a), "3s": lambda *a: cs.log_zoo(*a),
-           "3t": lambda *a: cs.log_ssm_artifact_phase(*a)}
+           "3t": lambda *a: cs.log_ssm_artifact_phase(*a),
+           "6j": lambda *a: cs.log_zoo_train(*a),
+           "6k": lambda *a: cs.log_zoo_train(*a),
+           "3v": lambda res, ph, smi, t0: cs.log_ckpt_serve(res, smi, t0)}
 
 
 def _zamba2_rows(gen, out, ssd_errs):

@@ -24,11 +24,16 @@ default ``cfg.max_seq_len`` (32,768 for the generic LMs: pass a smaller
 one to keep the ring small, e.g. 1,024: Qwen2-MoE's ring at 32,768 is 6.3
 GB a slot; Zamba2's 1,048,576 costs nothing, its rings are the window's
 4,096 wide).  On ``cuda`` activations run in ``cfg.dtype`` (bf16); on the
-CPU in fp32.  Parameters come from ``--ckpt`` (a JAX ``params.npz``
-checkpoint, fp32), from ``init_params(seed)`` (fp32 on the host, then
-the device) or, for the MoE configs, from ``init_params_on_device(seed)``
-(made on the device in the dtype each weight is used in: Qwen2-MoE's fp32
-tree would not fit the card beside its bf16 copy).  ``--cache
+CPU in fp32.  Parameters come from ``--ckpt`` (a ``params.npz`` checkpoint
+of either package, fp32 masters, read by ``load_checkpoint`` one leaf and
+one layer slice at a time into the dtype each weight is used in: the
+engine holds one copy of the model, and a full-width MoE checkpoint is
+never whole in fp32 on the device or the host; the load's seconds, device
+peak and the process's host memory (``VmHWM``) are printed), from
+``init_params(seed)`` (fp32 on the host, then the device) or, for the MoE
+configs, from ``init_params_on_device(seed)`` (made on the device in the
+dtype each weight is used in: Qwen2-MoE's fp32 tree would not fit the
+card beside its bf16 copy).  ``--cache
 paged`` serves from a pool of 16-token blocks with the ring's bytes (an
 attention model only), and
 ``--prefill-chunk-tokens N`` prefills its prompts in chunks of at most N
@@ -119,8 +124,9 @@ def serve(args: argparse.Namespace) -> Dict[str, Any]:
     cfg = get_config(args.arch)
     if device.type == "cpu":
         cfg = cfg.replace(dtype="float32")
+    load = None
     if args.ckpt:
-        params = load_checkpoint(args.ckpt, cfg, device)
+        params, load = _load(args.ckpt, cfg, device)
     elif cfg.arch_type == MOE:
         params = init_params_on_device(cfg, args.seed, device)
     else:
@@ -165,7 +171,46 @@ def serve(args: argparse.Namespace) -> Dict[str, Any]:
             "done": done, "seconds": seconds,
             "events": sum(len(r.out_tokens) for r in done),
             "routing": None if sched is None else sched.stats(),
-            "shards": {s.name: len(s.requests) for s in shards}}
+            "shards": {s.name: len(s.requests) for s in shards},
+            "load": load}
+
+
+def _load(path: str, cfg, device: torch.device):
+    """``load_checkpoint``'s tree and the load's numbers: seconds, the
+    tree's bytes, the device's peak allocation above what was held before
+    (``None`` on the CPU) and the process's host memory just after
+    (:func:`_host_memory`)."""
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    params = load_checkpoint(path, cfg, device)
+    if cuda:
+        torch.cuda.synchronize(device)
+    return params, {
+        "seconds": time.perf_counter() - t0,
+        "tree_bytes": sum(v.numel() * v.element_size()
+                          for v in params.values()),
+        "device_peak_bytes": (torch.cuda.max_memory_allocated(device) - base
+                              if cuda else None), **_host_memory()}
+
+
+def _host_memory() -> Dict[str, Any]:
+    """The process's host memory from ``/proc/self/status``: its peak
+    resident set (``VmHWM``) where the kernel lists one, else its resident
+    set now (``VmRSS``; gVisor's kernel lists no peak), else
+    nothing.  Not ``ru_maxrss``: after ``exec`` that keeps the high-water
+    mark of the process it was forked from."""
+    try:
+        with open("/proc/self/status") as f:
+            vm = dict(line.split(":", 1) for line in f if ":" in line)
+    except OSError:
+        return {"host_rss_kind": None, "host_rss_bytes": None}
+    kind = "VmHWM" if "VmHWM" in vm else "VmRSS" if "VmRSS" in vm else None
+    return {"host_rss_kind": kind,
+            "host_rss_bytes": (int(vm[kind].split()[0]) * 1024 if kind
+                               else None)}
 
 
 def _run_background(shards: List[_EngineShard],
@@ -200,6 +245,16 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     dt, n = out["seconds"], out["events"]
     eng = out["engine"]
     unit = "events" if eng.is_delphi else "tokens"
+    if out["load"] is not None:
+        ld = out["load"]
+        peak = ("" if ld["device_peak_bytes"] is None else
+                f", device peak {ld['device_peak_bytes'] / 2**30:.2f} GiB")
+        hwm = ("" if ld["host_rss_bytes"] is None else
+               f", host {ld['host_rss_kind']} "
+               f"{ld['host_rss_bytes'] / 2**30:.2f} GiB")
+        print(f"loaded {args.ckpt} in {ld['seconds']:.2f}s "
+              f"({ld['tree_bytes'] / 2**30:.2f} GiB in use dtypes{peak}"
+              f"{hwm})")
     if out["routing"] is not None:
         counts = ", ".join(f"{k}={v}" for k, v in out["shards"].items())
         print(f"sharded {len(out['done'])} requests over "

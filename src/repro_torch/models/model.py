@@ -79,7 +79,7 @@ from repro_torch.models.layers import (act_dtype, age_encoding, apply_mlp,
                                        apply_norm, apply_rope, apply_swiglu,
                                        embed_tokens, logits_head,
                                        untied_logits_head)
-from repro_torch.models.params import MATMUL_KEYS, Params
+from repro_torch.models.params import Params, use_dtype
 from repro_torch.models.ssm import SSMCache
 
 # the decoder-only families whose layers are transformer blocks with a KV
@@ -90,15 +90,13 @@ ENC_DEC_STACKS = (cb.AUDIO, cb.ENC_DEC)
 
 
 def cast_params(params: Params, cfg: ModelConfig) -> Params:
-    """The same parameters with the matrix-product weights cast once to the
-    activation dtype (what every forward would cast at use); the hybrid's
-    shared block casts as a stacked layer does.  Leaves already in the
-    activation dtype (``params.init_params_on_device``) are returned as
-    they are, not copied."""
-    dt = act_dtype(cfg)
-    return {k: (v.to(dt) if k.replace("shared_attn/", "layers/", 1)
-                in MATMUL_KEYS else v)
-            for k, v in params.items()}
+    """The same parameters, each in its use dtype (``params.use_dtype``:
+    the matrix-product weights cast once to the activation dtype, what
+    every forward would cast at use; the hybrid's shared block as a
+    stacked layer's).  Leaves already in their use dtype
+    (``params.init_params_on_device``, ``params.load_checkpoint``) are
+    returned as they are, not copied."""
+    return {k: v.to(use_dtype(cfg, k)) for k, v in params.items()}
 
 
 def _embed(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:

@@ -1,8 +1,11 @@
 """The weight bridge: the JAX package's flat checkpoint layout <-> tensors.
 
-Parameters are a flat ``dict`` of fp32 tensors keyed by the ``/``-joined
+Parameters are a flat ``dict`` of tensors keyed by the ``/``-joined
 pytree paths that the JAX package's ``train/checkpoint.py`` writes to
-``params.npz`` (layer-stacked leaves carry a leading layer axis).  The
+``params.npz`` (layer-stacked leaves carry a leading layer axis): fp32
+masters (``init_params``, training), or each leaf in the dtype it is used
+in (:func:`use_dtype`: ``init_params_on_device``, ``from_jax_flat``,
+``load_checkpoint``; all fp32 under an fp32 config).  The
 dense family (H query heads, Hkv key/value heads of width hd):
 
     embed/embed (V, d)
@@ -63,12 +66,18 @@ block a cross-attention with its own pre-norm:
     layers/cross_attn/wo (L, H, hd, d)  (and b{q,k,v} with qkv_bias)
 
 The same weights therefore load into both packages, which is what the
-parity tests and the serving CLI's ``--ckpt`` rest on.
+parity tests and the serving CLI's ``--ckpt`` rest on.  ``load_checkpoint``
+reads such a file one leaf, and one layer slice, at a time.
 """
 from __future__ import annotations
 
+import functools
 import os
-from typing import Dict, Mapping, Tuple
+import struct
+import zipfile
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -184,37 +193,225 @@ def _block_shapes(cfg: ModelConfig, prefix: str, lead: Tuple[int, ...],
     return shapes
 
 
-def from_jax_flat(flat: Mapping[str, np.ndarray], cfg: ModelConfig,
-                  device="cuda") -> Params:
-    """Tensors on ``device`` from the JAX package's flat ``/``-keyed arrays.
-    Raises on a missing or unexpected key or a wrong shape."""
-    dev = resolve_device(device)
-    want = param_shapes(cfg)
-    missing = sorted(set(want) - set(flat))
-    extra = sorted(set(flat) - set(want))
+def use_dtype(cfg: ModelConfig, key: str) -> torch.dtype:
+    """The dtype leaf ``key`` is stored and used in: ``MATMUL_KEYS`` leaves
+    (the hybrid's shared block as a stacked layer's) in the activation
+    dtype ``cfg.dtype``, the rest in fp32.  With ``cfg.dtype`` fp32 every
+    leaf is fp32."""
+    if key.replace("shared_attn/", "layers/", 1) in MATMUL_KEYS:
+        return getattr(torch, cfg.dtype)
+    return torch.float32
+
+
+def _check_keys(cfg: ModelConfig, want, have) -> None:
+    missing = sorted(set(want) - set(have))
+    extra = sorted(set(have) - set(want))
     if missing or extra:
         raise ValueError(f"checkpoint keys do not match {cfg.name}: "
                          f"missing {missing}, unexpected {extra}")
+
+
+def _check_shape(key: str, got, shape) -> None:
+    if tuple(got) != tuple(shape):
+        raise ValueError(f"{key}: shape {tuple(got)}, expected {shape}")
+
+
+def from_jax_flat(flat: Mapping[str, np.ndarray], cfg: ModelConfig,
+                  device="cuda") -> Params:
+    """Tensors on ``device`` from the JAX package's flat ``/``-keyed arrays,
+    each in its use dtype (:func:`use_dtype`).  Raises on a missing or
+    unexpected key or a wrong shape."""
+    dev = resolve_device(device)
+    want = param_shapes(cfg)
+    _check_keys(cfg, want, flat)
     out: Params = {}
     for key, shape in want.items():
         arr = np.asarray(flat[key])
-        if arr.shape != shape:
-            raise ValueError(f"{key}: shape {arr.shape}, expected {shape}")
-        out[key] = torch.tensor(arr, dtype=torch.float32, device=dev)
+        _check_shape(key, arr.shape, shape)
+        out[key] = torch.tensor(arr, dtype=use_dtype(cfg, key), device=dev)
     return out
 
 
 def to_flat_numpy(params: Params) -> Dict[str, np.ndarray]:
-    """The inverse of :func:`from_jax_flat` (host numpy arrays)."""
+    """The inverse of :func:`from_jax_flat` under an fp32 config (host
+    numpy arrays; numpy has no bf16)."""
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
 
 
 def load_checkpoint(path: str, cfg: ModelConfig, device="cuda") -> Params:
-    """Load ``path/params.npz`` as written by the JAX package's
-    ``train.checkpoint.save``."""
-    with np.load(os.path.join(path, "params.npz")) as data:
-        flat = {k: data[k] for k in data.files}
-    return from_jax_flat(flat, cfg, device)
+    """Load ``path/params.npz`` as written by ``train.checkpoint.save`` of
+    either package, one leaf at a time, each leaf into its use dtype
+    (:func:`use_dtype`: with ``cfg.dtype`` bf16 the ``MATMUL_KEYS`` leaves
+    in bf16, so an engine's ``cast_params`` keeps the very tensors and
+    one copy of the model is held).  Raises on a missing or unexpected
+    key or a wrong shape, as :func:`from_jax_flat`.
+
+    A member stored uncompressed (``np.savez`` writes ZIP64 members so) is
+    read from the file at its data offset (past the zip local header and
+    the ``.npy`` header), a leaf under ``STACKS`` one layer slice at a
+    time, other leaves whole, and its CRC-32 checked as ``np.load``
+    checks it (in chunks on a pool of threads, combined).  Each piece goes
+    to ``device`` in the file's dtype (on the card through one pinned host
+    buffer) and is cast there into the leaf, so the device holds at most
+    the use-dtype tree and one piece in fp32, and the host one piece (a
+    full-width OLMoE-1B-7B checkpoint: its 13.9 GB bf16 tree and a 0.54 GB
+    layer of ``w_up``, not a 27.7 GB fp32 tree beside the cast copy).  A
+    compressed member (``np.savez_compressed``) or a Fortran-ordered
+    array is read whole into host memory, one leaf at a time, and copied
+    to the device one piece at a time."""
+    dev = resolve_device(device)
+    want = param_shapes(cfg)
+    out: Params = {}
+    with open(os.path.join(path, "params.npz"), "rb") as f, \
+            zipfile.ZipFile(f) as zf, \
+            ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        members = {(n[:-4] if n.endswith(".npy") else n): zf.getinfo(n)
+                   for n in zf.namelist()}
+        _check_keys(cfg, want, members)
+        reader = _NpzReader(f, zf, pool, pin=dev.type == "cuda")
+        for key, shape in want.items():
+            out[key] = reader.leaf(members[key], key, shape,
+                                   use_dtype(cfg, key), dev)
+    return out
+
+
+class _NpzReader:
+    """Reads the members of one open ``.npz`` file piece by piece for
+    :func:`load_checkpoint`: ``f`` the file, ``zf`` its zip directory,
+    ``pool`` the threads that check CRC-32s, ``pin`` whether pieces are
+    read into page-locked host memory (bound for the card)."""
+
+    def __init__(self, f, zf: zipfile.ZipFile, pool: ThreadPoolExecutor,
+                 pin: bool):
+        self.f, self.zf, self.pool, self.pin = f, zf, pool, pin
+
+    def leaf(self, info: zipfile.ZipInfo, key: str, shape: Tuple[int, ...],
+             dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+        """Member ``info`` as a ``dtype`` tensor on ``dev``, copied there
+        one piece at a time (the pieces' host buffer dies with this
+        call)."""
+        stacked = key.startswith(STACKS)
+        leaf = torch.empty(shape, dtype=dtype, device=dev)
+        for i, piece in enumerate(self._pieces(info, key, shape, stacked)):
+            (leaf[i] if stacked else leaf).copy_(piece.to(dev))
+        return leaf
+
+    def _pieces(self, info: zipfile.ZipInfo, key: str,
+                shape: Tuple[int, ...], stacked: bool
+                ) -> Iterator[torch.Tensor]:
+        """The leaf of member ``info`` as host tensors in the file's dtype:
+        its layer slices in order where ``stacked``, else the whole leaf;
+        one buffer is reused across slices, so each piece is valid until
+        the next is read."""
+        fmt, f = np.lib.format, self.f
+        f.seek(info.header_offset)
+        local = f.read(30)
+        read_header = None
+        if info.compress_type == zipfile.ZIP_STORED and \
+                local[:4] == b"PK\x03\x04":
+            start = info.header_offset + 30 + sum(
+                struct.unpack("<HH", local[26:30]))
+            f.seek(start)
+            read_header = {(1, 0): fmt.read_array_header_1_0,
+                           (2, 0): fmt.read_array_header_2_0
+                           }.get(fmt.read_magic(f))
+        if read_header is not None:
+            got, fortran, dtype = read_header(f)
+            _check_shape(key, got, shape)
+            if not fortran and not dtype.hasobject:
+                yield from self._stored(info, start, dtype, shape, stacked)
+                return
+        with self.zf.open(info) as member:          # checks the CRC-32
+            arr = fmt.read_array(member, allow_pickle=False)
+        _check_shape(key, arr.shape, shape)
+        arr = arr.astype(arr.dtype.newbyteorder("="), copy=False)
+        for piece in (arr if stacked else (arr,)):
+            yield torch.from_numpy(np.ascontiguousarray(piece))
+
+    def _stored(self, info: zipfile.ZipInfo, start: int, dtype: np.dtype,
+                shape: Tuple[int, ...], stacked: bool
+                ) -> Iterator[torch.Tensor]:
+        """:meth:`_pieces` for an uncompressed C-ordered member whose
+        ``.npy`` header ends at ``f.tell()``: positioned reads into one
+        piece buffer, the member's CRC-32 accumulated and checked at its
+        end."""
+        f = self.f
+        data = f.tell()
+        f.seek(start)
+        crc = zlib.crc32(f.read(data - start))
+        native = dtype.newbyteorder("=")
+        piece = shape[1:] if stacked else shape
+        if self.pin:
+            buf = torch.empty(piece, pin_memory=True, dtype=torch.from_numpy(
+                np.empty(0, native)).dtype)
+            arr = buf.numpy()
+        else:
+            arr = np.empty(piece, native)
+            buf = torch.from_numpy(arr)
+        n = shape[0] if stacked else 1
+        if info.file_size != data - start + n * arr.nbytes:
+            raise zipfile.BadZipFile(
+                f"{info.filename}: {info.file_size} bytes, its header says "
+                f"{data - start + n * arr.nbytes}")
+        raw = memoryview(arr.reshape(-1).view(np.uint8))
+        for i in range(n):
+            f.seek(data + i * arr.nbytes)
+            if f.readinto(raw) != arr.nbytes:
+                raise zipfile.BadZipFile(f"{info.filename}: truncated")
+            crc = crc32(raw, crc, self.pool)
+            if native != dtype:                 # the file's other byte order
+                arr[...] = arr.view(dtype)
+            yield buf
+        if crc != info.CRC:
+            raise zipfile.BadZipFile(f"Bad CRC-32 for file {info.filename!r}")
+
+
+# the chunk a thread checks: crc32 adds pieces of at least twice this in
+# parallel
+CRC_CHUNK = 32 * 2**20
+
+
+def crc32(data, crc: int = 0, pool: Optional[ThreadPoolExecutor] = None,
+          chunk: int = CRC_CHUNK) -> int:
+    """``zlib.crc32(data, crc)``, on ``pool``'s threads in ``chunk``-byte
+    pieces (zlib's ``crc32`` releases the interpreter lock) combined as
+    zlib's ``crc32_combine`` does, where ``data`` holds two chunks or
+    more."""
+    data = memoryview(data).cast("B")
+    n = len(data)
+    if pool is None or n < 2 * chunk:
+        return zlib.crc32(data, crc)
+    spans = [data[i:i + chunk] for i in range(0, n, chunk)]
+    for part, crc_part in zip(spans, pool.map(zlib.crc32, spans)):
+        crc = _gf2_apply(_crc32_shift(len(part)), crc) ^ crc_part
+    return crc
+
+
+def _gf2_apply(mat: Tuple[int, ...], vec: int) -> int:
+    """The 32 x 32 GF(2) matrix ``mat`` (its columns as ints) times ``vec``."""
+    out, i = 0, 0
+    while vec:
+        if vec & 1:
+            out ^= mat[i]
+        vec >>= 1
+        i += 1
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _crc32_shift(nbytes: int) -> Tuple[int, ...]:
+    """The operator that advances a CRC-32 over ``nbytes`` zero bytes
+    (zlib's ``crc32_combine``: crc(A + B) = shift(len B)(crc A) ^ crc B),
+    by squaring the one-bit operator."""
+    op = (0xEDB88320,) + tuple(1 << i for i in range(31))   # one zero bit
+    out = tuple(1 << i for i in range(32))                  # identity
+    bits = 8 * nbytes
+    while bits:
+        if bits & 1:
+            out = tuple(_gf2_apply(op, c) for c in out)
+        op = tuple(_gf2_apply(op, c) for c in op)
+        bits >>= 1
+    return out
 
 
 def _init_rule(cfg: ModelConfig, full: str):
@@ -290,7 +487,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
             flat[full] = np.broadcast_to(a_log, shape).astype(np.float32)
         else:
             flat[full] = np.full(shape, arg, np.float32)
-    return from_jax_flat(flat, cfg, dev)
+    return from_jax_flat(flat, cfg.replace(dtype="float32"), dev)
 
 
 def init_params_on_device(cfg: ModelConfig, seed: int = 0,
@@ -316,11 +513,9 @@ def init_params_on_device(cfg: ModelConfig, seed: int = 0,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    act = getattr(torch, cfg.dtype)
     out: Params = {}
     for full, shape in param_shapes(cfg).items():
-        key = full.replace("shared_attn/", "layers/", 1)
-        dtype = act if key in MATMUL_KEYS else torch.float32
+        dtype = use_dtype(cfg, full)
         kind, arg = _init_rule(cfg, full)
         if kind == "full":
             out[full] = torch.full(shape, arg, dtype=dtype, device=dev)

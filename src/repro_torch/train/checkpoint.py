@@ -22,25 +22,57 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import zipfile
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.params import to_flat_numpy
+from repro_torch.models.params import STACKS
 
 
 def save(path: str, params: Mapping[str, torch.Tensor],
          cfg: ModelConfig | None = None,
          extra: Dict[str, Any] | None = None) -> None:
     os.makedirs(path, exist_ok=True)
-    np.savez(os.path.join(path, "params.npz"), **to_flat_numpy(params))
+    _write_npz(os.path.join(path, "params.npz"), params)
     meta: Dict[str, Any] = {"extra": extra or {}}
     if cfg is not None:
         meta["config"] = dataclasses.asdict(cfg)
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump(meta, f, indent=2, default=str)
+
+
+def _write_npz(file: str, params: Mapping[str, torch.Tensor]) -> None:
+    """The file ``np.savez(file, **models.to_flat_numpy(params))`` writes
+    (members ``<key>.npy`` in the tensors' dtypes, stored uncompressed,
+    ZIP64), written one leaf at a time from wherever the tensors live: a
+    leaf under ``STACKS`` one layer slice at a time (from the card through
+    one pinned host buffer), so the host holds one slice or unstacked
+    leaf, never the tree.  A dtype numpy lacks (bf16) raises, as
+    ``to_flat_numpy`` does."""
+    fmt = np.lib.format
+    with zipfile.ZipFile(file, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, leaf in params.items():
+            leaf = leaf.detach()
+            stacked = key.startswith(STACKS) and leaf.dim() > 0
+            with zf.open(key + ".npy", mode="w", force_zip64=True) as fid:
+                dtype = leaf.new_empty(0).cpu().numpy().dtype
+                fmt.write_array_header_1_0(fid, {
+                    "descr": fmt.dtype_to_descr(dtype),
+                    "fortran_order": False, "shape": tuple(leaf.shape)})
+                pieces = leaf if stacked else (leaf,)
+                stage = (torch.empty(pieces[0].shape, dtype=leaf.dtype,
+                                     pin_memory=True)
+                         if leaf.is_cuda and leaf.numel() else None)
+                for piece in pieces:
+                    if stage is None:
+                        arr = np.ascontiguousarray(piece.cpu().numpy())
+                    else:
+                        arr = stage.copy_(piece).numpy()
+                    fid.write(arr.reshape(-1).view(np.uint8))
 
 
 def restore(path: str, params_template: Mapping[str, torch.Tensor]

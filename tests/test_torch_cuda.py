@@ -1270,6 +1270,88 @@ def test_train_step_on_card_equals_cpu(gen):
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
+
+def test_load_checkpoint_on_card_in_use_dtypes(gen, tmp_path):
+    """Reduced OLMoE-1B-7B (6 layers) in fp32, saved from the card by the
+    port's ``save`` and read back by ``load_checkpoint`` onto the card
+    under the bf16 config: every leaf on the card in its use dtype, equal
+    to ``init_params_on_device`` in bf16 (the same draws rounded), and the
+    load's peak allocation within the tree and one fp32 piece (a layer
+    slice or an unstacked leaf) plus 1 MiB of allocator rounding, not the
+    fp32 tree beside a cast copy."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params_on_device, load_checkpoint
+    from repro_torch.models.params import STACKS, param_shapes, use_dtype
+    from repro_torch.train import checkpoint
+    cfg = get_config("olmoe-1b-7b", reduced=True).replace(n_layers=6)
+    checkpoint.save(str(tmp_path), init_params_on_device(
+        cfg.replace(dtype="float32"), seed=4, device="cuda"), cfg)
+    want = init_params_on_device(cfg, seed=4, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = load_checkpoint(str(tmp_path), cfg, device="cuda")
+    peak = torch.cuda.max_memory_allocated() - base
+    tree = sum(v.numel() * v.element_size() for v in got.values())
+    piece = 4 * max(math.prod(s[1:] if k.startswith(STACKS) else s)
+                    for k, s in param_shapes(cfg).items())
+    for k, v in want.items():
+        assert got[k].is_cuda and got[k].dtype == use_dtype(cfg, k), k
+        assert torch.equal(got[k], v), k
+    assert peak <= tree + piece + 2**20, (peak, tree, piece)
+    assert tree + piece + 2**20 < 1.5 * tree
+
+
+@pytest.mark.parametrize("arch", ["internvl2-26b", "seamless-m4t-large-v2"])
+def test_zoo_train_step_on_card_equals_cpu(gen, arch):
+    """fp32 with TF32 off: one ``lm`` train step of the reduced InternVL2
+    (patches before the text) and SeamlessM4T (frames through the encoder,
+    cross-attention) on the card against the CPU port on the same weights
+    and batch: no kernel launched, the loss within 1e-5 relative, every
+    gradient finite, non-zero and within 1e-3 of its leaf's largest
+    element (6a's limits); AdamW's update finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.train import (OptimizerConfig, init_opt_state,
+                                   loss_and_grads, make_loss_fn,
+                                   make_train_step)
+    cfg = get_config(arch, reduced=True).replace(dtype="float32")
+    host = init_params(cfg, seed=6, device="cpu")
+    g = torch.Generator().manual_seed(6)
+    B, S = 2, 40
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g)}
+    if cfg.frontend == "vision_patches":
+        batch["patches"] = torch.randn((B, cfg.n_frontend_tokens,
+                                        cfg.d_model), generator=g)
+    else:
+        batch["frames"] = torch.randn((B, 24, cfg.d_model), generator=g)
+    card = {k: v.cuda() for k, v in host.items()}
+    cbatch = {k: v.cuda() for k, v in batch.items()}
+    loss_fn = make_loss_fn(cfg, "lm")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        n0 = dict(ops.launch_counts())
+        g_card, m_card = loss_and_grads(loss_fn, card, cbatch)
+        assert ops.launch_counts() == n0        # no kernel on the route
+        new, state, _ = make_train_step(cfg, OptimizerConfig(), "lm")(
+            card, init_opt_state(card), cbatch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    g_cpu, m_cpu = loss_and_grads(loss_fn, host, batch)
+    torch.testing.assert_close(m_card["loss"].cpu(), m_cpu["loss"],
+                               rtol=1e-5, atol=0)
+    assert set(g_card) == set(g_cpu) == set(host)
+    for k in g_cpu:
+        got = g_card[k].cpu()
+        scale = float(g_cpu[k].abs().max())
+        assert bool(torch.isfinite(got).all()) and scale > 0, k
+        assert float(got.abs().max()) > 0, k
+        assert float((got - g_cpu[k]).abs().max()) <= 1e-3 * scale, k
+    assert int(state["step"]) == 1
+    assert all(bool(torch.isfinite(v).all()) for v in new.values())
+
 def test_cohort_sweep_equals_oracle_on_card(gen):
     """bf16 on the card: a ``ScenarioEngine`` sweep through the paged,
     prefix-cached ``EngineBackend`` (background loop, 3 in flight) equals

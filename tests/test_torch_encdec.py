@@ -166,10 +166,11 @@ def test_config_equals_jax():
 def test_param_keys_and_shapes_equal_jax(variant, tmp_path):
     """JAX ``init_params`` (``encoder/*``, ``enc_norm/*``,
     ``layers/cross_norm/*``, ``layers/cross_attn/*``) -> npz -> the port ->
-    back, exactly; both of the port's initialisers make JAX's keys and
-    shapes, the device route its MATMUL_KEYS leaves (the encoder's and the
-    cross-attention's among them) in the activation dtype, and
-    ``cast_params`` casts them."""
+    back, exactly (an fp32 config: every leaf's use dtype fp32); both of
+    the port's initialisers make JAX's keys and shapes, the device route
+    and the loader under the bf16 config their MATMUL_KEYS leaves (the
+    encoder's and the cross-attention's among them) in the activation
+    dtype, and ``cast_params`` casts them to the loader's bits."""
     from repro_torch.models import cast_params
     change = VARIANTS[variant]
     cfg = get_config(ARCH, reduced=True).replace(**change)
@@ -180,7 +181,8 @@ def test_param_keys_and_shapes_equal_jax(variant, tmp_path):
         "embed", "encoder", "enc_norm", "final_norm", "layers"}
     assert "layers/cross_attn/wq" in flat and "encoder/attn/wo" in flat
     np.savez(tmp_path / "params.npz", **flat)
-    params = load_checkpoint(str(tmp_path), cfg, device="cpu")
+    params = load_checkpoint(str(tmp_path), cfg.replace(dtype="float32"),
+                             device="cpu")
     back = to_flat_numpy(params)
     assert set(back) == set(flat) == set(param_shapes(cfg))
     assert all((back[k] == flat[k]).all() for k in flat)
@@ -197,6 +199,9 @@ def test_param_keys_and_shapes_equal_jax(variant, tmp_path):
                            else torch.float32), k
     cast = cast_params(params, cfg)
     assert all(cast[k].dtype == torch.bfloat16 for k in matmul)
+    loaded = load_checkpoint(str(tmp_path), cfg, device="cpu")
+    for k, v in loaded.items():
+        assert v.dtype == dev[k].dtype and torch.equal(v, cast[k]), k
 
 
 def test_init_scales_follow_jax():

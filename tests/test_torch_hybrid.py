@@ -108,7 +108,9 @@ def _np(x):
 # ---------------------------------------------------------------------------
 def test_config_and_bridge_match_jax():
     """The full config's shapes (38 layers, 7 applications) equal JAX's
-    ``init_params`` pytree's; a reduced JAX init round-trips exactly."""
+    ``init_params`` pytree's; a reduced JAX init round-trips exactly in
+    fp32 (``from_jax_flat`` stores each leaf in its use dtype, all fp32
+    under an fp32 config)."""
     cfg = get_config("zamba2-1.2b")
     assert (cfg.arch_type, cfg.n_layers, cfg.attn_every) == ("hybrid", 38, 6)
     assert n_attn_apps(cfg) == 7 and cfg.ssm_n_heads == 64
@@ -121,7 +123,8 @@ def test_config_and_bridge_match_jax():
     red = jax_config("zamba2-1.2b", reduced=True).replace(dtype="float32")
     flat = jax_flat(jax_init_params(red, jax.random.PRNGKey(1)))
     back = to_flat_numpy(from_jax_flat(
-        flat, get_config("zamba2-1.2b", reduced=True), device="cpu"))
+        flat, get_config("zamba2-1.2b", reduced=True).replace(
+            dtype="float32"), device="cpu"))
     assert set(back) == set(flat)
     assert all((back[k] == flat[k]).all() for k in flat)
 

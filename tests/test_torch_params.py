@@ -1,9 +1,11 @@
 """The port's weight bridge against the JAX package's parameters.
 
 Every key and shape of the JAX ``init_params`` pytree, flattened as
-``train/checkpoint.py`` writes it, round-trips exactly (tolerance 0: the
-bridge only copies fp32 arrays); the port's own seeded ``init_params`` has
-the same keys, shapes and scales.
+``train/checkpoint.py`` writes it, round-trips exactly under an fp32 config
+(tolerance 0: the bridge only copies fp32 arrays); under the bf16 config
+each leaf is in its use dtype (``params.use_dtype``), the ``MATMUL_KEYS``
+leaves the fp32 values rounded once.  The port's own seeded ``init_params``
+has the same keys, shapes and scales.
 """
 import functools
 
@@ -19,6 +21,7 @@ from repro.train import checkpoint as jax_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.models import (from_jax_flat, init_params, load_checkpoint,
                                 param_count, to_flat_numpy)
+from repro_torch.models.params import use_dtype
 
 torch.set_num_threads(2)
 
@@ -47,7 +50,7 @@ def _jax_flat(reduced: bool):
 @pytest.mark.parametrize("reduced", CONFIGS)
 def test_bridge_round_trips_jax_params(reduced):
     flat, n = _jax_flat(reduced)
-    cfg = get_config("delphi-2m", reduced=reduced)
+    cfg = get_config("delphi-2m", reduced=reduced).replace(dtype="float32")
     params = from_jax_flat(flat, cfg, device="cpu")
     assert set(params) == set(flat)
     for key, arr in flat.items():
@@ -59,6 +62,19 @@ def test_bridge_round_trips_jax_params(reduced):
     assert param_count(params) == n
     if not reduced:
         assert n == 2_242_769           # Delphi-2M's published size
+    _check_use_dtypes(from_jax_flat(flat, cfg.replace(dtype="bfloat16"),
+                                    device="cpu"), params)
+
+
+def _check_use_dtypes(got, f32):
+    """``got`` (loaded under the bf16 config) is ``f32`` (the same file
+    under the fp32 config) with each leaf in its use dtype."""
+    cfg = get_config("delphi-2m")
+    assert set(got) == set(f32)
+    for k, v in got.items():
+        assert v.dtype == use_dtype(cfg, k), k
+        assert torch.equal(v, f32[k].to(v.dtype)), k
+    assert {v.dtype for v in got.values()} == {torch.bfloat16, torch.float32}
 
 
 @pytest.mark.parametrize("reduced", CONFIGS)
@@ -92,11 +108,13 @@ def test_load_checkpoint_reads_jax_save(tmp_path):
     flat, _ = _jax_flat(True)
     jax_checkpoint.save(str(tmp_path), flat,
                         jax_config("delphi-2m", reduced=True))
-    params = load_checkpoint(str(tmp_path),
-                             get_config("delphi-2m", reduced=True),
+    cfg = get_config("delphi-2m", reduced=True)
+    params = load_checkpoint(str(tmp_path), cfg.replace(dtype="float32"),
                              device="cpu")
     for key, arr in flat.items():
         np.testing.assert_array_equal(params[key].numpy(), arr, err_msg=key)
+    _check_use_dtypes(load_checkpoint(str(tmp_path), cfg, device="cpu"),
+                      params)
 
 
 def test_from_jax_flat_rejects_wrong_keys_and_shapes():

@@ -139,14 +139,17 @@ def test_config_equals_jax():
 
 def test_param_keys_and_shapes_equal_jax(tmp_path):
     """JAX ``init_params`` -> npz -> the port -> back, exactly (a VLM has
-    the dense leaves and no more); both of the port's initialisers make
-    JAX's keys and shapes, the device route its MATMUL_KEYS leaves in the
-    activation dtype."""
+    the dense leaves and no more; an fp32 config: every leaf's use dtype
+    fp32); both of the port's initialisers make JAX's keys and shapes, the
+    device route and the loader under the bf16 config their MATMUL_KEYS
+    leaves in the activation dtype (the loader's: the file's values
+    rounded)."""
     cfg = get_config(ARCH, reduced=True)
     flat = jax_flat(jax_init_params(jax_config(ARCH, reduced=True),
                                     jax.random.PRNGKey(2)))
     np.savez(tmp_path / "params.npz", **flat)
-    params = load_checkpoint(str(tmp_path), cfg, device="cpu")
+    params = load_checkpoint(str(tmp_path), cfg.replace(dtype="float32"),
+                             device="cpu")
     back = to_flat_numpy(params)
     assert set(back) == set(flat)
     assert all((back[k] == flat[k]).all() for k in flat)
@@ -155,9 +158,11 @@ def test_param_keys_and_shapes_equal_jax(tmp_path):
                  init_params_on_device(cfg, seed=0, device="cpu")):
         assert {k: tuple(v.shape) for k, v in made.items()} == want
     dev = init_params_on_device(cfg, seed=0, device="cpu")
+    loaded = load_checkpoint(str(tmp_path), cfg, device="cpu")
     for k, v in dev.items():
-        assert v.dtype == (torch.bfloat16 if k in MATMUL_KEYS
-                           else torch.float32), k
+        assert v.dtype == loaded[k].dtype == (
+            torch.bfloat16 if k in MATMUL_KEYS else torch.float32), k
+        assert torch.equal(loaded[k], params[k].to(v.dtype)), k
 
 
 # ---------------------------------------------------------------------------
