@@ -350,7 +350,13 @@ runs these phases; any failure exits non-zero:
    placement ``Replicate``), a forward through their local tensors == the
    plain parameters' logits bit for bit, and the tied head (embedding
    gather, product, bias) on the DTensors themselves == on the plain
-   tensors bit for bit;
+   tensors bit for bit; then the sharded step (``sharded_drive``):
+   full-width TinyLlama-1.1B in bf16, parameters, batch and ring cache
+   placed by ``distribute_tree``, a prefill of 8 x 1,024 and 8 decode
+   steps on the DTensors themselves == the plain route bit for bit
+   (logits, rings), ``flash_attention`` launched 22 times and
+   ``paged_decode_attention`` 22 x 8 on that drive, no collective sent,
+   the drive's seconds printed;
 6j. SeamlessM4T-large-v2 training (after phase 5's rows, as 6k and 3v),
    on the plain route: one fp32 ``lm`` step (TF32 off) at full width cut
    to 2 encoder and 2 decoder layers, 2 x 128 tokens over 16 frames, its
@@ -6083,13 +6089,130 @@ def launch_check_child() -> dict:
             raise AssertionError(f"launch check: devices {n}, all-reduce "
                                  f"{float(one)}, logits equal {equal}, "
                                  f"DTensor head equal {dt_equal}")
+        leaves = len(placed)
+        del params, placed, got, want
+        torch.cuda.empty_cache()
         return {"devices": n, "mesh": str(dm), "placements": sorted(kinds),
-                "leaves": len(placed), "logits_equal": equal,
+                "leaves": leaves, "logits_equal": equal,
                 "dtensor_head_equal": dt_equal,
                 "dtensor_head_type": type(dt_out).__name__,
-                "all_reduce": float(one)}
+                "all_reduce": float(one), "sharded": sharded_drive(dm)}
     finally:
         dist.destroy_process_group()
+
+
+# phase 6i's sharded drive: full-width TinyLlama-1.1B in bf16
+SHARD_ARCH = "tinyllama-1.1b"
+SHARD_BATCH, SHARD_SEQ, SHARD_STEPS = 8, 1024, 8
+
+
+def sharded_drive(dm) -> dict:
+    """Phase 6i's sharded step on the 1 x 1 ``DeviceMesh`` ``dm`` (its
+    one-rank NCCL group): full-width TinyLlama-1.1B in bf16, parameters,
+    batch and a ring cache placed by ``launch.sharding.distribute_tree``,
+    a prefill of ``SHARD_BATCH`` x ``SHARD_SEQ`` and ``SHARD_STEPS``
+    decode steps run on the DTensors themselves (each rank's shards
+    through ``repro_torch.sharded``'s ``local_map``), against the plain route
+    on the same weights and tokens: every step's logits, the prefill's
+    rings and the rings after the last step equal bit for bit.  The decode
+    starts from the plain prefill's rings (which the DTensor prefill's
+    equal) placed by ``distribute_tree``.  The drive (prefill and decode
+    on DTensors, the collective counter on) launches ``flash_attention``
+    once a layer and ``paged_decode_attention`` once a layer a step,
+    counted from 0 just before it and read just after, and sends no
+    collective (one rank).  The drive is timed with the counter on, and
+    again without it, beside the plain route's prefill and decode after a
+    warm drive of it (each a host clock around work that ends in a
+    synchronise)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.collectives import CollectiveCounter
+    from repro_torch.launch.mesh import describe
+    from repro_torch.models import decode_step, forward, init_params_on_device
+    from repro_torch.models.attention import LayerCache
+    cfg = get_config(SHARD_ARCH)
+    mesh = describe(dm)
+    B, S, n = SHARD_BATCH, SHARD_SEQ, SHARD_STEPS
+    W = S + n
+    params = init_params_on_device(cfg, seed=SEED, device=DEVICE)
+    rng = np.random.default_rng(SEED + 29)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + n))
+                            .astype(np.int32)).to(DEVICE)
+    batch = {"tokens": toks[:, :S]}
+
+    def clone(cache):
+        return {k: LayerCache(*(t.clone() for t in v))
+                for k, v in cache.items()}
+
+    def decode(p, cache):
+        out = []
+        for i in range(n):
+            step = torch.full((B,), S + i, dtype=torch.int32, device=DEVICE)
+            d = decode_step(p, cfg, cache, {"tokens": toks[:, S + i:S + i + 1]},
+                            step)
+            out.append(d["logits"])
+        return out
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def plain():
+        r = forward(params, cfg, batch, mode="prefill", cache_width=W)
+        return r, clone(r["cache"]), decode(params, r["cache"])
+
+    with torch.no_grad():
+        plain()                                     # warm
+        (ref, ring0, ref_steps), plain_s = timed(plain)
+        dparams = sh.distribute_tree(params, sh.param_shardings(mesh, params),
+                                     dm)
+        dbatch = sh.distribute_tree(batch, sh.batch_shardings(mesh, batch),
+                                    dm)
+
+        def sharded():
+            out = forward(dparams, cfg, dbatch, mode="prefill", cache_width=W)
+            dring = sh.distribute_tree(
+                clone(ring0), sh.cache_shardings(mesh, ring0), dm)
+            return out, dring, decode(dparams, dring)
+        ops.reset_launch_counts()
+        with CollectiveCounter() as cc:
+            (out, dring, steps), seconds = timed(sharded)
+        counts = ops.launch_counts()
+        _, bare_s = timed(sharded)
+    local = {k: LayerCache(*(t.to_local() for t in v))
+             for k, v in out["cache"].items()}
+    prefill_equal = bool(torch.equal(out["logits"].to_local(), ref["logits"]))
+    prefill_rings_equal = all(torch.equal(a, b) for k in local
+                              for a, b in zip(local[k], ring0[k]))
+    steps_equal = all(torch.equal(a.to_local(), b)
+                      for a, b in zip(steps, ref_steps))
+    rings_equal = all(torch.equal(a.to_local(), b) for k in dring
+                      for a, b in zip(dring[k], ref["cache"][k]))
+    want = {"flash_attention": cfg.n_layers,
+            "paged_decode_attention": cfg.n_layers * n}
+    res = {"arch": SHARD_ARCH, "batch": B, "seq": S, "steps": n,
+           "seconds": seconds, "seconds_no_counter": bare_s,
+           "plain_seconds": plain_s, "collective_total": cc.total,
+           "logits_type": type(out["logits"]).__name__,
+           "prefill_equal": prefill_equal,
+           "prefill_rings_equal": prefill_rings_equal,
+           "steps_equal": steps_equal, "rings_equal": rings_equal,
+           "launches": {k: counts[k] for k in want}}
+    if not (prefill_equal and prefill_rings_equal and steps_equal
+            and rings_equal and cc.total == 0
+            and res["launches"] == want
+            and res["logits_type"] == "DTensor"):
+        raise AssertionError(f"sharded drive: {res}, launches wanted "
+                             f"{want}")
+    del params, dparams, out, ref, ring0, dring
+    torch.cuda.empty_cache()
+    return res
 
 
 def start_launch_check():
@@ -7162,6 +7285,17 @@ def main() -> int:
         f"tied head on the DTensors ({lch['dtensor_head_type']} out) == on "
         f"the plain tensors bit for bit: {lch['dtensor_head_equal']}; "
         f"{lch['wall_s']:.1f}s")
+    shd = lch["sharded"]
+    log(f"  sharded step: {shd['arch']} bf16 on the 1 x 1 mesh, parameters, "
+        f"batch and ring cache placed by distribute_tree; a prefill of "
+        f"{shd['batch']} x {shd['seq']} and {shd['steps']} decode steps on "
+        f"the DTensors ({shd['logits_type']} logits) == the plain route bit "
+        f"for bit: prefill {shd['prefill_equal']}, its rings "
+        f"{shd['prefill_rings_equal']}, steps {shd['steps_equal']}, rings "
+        f"{shd['rings_equal']}; launches {shd['launches']}; collective "
+        f"total {shd['collective_total']} B; the drive {shd['seconds']:.3f}s "
+        f"with the collective counter on, {shd['seconds_no_counter']:.3f}s "
+        f"without, the plain route's {shd['plain_seconds']:.3f}s ({smi})")
     phase_done("6i")
 
     log("== phase 5: times at the main paths' shapes")

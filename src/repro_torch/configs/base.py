@@ -96,6 +96,15 @@ class ModelConfig:
     dtype: str = "bfloat16"            # activation dtype on the card
     remat: bool = False                # training: recompute each layer's
     #                                    activations in the backward
+    # context parallelism (the reference's section-Perf variant): on a
+    # sharded step, split the self-attention's queries along the sequence
+    # over the mesh's "model" axis (keys and values whole), so that heads
+    # that do not divide the axis (Qwen2.5's 40 query / 8 KV heads on 16)
+    # no longer repeat their attention on every rank of it.  No effect on
+    # plain tensors.  The reference's unroll_layers and attn_direct are not
+    # ported: they pick an XLA lowering for its cost analysis, and the
+    # port's dry run counts every layer of an eager stack as it runs.
+    seq_shard_attn: bool = False
 
     def __post_init__(self):
         if self.head_dim is None:

@@ -18,6 +18,12 @@ While ``torch.export`` traces (the SDK artifact's graphs), the two
 attention entry points and ``ssd_intra_heads`` go through the operators of
 ``kernels.library`` instead, so that the exported graph calls the kernel
 (or, on the CPU, the plain version) as one node.
+
+On DTensors (a sharded step), the attention entry points and
+``tte_sample`` run on each rank's shards through ``local_map``
+(``repro_torch.sharded``): the kernel on the card, the plain version on the
+CPU and the meta device, each on its local tensors.  ``ssd_intra`` refuses
+DTensors: a sharded Mamba2 layer calls it on each rank's local tensors.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import sharded
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import library
 from repro_torch.kernels import paged_attention as _paged
@@ -73,8 +80,18 @@ def _on_cuda(t: torch.Tensor) -> bool:
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """q: (B, Hq, S, hd); k, v: (B, Hkv, T, hd) -> (B, Hq, S, hd) in q's
-    dtype.  Causality is by index (query row i sees keys j <= i)."""
+    dtype.  Causality is by index (query row i sees keys j <= i).  On
+    DTensors each rank attends its shards (``repro_torch.sharded``); queries
+    split along the sequence attend causally from their first row's
+    index, through the kernel's position masks."""
     _refuse_grad("flash_attention", q, k, v)
+    if sharded.is_dtensor(q):
+        def local(ql, kl, vl, q_start):
+            if q_start is None or not causal:
+                return flash_attention(ql, kl, vl, causal=causal,
+                                       window=window)
+            return _flash_from_row(ql, kl, vl, q_start, window)
+        return sharded.local_attention(local, q, k, v, hdim=1, sdim=2)
     if torch.compiler.is_exporting():
         return library.flash_attention(q, k, v, causal, window)
     if _on_cuda(q):
@@ -82,6 +99,21 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                            window=window)
     return ref.flash_attention_ref(q, k, v, causal=causal,
                                    window=window).to(q.dtype)
+
+
+def _flash_from_row(q, k, v, q_start: int, window: Optional[int]):
+    """Causal attention of query rows ``q_start ..`` over keys ``0 ..``:
+    the position masks of the kernel (or of its plain version), with each
+    row's index as its position."""
+    B, S, T = q.shape[0], q.shape[2], k.shape[2]
+    qp = torch.arange(q_start, q_start + S, dtype=torch.int32,
+                      device=q.device).expand(B, S)
+    kp = torch.arange(T, dtype=torch.int32, device=q.device).expand(B, T)
+    if _on_cuda(q):
+        return _flash.flash_attention_cuda(q, k, v, causal=True,
+                                           window=window, q_pos=qp, k_pos=kp)
+    return ref.flash_attention_ref(q, k, v, causal=True, window=window,
+                                   q_pos=qp, k_pos=kp).to(q.dtype)
 
 
 def suffix_prefill_attention(q, k, v, ctx_k, ctx_v, q_pos, ctx_pos, *,
@@ -123,8 +155,12 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos, step, *,
     table: (B, nbs) pool ids (-1 = unallocated); pos: (NB, bs) absolute
     positions (-1 = empty); step: (B,) query positions.  GQA groups the
     query heads as ``(Hkv, Hq // Hkv)``.  Returns (B, Hq, hd) in q's dtype.
+    On DTensors the pool must be a ring (``models.attention``: block b is
+    slot b's, ``NB == B``), whose slots shard with the batch.
     """
     _refuse_grad("paged_decode_attention", q, k_pool, v_pool)
+    if sharded.is_dtensor(q):
+        return _paged_sharded(q, k_pool, v_pool, table, pos, step, window)
     B, Hq, hd = q.shape
     Hkv = k_pool.shape[1]
     q4 = q.reshape(B, Hkv, Hq // Hkv, hd)
@@ -142,10 +178,43 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos, step, *,
     return out.reshape(B, Hq, hd).to(q.dtype)
 
 
+def _paged_sharded(q, k_pool, v_pool, table, pos, step, window):
+    """:func:`paged_decode_attention` on DTensors: a ring's slots with the
+    batch, each rank over its own slots (a local table ``arange``), its
+    positions and steps taken by rows."""
+    if k_pool.shape[0] != q.shape[0] or table.shape[-1] != 1:
+        raise NotImplementedError(
+            "paged_decode_attention on DTensors takes a ring (one block a "
+            "slot, NB == B); a shared block pool has no sharded route")
+    _, qt, _, _ = sharded.attention_layout(q, k_pool, hdim=1, sdim=None)
+    rows = sharded.batch_placements(qt, q.device_mesh)
+    pos = sharded.redistribute(sharded.as_batch_sharded(pos, q), rows)
+    step = sharded.redistribute(sharded.as_batch_sharded(step, q), rows)
+
+    def local(ql, kl, vl, q_start, posl, stepl):
+        tbl = torch.arange(ql.shape[0], dtype=torch.int32,
+                           device=ql.device)[:, None]
+        return paged_decode_attention(ql, kl, vl, tbl, posl, stepl,
+                                      window=window)
+    return sharded.local_attention(local, q, k_pool, v_pool, hdim=1,
+                                   sdim=None, extras=(pos, step),
+                                   extra_placements=(rows, rows))
+
+
 def tte_sample(logits, u) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused competing-exponential sampler: (B, V) logits and uniforms ->
-    (event (B,) int32, t_min (B,) fp32), ties to the lowest index."""
+    (event (B,) int32, t_min (B,) fp32), ties to the lowest index.  On
+    DTensors each rank samples its rows, every row whole."""
     _refuse_grad("tte_sample", logits, u)
+    if sharded.is_dtensor(logits):
+        from torch.distributed.tensor.experimental import local_map
+        rows = sharded.batch_placements(logits.placements,
+                                        logits.device_mesh)
+        logits = sharded.redistribute(logits, rows)
+        u = sharded.redistribute(sharded.as_batch_sharded(u, logits), rows)
+        return local_map(tte_sample, out_placements=(rows, rows),
+                         in_placements=(rows, rows),
+                         device_mesh=logits.device_mesh)(logits, u)
     logits = logits.float()
     u = u.float()
     if _on_cuda(logits):
@@ -168,6 +237,10 @@ def ssd_intra_heads(xdt, Bm, Cm, cum) -> Tuple[torch.Tensor, torch.Tensor]:
     tile among the heads; cum (b, c, Q, H).  Returns (y_diag
     (b, c, Q, H, P), states (b, c, H, N, P)), fp32."""
     _refuse_grad("ssd_intra", xdt, Bm, Cm, cum)
+    if sharded.is_dtensor(xdt):
+        raise NotImplementedError(
+            "ssd_intra takes each rank's local tensors: a sharded Mamba2 "
+            "layer runs it inside local_map (models.model._sharded_mamba)")
     if torch.compiler.is_exporting():
         return library.ssd_intra(xdt, Bm, Cm, cum.float())
     if _on_cuda(xdt):

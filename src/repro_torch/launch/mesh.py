@@ -13,9 +13,10 @@ heads, hidden widths, experts, Mamba channels and the vocabulary over
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 
 @dataclass(frozen=True)
@@ -86,3 +87,37 @@ def device_mesh(mesh: Mesh, device_type: str = "cuda"):
                            f"the process group {world}")
     return init_device_mesh(device_type, mesh.sizes,
                             mesh_dim_names=mesh.axis_names)
+
+
+def describe(dmesh) -> Mesh:
+    """The :class:`Mesh` description of a ``DeviceMesh`` (its dimension
+    names and sizes), which the sharding rules read."""
+    return Mesh(tuple(dmesh.mesh_dim_names), tuple(dmesh.mesh.shape))
+
+
+@contextlib.contextmanager
+def fake_device_mesh(mesh: Mesh, device_type: str = "cuda") -> Iterator:
+    """A ``DeviceMesh`` of ``mesh.sizes`` with the mesh's axis names over a
+    ``fake`` process group of ``mesh.size`` ranks, this process rank 0: its
+    collectives move nothing and return tensors of the right shape, so a
+    step on DTensors whose local tensors are on the meta device runs, and
+    its collectives can be counted, without a byte allocated or a peer.
+    The mesh is of the cards' device type by default, so that DTensor
+    takes the cards' collectives (on a ``"cpu"`` mesh it replaces an
+    all-to-all by an all-gather, as for a gloo group); no card is needed.
+    The group is made on entry and destroyed on exit, so that the process
+    can start a real group afterwards; entering while a group exists
+    raises ``RuntimeError``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_device_mesh needs a process without a "
+                           "process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        yield init_device_mesh(device_type, mesh.sizes,
+                               mesh_dim_names=mesh.axis_names)
+    finally:
+        dist.destroy_process_group()

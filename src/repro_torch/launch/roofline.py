@@ -8,6 +8,10 @@ Three terms per (arch x shape x mesh), in seconds:
     memory     = bytes_per_device / HBM_BW
     collective = collective_bytes_per_device / LINK_BW
 
+The collective bytes are the sharded step's own (``launch.collectives``:
+each collective's result bytes on a device, counted as the dry run runs
+the step on DTensors).
+
 MODEL_FLOPS uses the 6ND (train) / 2ND (inference) convention with N =
 active parameters; the ratio of MODEL_FLOPS to the counted FLOPs exposes
 remat recompute and dispatch waste (the dense MoE dispatch runs every
@@ -121,14 +125,15 @@ def load_records(dirpath: str) -> List[Dict]:
 
 
 def table(recs: List[Dict]) -> str:
-    rows = ["| arch | shape | mesh | compute_s | memory_s | collective_s | "
-            "dominant | useful FLOP ratio | peak GiB/dev |",
-            "|---|---|---|---|---|---|---|---|---|"]
+    rows = ["| arch | shape | mesh | variant | compute_s | memory_s | "
+            "collective_s | dominant | useful FLOP ratio | peak GiB/dev |",
+            "|---|---|---|---|---|---|---|---|---|---|"]
     for rec in recs:
         a = analyse(rec)
         ur = f"{a['useful_ratio']:.3f}" if a["useful_ratio"] else "-"
         rows.append(
             f"| {a['arch']} | {a['shape']} | {a['mesh']} "
+            f"| {a.get('variant') or '-'} "
             f"| {a['compute_s']:.3e} | {a['memory_s']:.3e} "
             f"| {a['collective_s']:.3e} | **{a['dominant']}** | {ur} "
             f"| {a['memory']['peak_estimate_bytes']/2**30:.2f} |")

@@ -15,7 +15,10 @@ axis name, or a tuple of axis names, the entries of the reference's
 ``/``-keyed trees (the keys of the npz that ``train/checkpoint.py::save``
 writes; a cache's leaves are ``"<kind>/<field>"``: ``self/k``, ``ssm/h``,
 ...) to specs, and :func:`to_placements` turns a spec into the DTensor
-placements of a ``DeviceMesh`` with the same axes.
+placements of a ``DeviceMesh`` with the same axes.  :func:`distribute_tree`
+places a tree by its specs as DTensors: real tensors by
+``distribute_tensor``, meta tensors as their local shards' meta tensors
+(``DTensor.from_local``), so that nothing is allocated.
 """
 from __future__ import annotations
 
@@ -206,3 +209,89 @@ def to_placements(spec: Spec, mesh) -> list:
              if ax == axis or (isinstance(ax, tuple) and axis in ax)), None)
         out.append(Replicate() if dim is None else Shard(dim))
     return out
+
+
+def local_shape(shape: Sequence[int], placements, dmesh) -> Tuple[int, ...]:
+    """The shape of one rank's shard of a tensor of global ``shape`` under
+    ``placements`` on ``dmesh`` (the rules shard only where a mesh axis
+    divides its dimension, so every rank's shard has this shape)."""
+    from torch.distributed.tensor import Shard
+    out = list(shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n = dmesh.size(i)
+            if out[p.dim] % n:
+                raise ValueError(f"dimension {p.dim} of {tuple(shape)} does "
+                                 f"not divide over {n} ranks")
+            out[p.dim] //= n
+    return tuple(out)
+
+
+def distribute_leaf(t, spec: Spec, dmesh):
+    """One tensor as a DTensor laid out by ``spec`` on ``dmesh``: a meta
+    tensor as the meta tensor of its local shard (nothing allocated), a
+    real one by ``distribute_tensor`` (each rank keeps its own slice of the
+    same tensor, no collective)."""
+    import torch
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    placements = to_placements(spec, dmesh)
+    if t.device.type == "meta":
+        local = torch.empty(local_shape(t.shape, placements, dmesh),
+                            dtype=t.dtype, device="meta")
+        return DTensor.from_local(local, dmesh, placements, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+    return distribute_tensor(t, dmesh, placements, src_data_rank=None)
+
+
+def _flat_specs(specs, prefix: str = "") -> Dict[str, Spec]:
+    """{"a/b": spec} of nested spec mappings (a spec is a plain tuple)."""
+    out: Dict[str, Spec] = {}
+    for k, v in specs.items():
+        if isinstance(v, Mapping):
+            out.update(_flat_specs(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = tuple(v)
+    return out
+
+
+def distribute_tree(tree, specs, dmesh):
+    """``tree`` with every tensor a DTensor laid out by its spec on
+    ``dmesh`` (:func:`distribute_leaf`).  ``tree`` is a ``/``-keyed flat
+    mapping, or nested mappings and named tuples (an optimizer state, a
+    decode cache), and ``specs`` gives each leaf's spec under its flat
+    ``/`` path (``"self/k"``, ``"mu/layers/attn/wq"``), flat or nested;
+    the result has the tree's structure."""
+    flat = _flat_specs(specs)
+
+    def place(node, prefix):
+        if node is None:
+            return None
+        if hasattr(node, "_fields"):
+            return type(node)(*(place(v, f"{prefix}{f}/")
+                                for f, v in zip(node._fields, node)))
+        if isinstance(node, Mapping):
+            return {k: place(v, f"{prefix}{k}/") for k, v in node.items()}
+        key = prefix[:-1]
+        if key not in flat:
+            raise KeyError(f"no spec for leaf {key!r}")
+        return distribute_leaf(node, flat[key], dmesh)
+    return place(tree, "")
+
+
+def full_cache_leaf(name: str, shape: Sequence[int], fill, dtype, dmesh,
+                    device):
+    """A decode-cache leaf ``name`` (``"k"``, ``"v"``, ``"pos"``, ...) of
+    global ``shape`` filled with ``fill``, as a DTensor laid out by
+    :func:`cache_pspec` on ``dmesh``: each rank makes its own shard on
+    ``device`` (meta: nothing allocated)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import describe
+    placements = to_placements(cache_pspec(describe(dmesh), name,
+                                           tuple(shape)), dmesh)
+    local = torch.full(local_shape(shape, placements, dmesh), fill,
+                       dtype=dtype, device=device)
+    return DTensor.from_local(local, dmesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())

@@ -45,6 +45,15 @@ backward, and ``kernels.ops`` refuses to run one under grad.  Past 512 x
 512 scores it takes the JAX package's blocked route: an online softmax over
 512-key blocks, each key step recomputed in the backward.
 
+On DTensors (a sharded step), attention runs on each rank's shards
+(``repro_torch.sharded``): the prefill and decode kernels through
+``kernels.ops``, the training route through
+:func:`sharded_chunked_attention`.  Caches are DTensors laid out by
+``launch.sharding.cache_pspec`` (:func:`empty_cache_for`), and each rank
+writes a decode step's position and K/V into its own slots
+(:func:`write_ring_positions`, :func:`ring_decode_attention`).  A paged
+pool has no sharded route.
+
 A sliding window (``window``, tokens) narrows every route to the keys at
 positions ``> q_pos - window``; the ring's own eviction (``pos > step -
 W``) applies on top of it in decode.  Keys are stored post-RoPE (the
@@ -58,6 +67,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharded
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -195,6 +205,21 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
     return out[:, :Sq].to(q.dtype)
 
 
+def sharded_chunked_attention(q, k, v, *, causal: bool = True,
+                              window=None) -> torch.Tensor:
+    """:func:`chunked_attention` on DTensors q (B, S, Hq, hd), k, v (B, T,
+    Hkv, hd), at positions by index (0.. for the keys, and for the queries
+    from the first row a rank holds): each rank over its shards
+    (``sharded.local_attention``), differentiable."""
+    def local(ql, kl, vl, q_start):
+        qp = torch.arange(ql.shape[1], device=ql.device) + (q_start or 0)
+        kp = torch.arange(kl.shape[1], device=ql.device)
+        return chunked_attention(ql, kl, vl, qp, kp, causal=causal,
+                                 window=window,
+                                 q_per_kv=ql.shape[2] // kl.shape[2])
+    return sharded.local_attention(local, q, k, v, hdim=2, sdim=1)
+
+
 def prefill_attention(q, k, v, window: Optional[int] = None
                       ) -> torch.Tensor:
     """Causal self-attention over positions 0..S-1 (right padding sits at
@@ -269,10 +294,36 @@ def empty_cache(n_layers: int, batch: int, n_kv_heads: int, width: int,
                        device=device))
 
 
+def empty_cache_for(x, n_layers: int, batch: int, n_kv_heads: int,
+                    width: int, head_dim: int) -> LayerCache:
+    """:func:`empty_cache` in x's dtype on x's device, or, for a DTensor
+    x, its leaves as DTensors on x's mesh laid out by
+    ``launch.sharding.cache_pspec``, each rank making only its shard."""
+    if not sharded.is_dtensor(x):
+        return empty_cache(n_layers, batch, n_kv_heads, width, head_dim,
+                           x.dtype, x.device)
+    from repro_torch.launch.sharding import full_cache_leaf
+    dm, dev = x.device_mesh, x.to_local().device
+    kv = (n_layers, batch, n_kv_heads, width, head_dim)
+    return LayerCache(
+        k=full_cache_leaf("k", kv, 0, x.dtype, dm, dev),
+        v=full_cache_leaf("v", kv, 0, x.dtype, dm, dev),
+        pos=full_cache_leaf("pos", (n_layers, batch, width), -1,
+                            torch.int32, dm, dev))
+
+
 def write_ring_positions(cache: LayerCache, step: torch.Tensor) -> torch.Tensor:
     """Record each slot's new token position ``step`` (B,) at ring slot
     ``step % W`` of every layer's position plane, in place.  Returns the
-    (B,) ring slots."""
+    (B,) ring slots (on DTensors, each rank writes its own rows and gets
+    the slots of its rows, a local tensor)."""
+    if sharded.is_dtensor(cache.pos):
+        pos = cache.pos.to_local()
+        st = sharded.as_batch_sharded(step, cache.k[0]).to_local()
+        slot = torch.remainder(st.long(), pos.shape[-1])
+        rows = torch.arange(st.shape[0], device=pos.device)
+        pos[:, rows, slot] = st.to(torch.int32)
+        return slot
     W = cache.pos.shape[-1]
     slot = torch.remainder(step.long(), W)
     rows = torch.arange(step.shape[0], device=step.device)
@@ -292,12 +343,42 @@ def ring_decode_attention(q, k_new, v_new, cache: LayerCache, layer: int,
     the paged decode kernel (positions in ``(step - W, step]`` and, with a
     ``window``, ``> step - window``).  Returns (B, 1, Hq, hd)."""
     kl, vl = cache.k[layer], cache.v[layer]
+    if sharded.is_dtensor(kl):
+        _write_ring_sharded(kl, k_new[:, 0], slot)
+        _write_ring_sharded(vl, v_new[:, 0], slot)
+        o = ops.paged_decode_attention(q[:, 0], kl, vl, table,
+                                       cache.pos[layer], step, window=window)
+        return o[:, None]
     rows = torch.arange(q.shape[0], device=q.device)
     kl[rows, :, slot] = k_new[:, 0].to(kl.dtype)
     vl[rows, :, slot] = v_new[:, 0].to(vl.dtype)
     o = ops.paged_decode_attention(q[:, 0], kl, vl, table, cache.pos[layer],
                                    step, window=window)
     return o[:, None]
+
+
+def _write_ring_sharded(ring, new, slot: torch.Tensor) -> None:
+    """One layer's ring ``ring`` (B, Hkv, W, hd), a DTensor, takes ``new``
+    (B, Hkv, hd) at each of this rank's rows' ``slot`` (local, from
+    :func:`write_ring_positions`), in place: each rank writes its own
+    rows and, where the ring's width is split over ``model``, only the
+    slots it holds (``new`` taken whole over ``model`` there)."""
+    from torch.distributed.tensor import Replicate, Shard
+    want = [Shard(0) if p == Shard(0) else
+            Shard(1) if p == Shard(1) else Replicate()
+            for p in ring.placements]
+    new = sharded.redistribute(new, want).to_local()
+    loc = ring.to_local()
+    rows = torch.arange(loc.shape[0], device=loc.device)
+    s = slot
+    if Shard(2) in ring.placements:
+        W = loc.shape[2]
+        lo = sharded.model_rank(ring.device_mesh) * W
+        held = (slot >= lo) & (slot < lo + W)
+        s = (slot - lo).clamp(0, W - 1)
+        new = torch.where(held[:, None, None], new.to(loc.dtype),
+                          loc[rows, :, s])
+    loc[rows, :, s] = new.to(loc.dtype)
 
 
 def cross_decode_attention(q, cache: LayerCache, layer: int,

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharded
 from repro_torch.configs.base import ModelConfig
 
 
@@ -140,7 +141,47 @@ def apply_swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
 
 def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
+    """The rows of ``embed`` (V, d) at ``tokens``, in ``dtype``.  On
+    DTensors each rank gathers its tokens' rows from its slice of a
+    vocabulary-sharded table (zeros for the tokens outside it), and the
+    rows are summed over the vocabulary axis (an all-reduce of the rows),
+    as the reference's partitioner gathers a sharded table."""
+    if sharded.is_dtensor(embed):
+        return _sharded_embed(embed.to(dtype), tokens)
     return embed.to(dtype)[tokens.long()]
+
+
+def _sharded_embed(embed, tokens):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    dm = embed.device_mesh
+    if not sharded.is_dtensor(tokens):      # plain tokens: whole on each rank
+        tokens = sharded.as_batch_sharded(tokens, embed)
+    rows = sharded.batch_placements(tokens.placements, dm)
+    tokens = sharded.redistribute(tokens, rows)
+    split = [i for i, p in enumerate(embed.placements) if p == Shard(0)
+             and dm.mesh_dim_names[i] == sharded.MODEL]
+    ep = [Shard(0) if i in split else Replicate() for i in range(dm.ndim)]
+    # the table's gradient from each rank's rows is a partial sum over the
+    # data axes
+    eg = [Shard(0) if i in split else Partial() if r == Shard(0)
+          else Replicate() for i, r in enumerate(rows)]
+    out = [Partial() if i in split else r for i, r in enumerate(rows)]
+    embed = sharded.redistribute(embed, ep)
+
+    def local(el, tl):
+        idx = tl.long()
+        if not split:
+            return el[idx]
+        V = el.shape[0]
+        idx = idx - sharded.model_rank(dm) * V
+        held = (idx >= 0) & (idx < V)
+        x = el[idx.clamp(0, V - 1)]
+        return torch.where(held[..., None], x, torch.zeros_like(x))
+    x = local_map(local, out_placements=out, in_placements=(ep, rows),
+                  in_grad_placements=(eg, rows), device_mesh=dm)(embed,
+                                                                  tokens)
+    return sharded.reduce_rows(x)
 
 
 def logits_head(embed: torch.Tensor, h: torch.Tensor,

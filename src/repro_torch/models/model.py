@@ -61,6 +61,18 @@ recomputed in the backward instead of kept, as the JAX package's
 
 ``moe_impl`` (``forward``, ``forward_suffix``, ``decode_step``) picks the
 MoE layers' dispatch, ``models.moe.apply_moe``'s ``impl``.
+
+The dense, MoE, VLM and encoder-decoder families also run on DTensors
+(``launch.sharding.distribute_tree``'s layout on any ``DeviceMesh``: a
+sharded step): ``forward`` and ``decode_step`` take the same code, the
+plain tensors they make take part as replicated, attention runs on each
+rank's shards (``repro_torch.sharded``), a prefill's rings are made as
+DTensors in the cache layout, and each rank writes a decode step into its
+own ring slots.  With ``cfg.seq_shard_attn`` the self-attention's queries
+are split along the sequence over the mesh's ``model`` axis first (on
+plain tensors the flag changes nothing).  A Mamba2 layer runs whole on
+each rank's rows, its weights and state gathered over ``model``
+(:func:`_sharded_mamba`).
 """
 from __future__ import annotations
 
@@ -69,6 +81,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import sharded
 from repro_torch.configs import base as cb
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -163,19 +176,23 @@ def _mlp_block(blk: Block, x: torch.Tensor, cfg: ModelConfig,
     """``x + MLP(norm(x))`` and the block's router aux loss (an fp32
     scalar for an MoE block, else None): the experts (dispatched by
     ``moe_impl``) where the block has a router, else SwiGLU or GELU."""
-    h = apply_norm(x, blk["mlp_norm/scale"], blk.get("mlp_norm/bias"))
+    h = sharded.gather_grad(apply_norm(x, blk["mlp_norm/scale"],
+                                       blk.get("mlp_norm/bias")))
     if "moe/router" in blk:
         y, aux = moe_lib.apply_moe(blk, h, cfg, impl=moe_impl)
-        return x + y, aux
+        return x + sharded.reduce_rows(y), aux
     if "mlp/w_gate" in blk:
-        return x + apply_swiglu(h, blk["mlp/w_gate"], blk["mlp/w_up"],
-                                blk["mlp/w_down"]), None
-    return x + apply_mlp(h, blk["mlp/w_fc"], blk["mlp/b_fc"],
-                         blk["mlp/w_proj"], blk["mlp/b_proj"]), None
+        y = apply_swiglu(h, blk["mlp/w_gate"], blk["mlp/w_up"],
+                         blk["mlp/w_down"])
+    else:
+        y = apply_mlp(h, blk["mlp/w_fc"], blk["mlp/b_fc"], blk["mlp/w_proj"],
+                      blk["mlp/b_proj"])
+    return x + sharded.reduce_rows(y), None
 
 
 def _head(params: Params, x: torch.Tensor) -> torch.Tensor:
-    x = apply_norm(x, params["final_norm/scale"], params.get("final_norm/bias"))
+    x = sharded.gather_grad(apply_norm(x, params["final_norm/scale"],
+                                       params.get("final_norm/bias")))
     if "embed/lm_head" in params:
         return untied_logits_head(params["embed/lm_head"], x,
                                   params.get("embed/out_bias"))
@@ -194,6 +211,9 @@ def mamba_layer(params: Params, x: torch.Tensor, cfg: ModelConfig, l: int, *,
     blk = Block(params, "layers/", l)
     h = apply_norm(x, blk["norm/scale"], blk.get("norm/bias"))
     p = ssm_lib.layer_params(params, l)
+    if sharded.is_dtensor(h):
+        return _sharded_mamba(p, x, h, cfg, l, mode, cache, differentiable,
+                              last_index)
     if mode == "decode":
         y, hs, conv = ssm_lib.ssm_decode_step(p, h, cache.h[l], cache.conv[l],
                                               cfg)
@@ -207,12 +227,47 @@ def mamba_layer(params: Params, x: torch.Tensor, cfg: ModelConfig, l: int, *,
     return x + ssm_lib.ssm_forward(p, h, cfg, differentiable=differentiable)
 
 
+def _sharded_mamba(p, x, h, cfg: ModelConfig, l: int, mode: str, cache,
+                   differentiable: bool, last_index):
+    """:func:`mamba_layer` on DTensors.  The layer's in-projection packs z,
+    x, B, C and dt along one width, which the reference's spec splits over
+    ``model`` at boundaries of no one of them, and its gated norm spans the
+    whole inner width: so the layer's weights (and a decode's state) are
+    gathered whole over ``model`` (counted), and each rank runs the whole
+    layer on its own rows through ``local_map`` (the ``ssd_intra`` kernel on
+    its local tensors), repeating it on every rank of ``model``."""
+    if mode == "decode":
+        y, hs, conv = sharded.local_rows(
+            lambda lp, hl, sl, cl: ssm_lib.ssm_decode_step(lp, hl, sl, cl,
+                                                           cfg),
+            3, p, h, cache.h[l], cache.conv[l])
+        cache.h[l] = hs
+        cache.conv[l] = conv
+        return x + y
+    if mode == "prefill":
+        extra = () if last_index is None else (last_index,)
+
+        def prefill(lp, hl, *li):
+            y, (hs, conv) = ssm_lib.ssm_forward(
+                lp, hl, cfg, return_state=True,
+                last_index=li[0] if li else None)
+            return y, hs, conv
+        y, hs, conv = sharded.local_rows(prefill, 3, p, h, *extra)
+        return x + y, (hs, conv)
+    y, = sharded.local_rows(
+        lambda lp, hl: (ssm_lib.ssm_forward(lp, hl, cfg,
+                                            differentiable=differentiable),),
+        1, p, sharded.gather_grad(h))
+    return x + y
+
+
 def _qkv(blk: Block, cfg: ModelConfig, x: torch.Tensor,
          positions: torch.Tensor):
     """A block's pre-norm and QKV projection (with its biases); with RoPE
     (``not cfg.age_encoding``) q and k are rotated at the absolute
     ``positions`` (broadcastable to (B, S)) before any cache write."""
-    h = apply_norm(x, blk["attn_norm/scale"], blk.get("attn_norm/bias"))
+    h = sharded.gather_grad(apply_norm(x, blk["attn_norm/scale"],
+                                       blk.get("attn_norm/bias")))
     q, k, v = attn.project_qkv(h, blk["attn/wq"], blk["attn/wk"],
                                blk["attn/wv"], blk.get("attn/bq"),
                                blk.get("attn/bk"), blk.get("attn/bv"))
@@ -236,7 +291,13 @@ def _attn_block(blk: Block, cfg: ModelConfig, x: torch.Tensor,
     cross ring (None without ``memory``)."""
     q, k, v = _qkv(blk, cfg, x, positions)
     window = cfg.sliding_window if causal else None
-    if differentiable:
+    dist = sharded.is_dtensor(q)
+    if dist and cfg.seq_shard_attn:
+        q = sharded.shard_sequence(q, 1)
+    if differentiable and dist:
+        o = attn.sharded_chunked_attention(q, k, v, causal=causal,
+                                           window=window)
+    elif differentiable:
         o = attn.chunked_attention(q, k, v, positions, positions,
                                    causal=causal, window=window,
                                    q_per_kv=cfg.q_per_kv)
@@ -244,7 +305,7 @@ def _attn_block(blk: Block, cfg: ModelConfig, x: torch.Tensor,
         o = attn.prefill_attention(q, k, v, window=window)
     else:
         o = attn.full_attention(q, k, v)
-    x = x + attn.output_projection(o, blk["attn/wo"])
+    x = x + sharded.reduce_rows(attn.output_projection(o, blk["attn/wo"]))
     cross = None
     if memory is not None:
         x, cross = _cross_block(blk, cfg, x, memory, differentiable)
@@ -257,19 +318,24 @@ def _cross_block(blk: Block, cfg: ModelConfig, x: torch.Tensor,
     """``x + CrossAttn(cross_norm(x), memory)``: q from x, k and v from the
     memory (B, M, d), no RoPE, every key visible (T = M keys for S
     queries).  Returns (x, (k, v))."""
-    h = apply_norm(x, blk["cross_norm/scale"], blk.get("cross_norm/bias"))
+    h = sharded.gather_grad(apply_norm(x, blk["cross_norm/scale"],
+                                       blk.get("cross_norm/bias")))
     q, k, v = attn.project_qkv(h, blk["cross_attn/wq"], blk["cross_attn/wk"],
                                blk["cross_attn/wv"], blk.get("cross_attn/bq"),
                                blk.get("cross_attn/bk"),
-                               blk.get("cross_attn/bv"), xkv=memory)
-    if differentiable:
+                               blk.get("cross_attn/bv"),
+                               xkv=sharded.gather_grad(memory))
+    if differentiable and sharded.is_dtensor(q):
+        o = attn.sharded_chunked_attention(q, k, v, causal=False)
+    elif differentiable:
         qpos = torch.arange(x.shape[1], device=x.device)
         mpos = torch.arange(memory.shape[1], device=x.device)
         o = attn.chunked_attention(q, k, v, qpos, mpos, causal=False,
                                    q_per_kv=cfg.q_per_kv)
     else:
         o = attn.full_attention(q, k, v)
-    return x + attn.output_projection(o, blk["cross_attn/wo"]), (k, v)
+    return x + sharded.reduce_rows(
+        attn.output_projection(o, blk["cross_attn/wo"])), (k, v)
 
 
 def _encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
@@ -295,7 +361,8 @@ def _cross_decode(blk: Block, cfg: ModelConfig, x: torch.Tensor,
     h = apply_norm(x, blk["cross_norm/scale"], blk.get("cross_norm/bias"))
     q = attn.project_q(h, blk["cross_attn/wq"], blk.get("cross_attn/bq"))
     o = attn.cross_decode_attention(q, cross, l, table)
-    return x + attn.output_projection(o, blk["cross_attn/wo"])
+    return x + sharded.reduce_rows(
+        attn.output_projection(o, blk["cross_attn/wo"]))
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
@@ -327,7 +394,17 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
 
     batch: tokens (B, S) int; for Delphi ages (B, S) float years; for a
     VLM patches (B, n_frontend_tokens, d); for an encoder-decoder frames
-    (B, M, d)."""
+    (B, M, d).  On DTensors the step is sharded (module docstring)."""
+    with sharded.plain_as_replicated(params["embed/embed"]):
+        return _forward(params, cfg, batch, mode=mode,
+                        cache_width=cache_width, last_index=last_index,
+                        differentiable=differentiable, moe_impl=moe_impl)
+
+
+def _forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
+             mode: str, cache_width: Optional[int],
+             last_index: Optional[torch.Tensor], differentiable: bool,
+             moe_impl: str) -> Dict[str, Any]:
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be 'train' or 'prefill': {mode!r}")
     if differentiable and mode != "train":
@@ -350,12 +427,12 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
         win = cfg.sliding_window
         W = cache_width or (win if win is not None else S)
         n = cfg.n_layers if stack else n_attn_apps(cfg)
-        cache = attn.empty_cache(n, B, cfg.n_kv_heads, W, cfg.head_dim,
-                                 x.dtype, x.device)
+        cache = attn.empty_cache_for(x, n, B, cfg.n_kv_heads, W,
+                                     cfg.head_dim)
         if enc_dec:
             M = memory.shape[1]
-            cross = attn.empty_cache(n, B, cfg.n_kv_heads, M, cfg.head_dim,
-                                     x.dtype, x.device)
+            cross = attn.empty_cache_for(x, n, B, cfg.n_kv_heads, M,
+                                         cfg.head_dim)
             mpos = torch.arange(M, dtype=torch.int32,
                                 device=x.device).expand(B, M)
 
@@ -474,7 +551,16 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
     patches: ``text_offset`` + the text position).  The cache is updated
     in place (and returned as ``cache``); an encoder-decoder's cross rings
     are read, not written.  Returns {"logits": (B, 1, V) fp32, "cache":
-    cache}."""
+    cache}.  On DTensors the step is sharded (module docstring; a ring
+    cache only)."""
+    with sharded.plain_as_replicated(params["embed/embed"]):
+        return _decode_step(params, cfg, cache, batch, step,
+                            moe_impl=moe_impl)
+
+
+def _decode_step(params: Params, cfg: ModelConfig, cache,
+                 batch: Dict[str, Any], step, *, moe_impl: str
+                 ) -> Dict[str, Any]:
     x = _embed(params, cfg, batch)
     t = cfg.arch_type
     if t == cb.SSM:
@@ -492,6 +578,9 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
     rows = torch.arange(B, dtype=torch.int32, device=x.device)[:, None]
     win = cfg.sliding_window
     if isinstance(lc, PagedCache):
+        if sharded.is_dtensor(lc.k):
+            raise NotImplementedError("a paged pool has no sharded route: "
+                                      "decode DTensors on a ring cache")
         # one position write a tick for all layers; per layer the pool
         # write, then the kernel through the slots' tables
         dst, off = attn.write_paged_positions(lc, step)
@@ -512,7 +601,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch: Dict[str, Any],
     def block(blk: Block, x, i: int):
         q, k, v = _qkv(blk, cfg, x, pos1)
         o = attend(q, k, v, i)
-        x = x + attn.output_projection(o, blk["attn/wo"])
+        x = x + sharded.reduce_rows(attn.output_projection(o,
+                                                           blk["attn/wo"]))
         if cross is not None:
             x = _cross_decode(blk, cfg, x, cross, i, rows)
         return _mlp_block(blk, x, cfg, moe_impl)[0]

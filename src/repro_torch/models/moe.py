@@ -42,6 +42,16 @@ Dispatch (:func:`apply_moe`'s ``impl``, the reference's four names):
 
 Any other name raises ``ValueError`` (the reference's ``else`` takes
 ``dense_scan`` silently).
+
+On DTensors (a sharded step) the dense routes run
+:func:`_dense_sharded`: each rank routes its own tokens (the router's
+products, softmax, top-k and the combine weights, through ``local_map``;
+the aux loss from the expert shares and mean probabilities summed over
+the data axes), and the expert products run on DTensors in one chunk,
+the experts (or, where their count does not divide the model axis, each
+expert's hidden width) split over ``model`` by ``launch.sharding``'s
+specs, so the combine ends in a partial sum over ``model``.  The ragged
+routes have no sharded route.
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharded
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import apply_swiglu
 
@@ -81,6 +92,15 @@ def router_logits(router: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (out[0] if len(out) == 1 else torch.cat(out))[:T]
 
 
+def _top_k(probs: torch.Tensor, top_k: int):
+    """(weights, experts) of :func:`route`: a stable descending sort's
+    first k, the weights renormalised."""
+    weights, experts = torch.sort(probs, dim=-1, descending=True,
+                                  stable=True)
+    weights, experts = weights[:, :top_k], experts[:, :top_k]
+    return weights / weights.sum(dim=-1, keepdim=True), experts
+
+
 def route(router: torch.Tensor, x: torch.Tensor, top_k: int
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (T, d) -> (weights (T, k) fp32, experts (T, k) int64, aux fp32
@@ -92,10 +112,7 @@ def route(router: torch.Tensor, x: torch.Tensor, top_k: int
     the experts are taken from a stable descending sort, which keeps the
     lower index first."""
     probs = torch.softmax(router_logits(router, x), dim=-1)         # (T, E)
-    weights, experts = torch.sort(probs, dim=-1, descending=True,
-                                  stable=True)
-    weights, experts = weights[:, :top_k], experts[:, :top_k]
-    weights = weights / weights.sum(dim=-1, keepdim=True)
+    weights, experts = _top_k(probs, top_k)
     E = probs.shape[-1]
     chosen = torch.zeros_like(probs).scatter_add_(
         1, experts, torch.ones_like(weights))                      # (T, E)
@@ -207,6 +224,41 @@ def _dense(blk, flat: torch.Tensor, cfg: ModelConfig
     return (outs[0] if len(outs) == 1 else torch.cat(outs)), aux
 
 
+def _dense_sharded(blk, flat, cfg: ModelConfig):
+    """:func:`_dense` on DTensors (module docstring): (T, d), aux loss."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    dm = flat.device_mesh
+    T, dt, E = flat.shape[0], flat.dtype, cfg.n_experts
+    rows = sharded.batch_placements(flat.placements, dm)
+    flat = sharded.redistribute(flat, rows)
+    whole = [Replicate()] * dm.ndim
+    summed = [Partial() if p == Shard(0) else Replicate() for p in rows]
+
+    def local(router, x):
+        probs = torch.softmax(x.float() @ router.float(), dim=-1)
+        weights, experts = _top_k(probs, cfg.top_k)
+        combine = torch.zeros((x.shape[0], E), dtype=dt,
+                              device=x.device).scatter_(1, experts,
+                                                        weights.to(dt))
+        chosen = torch.zeros_like(probs).scatter_add_(
+            1, experts, torch.ones_like(weights))
+        return combine, chosen.sum(dim=0), probs.sum(dim=0)
+    router = sharded.redistribute(blk["moe/router"], whole)
+    combine, chosen, psum = local_map(
+        local, out_placements=(rows, summed, summed),
+        in_placements=(whole, rows), in_grad_placements=(summed, rows),
+        device_mesh=dm)(router, flat)
+    aux = E * ((sharded.replicated(chosen) / T)
+               * (sharded.replicated(psum) / T)).sum()
+    wg, wu, wd = (blk[k].to(dt) for k in ("moe/w_gate", "moe/w_up",
+                                          "moe/w_down"))
+    xe = flat.unsqueeze(0).expand(E, *flat.shape)                   # (E, T, d)
+    h = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)               # (E, T, f)
+    y = torch.bmm(h, wd)                                            # (E, T, d)
+    return torch.einsum("etd,te->td", y, combine), aux
+
+
 def apply_moe(blk, x: torch.Tensor, cfg: ModelConfig,
               impl: str = "dense_scan") -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y (B, S, d) in x's dtype, aux loss fp32 scalar).
@@ -219,7 +271,13 @@ def apply_moe(blk, x: torch.Tensor, cfg: ModelConfig,
         raise ValueError(f"unknown MoE impl {impl!r}: one of {IMPLS}")
     B, S, d = x.shape
     flat = x.reshape(B * S, d)
-    if impl in ("ragged", "ragged_local"):
+    if sharded.is_dtensor(flat):
+        if impl in ("ragged", "ragged_local"):
+            raise NotImplementedError(f"MoE impl {impl!r} has no sharded "
+                                      f"route: its group sizes come from "
+                                      f"the routed tokens")
+        y, aux = _dense_sharded(blk, flat, cfg)
+    elif impl in ("ragged", "ragged_local"):
         y, aux = moe_ragged(blk, flat, cfg)
     else:
         y, aux = _dense(blk, flat, cfg)

@@ -27,7 +27,7 @@ from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, sharded
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import losses as losses_lib
 from repro_torch.core.delphi import loss_fn as delphi_loss_fn
@@ -73,11 +73,22 @@ def loss_and_grads(loss_fn: Callable, params: Mapping[str, torch.Tensor],
     """(gradient of ``loss_fn(params, batch)["loss"]`` per parameter, the
     detached metrics), differentiating with respect to detached leaves so
     that no graph outlives the call.  A parameter the loss does not reach
-    raises (autograd's own check), rather than getting a zero gradient."""
+    raises (autograd's own check), rather than getting a zero gradient.
+
+    On DTensor parameters (a sharded step) the metrics are reduced to
+    whole values on every rank before the backward, and each gradient is
+    brought to its parameter's layout after it (the gradients'
+    all-reduce over the data axes, once a leaf)."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    with torch.enable_grad():
+    first = next(iter(leaves.values()))
+    with torch.enable_grad(), sharded.plain_as_replicated(first):
         m = loss_fn(leaves, batch)
+        if sharded.is_dtensor(first):
+            m = {k: sharded.replicated(v) for k, v in m.items()}
         grads = torch.autograd.grad(m["loss"], list(leaves.values()))
+    if sharded.is_dtensor(first):
+        grads = [sharded.redistribute(g, p.placements)
+                 for g, p in zip(grads, leaves.values())]
     return dict(zip(leaves, grads)), {k: v.detach() for k, v in m.items()}
 
 

@@ -1413,3 +1413,73 @@ def test_artifact_on_card_equals_eager_through_the_kernels(gen, tmp_path,
     s = list(LocalBackend(params, cfg, device="cuda").stream(req))
     assert (res.tokens, res.ages) == ([e.token for e in s],
                                       [e.age for e in s])
+
+
+def test_sharded_prefill_and_decode_on_a_1x1_mesh_equal_the_plain_route(
+        gen, tmp_path):
+    """A one-rank NCCL group (a ``FileStore`` in ``tmp_path``) and its 1 x 1
+    ``DeviceMesh`` on the card: reduced TinyLlama in bf16, its parameters,
+    batch and ring cache placed by ``distribute_tree``; a prefill of 4 x
+    96 and 4 decode steps on the DTensors themselves equal the plain
+    route's logits and rings bit for bit, through the flash kernel once a
+    layer and the paged kernel once a layer a step, with no collective."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.collectives import CollectiveCounter
+    from repro_torch.launch.mesh import describe
+    from repro_torch.models import decode_step, forward, init_params_on_device
+    from repro_torch.models.attention import LayerCache
+    B, S, n = 4, 96, 4
+    cfg = get_config("tinyllama-1.1b", reduced=True)
+    params = init_params_on_device(cfg, seed=0, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (B, S + n), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks[:, :S]}
+
+    def clone(cache):
+        return {k: LayerCache(*(t.clone() for t in v))
+                for k, v in cache.items()}
+
+    def decode(p, cache):
+        return [decode_step(p, cfg, cache,
+                            {"tokens": toks[:, S + i:S + i + 1]},
+                            torch.full((B,), S + i, dtype=torch.int32,
+                                       device="cuda"))["logits"]
+                for i in range(n)]
+
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        dm = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        mesh = describe(dm)
+        with torch.no_grad():
+            ref_out = forward(params, cfg, batch, mode="prefill",
+                              cache_width=S + n)
+            ring0 = clone(ref_out["cache"])
+            ref_steps = decode(params, ref_out["cache"])
+            dp = sh.distribute_tree(params, sh.param_shardings(mesh, params),
+                                    dm)
+            db = sh.distribute_tree(batch, sh.batch_shardings(mesh, batch),
+                                    dm)
+            ring = sh.distribute_tree(clone(ring0),
+                                      sh.cache_shardings(mesh, ring0), dm)
+            ops.reset_launch_counts()
+            with CollectiveCounter() as cc:
+                out = forward(dp, cfg, db, mode="prefill", cache_width=S + n)
+                steps = decode(dp, ring)
+            counts = ops.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    assert counts["flash_attention"] == cfg.n_layers
+    assert counts["paged_decode_attention"] == cfg.n_layers * n
+    assert cc.total == 0
+    assert torch.equal(out["logits"].to_local(), ref_out["logits"])
+    for a, b in zip(out["cache"]["self"], ring0["self"]):
+        assert torch.equal(a.to_local(), b)
+    for a, b in zip(steps, ref_steps):
+        assert torch.equal(a.to_local(), b)
+    for a, b in zip(ring["self"], ref_out["cache"]["self"]):
+        assert torch.equal(a.to_local(), b)

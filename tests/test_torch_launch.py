@@ -256,12 +256,25 @@ def test_dry_run_flops_equal_a_hand_count():
 
 def test_dry_run_allocates_nothing_and_refuses_ragged():
     """Full-width Qwen2.5-32B's decode_32k step (65 GB of bf16 weights, a
-    17 GB cache a device group of 16): nothing is made off the meta
-    device."""
+    17 GB cache a device group of 16), run sharded on DTensors over a fake
+    16 x 16 group: nothing is made off the meta device, and the
+    collectives are the hand count of its layout.  The 8 KV heads do not
+    divide the model axis, so each ring's width is split over it and
+    gathered whole for attention (k and v, every layer); the embedding and
+    each layer's MLP (27,648 = 16 x 1,728 wide) end in an all-reduce of
+    the 8 local rows; the 40 query heads do not divide 16, so attention
+    repeats on every rank of the axis and needs none."""
     rec = dryrun.dryrun_one("qwen2.5-32b", "decode_32k")
     assert rec["off_meta_bytes"] < 2 ** 20
     assert rec["memory"]["argument_bytes_by_group"]["params"] > 2 ** 30
-    assert rec["flops_per_device"] > 0 and rec["collective_total"] == 0.0
+    cfg = get_config("qwen2.5-32b")
+    rows, L = 128 // 16, cfg.n_layers
+    ring = rows * cfg.n_kv_heads * 32_768 * cfg.head_dim * 2
+    assert rec["collective_bytes_per_device"] == {
+        "all-gather": 2 * L * ring,
+        "all-reduce": (L + 1) * rows * cfg.d_model * 2}
+    assert rec["flops_per_device"] > 0 and \
+        rec["collective_total"] == 2 * L * ring + (L + 1) * rows * 5120 * 2
     assert rec["n_params"] > 30e9
     for impl in ("ragged", "ragged_local"):
         with pytest.raises(ValueError, match=f"moe_impl '{impl}'"):
