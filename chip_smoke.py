@@ -28,9 +28,15 @@ runs these phases; any failure exits non-zero:
    (SeamlessM4T's encoder), non-causal with 64 queries over 4,096 keys
    (its cross-attention prefill; ``FLASH_CROSS_CASES``), paged on a ring of
    B 8, Hkv 8, G 6, hd 128, W 1,280 and on a full cross ring of B 8, Hkv
-   16, G 1, hd 64, W 4,096 at step W - 1; where every query sees 4,096
-   keys or more, also that the tolerance fails a kernel that dropped the
-   last 128 keys, ``flash_drop_check`` and ``paged_drop_check``); then
+   16, G 1, hd 64, W 4,096 at step W - 1; and at Qwen2.5-32B's and
+   DeepSeek-7B's, each in bf16 and fp32: flash as GQA 40/8 at hd 128, B 8,
+   S 1,024 and B 1, S 4,096 (causal), as MHA 32/32 at hd 128, B 8, S
+   1,024, paged on partly filled rings of B 8, Hkv 8, G 5 (one query head
+   a block) and of B 8, Hkv 32, G 1, hd 128, W 1,024, and on a full ring
+   of B 1, Hkv 8, G 5, W 16,384; where 4,096 keys or more are visible (no
+   window), also that the tolerance fails a kernel that dropped the last
+   128 keys (causal: masked for every query), ``flash_drop_check`` and
+   ``paged_drop_check``); then
    ``models/moe.py::apply_moe`` at Qwen2-MoE's widths, one layer, at T 8
    and T 2,048: the bf16 route against the same weights in fp32 (TF32
    off), within ``MOE_BF16_REL`` of the output's scale on the tokens whose
@@ -386,6 +392,34 @@ runs these phases; any failure exits non-zero:
    peak within the bf16 tree + its largest fp32 layer slice + 1 GiB; the
    save's and the load's seconds and rates, the child's ``VmHWM`` (its
    ``VmRSS`` after the load where the kernel lists no ``VmHWM``);
+3w. Qwen2.5-32B at full width and depth (64 layers, d_model 5,120, 40/8
+   heads of 128, QKV biases, SwiGLU d_ff 27,648, V 152,064, RoPE theta
+   1e6; 65.53 GB in bf16, its weights made on the card: no fp32 copy of
+   the model exists anywhere), right after phase 2 with 3x and their rows
+   in a process of their own (``lm_phases``: the long prompt needs ~72
+   GiB of a card that holds nothing else, and the windows' profiler
+   activities stay out of the later traces): first ``python -m
+   repro_torch.launch.serve --arch qwen2.5-32b --max-context 1024 --slots
+   8 --requests 8`` through the CLI's ``main`` in this process
+   (``lm_cli_drive``: its weights made on the card in their use dtypes by
+   ``init_weights``, 3p's launch gates, its device peak within the bf16
+   tree + the ring + one fp32 piece + 4 GiB; freed before the phase makes
+   its own); then 3p's runs and gates (``lm_path``), the logits of the
+   shortest and the longest prompt's last prefill position against the
+   fp32 model at full depth (``core.parity.layered_prefill_logits``: one
+   layer upcast at a time, plain route, TF32 off) within
+   ``DENSE_LOGITS_VS_PLAIN`` times the plain bf16 route's error; last one
+   prompt of 16,352 seeded ids with 32 new tokens, 1 slot, ``max_context``
+   16,384 (``lm_long_drive``): the ring and the paged pool (1,024 blocks of
+   16) bit for bit under injected uniforms, the first 2 tokens held
+   teacher-forced against the kernels' prefills of the prompt and of the
+   prompt extended by the first token (``core.parity.check_lm_steps``,
+   score margin twice the logits error), a decode step's logits against
+   the extended prefill's, the peak allocation against the card's;
+3x. DeepSeek-7B at full width and depth (30 layers, d_model 4,096, 32/32
+   heads of 128, SwiGLU d_ff 11,008, V 102,400; 13.82 GB in bf16): 3w's
+   runs, gates and full-depth logits check, without the CLI and the long
+   prompt;
 5. times at the main paths' shapes: each kernel, its plain version, one
    PyTorch library call where one computes the same function (a yardstick
    the port never calls), and the bound from bytes and operations (for
@@ -418,7 +452,13 @@ runs these phases; any failure exits non-zero:
    S = T = 4,096, hd 64, bidirectional) and
    at its cross-attention prefill (64 queries over 4,096 keys), paged on
    3r's ring after the run (B 8, Hkv 8, G 6, hd 128, W 1,280) and on 3s's
-   cross ring (B 8, Hkv 16, G 1, hd 64, W 4,096, step W - 1).
+   cross ring (B 8, Hkv 16, G 1, hd 64, W 4,096, step W - 1); and 3w's and
+   3x's, timed in their subprocess after those phases: flash at 3w's largest bucket (GQA 40/8, hd 128), at
+   B 1, S 4,096 and at the long prompt's S 16,384 (the plain version 1,024
+   queries a call, ``flash_ref_blocks``; SDPA on the K/V heads repeated),
+   paged on 3w's ring (G 5, W 1,024) and on the long prompt's (W 16,384),
+   flash at 3x's largest bucket (MHA 32/32) and paged on its ring (G 1, 32
+   kv heads).
 
 Each phase's wall seconds are printed on a line of their own as it ends
 (``phase 3j 171.4 s``: the time since the previous phase ended, so they
@@ -430,12 +470,14 @@ phase 3i, on the audit of phase 6d, on the artifact drive of phase 3j and
 on the ring runs of 3k, 3l and 3m, the drive of 3n, the Zamba2 run of 3o,
 the drives of 3t (both models' counts summed; ``ssd_intra`` too),
 the MoE ring runs of 3p and 3q, the training CLIs of 6f and 6g, the
-training steps of 6j and 6k and the CLI's serving in 3v
+training steps of 6j and 6k, the CLI's serving in 3v and the ring runs of
+3w (its long prompt's as ``3w long``) and 3x
 (``launches_by_path``, counts zeroed just before each and read just after;
 6f, 6g, 6j and 6k read 0; 3r and 3s count the timed drive, prefill and
 decode);
-fourteen more rows give flash and paged at the shapes of 3k, 3l, 3o, 3q
-and 3r, flash at 3s's encoder and cross prefill (both with 3s's flash
+twenty-one more rows give flash and paged at the shapes of 3k, 3l, 3o,
+3q, 3r, 3w, 3w's long prompt and 3x, flash at 3w's S 4,096, flash at 3s's
+encoder and cross prefill (both with 3s's flash
 launches, which count the two together with the decoder's self
 attention), paged on 3s's cross ring, and ``ssd_intra`` at 3o's, with
 their launches there.  The last lines are the ``kernels``
@@ -663,6 +705,18 @@ FLASH_CASES = [
      "SeamlessM4T encoder bidirectional MHA 16/16 hd=64 S=T=4096 bf16"),
     (8, 16, 16, 4096, 64, None, False, "float32",
      "SeamlessM4T encoder bidirectional MHA 16/16 hd=64 S=T=4096 fp32"),
+    (8, 40, 8, 1024, 128, None, True, "bfloat16",
+     "Qwen2.5-32B GQA 40/8 hd=128 S=1024 bf16"),
+    (8, 40, 8, 1024, 128, None, True, "float32",
+     "Qwen2.5-32B GQA 40/8 hd=128 S=1024 fp32"),
+    (1, 40, 8, 4096, 128, None, True, "bfloat16",
+     "Qwen2.5-32B GQA 40/8 hd=128 S=4096 bf16"),
+    (1, 40, 8, 4096, 128, None, True, "float32",
+     "Qwen2.5-32B GQA 40/8 hd=128 S=4096 fp32"),
+    (8, 32, 32, 1024, 128, None, True, "bfloat16",
+     "DeepSeek-7B MHA 32/32 hd=128 S=1024 bf16"),
+    (8, 32, 32, 1024, 128, None, True, "float32",
+     "DeepSeek-7B MHA 32/32 hd=128 S=1024 fp32"),
 ]
 # non-causal with T != S: (B, Hq, Hkv, S, T, hd, dtype name, note)
 FLASH_CROSS_CASES = [
@@ -675,15 +729,26 @@ FLASH_CROSS_CASES = [
 ]
 
 
-def flash_drop_check(note, q, k, v, want, tol) -> None:
-    """Shows that ``tol`` fails a bidirectional flash kernel that skipped
-    its last key tile: the plain version over every key but the last
-    ``DROPPED_TILE``, rounded to the kernel's dtype, must miss ``want`` by
-    more than ``tol``."""
+def flash_drop_check(note, q, k, v, want, tol, causal=False) -> None:
+    """Shows that ``tol`` fails a flash kernel that skipped its last key
+    tile: the plain version over every key but the last ``DROPPED_TILE``
+    (causal: those keys masked by position for every query, so the last
+    queries lose up to ``DROPPED_TILE`` of theirs), rounded to the
+    kernel's dtype, must miss ``want`` by more than ``tol``."""
+    import torch
     from repro_torch.kernels import ref
     d = -DROPPED_TILE
-    bad = ref.flash_attention_ref(q.float(), k[:, :, :d].float(),
-                                  v[:, :, :d].float(), causal=False)
+    if causal:
+        B, S = q.shape[0], q.shape[2]
+        qp = torch.arange(S, dtype=torch.int32, device=q.device).expand(
+            B, S)
+        kp = qp.clone()
+        kp[:, d:] = -1
+        bad = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                      q_pos=qp, k_pos=kp)
+    else:
+        bad = ref.flash_attention_ref(q.float(), k[:, :, :d].float(),
+                                      v[:, :, :d].float(), causal=False)
     drop_err = float((bad.to(q.dtype).float() - want).abs().max())
     if not drop_err > tol:
         raise AssertionError(f"flash_attention {note}: a kernel that drops "
@@ -696,8 +761,10 @@ def flash_drop_check(note, q, k, v, want, tol) -> None:
 def check_flash(gen) -> float:
     """fp32 atol 2e-5, bf16 atol ``_tol`` against the plain version in fp32
     on the same (rounded) inputs.  q/k/v are transposed views of (B, S, H, hd)
-    tensors, as the model passes them.  Returns the largest error over the
-    bf16 cases at the main path's widths."""
+    tensors, as the model passes them; at ``DROP_CHECK_KEYS`` keys or more
+    (no window) ``flash_drop_check`` shows the tolerance fails a kernel
+    that drops its last key tile.  Returns the largest error over the bf16
+    cases at the main path's widths."""
     import torch
     from repro_torch.kernels import flash_attention as k
     from repro_torch.kernels import ref
@@ -717,8 +784,8 @@ def check_flash(gen) -> float:
         tol = _tol(dtype, r)
         if not err <= tol:
             raise AssertionError(f"flash_attention {note}: err {err} > {tol}")
-        if not causal and S >= DROP_CHECK_KEYS:
-            flash_drop_check(note, q, kk, v, r, tol)
+        if S >= DROP_CHECK_KEYS and window is None:
+            flash_drop_check(note, q, kk, v, r, tol, causal=causal)
         if note.startswith("main"):
             main_err = max(main_err, err)
         log(f"  flash_attention {note} (B={B} Hq={Hq} Hkv={Hkv} S={S} "
@@ -958,7 +1025,10 @@ def check_paged(gen) -> float:
     ]
     # InternVL2's ring (G 6 at hd 128, W 1,280, patches and text) and
     # SeamlessM4T's cross ring (every one of 4,096 memory positions valid,
-    # step W - 1: what models.attention.cross_decode_attention passes)
+    # step W - 1: what models.attention.cross_decode_attention passes);
+    # Qwen2.5-32B's rings (G 5: one query head a block, each K/V row read
+    # 5 times; 3w's 8 slots, and the long prompt's full 16,384-token ring)
+    # and DeepSeek-7B's (MHA over 32 kv heads)
     for dt in (bf16, f32):
         cases += [
             (f"InternVL2 ring B=8 Hkv=8 G=6 hd=128 W=1280, partly filled, "
@@ -968,7 +1038,19 @@ def check_paged(gen) -> float:
             (f"SeamlessM4T cross ring B=8 Hkv=16 G=1 hd=64 W=4096, full, "
              f"step W-1, {str(dt)[6:]}",
              ring_inputs(gen, 8, 16, 1, 64, 4096, dt, [4095] * 8,
-                         padded=False), None)]
+                         padded=False), None),
+            (f"Qwen2.5-32B ring B=8 Hkv=8 G=5 hd=128 W=1024, partly filled, "
+             f"{str(dt)[6:]}",
+             ring_inputs(gen, 8, 8, 5, 128, 1024, dt,
+                         [63, 700, 1023, 1024, 1500, 200, 511, 2047]), None),
+            (f"Qwen2.5-32B long ring B=1 Hkv=8 G=5 hd=128 W=16384, full, "
+             f"{str(dt)[6:]}",
+             ring_inputs(gen, 1, 8, 5, 128, LM_LONG_CONTEXT, dt,
+                         [LM_LONG_CONTEXT - 1], padded=False), None),
+            (f"DeepSeek-7B ring B=8 Hkv=32 G=1 hd=128 W=1024, partly "
+             f"filled, {str(dt)[6:]}",
+             ring_inputs(gen, 8, 32, 1, 128, 1024, dt,
+                         [63, 700, 1023, 1024, 1500, 200, 511, 2047]), None)]
     main_err = 0.0
     for note, (q, k, v, table, pos, step), window in cases:
         B, Hq, hd = q.shape
@@ -4053,26 +4135,224 @@ def moe_logits(params, cfg, prompt) -> dict:
             "router_flips_by_layer": flips}
 
 
-def moe_path(arch: str, phase: str, fp32_layers=None) -> dict:
-    """Phases 3p (OLMoE-1B-7B) and 3q (Qwen2-MoE-A2.7B): the model at full
-    width and depth in bf16, its weights made on the card
-    (``init_params_on_device``), served with 3k's knobs (8 slots,
-    ``max_context`` 1,024, 8 random-id prompts of 64-768 tokens, 32 new
-    tokens): the ring, then the prefix-cached paged cache; under injected
-    uniforms ring == paged bit for bit on all 8 requests and chunked (64
-    tokens a step) == unchunked bit for bit on the shortest and the
-    longest, each served alone; one host copy a tick and an admission
-    batch, the pool drained, flash 1 launch a layer an admission batch (a
-    chunk when chunked), paged 1 a layer a tick, ``tte_sample`` none; the
-    peak memory under the card's; a profiled ring window (3o's); the last
-    logits of the longest prompt against the fp32 model (with
-    ``fp32_layers``, of a model cut to that depth at full width: 3q's)."""
+def dense_logits(params, cfg, prompts) -> dict:
+    """Each prompt's last prefill position's logits, through the kernels and
+    through the plain route in bf16, against the fp32 model at full depth
+    on the same weights (``core.parity.layered_prefill_logits``: one layer
+    upcast at a time, plain route, TF32 off: the fp32 tree of Qwen2.5-32B,
+    131 GB, does not fit the card).  3l's rule for each prompt: the
+    kernels' route may be off by at most ``DENSE_LOGITS_VS_PLAIN`` times
+    the plain route's own bf16 error."""
+    import torch
+    from repro_torch.core import parity as par
+    from repro_torch.models import forward
+    rows = []
+    for prompt in prompts:
+        toks = torch.from_numpy(prompt[None]).to(DEVICE)
+
+        def last():
+            with torch.no_grad():
+                return forward(params, cfg, {"tokens": toks},
+                               mode="prefill")["logits"][0, 0]
+        kern = last()
+        with plain_route():
+            plain = last()
+        exact = par.layered_prefill_logits(params, cfg, toks)[0, 0]
+        err = float((kern - exact).abs().max())
+        plain_err = float((plain - exact).abs().max())
+        if not (bool(torch.isfinite(kern).all())
+                and err <= DENSE_LOGITS_VS_PLAIN * plain_err):
+            raise AssertionError(f"{cfg.name}: a {len(prompt)}-token "
+                                 f"prompt's logits against the fp32 model: "
+                                 f"the kernels' route off by {err}, the "
+                                 f"plain route by {plain_err} (allowed "
+                                 f"{DENSE_LOGITS_VS_PLAIN}x it)")
+        rows.append({"prompt_tokens": len(prompt), "logits_err": err,
+                     "plain_err": plain_err,
+                     "kernel_vs_plain": float((kern - plain).abs().max()),
+                     "logits_scale": float(exact.abs().max())})
+        del kern, plain, exact
+        free_card()
+    return {"layers": cfg.n_layers, "prompts": rows,
+            "logits_err": max(r["logits_err"] for r in rows),
+            "plain_err": max(r["plain_err"] for r in rows)}
+
+
+def lm_cli_drive(arch: str) -> dict:
+    """``python -m repro_torch.launch.serve --arch ARCH --max-context 1024
+    --slots 8 --requests 8`` in this process (its ``main``): the weights
+    made on the card in their use dtypes (``launch.serve.init_weights``),
+    every request served with the CLI's 48 new tokens, flash once a layer
+    an admission batch and paged once a layer a tick; the device's peak
+    allocation against the bf16 tree, the ring and one fp32 piece (an fp32
+    copy of the model would add twice the tree), and the process's host
+    memory after it.  The engine and its weights are freed before
+    returning."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.params import use_dtype
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    argv = ["--arch", arch, "--max-context", str(DENSE_CONTEXT), "--slots",
+            str(DENSE_SLOTS), "--requests", str(DENSE_REQUESTS), "--device",
+            DEVICE]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = launch.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    eng = out["engine"]
+    cfg = eng.cfg
+    max_new = launch.parse_args(argv).max_new
+    check_lm_run(eng, out["done"], counts, cfg, max_new, f"{arch} CLI")
+    wrong = [k for k, v in eng.params.items()
+             if v.device.type != eng.device.type
+             or v.dtype != use_dtype(cfg, k)]
+    tree = sum(v.numel() * v.element_size() for v in eng.params.values())
+    peak = torch.cuda.max_memory_allocated() - base
+    limit = tree + eng.cache_bytes + largest_fp32_piece(cfg) + 4 * 2**30
+    if wrong or len(out["done"]) != DENSE_REQUESTS or not peak < limit:
+        raise AssertionError(f"{arch} CLI: leaves off the card or not in "
+                             f"their use dtype {wrong[:4]}, "
+                             f"{len(out['done'])} requests, device peak "
+                             f"{peak} against {limit}")
+    res = {"argv": argv, "wall_s": wall, "seconds": out["seconds"],
+           "tokens": out["events"],
+           "tokens_per_s": out["events"] / out["seconds"],
+           "ticks": eng.ticks, "admit_batches": eng.admit_batches,
+           "launches": counts, "tree_bytes": tree, "ring_bytes":
+           eng.cache_bytes, "device_peak_bytes": peak,
+           "device_peak_limit": limit, **launch._host_memory()}
+    del out, eng
+    free_card()
+    return res
+
+
+# 3w's long prompt: one request of 16,352 seeded ids and 32 new tokens, 1
+# slot, max_context 16,384 (the largest power-of-two bucket beside
+# Qwen2.5-32B's 61 GiB of bf16 weights: the ring 4 GiB, the prefill's own
+# rings 4 GiB, MLP activations ~2.5 GiB; 32,768 would need ~82 GiB), on
+# the ring and on the paged pool (1,024 blocks of 16); the first
+# LM_LONG_HELD tokens held teacher-forced against prefills
+LM_LONG_PROMPT, LM_LONG_CONTEXT, LM_LONG_MAX_NEW = 16352, 16384, 32
+LM_LONG_HELD = 2
+# 3w's profiled window: its first PROFILE_REQUESTS prompts, this many new
+# tokens (64 layers make ~4,300 device activities a tick: the profiler took
+# ~20 s to fold the 34,000 of a window of PROFILE_MAX_NEW tokens)
+LM_PROFILE_MAX_NEW_3W = 4
+
+
+def lm_long_drive(params, cfg, margin: float) -> dict:
+    """The long prompt served alone on the ring, then on the paged pool,
+    under injected uniforms: the two runs' tokens equal bit for bit; then
+    the first ``LM_LONG_HELD`` tokens held teacher-forced against the
+    kernels' prefill of the prompt and of the prompt extended by the first
+    token (``core.parity.check_lm_steps``: the argmax of the Gumbel scores,
+    or within ``margin`` of it), and the largest difference between that
+    second prefill's logits and a ``decode_step`` after the first prefill's
+    cache.  The peak allocation of the drive (weights included) against
+    the card's."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
+    from repro_torch.core import parity as par
+    from repro_torch.models import decode_step, forward
+    rng = np.random.default_rng(SEED + 23)
+    prompt = rng.integers(0, cfg.vocab_size, LM_LONG_PROMPT).astype(np.int32)
+    u = lm_uniforms(1, LM_LONG_MAX_NEW, cfg.vocab_size, SEED + 24)
+    free_card()
+    held_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for name, extra in (("ring", {}), ("paged", dict(cache="paged"))):
+        eng, reqs, sec, c = lm_serve(params, cfg, [prompt], uniforms=u,
+                                     max_new=LM_LONG_MAX_NEW, slots=1,
+                                     max_context=LM_LONG_CONTEXT, **extra)
+        check_lm_run(eng, reqs, c, cfg, LM_LONG_MAX_NEW, f"long {name}")
+        runs[name] = {"tokens": reqs[0].out_tokens, "seconds": sec,
+                      "launches": c, "ticks": eng.ticks,
+                      "prefill_shapes": sorted(eng.prefill_shapes),
+                      "cache_bytes": (eng.pool_stats()["cache_bytes"]
+                                      if eng.paged else eng.cache_bytes)}
+        if eng.paged:
+            runs[name]["blocks"] = eng.pool_stats()["blocks"]
+        else:
+            saved = layer0(eng)
+        del eng, reqs
+        free_card()
+    if runs["ring"]["tokens"] != runs["paged"]["tokens"]:
+        raise AssertionError("long prompt: ring and paged tokens differ")
+    serve_peak = torch.cuda.max_memory_allocated()
+    out = runs["ring"]["tokens"]
+    toks = torch.from_numpy(prompt[None].astype(np.int64)).to(DEVICE)
+    first = torch.tensor([[out[0]]], dtype=torch.int64, device=DEVICE)
+    with torch.no_grad():
+        pre = forward(params, cfg, {"tokens": toks}, mode="prefill",
+                      cache_width=LM_LONG_CONTEXT)
+        row0 = pre["logits"][0, 0]
+        dec = decode_step(params, cfg, pre["cache"], {"tokens": first},
+                          torch.tensor([LM_LONG_PROMPT], dtype=torch.int32,
+                                       device=DEVICE))["logits"][0, 0]
+        del pre
+        free_card()
+        row1 = forward(params, cfg, {"tokens": torch.cat([toks, first], 1)},
+                       mode="prefill")["logits"][0, 0]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    held = par.check_lm_steps(
+        [torch.stack([row0, row1]).float().cpu().numpy()],
+        [out[:LM_LONG_HELD]], [u[0]], margin_tol=margin)
+    if not peak < card:
+        raise AssertionError(f"long prompt: peak memory {peak} past the "
+                             f"card's {card}")
+    res = {"prompt_tokens": LM_LONG_PROMPT, "max_context": LM_LONG_CONTEXT,
+           "runs": runs, "equal_tokens": len(out), "layer0": saved,
+           "held_steps": held["steps"], "near_ties": len(held["near_ties"]),
+           "margin": margin,
+           "decode_vs_prefill": float((dec - row1).abs().max()),
+           "logits_scale": float(row1.abs().max()),
+           "held_before_bytes": held_bytes, "serve_peak_bytes": serve_peak,
+           "peak_bytes": peak, "card_memory_bytes": card}
+    del row0, row1, dec
+    free_card()
+    return res
+
+
+def lm_path(arch: str, phase: str, fp32_layers=None, cli: bool = False,
+            long: bool = False, profile_max_new=None) -> dict:
+    """Phases 3p (OLMoE-1B-7B), 3q (Qwen2-MoE-A2.7B), 3w (Qwen2.5-32B) and
+    3x (DeepSeek-7B): the model at full width and depth in bf16, its
+    weights made on the card (``init_params_on_device``), served with 3k's
+    knobs (8 slots, ``max_context`` 1,024, 8 random-id prompts of 64-768
+    tokens, 32 new tokens): the ring, then the prefix-cached paged cache;
+    under injected uniforms ring == paged bit for bit on all 8 requests and
+    chunked (64 tokens a step) == unchunked bit for bit on the shortest and
+    the longest, each served alone; one host copy a tick and an admission
+    batch, the pool drained, flash 1 launch a layer an admission batch (a
+    chunk when chunked), paged 1 a layer a tick, ``tte_sample`` none; the
+    peak memory under the card's; a profiled ring window (3o's, or
+    ``profile_max_new`` tokens a prompt); the last
+    logits against the fp32 model: an MoE LM's longest prompt held to the
+    fp32 model's routing (``moe_logits``; with ``fp32_layers``, of a model
+    cut to that depth at full width: 3q's), a dense LM's shortest and
+    longest prompts against the layer-at-a-time fp32 reference at full
+    depth (``dense_logits``).  With ``cli`` the serving CLI runs first
+    (``lm_cli_drive``, its weights freed before the phase makes its own);
+    with ``long`` the long prompt is served last (``lm_long_drive``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import MOE, get_config
     from repro_torch.models import init_params_on_device
     cfg = get_config(arch)
     stage = {}
+    cli_res = None
+    if cli:
+        t0 = time.perf_counter()
+        cli_res = lm_cli_drive(arch)
+        stage["cli"] = time.perf_counter() - t0
     free_card()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -4137,9 +4417,11 @@ def moe_path(arch: str, phase: str, fp32_layers=None) -> dict:
                                  f"tokens differ from unchunked")
     stage["exact"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    profile_max_new = profile_max_new or PROFILE_MAX_NEW
     prof = window_profile(lambda: lm_serve(
-        params, cfg, prompts[:PROFILE_REQUESTS], max_new=PROFILE_MAX_NEW,
+        params, cfg, prompts[:PROFILE_REQUESTS], max_new=profile_max_new,
         slots=DENSE_SLOTS, max_context=DENSE_CONTEXT)[2])
+    prof["max_new"] = profile_max_new
     stage["profile"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
@@ -4148,16 +4430,22 @@ def moe_path(arch: str, phase: str, fp32_layers=None) -> dict:
         raise AssertionError(f"{phase}: peak memory {peak} past the card's "
                              f"{card}")
     t0 = time.perf_counter()
-    longest = max(prompts, key=len)
-    if fp32_layers is not None:
+    if cfg.arch_type != MOE:
+        logits = dense_logits(params, cfg, [prompts[i] for i in solo])
+    elif fp32_layers is not None:
         del params
         free_card()
         cut = cfg.replace(n_layers=fp32_layers)
         params = init_params_on_device(cut, seed=SEED, device=DEVICE)
-        logits = moe_logits(params, cut, longest)
+        logits = moe_logits(params, cut, prompts[solo[-1]])
     else:
-        logits = moe_logits(params, cfg, longest)
+        logits = moe_logits(params, cfg, prompts[solo[-1]])
     stage["logits"] = time.perf_counter() - t0
+    long_res = None
+    if long:
+        t0 = time.perf_counter()
+        long_res = lm_long_drive(params, cfg, 2 * logits["logits_err"])
+        stage["long"] = time.perf_counter() - t0
     del params
     free_card()
     return {"runs": runs, "profile": prof, "layer0": saved,
@@ -4165,11 +4453,27 @@ def moe_path(arch: str, phase: str, fp32_layers=None) -> dict:
             "peak_memory_bytes": peak, "card_memory_bytes": card,
             "exact_tokens": sum(len(t) for t in exact["ring"]),
             "solo_prompt_lengths": [len(prompts[i]) for i in solo],
-            "logits": logits, "cfg": cfg, "stage_s": stage}
+            "logits": logits, "cli": cli_res, "long": long_res, "cfg": cfg,
+            "stage_s": stage}
 
 
-def log_moe(res: dict, phase: str, smi: str, t_start: float) -> None:
+def log_lm(res: dict, phase: str, smi: str, t_start: float) -> None:
     cfg = res["cfg"]
+    c = res["cli"]
+    if c is not None:
+        host = ("" if c["host_rss_bytes"] is None else
+                f"; host {c['host_rss_kind']} "
+                f"{c['host_rss_bytes'] / 2**30:.2f} GiB after it")
+        log(f"  python -m repro_torch.launch.serve {' '.join(c['argv'])}: "
+            f"{c['tokens']} tokens in {c['seconds']:.3f}s: "
+            f"{c['tokens_per_s']:.1f} tokens/s, {c['ticks']} ticks, "
+            f"{c['admit_batches']} admission batches, launches "
+            f"{c['launches']}; the call {c['wall_s']:.1f}s; weights made on "
+            f"the card in their use dtypes ({c['tree_bytes'] / 1e9:.2f} GB); "
+            f"device peak {c['device_peak_bytes'] / 2**30:.2f} GiB (limit "
+            f"{c['device_peak_limit'] / 2**30:.2f}: the tree, the ring's "
+            f"{c['ring_bytes'] / 2**30:.2f} GiB, one fp32 piece, 4 GiB)"
+            f"{host}")
     for name, r in res["runs"].items():
         log(f"  {name}: {r['tokens']} tokens, {r['ticks']} ticks, "
             f"{r['admit_batches']} admission batches in {r['seconds']:.3f}s:"
@@ -4188,25 +4492,148 @@ def log_moe(res: dict, phase: str, smi: str, t_start: float) -> None:
         f"({res['weight_bytes'] / 1e9:.2f} GB); peak memory "
         f"{res['peak_memory_bytes'] / 2**30:.2f} GiB of the card's "
         f"{res['card_memory_bytes'] / 2**30:.2f} GiB")
-    log(f"  the first {PROFILE_REQUESTS} prompts x {PROFILE_MAX_NEW} tokens "
+    log(f"  the first {PROFILE_REQUESTS} prompts x {p['max_new']} tokens "
         f"on the ring under the profiler: device busy "
         f"{p['device_busy_s']:.4f}s of {p['wall_s']:.3f}s wall, idle share "
         f"{idle}, {p['launches']} device activities; top by device time:")
     for t in p["top"]:
         log(f"    {t['ms']:9.3f} ms  {t['launches']:6d}x  {t['kernel']}")
-    log(f"  last prefill position's logits of a {lg['prompt_tokens']}-token "
-        f"prompt ({lg['layers']} layers) against the fp32 model (plain route,"
-        f" TF32 off; largest |logit| {lg['logits_scale']:.4g}), held to its "
-        f"routing: kernels' route in bf16 off by {lg['logits_err']:.4g}, the "
-        f"plain route in bf16 by {lg['plain_err']:.4g} (allowed "
-        f"{DENSE_LOGITS_VS_PLAIN}x it), kernels vs plain "
-        f"{lg['kernel_vs_plain']:.4g}; routing freely: kernels "
-        f"{lg['free_logits_err']:.4g}, plain {lg['free_plain_err']:.4g}; "
-        f"router choices the bf16 model flips against fp32, by layer, of "
-        f"{lg['prompt_tokens']} tokens: {lg['router_flips_by_layer']}")
+    if "prompts" in lg:
+        for r in lg["prompts"]:
+            log(f"  last prefill position's logits of a "
+                f"{r['prompt_tokens']}-token prompt ({lg['layers']} layers) "
+                f"against the fp32 model one layer at a time (plain route, "
+                f"TF32 off; largest |logit| {r['logits_scale']:.4g}): "
+                f"kernels' route in bf16 off by {r['logits_err']:.4g}, the "
+                f"plain route in bf16 by {r['plain_err']:.4g} (allowed "
+                f"{DENSE_LOGITS_VS_PLAIN}x it), kernels vs plain "
+                f"{r['kernel_vs_plain']:.4g}")
+    else:
+        log(f"  last prefill position's logits of a {lg['prompt_tokens']}-"
+            f"token prompt ({lg['layers']} layers) against the fp32 model "
+            f"(plain route, TF32 off; largest |logit| "
+            f"{lg['logits_scale']:.4g}), held to its routing: kernels' route "
+            f"in bf16 off by {lg['logits_err']:.4g}, the plain route in bf16 "
+            f"by {lg['plain_err']:.4g} (allowed {DENSE_LOGITS_VS_PLAIN}x "
+            f"it), kernels vs plain {lg['kernel_vs_plain']:.4g}; routing "
+            f"freely: kernels {lg['free_logits_err']:.4g}, plain "
+            f"{lg['free_plain_err']:.4g}; router choices the bf16 model "
+            f"flips against fp32, by layer, of {lg['prompt_tokens']} tokens:"
+            f" {lg['router_flips_by_layer']}")
+    lr = res["long"]
+    if lr is not None:
+        for name, r in lr["runs"].items():
+            log(f"  long prompt on the {name} ({lr['prompt_tokens']} tokens, "
+                f"max_context {lr['max_context']}, "
+                f"{r['cache_bytes'] / 2**30:.2f} GiB of cache"
+                + (f", {r['blocks']} blocks" if "blocks" in r else "")
+                + f"): {LM_LONG_MAX_NEW} tokens, {r['ticks']} ticks in "
+                f"{r['seconds']:.3f}s; prefill shapes {r['prefill_shapes']}; "
+                f"launches {r['launches']}")
+        log(f"  long prompt: ring == paged bit for bit ({lr['equal_tokens']} "
+            f"tokens); the first {lr['held_steps']} tokens held teacher-"
+            f"forced against the kernels' prefills ({lr['near_ties']} "
+            f"near-ties, score margin {lr['margin']:.4g}); a decode step "
+            f"against the prefill of the extended prompt: largest logit "
+            f"difference {lr['decode_vs_prefill']:.4g} (largest |logit| "
+            f"{lr['logits_scale']:.4g}); peak memory "
+            f"{lr['peak_bytes'] / 2**30:.2f} GiB (serving "
+            f"{lr['serve_peak_bytes'] / 2**30:.2f} GiB; held before it "
+            f"{lr['held_before_bytes'] / 2**30:.2f} GiB, reckoned ~72 GiB) "
+            f"of the card's {lr['card_memory_bytes'] / 2**30:.2f} GiB")
     log(f"  phase {phase} took {time.perf_counter() - t_start:.1f}s (" +
         ", ".join(f"{k} {v:.1f}s" for k, v in res["stage_s"].items())
         + f"; {smi})")
+
+
+LM_PHASES = (
+    ("3w", "qwen2.5-32b", "64 layers, d_model 5120, 40/8 heads of 128, QKV "
+     "biases, SwiGLU d_ff 27648, V 152064, rope theta 1e6; 65.53 GB in "
+     "bf16"),
+    ("3x", "deepseek-7b", "30 layers, d_model 4096, 32/32 heads of 128, "
+     "SwiGLU d_ff 11008, V 102400; 13.82 GB in bf16"))
+
+
+def lm_child() -> dict:
+    """3w and 3x (``lm_path``) and their rows (``lm_rows``) in the process
+    ``lm_phases`` starts: the phases' results and the rows, with no
+    tensor left in them."""
+    import torch
+    from repro_torch.kernels import build
+    build.library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    out = {}
+    for ph, arch, desc in LM_PHASES:
+        log(f"== phase {ph}: {arch} at full width and depth ({desc}; weights"
+            f" made on the card), BatchedEngine(slots={DENSE_SLOTS}, "
+            f"max_context={DENSE_CONTEXT}): {DENSE_REQUESTS} requests of "
+            f"seeded random ids (64-768 tokens), {DENSE_MAX_NEW} new tokens "
+            f"each, ring then prefix-cached paged"
+            + ("; first the serving CLI, last a "
+               f"{LM_LONG_PROMPT}-token prompt at max_context "
+               f"{LM_LONG_CONTEXT}" if ph == "3w" else ""))
+        t0 = time.perf_counter()
+        out[ph] = lm_path(arch, ph, cli=ph == "3w", long=ph == "3w",
+                          profile_max_new=(LM_PROFILE_MAX_NEW_3W
+                                           if ph == "3w" else None))
+        log_lm(out[ph], ph, smi, t0)
+    t0 = time.perf_counter()
+    rows = lm_rows(gen, out["3w"], out["3x"])
+    log(f"  3w's and 3x's rows timed in {time.perf_counter() - t0:.1f}s")
+    out["3w"]["long"].pop("layer0")
+    for r in out.values():
+        r.pop("layer0")
+        r["cfg"] = r["cfg"].name
+    return {**out, "rows": rows}
+
+
+def lm_child_boot() -> None:
+    """3w's and 3x's process before it is let go: the port imported, the
+    card's context made and the profiler run once (a process's first
+    trace costs seconds), beside phase 1's build."""
+    import torch
+    import repro_torch.launch.serve  # noqa: F401
+    device_kernels(lambda: torch.zeros(1, device=DEVICE).zero_())
+
+
+def start_lm_child():
+    """Start ``lm_child``'s process: it boots (``lm_child_boot``) and waits
+    for a line on its stdin; it exits at once if the line is not "go" (this
+    process ended first: its end of the pipe closed)."""
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; chip_smoke.lm_child_boot(); "
+            "go = sys.stdin.readline().strip() == 'go'; "
+            "go and print(json.dumps(chip_smoke.lm_child()))")
+    return subprocess.Popen(
+        [sys.executable, "-c", code, ROOT], stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+
+
+def lm_phases(proc) -> dict:
+    """Let ``start_lm_child``'s process run ``lm_child`` and relay its
+    lines: the long prompt's ~72 GiB need a card that holds nothing else
+    (the later phases leave ~5 GiB on it), and its own profiler keeps the
+    windows' activities out of this process's later traces.  Fails as the
+    child fails."""
+    free_card()
+    try:
+        out, err = proc.communicate("go\n", timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    lines = out.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if proc.returncode != 0:
+        raise AssertionError(f"3w/3x: the child exited {proc.returncode}: "
+                             f"{err[-3000:]}")
+    return json.loads(lines[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -5252,15 +5679,35 @@ def tte_row(gen, B: int, V: int, cold: bool = False) -> dict:
     return row
 
 
+def flash_ref_blocks(q, k, v, block: int):
+    """``ref.flash_attention_ref`` causal (no window), ``block`` queries at
+    a time over the keys up to the block's last, by position: the same
+    function, with a block's rows of scores live at once (the whole score
+    matrix of 40 heads at 16,384 tokens would take 43 GB in fp32)."""
+    import torch
+    from repro_torch.kernels import ref
+    B, S = q.shape[0], q.shape[2]
+    pos = torch.arange(S, dtype=torch.int32, device=q.device).expand(B, S)
+    return torch.cat([ref.flash_attention_ref(
+        q[:, :, s0:s0 + block], k[:, :, :s0 + block], v[:, :, :s0 + block],
+        q_pos=pos[:, s0:s0 + block], k_pos=pos[:, :s0 + block])
+        for s0 in range(0, S, block)], 2)
+
+
 def flash_row(gen, nb: int, H: int, sb: int, hd: int, Hkv=None,
-              window=None, causal: bool = True, tb=None) -> dict:
+              window=None, causal: bool = True, tb=None,
+              q_block=None) -> dict:
     """``flash_attention`` at one prefill bucket: (nb, H, sb, hd) bf16
     queries over (nb, Hkv, tb, hd) keys (``Hkv`` defaults to H, ``tb`` to
     sb), causal within ``window`` where given, or with ``causal=False``
     every key for every query; against its plain version and SDPA (GQA by
     ``enable_gqa``; a window as a boolean band mask made once, outside the
-    timed call).  The bound counts q, k, v and the output once and the
-    products of the (query, key) pairs the mask keeps."""
+    timed call).  With ``q_block`` (causal, no window) the plain version
+    runs ``q_block`` queries at a time (``flash_ref_blocks``) and SDPA
+    takes the key/value heads repeated to the query heads once, outside
+    the timed call (its fused routes at any length).  The bound counts q,
+    k, v and the output once and the products of the (query, key) pairs
+    the mask keeps."""
     import torch
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ref
@@ -5277,9 +5724,18 @@ def flash_row(gen, nb: int, H: int, sb: int, hd: int, Hkv=None,
     pairs = nb * (int(band.sum()) if causal else sb * tb)
     b_ms, b_by = bound(2 * nb * hd * (2 * H * sb + 2 * Hkv * tb),
                        4 * pairs * H * hd, "bfloat16")
+    if q_block is None:
+        def plain(a, b, c):
+            return ref.flash_attention_ref(a, b, c, causal=causal,
+                                           window=window)
+    else:
+        del band
+
+        def plain(a, b, c):
+            return flash_ref_blocks(a, b, c, q_block)
+        kx, vx = (t.repeat_interleave(H // Hkv, 1) for t in (k, v))
     out = fk.flash_attention_cuda(q, k, v, causal=causal, window=window)
-    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
-                                   causal=causal, window=window)
+    want = plain(q.float(), k.float(), v.float())
     err = float((out.float() - want).abs().max())
     tol = _tol(torch.bfloat16, want)
     del want
@@ -5288,6 +5744,8 @@ def flash_row(gen, nb: int, H: int, sb: int, hd: int, Hkv=None,
                              f"err {err} > {tol}")
 
     def library():
+        if q_block is not None:
+            return sdpa_gqa(q, kx, vx, is_causal=True)
         if not causal:
             return sdpa_gqa(q, k, v)
         if window is None:
@@ -5297,11 +5755,13 @@ def flash_row(gen, nb: int, H: int, sb: int, hd: int, Hkv=None,
         "shape": f"B={nb} H={H}" + ("" if Hkv == H else f"/{Hkv}")
                  + f" S={sb}" + ("" if tb == sb else f" T={tb}")
                  + f" hd={hd} " + ("causal" if causal else "bidirectional")
-                 + ("" if window is None else f" window={window}") + " bf16",
+                 + ("" if window is None else f" window={window}") + " bf16"
+                 + ("" if q_block is None else
+                    f"; plain {q_block} queries a call, SDPA on the K/V "
+                    f"heads repeated"),
         "kernel": measure(lambda: fk.flash_attention_cuda(
             q, k, v, causal=causal, window=window)),
-        "plain": measure(lambda: ref.flash_attention_ref(
-            q, k, v, causal=causal, window=window)),
+        "plain": measure(lambda: plain(q, k, v)),
         "library": measure(library), "bound_ms": b_ms,
         "bound_by": b_by, "max_abs_err": err}
 
@@ -5483,6 +5943,38 @@ def moe_rows(gen, cfg, ring) -> dict:
                                             DENSE_CONTEXT, cfg.head_dim),
             "paged_decode_attention 3q": paged_row(
                 gen, *ring, "phase 3q's ring", G=cfg.q_per_kv)}
+
+
+def lm_rows(gen, w: dict, x: dict) -> dict:
+    """Phase 5's rows at 3w's and 3x's shapes: flash at 3w's largest
+    prefill bucket (GQA 40/8, hd 128), at B 1 S 4,096 and at the long
+    prompt's bucket (B 1, S 16,384), paged on 3w's ring after the run (G
+    5, W 1,024) and on the long prompt's ring after its run (G 5, W
+    16,384); flash at 3x's largest bucket (MHA 32/32, hd 128) and paged on
+    its ring (G 1 over 32 kv heads)."""
+    wc, xc = w["cfg"], x["cfg"]
+
+    def bucket(res):
+        return max(res["runs"]["ring"]["prefill_shapes"],
+                   key=lambda s: s[0] * s[1] * s[1])
+    (wb, ws), (xb, xs) = bucket(w), bucket(x)
+    return {
+        "flash_attention 3w": flash_row(gen, wb, wc.n_heads, ws, wc.head_dim,
+                                        Hkv=wc.n_kv_heads),
+        "flash_attention 3w S=4096": flash_row(
+            gen, 1, wc.n_heads, 4096, wc.head_dim, Hkv=wc.n_kv_heads),
+        "flash_attention 3w long": flash_row(
+            gen, 1, wc.n_heads, LM_LONG_CONTEXT, wc.head_dim,
+            Hkv=wc.n_kv_heads, q_block=1024),
+        "paged_decode_attention 3w": paged_row(
+            gen, *w["layer0"], "phase 3w's ring", G=wc.q_per_kv),
+        "paged_decode_attention 3w long": paged_row(
+            gen, *w["long"]["layer0"], "3w's long prompt's ring",
+            G=wc.q_per_kv),
+        "flash_attention 3x": flash_row(gen, xb, xc.n_heads, xs, xc.head_dim,
+                                        Hkv=xc.n_kv_heads),
+        "paged_decode_attention 3x": paged_row(
+            gen, *x["layer0"], "phase 3x's ring", G=xc.q_per_kv)}
 
 
 def dense_rows(gen, tl: dict, dn: dict) -> dict:
@@ -6704,6 +7196,9 @@ def main() -> int:
     from repro_torch.kernels import build
 
     smi = nvidia_smi()
+    # phases 3w and 3x run after phase 2 in a process of their own, which
+    # boots beside the build
+    lm_proc = start_lm_child()
     log("== phase 1: environment")
     log(f"  card: {smi}; {torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} visible")
@@ -6759,6 +7254,11 @@ def main() -> int:
     moe_check = check_moe(gen)
 
     phase_done("2")
+    log("== phases 3w, 3x: the last dense LMs of the zoo at full width and "
+        "depth, with their timing rows, in a process of their own (a card "
+        "with nothing else on it: 3w's long prompt needs ~72 GiB)")
+    lm = lm_phases(lm_proc)
+    phase_done("3w 3x")
     log("== phase 3: Delphi path (Delphi-2M bf16, ring BatchedEngine, 16 "
         "slots)")
     main_res = main_path()
@@ -7333,6 +7833,10 @@ def main() -> int:
                 f"{bt['ops_simt_ms']:.6f} ms at 67 TFLOP/s (fp32 CUDA cores)")
     for name, t in tm.items():
         log_row(name, t)
+    log("  (3w's and 3x's rows, timed in their subprocess after the phases)")
+    for name, t in lm["rows"].items():
+        tm[name] = t
+        log_row(name, t)
     # the main path and the Mamba2 window once more under the profiler (the
     # paged, futures and mixed drives are not profiled again: each repeats
     # a drive phases 3c-3e timed, and together they took ~47 s)
@@ -7373,8 +7877,8 @@ def main() -> int:
             f"ids (64-768 tokens), {DENSE_MAX_NEW} new tokens each, ring "
             f"then prefix-cached paged")
         t_ph = time.perf_counter()
-        moe[ph] = moe_path(arch, ph, fp32_layers=cut)
-        log_moe(moe[ph], ph, smi, t_ph)
+        moe[ph] = lm_path(arch, ph, fp32_layers=cut)
+        log_lm(moe[ph], ph, smi, t_ph)
         phase_done(ph)
 
     # the rest of the zoo, through the model-level path, after the MoE LMs
@@ -7473,7 +7977,10 @@ def main() -> int:
                    "6g": ssm_train["6g"]["cli"]["launches"],
                    "6j": zoo_train["6j"]["launches"],
                    "6k": zoo_train["6k"]["launches"],
-                   "3v": ckpt["launches"]}
+                   "3v": ckpt["launches"],
+                   "3w": lm["3w"]["runs"]["ring"]["launches"],
+                   "3w long": lm["3w"]["long"]["runs"]["ring"]["launches"],
+                   "3x": lm["3x"]["runs"]["ring"]["launches"]}
 
     def by_path(name):
         out = ({} if name == "ssd_intra" else
@@ -7505,13 +8012,15 @@ def main() -> int:
     # cross ring)
     attention_rows = [(n, p) for n in ("flash_attention",
                                        "paged_decode_attention")
-                      for p in ("3k", "3l", "3o", "3q", "3r")]
+                      for p in ("3k", "3l", "3o", "3q", "3r", "3w",
+                                "3w long", "3x")]
+    attention_rows.append(("flash_attention", "3w S=4096"))
     zoo_rows_ = [("flash_attention", "3s encoder"),
                  ("flash_attention", "3s cross"),
                  ("paged_decode_attention", "3s cross")]
     for name, ph in attention_rows + zoo_rows_ + [("ssd_intra", "3o")]:
         row = rows[f"{name} {ph}"]
-        path = ph.split()[0]
+        path = ph if ph in dense_paths else ph.split()[0]
         kernels.append({
             "name": f"{name} {ph}", "route": "cuda",
             "source": SOURCES[name], "replaces": REPLACES[name],
@@ -7569,7 +8078,8 @@ def main() -> int:
         "olmoe_path": moe["3p"],
         "qwen2_moe_path": moe["3q"], "internvl2_path": zoo["3r"],
         "seamless_path": zoo["3s"], "zoo_train_paths": zoo_train,
-        "ckpt_serve_path": ckpt,
+        "ckpt_serve_path": ckpt, "qwen2_5_32b_path": lm["3w"],
+        "deepseek_7b_path": lm["3x"],
         "main_path": {"requests": len(main_res["done"]),
                       "events": main_res["events"], "seconds": sec,
                       "ticks": eng.ticks, "admit_batches": eng.admit_batches,

@@ -20,7 +20,9 @@ remat off and on, 6i the launch layer (a process group of one, the 1 x 1
 ``DeviceMesh``, parameters as DTensors) in a subprocess, 6j
 SeamlessM4T-large-v2 and 6k InternVL2-26B trained (with 6j's checkpoint
 round trip), 3v a full-width OLMoE-1B-7B checkpoint saved by the port and
-served by the CLI from ``--ckpt`` in a subprocess.
+served by the CLI from ``--ckpt`` in a subprocess, 3w Qwen2.5-32B (the
+serving CLI first, a 16,352-token prompt last) and 3x DeepSeek-7B served
+at full width and depth.
 
 ``--root DIR`` takes ``chip_smoke.py`` and the port from another checkout
 (a parent commit unpacked under the repository), so that two versions are
@@ -97,9 +99,9 @@ PHASES = {
     "3t": lambda: cs.ssm_artifact_phase(),
     "6f": lambda: cs.ssm_train_path("mamba2-780m"),
     "6g": lambda: cs.ssm_train_path("zamba2-1.2b"),
-    "3p": lambda: cs.moe_path("olmoe-1b-7b", "3p"),
-    "3q": lambda: cs.moe_path("qwen2-moe-a2.7b", "3q",
-                              fp32_layers=cs.MOE_FP32_LAYERS),
+    "3p": lambda: cs.lm_path("olmoe-1b-7b", "3p"),
+    "3q": lambda: cs.lm_path("qwen2-moe-a2.7b", "3q",
+                             fp32_layers=cs.MOE_FP32_LAYERS),
     "3r": lambda: cs.zoo_path("internvl2-26b", "3r",
                               fp32_layers=cs.MOE_FP32_LAYERS),
     "3s": lambda: cs.zoo_path("seamless-m4t-large-v2", "3s"),
@@ -109,11 +111,15 @@ PHASES = {
     "6j": lambda: cs.zoo_train_path("seamless-m4t-large-v2", "6j"),
     "6k": lambda: cs.zoo_train_path("internvl2-26b", "6k"),
     "3v": lambda: cs.ckpt_serve_path(),
+    "3w": lambda: cs.lm_path("qwen2.5-32b", "3w", cli=True, long=True,
+                             profile_max_new=cs.LM_PROFILE_MAX_NEW_3W),
+    "3x": lambda: cs.lm_path("deepseek-7b", "3x"),
 }
 # phases whose results are printed by a logger (chip_smoke's own where it
 # has one)
 LOGGERS = {"3b": _log_mamba, "3o": _log_zamba2,
-           "3p": lambda *a: cs.log_moe(*a), "3q": lambda *a: cs.log_moe(*a),
+           "3p": lambda *a: cs.log_lm(*a), "3q": lambda *a: cs.log_lm(*a),
+           "3w": lambda *a: cs.log_lm(*a), "3x": lambda *a: cs.log_lm(*a),
            "3r": lambda *a: cs.log_zoo(*a), "3s": lambda *a: cs.log_zoo(*a),
            "3t": lambda *a: cs.log_ssm_artifact_phase(*a),
            "6j": lambda *a: cs.log_zoo_train(*a),
@@ -137,6 +143,8 @@ ROWS = (
                                               out["3q"]["layer0"])),
     (("3r", "3s"), lambda gen, out, _: cs.zoo_rows(gen, out["3r"],
                                                    out["3s"])),
+    (("3w", "3x"), lambda gen, out, _: cs.lm_rows(gen, out["3w"],
+                                                  out["3x"])),
 )
 
 
@@ -199,6 +207,8 @@ def main(argv=None) -> int:
                               phase2.get("ssd_intra")))
     for r in out.values():
         r.pop("layer0", None)
+        if r.get("long"):
+            r["long"].pop("layer0", None)
         r.pop("ring0", None)
         if "cfg" in r:
             r["cfg"] = r["cfg"].name

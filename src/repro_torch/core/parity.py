@@ -22,7 +22,13 @@ divergence (:func:`compare_runs`).
 A generic LM (a dense LM with RoPE, Mamba2) samples by Gumbel-argmax
 instead: :func:`check_lm_trajectories` holds each emitted token against
 the argmax of the reference's scores ``logits / temperature + g(u)`` on
-its own prefix, with the same margin rule on the scores.
+its own prefix, with the same margin rule on the scores
+(:func:`check_lm_steps`, which also takes rows a caller computed itself).
+
+:func:`layered_prefill_logits` is the fp32 reference of a model whose
+weights are held in bf16: the prefill's last-position logits computed one
+layer at a time, each layer's weights upcast only while it runs, so a
+model that fits the card only in bf16 is checked at full depth.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import torch
 
 from repro_torch.core.sampler import sample_waiting_times
 from repro_torch.models import forward
+from repro_torch.models import model as model_lib
 
 Trajectory = Tuple[Sequence[int], Sequence[float]]
 # (tokens (B, S) int, ages (B, S) float32) -> (B, S, V) float32 logits at
@@ -209,6 +216,18 @@ def check_lm_trajectories(prompts: Sequence[Sequence[int]],
         [(p, np.zeros(len(p), np.float32)) for p in prompts],
         [(o, np.zeros(len(o), np.float32)) for o in outs],
         [len(o) for o in outs], logits_fn, batch=batch)
+    return check_lm_steps(rows, outs, uniforms, margin_tol=margin_tol,
+                          inv_temp=inv_temp)
+
+
+def check_lm_steps(rows: Sequence[np.ndarray], outs: Sequence[Sequence[int]],
+                   uniforms: Sequence[np.ndarray], *, margin_tol: float,
+                   inv_temp: float = 1.0) -> Dict:
+    """:func:`check_lm_trajectories`'s rule on the reference's logits
+    ``rows[r]`` (at least ``len(outs[r])`` rows of V: row ``i`` after the
+    prompt and tokens ``< i`` of request ``r``), however they were
+    computed.  Raises AssertionError; returns the steps held and the
+    near-ties."""
     steps, ties = 0, []
     for r, (o, u, lg) in enumerate(zip(outs, uniforms, rows)):
         for i, e in enumerate(o):
@@ -224,3 +243,49 @@ def check_lm_trajectories(prompts: Sequence[Sequence[int]],
                 ties.append((r, i, gap))
             steps += 1
     return {"steps": steps, "near_ties": ties}
+
+
+def layered_prefill_logits(params, cfg, tokens: torch.Tensor,
+                           last_index: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """The fp32 model's prefill logits (B, 1, V) at ``last_index`` (B,)
+    (else at the last position) of a dense LM whose weights ``params`` are
+    held in their use dtypes (bf16 products): ``forward(mode="prefill")``
+    of ``cfg.replace(dtype="float32")`` on the weights upcast, computed
+    one layer at a time so that only one layer's upcast weights exist at
+    once.  The embedding table is upcast for the embedding and freed, the
+    head's once for the head; each layer runs the stack's own block
+    (``models.model._attn_block`` on layer ``l``'s slices, ``leaf[l]``,
+    each upcast) on the plain route (``chunked_attention``, no kernel),
+    with TF32 off.  Its peak is the held tree plus one layer in fp32 (or
+    the embedding table or head in fp32, the larger) plus activations."""
+    if cfg.arch_type != "dense" or cfg.age_encoding:
+        raise ValueError(f"a generic dense LM, not {cfg.name}")
+    c32 = cfg.replace(dtype="float32")
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            x = model_lib._embed({"embed/embed": params["embed/embed"]
+                                  .float()}, c32, {"tokens": tokens})
+            B, S = x.shape[:2]
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=x.device).expand(B, S)
+            stacked = [k for k in params if k.startswith("layers/")]
+            for l in range(cfg.n_layers):
+                blk = model_lib.Block({k: params[k][l].float()
+                                       for k in stacked})
+                x = model_lib._attn_block(blk, c32, x, positions, True)[0]
+                del blk
+            x = model_lib._last_rows(x, last_index)
+            w = ("embed/lm_head" if "embed/lm_head" in params
+                 else "embed/embed")
+            head = {k: params[k].float() for k in params
+                    if k == w or k.startswith(("final_norm/",
+                                               "embed/out_bias"))}
+            return model_lib._head(head, x)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags

@@ -11,6 +11,8 @@
         [--max-context 1024] ...
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
         --max-context 1024 ...      (or --arch olmoe-1b-7b)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-32b \
+        --max-context 1024 --slots 8 --requests 8   (or --arch deepseek-7b)
 
 The command line of ``repro.launch.serve``, plus ``--device``, ``--cache``,
 ``--prefill-chunk-tokens`` and ``--max-context``.  The prompts are the
@@ -30,10 +32,13 @@ one layer slice at a time into the dtype each weight is used in: the
 engine holds one copy of the model, and a full-width MoE checkpoint is
 never whole in fp32 on the device or the host; the load's seconds, device
 peak and the process's host memory (``VmHWM``) are printed), from
-``init_params(seed)`` (fp32 on the host, then the device) or, for the MoE
-configs, from ``init_params_on_device(seed)`` (made on the device in the
-dtype each weight is used in: Qwen2-MoE's fp32 tree would not fit the
-card beside its bf16 copy).  ``--cache
+``init_params(seed)`` (fp32 on the host, then the device) or from
+``init_params_on_device(seed)`` (made on the device in the dtype each
+weight is used in, no fp32 copy of the model anywhere), as
+:func:`init_weights` picks: the latter for every MoE config and, on a
+CUDA device, for every generic dense LM (Qwen2.5-32B's fp32 tree is 131
+GB; its bf16 one, 65.5 GB, fits one card), the former for Delphi, Mamba2
+and Zamba2 and for every config on the CPU.  ``--cache
 paged`` serves from a pool of 16-token blocks with the ring's bytes (an
 attention model only), and
 ``--prefill-chunk-tokens N`` prefills its prompts in chunks of at most N
@@ -54,7 +59,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import ALL_ARCHS, HYBRID, MOE, SSM, get_config
+from repro_torch.configs import (ALL_ARCHS, DENSE, HYBRID, MOE, SSM,
+                                 get_config)
 from repro_torch.data import SimulatorConfig, generate_dataset
 from repro_torch.data import vocab as V
 from repro_torch.models import (init_params, init_params_on_device,
@@ -116,6 +122,20 @@ def lm_prompts(n: int, vocab: int, seed: int, lo: int = 16,
     return [rng.integers(0, vocab, int(S)).astype(np.int32) for S in lens]
 
 
+def init_weights(cfg, seed: int, device: torch.device):
+    """Seeded random weights for ``cfg`` on ``device``: made on the device
+    in their use dtypes (``init_params_on_device``) for an MoE config, and
+    for a generic dense LM (``DENSE`` without the age encoding) on a CUDA
+    device; else drawn in fp32 on the host (``init_params``): Delphi,
+    Mamba2, Zamba2, and every config on the CPU, whose tests hold these
+    draws against the JAX package's."""
+    if cfg.arch_type == MOE or (device.type == "cuda"
+                                and cfg.arch_type == DENSE
+                                and not cfg.age_encoding):
+        return init_params_on_device(cfg, seed, device)
+    return init_params(cfg, seed, device)
+
+
 def serve(args: argparse.Namespace) -> Dict[str, Any]:
     """Build the engine, serve synthetic patient prompts, and return the
     engine, the finished requests, the wall time and the emitted events
@@ -127,10 +147,8 @@ def serve(args: argparse.Namespace) -> Dict[str, Any]:
     load = None
     if args.ckpt:
         params, load = _load(args.ckpt, cfg, device)
-    elif cfg.arch_type == MOE:
-        params = init_params_on_device(cfg, args.seed, device)
     else:
-        params = init_params(cfg, args.seed, device)
+        params = init_weights(cfg, args.seed, device)
     max_context = getattr(args, "max_context", None) or cfg.max_seq_len
     shards = [_EngineShard(f"r{i}", BatchedEngine(
         params, cfg, slots=args.slots, max_context=max_context,

@@ -8,7 +8,11 @@ the JAX package's partitioned-HLO count on the CPU.
 * Reduced TinyLlama's train step on a 4 x 1 (data x model) mesh sends the
   all-reduce bytes of JAX's ``_extrapolated_counts`` on the same mesh
   (JAX in a subprocess with 4 host devices), but for scalars.
-* Its prefill on a 1 x 4 mesh: the all-reduces of a hand count.
+* Its prefill and train step on a 1 x 4 mesh against JAX term by term:
+  the collectives XLA's SPMD partitioner emits for the reference's step
+  (read from its dump after that pass) and those
+  ``_extrapolated_counts`` reads after XLA's CPU pipeline, whose
+  ``all-reduce-promotion`` pass widens every bf16 all-reduce to fp32.
 * ``seq_shard_attn`` on a model axis the query heads do not divide: the
   per-device attention FLOPs fall by the axis size, and JAX's count falls
   with it.
@@ -46,24 +50,54 @@ def _tiny(**over):
 
 
 _JAX_CODE = r"""
-import json
+import glob, json, os
 import jax, numpy as np
 from jax.sharding import Mesh
 from repro.configs import get_config
 from repro.configs.base import InputShape
-from repro.launch.dryrun import _extrapolated_counts
+from repro.launch.dryrun import (_diff, _extrapolated_counts, _lin,
+                                 build_step_fn, collective_bytes)
+from repro.launch.specs import input_specs
+DUMP = os.environ["PARTITIONED_HLO_DIR"]
+
+
+def partitioned(cfg, shape, mesh):
+    # the collectives of the step as XLA's SPMD partitioner emits it (the
+    # dump after that pass), at depth 1 and 2, extrapolated as
+    # _extrapolated_counts extrapolates its compiled counts
+    base = cfg.replace(unroll_layers=True, attn_direct=True)
+    counts = []
+    for n in (1, 2):
+        c = base.replace(n_layers=n)
+        args, shardings = input_specs(c, shape, mesh)
+        seen = set(glob.glob(DUMP + "/*after_spmd-partitioning*"))
+        with mesh:
+            jax.jit(build_step_fn(c, shape),
+                    in_shardings=shardings).lower(*args).compile()
+        f, = set(glob.glob(DUMP + "/*after_spmd-partitioning*")) - seen
+        with open(f) as fh:
+            counts.append({"flops": 0.0, "bytes": 0.0,
+                           "collectives": collective_bytes(fh.read())})
+    d = _diff(counts[1], counts[0])
+    return _lin(counts[0], d, cfg.n_layers - 1)["collectives"]
+
+
 out = {}
 devs = np.array(jax.devices()[:4])
 for name, sizes, mode, over in (
         ("4x1 train", (4, 1), "train", {}),
         ("1x4 prefill", (1, 4), "prefill", {}),
+        ("1x4 train", (1, 4), "train", {}),
         ("1x4 prefill heads6", (1, 4), "prefill", {"n_heads": 6}),
         ("1x4 prefill heads6 seqshard", (1, 4), "prefill",
          {"n_heads": 6, "seq_shard_attn": True})):
     mesh = Mesh(devs.reshape(sizes), ("data", "model"))
     cfg = get_config("tinyllama-1.1b", reduced=True).replace(**over)
-    c = _extrapolated_counts(cfg, InputShape("t", 64, 4, mode), mesh)
+    shape = InputShape("t", 64, 4, mode)
+    c = _extrapolated_counts(cfg, shape, mesh)
     out[name] = {"flops": c["flops"], "collectives": c["collectives"]}
+    if name in ("1x4 prefill", "1x4 train"):
+        out[name]["partitioned"] = partitioned(cfg, shape, mesh)
 print(json.dumps(out))
 """
 
@@ -72,13 +106,18 @@ print(json.dumps(out))
 def _jax_counts():
     """JAX's ``_extrapolated_counts`` for reduced TinyLlama at 4 x 64 on
     small meshes of 4 host devices, in a process of its own (the device
-    count is fixed when JAX starts)."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-               JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    out = subprocess.run([sys.executable, "-c", _JAX_CODE],
-                         capture_output=True, text=True, env=env,
-                         timeout=600, cwd=ROOT)
+    count is fixed when JAX starts); on 1 x 4 also the partitioner's own
+    count (``partitioned``), from XLA's HLO dump after SPMD partitioning."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as dump:
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                   JAX_PLATFORMS="cpu", PARTITIONED_HLO_DIR=dump,
+                   XLA_FLAGS="--xla_force_host_platform_device_count=4 "
+                             f"--xla_dump_to={dump} "
+                             "--xla_dump_hlo_pass_re=spmd-partitioning")
+        out = subprocess.run([sys.executable, "-c", _JAX_CODE],
+                             capture_output=True, text=True, env=env,
+                             timeout=600, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
     return json.loads(out.stdout.strip().splitlines()[-1])
 
@@ -199,15 +238,67 @@ def test_prefill_all_reduces_equal_a_hand_count_on_1x4():
     all-reduce of the B x S x d rows, and each layer's attention output
     projection and MLP down product in one each; the head's logits stay
     split over the vocabulary, and the 1-KV-head projections are whole on
-    every device.  All in bf16: (1 + 2 L) x B S d x 2 bytes = 655,360 B.
-    JAX's count of the same step is 1,310,720 B: the same five
-    all-reduces, which XLA's CPU partitioner sends in fp32 (not a gate)."""
+    every device.  All in bf16: (1 + 2 L) x B S d x 2 bytes = 655,360 B,
+    as XLA's SPMD partitioner emits JAX's step.  ``_extrapolated_counts``
+    reads 1,310,720 B: the same five all-reduces after XLA's CPU pipeline,
+    whose ``all-reduce-promotion`` pass widens each bf16 all-reduce to
+    fp32 (a choice of the CPU backend, after partitioning)."""
     cfg = _tiny()
     want = (1 + 2 * cfg.n_layers) * B * S * cfg.d_model * 2
     assert _count(cfg, "prefill", (1, 4))["collectives"] == \
         {"all-reduce": want}
-    assert _jax_counts()["1x4 prefill"]["collectives"] == \
-        {"all-reduce": 2 * want}
+    jax_counts = _jax_counts()["1x4 prefill"]
+    assert jax_counts["partitioned"] == {"all-reduce": want}
+    assert jax_counts["collectives"] == {"all-reduce": 2 * want}
+
+
+def test_train_all_reduces_against_jax_term_by_term_on_1x4():
+    """The train step on 1 x 4 (reduced TinyLlama, 4 x 64), in bytes a
+    device, L layers; ``act`` a (B, S, d) bf16 partial sum, ``kv`` a (B,
+    S, Hkv, hd) bf16 key or value gradient, ``lse`` a (B, S - 1) fp32 row
+    reduction over the vocabulary-split logits.
+
+    XLA's SPMD partitioner emits JAX's step with: forward, the embedding's
+    gather, each layer's output projection and down product ((1 + 2 L)
+    act) and the log-sum-exp's max and sum (2 lse); backward, the head's
+    input gradient (act), each layer's w_gate and w_up input gradients
+    reduced one by one (2 act), its q projection's input gradient (act)
+    and its key and value gradients (2 kv: the one KV head is whole on
+    every device, the query heads that read it split); the target logit
+    (lse) and the global norm's squared sums of the 7 model-split leaves
+    (embed, lm_head, wq, wo, w_gate, w_up, w_down), one scalar each.
+
+    ``_extrapolated_counts`` (3,410,924 B) is that after XLA's CPU
+    pipeline, whose ``all-reduce-promotion`` pass widens every bf16
+    all-reduce to fp32: (2 + 5 L) act + 2 L kv more.
+
+    The port (1,575,896 B) reduces in the partitioner's dtypes, and places
+    three reductions otherwise (the partitioner's own choices; nothing is
+    left out, nothing narrowed):
+    * the w_gate and w_up input gradients are summed before one all-reduce
+      of the MLP's input (``sharded.gather_grad``): L act fewer;
+    * the key and value gradients stay partial into wk and wv, whose
+      weight gradients are reduced once a leaf in fp32 with the others: 2
+      L kv fewer, 2 L x d Hkv hd x 4 more;
+    * the global norm sums the leaves' squares in sorted order, DTensor
+      reducing the running partial sum where it first meets a replicated
+      leaf's: 2 scalars, not 7."""
+    cfg = _tiny()
+    L, d, Hkv, hd = cfg.n_layers, cfg.d_model, cfg.n_kv_heads, cfg.head_dim
+    act, kv, lse = B * S * d * 2, B * S * Hkv * hd * 2, B * (S - 1) * 4
+    jax_counts = _jax_counts()["1x4 train"]
+    part = jax_counts["partitioned"]["all-reduce"]
+    assert jax_counts["partitioned"] == {"all-reduce": (
+        (1 + 2 * L) * act + 2 * lse
+        + act + L * (2 * act + act + 2 * kv)
+        + lse + 7 * 4)}
+    assert jax_counts["collectives"] == {
+        "all-reduce": part + (2 + 5 * L) * act + 2 * L * kv}
+    assert jax_counts["collectives"] == {"all-reduce": 3410924}
+    port = _count(cfg, "train", (1, 4))["collectives"]
+    assert port == {"all-reduce": part - L * act - 2 * L * kv
+                    + 2 * L * d * Hkv * hd * 4 - 5 * 4}
+    assert port == {"all-reduce": 1575896}
 
 
 def test_seq_shard_attn_cuts_the_repeated_attention():

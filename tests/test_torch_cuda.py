@@ -216,6 +216,12 @@ def test_tte_sample_kernel_strided_and_misaligned_rows(gen, V):
     (8, 48, 8, 1024, 128, None, True, torch.float32),
     (8, 16, 16, 4096, 64, None, False, torch.bfloat16),
     (8, 16, 16, 4096, 64, None, False, torch.float32),
+    # Qwen2.5-32B's prefill: GQA 40/8 at hd 128 (G 5), at its bucket of 8
+    # x 1,024 and at 4,096 tokens; DeepSeek-7B's: MHA 32/32 at hd 128
+    (8, 40, 8, 1024, 128, None, True, torch.bfloat16),
+    (8, 40, 8, 1024, 128, None, True, torch.float32),
+    (1, 40, 8, 4096, 128, None, True, torch.bfloat16),
+    (8, 32, 32, 1024, 128, None, True, torch.bfloat16),
 ])
 def test_flash_attention_kernel_vs_plain(gen, B, Hq, Hkv, S, hd, window,
                                          causal, dtype):
@@ -230,9 +236,18 @@ def test_flash_attention_kernel_vs_plain(gen, B, Hq, Hkv, S, hd, window,
                                    causal=causal, window=window)
     tol = _tol(dtype, want)
     torch.testing.assert_close(out.float(), want, atol=tol, rtol=0)
-    if not causal and S >= 4096:
-        bad = ref.flash_attention_ref(q.float(), k[:, :, :-128].float(),
-                                      v[:, :, :-128].float(), causal=False)
+    if S >= 4096 and window is None:
+        if causal:        # the last 128 keys masked for every query
+            pos = torch.arange(S, dtype=torch.int32, device="cuda").expand(
+                B, S)
+            kpos = pos.clone()
+            kpos[:, -128:] = -1
+            bad = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                          q_pos=pos, k_pos=kpos)
+        else:
+            bad = ref.flash_attention_ref(q.float(), k[:, :, :-128].float(),
+                                          v[:, :, :-128].float(),
+                                          causal=False)
         assert _misses(bad.to(dtype), want, tol)
 
 
@@ -349,6 +364,14 @@ def test_head_chunk_by_position_equals_index_route(gen, S, n, dtype):
     # InternVL2's ring: 8 slots x 8 kv heads, G 6 at hd 128, W 1280
     (8, 8, 6, 128, 1280, 1, None, torch.bfloat16),
     (8, 8, 6, 128, 1280, 1, None, torch.float32),
+    # Qwen2.5-32B's ring: G 5 at hd 128 (five query heads a KV head: one a
+    # block, each K/V row read 5 times), W 1024, and the same on a pool of
+    # 16-token blocks; DeepSeek-7B's: G 1 over 32 kv heads at hd 128
+    (8, 8, 5, 128, 1024, 1, None, torch.bfloat16),
+    (8, 8, 5, 128, 1024, 1, None, torch.float32),
+    (2, 8, 5, 128, 16, 64, None, torch.bfloat16),
+    (2, 8, 5, 128, 16, 64, None, torch.float32),
+    (8, 32, 1, 128, 1024, 1, None, torch.bfloat16),
 ])
 def test_paged_decode_kernel_vs_plain(gen, B, Hkv, G, hd, bs, nbs, window,
                                       dtype):
