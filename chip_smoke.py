@@ -116,7 +116,7 @@ runs these phases; any failure exits non-zero:
    server, router ``/v1/generate`` == the direct server's bit for bit;
 3i. a cohort sweep at full width: ``ScenarioEngine`` over ``EngineBackend``
    (phase 3d's knobs, its background loop) samples 8 futures x 32 events
-   for each of 64 patients (the first halves of ``patient(i,
+   for each of 32 patients (the first halves of ``patient(i,
    SimulatorConfig(seed=7))``), 4 in flight, in bf16; ``assert_sweep_parity``
    holds bit for bit on the first 4 patients in bf16 and in fp32; a paired
    counterfactual (two edits of a 40-event history) on a fresh engine hits
@@ -133,9 +133,9 @@ runs these phases; any failure exits non-zero:
    on the same prompts, in turns, and each engine's idle share of a drive;
 3j. the SDK artifact at full width: Delphi-2M exported by
    ``repro_torch.sdk.export_model`` (``torch.export`` traced on the CPU,
-   in phase 1 while ``nvcc`` builds the kernels), spec v2 in bf16 at full
-   depth, spec v2 and v1 in fp32 (the fp32 exports' depth cut to
-   ``ARTIFACT_FP32_LAYERS`` layers), checked with ``verify_checksums``
+   in phase 1 while ``nvcc`` builds the kernels), spec v2 in bf16 (its
+   depth cut to ``ARTIFACT_BF16_LAYERS`` layers), spec v2 and v1 in fp32
+   (cut to ``ARTIFACT_FP32_LAYERS`` layers), checked with ``verify_checksums``
    (strict) and loaded with ``ArtifactBackend(device="cuda")``.  On 4
    patients: the full graph's logits == eager ``forward(mode="train")``
    bit for bit (and in fp32 v1's == v2's), prefill and 8 decode steps ==
@@ -164,8 +164,9 @@ runs these phases; any failure exits non-zero:
    batch, flash 22 launches an admission batch, paged 22 a tick,
    ``tte_sample`` none, the pool drained; ring == paged == chunked (64
    tokens a step) bit for bit under injected uniforms (ring == paged over
-   the 8 requests served together, chunked == unchunked on the shortest
-   and the longest, each served alone); tokens/s and the idle share of one
+   the 8 requests served together, chunked == unchunked on the shortest,
+   the shortest ragged (164 tokens: chunks of 64, 64 and 36) and the
+   longest, each served alone); tokens/s and the idle share of one
    profiled ring run;
 3l. H2O-Danube-1.8B at full width (its depth cut from 24 to
    ``DANUBE_LAYERS`` layers; d_model 2560, 32/8 heads of 80, window 4,096)
@@ -240,8 +241,9 @@ runs these phases; any failure exits non-zero:
    the card (``init_params_on_device``), with 3k's knobs: the ring, then the
    prefix-cached paged cache; under injected uniforms ring == paged bit for
    bit on all 8 requests, chunked (64 tokens a step) == unchunked bit for
-   bit on the shortest and the longest served alone; one host copy a tick
-   and an admission batch, the pool drained, flash 16 launches an
+   bit on the shortest, the shortest ragged and the longest served alone;
+   one host copy a tick and an admission batch, the pool drained, flash
+   16 launches an
    admission batch (a chunk when chunked), paged 16 a tick, ``tte_sample``
    none; tokens/s, peak memory and a profiled ring window (3o's: the first
    ``PROFILE_REQUESTS`` prompts, ``PROFILE_MAX_NEW`` tokens each); the longest
@@ -392,6 +394,19 @@ runs these phases; any failure exits non-zero:
    peak within the bf16 tree + its largest fp32 layer slice + 1 GiB; the
    save's and the load's seconds and rates, the child's ``VmHWM`` (its
    ``VmRSS`` after the load where the kernel lists no ``VmHWM``);
+7. the user-facing surface, each script in processes of its own, started
+   beside phase 4's untimed checks (with 6i) and waited for after them:
+   ``scripts/torch_examples_smoke.py --device cuda`` runs the eight
+   ``examples/torch_*.py`` with their fast arguments, ``EXAMPLE_JOBS`` at
+   a time (an example fails unless every kernel of its path launched:
+   ``tte_sample``, flash and paged for the ones that generate or serve,
+   flash and paged for the exported artifact, flash, paged and
+   ``ssd_intra`` for the zoo's ten reduced architectures, none for the
+   two that only train); beside it, ``scripts/torch_paged_parity.py``
+   (paged == ring bit for bit, four storms with zero leaked blocks) and
+   ``scripts/torch_router_roundtrip.py`` (router == direct bit for bit,
+   the failover storm); each example's seconds and launch counts, each
+   round trip's seconds and last line;
 3w. Qwen2.5-32B at full width and depth (64 layers, d_model 5,120, 40/8
    heads of 128, QKV biases, SwiGLU d_ff 27,648, V 152,064, RoPE theta
    1e6; 65.53 GB in bf16, its weights made on the card: no fp32 copy of
@@ -409,7 +424,7 @@ runs these phases; any failure exits non-zero:
    fp32 model at full depth (``core.parity.layered_prefill_logits``: one
    layer upcast at a time, plain route, TF32 off) within
    ``DENSE_LOGITS_VS_PLAIN`` times the plain bf16 route's error; last one
-   prompt of 16,352 seeded ids with 32 new tokens, 1 slot, ``max_context``
+   prompt of 16,352 seeded ids with 8 new tokens, 1 slot, ``max_context``
    16,384 (``lm_long_drive``): the ring and the paged pool (1,024 blocks of
    16) bit for bit under injected uniforms, the first 2 tokens held
    teacher-forced against the kernels' prefills of the prompt and of the
@@ -470,9 +485,10 @@ phase 3i, on the audit of phase 6d, on the artifact drive of phase 3j and
 on the ring runs of 3k, 3l and 3m, the drive of 3n, the Zamba2 run of 3o,
 the drives of 3t (both models' counts summed; ``ssd_intra`` too),
 the MoE ring runs of 3p and 3q, the training CLIs of 6f and 6g, the
-training steps of 6j and 6k, the CLI's serving in 3v and the ring runs of
-3w (its long prompt's as ``3w long``) and 3x
-(``launches_by_path``, counts zeroed just before each and read just after;
+training steps of 6j and 6k, the CLI's serving in 3v, the ring runs of
+3w (its long prompt's as ``3w long``) and 3x and phase 7's examples (their
+counts summed) (``launches_by_path``, counts zeroed just before each and
+read just after, in each example's own process;
 6f, 6g, 6j and 6k read 0; 3r and 3s count the timed drive, prefill and
 decode);
 twenty-one more rows give flash and paged at the shapes of 3k, 3l, 3o,
@@ -2370,7 +2386,7 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_PATIENTS = 32, 128, 100, 2048
 # element is a fault, not rounding
 GRAD_CARD_REL = 1e-3
 FED_CLIENTS, FED_ROUNDS, FED_LOCAL_STEPS, FED_CLIP = 3, 2, 2, 2.0
-SWEEP_PATIENTS, SWEEP_FUTURES, SWEEP_MAX_NEW = 64, 8, 32
+SWEEP_PATIENTS, SWEEP_FUTURES, SWEEP_MAX_NEW = 32, 8, 32
 # assert_sweep_parity's patients cut from 8 to 4 to make room for 6j,
 # 6k and 3v
 SWEEP_IN_FLIGHT, SWEEP_EXACT, SWEEP_SEED = 4, 4, 13
@@ -2572,7 +2588,8 @@ def federated_path() -> dict:
 
 def sweep_patients() -> list:
     """The first halves of ``patient(i, SimulatorConfig(seed=7))``, i <
-    64: each history's present, whose futures the sweep samples."""
+    ``SWEEP_PATIENTS``: each history's present, whose futures the sweep
+    samples."""
     from repro_torch.data import SimulatorConfig, patient
     sim = SimulatorConfig(seed=7)
     out = []
@@ -2608,7 +2625,7 @@ def sweep_parity(res, params, cfg, patients) -> dict:
 
 
 def cohort_path(params, cfg) -> dict:
-    """Phase 3i: a ``ScenarioEngine`` sweep of 64 patients x 8 futures x
+    """Phase 3i: a ``ScenarioEngine`` sweep of 32 patients x 8 futures x
     32 events through ``EngineBackend`` (its background loop, 4 patients
     in flight) in bf16; ``assert_sweep_parity`` bit for bit on the first 4
     patients in bf16 and in fp32; a paired counterfactual hits the prefix
@@ -2803,6 +2820,18 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
+def solo_prompts(prompts):
+    """Indices of the prompts on which chunked == unchunked is held, each
+    request served alone: the shortest, the shortest whose last chunk of
+    ``DENSE_CHUNK`` is ragged, and the longest."""
+    import numpy as np
+    order = [int(i) for i in np.argsort([len(p) for p in prompts])]
+    ragged = [i for i in order if len(prompts[i]) % DENSE_CHUNK]
+    if not ragged:
+        raise AssertionError("no prompt has a ragged last chunk")
+    return [order[0], ragged[0], order[-1]]
+
+
 def lm_long_prompts(vocab: int):
     """``DENSE_REQUESTS`` prompts of seeded random token ids, 64 to 768
     tokens, in seeded order."""
@@ -2885,10 +2914,10 @@ def tinyllama_path() -> dict:
     """Phase 3k: TinyLlama-1.1B at full width in bf16 on the ring, then on
     the prefix-cached paged cache; under injected uniforms ring == paged
     bit for bit over all 8 requests, and chunked (64 tokens a step) ==
-    unchunked bit for bit on the shortest and the longest request, each
-    served alone (the concurrent chunked run's agreement is counted); one
-    profiled ring run."""
-    import numpy as np
+    unchunked bit for bit on the shortest, the shortest ragged (its last
+    chunk short of 64 tokens) and the longest request, each served alone
+    (the concurrent chunked run's agreement is counted); one profiled ring
+    run."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_params_on_device
@@ -2932,8 +2961,7 @@ def tinyllama_path() -> dict:
     # then computed at the same products' shapes by both (in a concurrent
     # run the monolithic admission batches 8 prompts padded to 1024
     # tokens, and the bf16 products' bits follow the batch's row count)
-    order = np.argsort([len(p) for p in prompts])
-    solo = [int(order[0]), int(order[-1])]      # the shortest, the longest
+    solo = solo_prompts(prompts)
     for i in solo:
         one = {}
         for name, extra in (("paged", dict(cache="paged")),
@@ -4231,13 +4259,13 @@ def lm_cli_drive(arch: str) -> dict:
     return res
 
 
-# 3w's long prompt: one request of 16,352 seeded ids and 32 new tokens, 1
+# 3w's long prompt: one request of 16,352 seeded ids and 8 new tokens, 1
 # slot, max_context 16,384 (the largest power-of-two bucket beside
 # Qwen2.5-32B's 61 GiB of bf16 weights: the ring 4 GiB, the prefill's own
 # rings 4 GiB, MLP activations ~2.5 GiB; 32,768 would need ~82 GiB), on
 # the ring and on the paged pool (1,024 blocks of 16); the first
 # LM_LONG_HELD tokens held teacher-forced against prefills
-LM_LONG_PROMPT, LM_LONG_CONTEXT, LM_LONG_MAX_NEW = 16352, 16384, 32
+LM_LONG_PROMPT, LM_LONG_CONTEXT, LM_LONG_MAX_NEW = 16352, 16384, 8
 LM_LONG_HELD = 2
 # 3w's profiled window: its first PROFILE_REQUESTS prompts, this many new
 # tokens (64 layers make ~4,300 device activities a tick: the profiler took
@@ -4329,8 +4357,9 @@ def lm_path(arch: str, phase: str, fp32_layers=None, cli: bool = False,
     knobs (8 slots, ``max_context`` 1,024, 8 random-id prompts of 64-768
     tokens, 32 new tokens): the ring, then the prefix-cached paged cache;
     under injected uniforms ring == paged bit for bit on all 8 requests and
-    chunked (64 tokens a step) == unchunked bit for bit on the shortest and
-    the longest, each served alone; one host copy a tick and an admission
+    chunked (64 tokens a step) == unchunked bit for bit on the shortest, the
+    shortest ragged (its last chunk short of 64 tokens) and the longest,
+    each served alone; one host copy a tick and an admission
     batch, the pool drained, flash 1 launch a layer an admission batch (a
     chunk when chunked), paged 1 a layer a tick, ``tte_sample`` none; the
     peak memory under the card's; a profiled ring window (3o's, or
@@ -4342,7 +4371,6 @@ def lm_path(arch: str, phase: str, fp32_layers=None, cli: bool = False,
     depth (``dense_logits``).  With ``cli`` the serving CLI runs first
     (``lm_cli_drive``, its weights freed before the phase makes its own);
     with ``long`` the long prompt is served last (``lm_long_drive``)."""
-    import numpy as np
     import torch
     from repro_torch.configs import MOE, get_config
     from repro_torch.models import init_params_on_device
@@ -4400,8 +4428,7 @@ def lm_path(arch: str, phase: str, fp32_layers=None, cli: bool = False,
         del eng
     if exact["ring"] != exact["paged"]:
         raise AssertionError(f"{phase}: ring and paged tokens differ")
-    order = np.argsort([len(p) for p in prompts])
-    solo = [int(order[0]), int(order[-1])]      # the shortest, the longest
+    solo = solo_prompts(prompts)
     for i in solo:
         one = {}
         for name, extra in (("paged", dict(cache="paged")),
@@ -4431,7 +4458,9 @@ def lm_path(arch: str, phase: str, fp32_layers=None, cli: bool = False,
                              f"{card}")
     t0 = time.perf_counter()
     if cfg.arch_type != MOE:
-        logits = dense_logits(params, cfg, [prompts[i] for i in solo])
+        # the shortest and the longest prompt
+        logits = dense_logits(params, cfg, [prompts[solo[0]],
+                                            prompts[solo[-1]]])
     elif fp32_layers is not None:
         del params
         free_card()
@@ -5116,15 +5145,117 @@ def sdpa_gqa(q, k, v, **kw):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the eight examples and the paged-parity and router round trips
+# ---------------------------------------------------------------------------
+# examples run this many at a time (each in its own interpreter; their
+# models are small, and each process spends ~8 s reaching the card)
+EXAMPLE_JOBS = 4
+ROUND_TRIPS = ("torch_paged_parity.py", "torch_router_roundtrip.py")
+EXAMPLES_TIMEOUT_S = 420
+
+
+def start_examples():
+    """Start phase 7's scripts, each in a process of its own (and its own
+    process group, so that the example runner's children stop with it),
+    with ``src`` on the path and their output in files: the example runner
+    (``EXAMPLE_JOBS`` at a time, ``--device cuda``, its table in
+    ``chiprun_out/examples_smoke.json``) and the two round trips.  ->
+    (table path, [(argv, process, stdout file, stderr file)], start time)."""
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    table = os.path.join(out_dir, "examples_smoke.json")
+    argvs = [["scripts/torch_examples_smoke.py", "--device", "cuda",
+              "--jobs", str(EXAMPLE_JOBS), "--json", table]]
+    argvs += [["scripts/" + n] for n in ROUND_TRIPS]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    # beside phase 4's checks on the CPU: two threads a process
+    env.setdefault("OMP_NUM_THREADS", "2")
+    procs = []
+    for argv in argvs:
+        so, se = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        procs.append((argv, subprocess.Popen(
+            [sys.executable] + argv, cwd=ROOT, env=env, stdout=so, stderr=se,
+            text=True, start_new_session=True), so, se))
+    return table, procs, time.perf_counter()
+
+
+def stop_examples(started) -> None:
+    """Kill what :func:`start_examples` started that still runs."""
+    import signal
+    for _, proc, _, _ in started[1]:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=60)
+
+
+def examples_path(started=None) -> dict:
+    """Phase 7: ``scripts/torch_examples_smoke.py --device cuda`` (the eight
+    ``examples/torch_*.py``, ``EXAMPLE_JOBS`` at a time, each in its own
+    interpreter with its fast arguments; the runner fails an example whose
+    path launched none of one of its kernels) and, beside it,
+    ``scripts/torch_paged_parity.py`` and ``scripts/torch_router_roundtrip.py``
+    on the card: the scripts :func:`start_examples` started (``started``,
+    else started here), waited for within ``EXAMPLES_TIMEOUT_S``.  Any
+    non-zero exit fails the phase.  -> per-example seconds and launch
+    counts, each script's seconds from the start to its exit, each round
+    trip's last line."""
+    table, procs, t0 = started or start_examples()
+    ends = {}
+    try:
+        while len(ends) < len(procs):
+            if time.perf_counter() - t0 > EXAMPLES_TIMEOUT_S:
+                raise AssertionError(f"7: still running after "
+                                     f"{EXAMPLES_TIMEOUT_S} s")
+            for i, (_, proc, _, _) in enumerate(procs):
+                if i not in ends and proc.poll() is not None:
+                    ends[i] = time.perf_counter() - t0
+            time.sleep(0.2)
+    finally:
+        stop_examples((table, procs, t0))
+    outs = []
+    for argv, proc, so, se in procs:
+        so.seek(0)
+        se.seek(0)
+        out, err = so.read(), se.read()
+        so.close()
+        se.close()
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"7: {os.path.basename(argv[0])} exit code "
+                f"{proc.returncode}:\n{out[-3000:]}{err[-3000:]}")
+        outs.append(out)
+    with open(table) as f:
+        examples = json.load(f)
+    trips = {n: {"seconds": ends[i + 1],
+                 "last_line": outs[i + 1].strip().splitlines()[-1]}
+             for i, n in enumerate(ROUND_TRIPS)}
+    launches = {k: sum(e["launch_counts"][k] for e in examples)
+                for k in REPLACES}
+    return {"examples": examples, "examples_s": ends[0],
+            "round_trips": trips, "launches": launches}
+
+
+def log_examples(res: dict, smi: str) -> None:
+    log(f"  the eight examples on the card ({EXAMPLE_JOBS} at a time, the "
+        f"round trips beside them) in {res['examples_s']:.1f}s from their "
+        f"start [{smi}]:")
+    for e in res["examples"]:
+        log(f"    {e['name']:30s} {e['seconds']:6.1f}s launches "
+            f"{json.dumps(e['launch_counts'])}")
+    for name, t in res["round_trips"].items():
+        log(f"  {name} {t['seconds']:.1f}s: {t['last_line']}")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: times
 # ---------------------------------------------------------------------------
 # ---------------------------------------------------------------------------
 # phase 3j: the SDK artifact on the card
 # ---------------------------------------------------------------------------
 ARTIFACT_DECODE_STEPS, ARTIFACT_MAX_NEW = 8, 32
-# the fp32 artifact's depth (the bf16 one keeps Delphi-2M's 12 layers):
-# cut to keep the whole call in its time
-ARTIFACT_FP32_LAYERS = 2
+# the artifacts' depths (Delphi-2M has 12 layers): cut to keep the whole
+# call in its time (the bf16 export's tracing is phase 1's longest task)
+ARTIFACT_BF16_LAYERS, ARTIFACT_FP32_LAYERS = 4, 2
 
 
 def artifact_export(params, cfg, d: str, spec: str, seq_len=None) -> dict:
@@ -5378,19 +5509,18 @@ def artifact_op_us() -> dict:
 
 
 def artifact_config(dtype: str):
-    """Phase 3j's config in ``dtype``: full-width Delphi-2M, the fp32
-    one's depth cut to ``ARTIFACT_FP32_LAYERS``."""
+    """Phase 3j's config in ``dtype``: full-width Delphi-2M, its depth cut
+    to ``ARTIFACT_BF16_LAYERS`` or ``ARTIFACT_FP32_LAYERS``."""
     from repro_torch.configs import get_config
     cfg = get_config("delphi-2m").replace(dtype=dtype)
-    if dtype == "float32":
-        cfg = cfg.replace(n_layers=ARTIFACT_FP32_LAYERS)
-    return cfg
+    return cfg.replace(n_layers=ARTIFACT_BF16_LAYERS if dtype == "bfloat16"
+                       else ARTIFACT_FP32_LAYERS)
 
 
 def artifact_exports(tmp: str) -> dict:
     """Phase 3j's exports, traced on the CPU (no kernel is needed, so
     ``main`` runs this while ``nvcc`` builds the kernels): spec v2 in
-    bf16 at full depth, and spec v2 and v1 in fp32 at
+    bf16 at ``ARTIFACT_BF16_LAYERS`` layers, and spec v2 and v1 in fp32 at
     ``ARTIFACT_FP32_LAYERS`` layers (the pair that holds v1 == v2 on the
     card).  Returns {dtype: {"v2": dir, "v1": dir or None, "export_v2":
     ..., "export_v1": ...}}."""
@@ -7444,8 +7574,9 @@ def main() -> int:
         f"s)" for n in ("reference", "batched")))
     phase_done("3u")
     log(f"== phase 3j: the SDK artifact (full-width Delphi-2M through "
-        f"torch.export, spec v2 in bf16, v2 and v1 in fp32 (its depth cut "
-        f"to {ARTIFACT_FP32_LAYERS} layers), traced on the CPU in phase 1; "
+        f"torch.export, spec v2 in bf16 at {ARTIFACT_BF16_LAYERS} layers, v2 "
+        f"and v1 in fp32 at {ARTIFACT_FP32_LAYERS}, traced on the CPU in "
+        f"phase 1; "
         f"Runtime on the card)")
     t3j = time.perf_counter()
     art = artifact_path(exports)
@@ -7604,8 +7735,10 @@ def main() -> int:
 
     phase_done("3b")
     log("== phase 4: end-to-end parity, fp32, card vs CPU")
-    # phase 6i's subprocess runs beside phase 4's untimed checks
+    # phase 6i's subprocess and phase 7's scripts run beside phase 4's
+    # untimed checks
     launch_started = start_launch_check()
+    examples_started = start_examples()
     try:
         par = parity()
         mpar = mamba_parity()
@@ -7620,10 +7753,21 @@ def main() -> int:
     except BaseException:
         launch_started[0].kill()
         launch_started[0].wait(timeout=60)
+        stop_examples(examples_started)
         raise
-    lch = launch_check(launch_started)
+    try:
+        lch = launch_check(launch_started)
+    except BaseException:
+        stop_examples(examples_started)
+        raise
 
     phase_done("4")
+    log("== phase 7: the eight examples (scripts/torch_examples_smoke.py "
+        "--device cuda) and, beside them, the paged-parity and router round "
+        "trips, each in its own process, started beside phase 4")
+    exm = examples_path(examples_started)
+    log_examples(exm, smi)
+    phase_done("7")
     log("== phase 6a: gradients on the card (Delphi-2M fp32, TF32 off, "
         f"{TRAIN_BATCH} x {TRAIN_SEQ}) against the CPU port")
     t6 = time.perf_counter()
@@ -7980,7 +8124,8 @@ def main() -> int:
                    "3v": ckpt["launches"],
                    "3w": lm["3w"]["runs"]["ring"]["launches"],
                    "3w long": lm["3w"]["long"]["runs"]["ring"]["launches"],
-                   "3x": lm["3x"]["runs"]["ring"]["launches"]}
+                   "3x": lm["3x"]["runs"]["ring"]["launches"],
+                   "7": exm["launches"]}
 
     def by_path(name):
         out = ({} if name == "ssd_intra" else
@@ -8079,7 +8224,7 @@ def main() -> int:
         "qwen2_moe_path": moe["3q"], "internvl2_path": zoo["3r"],
         "seamless_path": zoo["3s"], "zoo_train_paths": zoo_train,
         "ckpt_serve_path": ckpt, "qwen2_5_32b_path": lm["3w"],
-        "deepseek_7b_path": lm["3x"],
+        "deepseek_7b_path": lm["3x"], "examples_path": exm,
         "main_path": {"requests": len(main_res["done"]),
                       "events": main_res["events"], "seconds": sec,
                       "ticks": eng.ticks, "admit_batches": eng.admit_batches,

@@ -22,7 +22,8 @@ SeamlessM4T-large-v2 and 6k InternVL2-26B trained (with 6j's checkpoint
 round trip), 3v a full-width OLMoE-1B-7B checkpoint saved by the port and
 served by the CLI from ``--ckpt`` in a subprocess, 3w Qwen2.5-32B (the
 serving CLI first, a 16,352-token prompt last) and 3x DeepSeek-7B served
-at full width and depth.
+at full width and depth, 7 the eight examples (``torch_examples_smoke.py``)
+and the paged-parity and router round trips.
 
 ``--root DIR`` takes ``chip_smoke.py`` and the port from another checkout
 (a parent commit unpacked under the repository), so that two versions are
@@ -114,6 +115,7 @@ PHASES = {
     "3w": lambda: cs.lm_path("qwen2.5-32b", "3w", cli=True, long=True,
                              profile_max_new=cs.LM_PROFILE_MAX_NEW_3W),
     "3x": lambda: cs.lm_path("deepseek-7b", "3x"),
+    "7": lambda: cs.examples_path(),
 }
 # phases whose results are printed by a logger (chip_smoke's own where it
 # has one)
@@ -124,7 +126,8 @@ LOGGERS = {"3b": _log_mamba, "3o": _log_zamba2,
            "3t": lambda *a: cs.log_ssm_artifact_phase(*a),
            "6j": lambda *a: cs.log_zoo_train(*a),
            "6k": lambda *a: cs.log_zoo_train(*a),
-           "3v": lambda res, ph, smi, t0: cs.log_ckpt_serve(res, smi, t0)}
+           "3v": lambda res, ph, smi, t0: cs.log_ckpt_serve(res, smi, t0),
+           "7": lambda res, ph, smi, t0: cs.log_examples(res, smi)}
 
 
 def _zamba2_rows(gen, out, ssd_errs):

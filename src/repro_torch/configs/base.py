@@ -123,6 +123,10 @@ class ModelConfig:
             raise ValueError("arch_type 'moe' requires n_experts > 0")
 
     @property
+    def is_attention_free(self) -> bool:
+        return self.arch_type == SSM
+
+    @property
     def has_encoder(self) -> bool:
         return self.n_encoder_layers > 0
 
@@ -139,6 +143,10 @@ class ModelConfig:
         if self.n_heads == 0:
             return 1
         return self.n_heads // max(self.n_kv_heads, 1)
+
+    def with_sliding_window(self, window: int) -> "ModelConfig":
+        """The sub-quadratic long-context variant (the long_500k policy)."""
+        return dataclasses.replace(self, sliding_window=window)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

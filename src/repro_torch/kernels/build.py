@@ -44,6 +44,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 last_build: Dict[str, object] = {}
 
 
+# repro-lint: disable=RL003 a build helper (the compiler's path), not a kernel
 def nvcc() -> str:
     """Path of nvcc: ``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda``, else
     the one on ``PATH``.  Raises when there is none."""
@@ -66,6 +67,7 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+# repro-lint: disable=RL003 a build helper (compiles the sources), not a kernel
 def build() -> Path:
     """Compile (if not built yet) and return the shared library's path."""
     lib_path = BUILD_DIR / f"librepro_torch_kernels_{_digest()}.so"
@@ -114,6 +116,8 @@ _first_build = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
+# repro-lint: disable=RL003 a build helper (loads the built library),
+# not a kernel
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built at the first call in a process).
     Threads that reach the first call together (a serving engine's loop
@@ -146,6 +150,8 @@ def _load() -> ctypes.CDLL:
     return lib
 
 
+# repro-lint: disable=RL003 a launch helper (a launcher's return
+# code), not a kernel
 def check(rc: int, kernel: str) -> None:
     """Raise if a launcher returned a CUDA error code."""
     if rc != 0:
@@ -153,11 +159,14 @@ def check(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({rc})")
 
 
+# repro-lint: disable=RL003 a launch helper (the current stream), not a kernel
 def stream_ptr(t: torch.Tensor) -> int:
     """Handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# repro-lint: disable=RL003 a launch helper (a tensor's dtype code),
+# not a kernel
 def dtype_code(t: torch.Tensor, kernel: str) -> int:
     if t.dtype not in DTYPE_CODES:
         raise TypeError(f"{kernel} takes float32 or bfloat16, got {t.dtype}")

@@ -21,6 +21,9 @@ launches = 0
 MAX_HEAD_DIM = 128
 
 
+# repro-lint: disable=RL003 the CUDA launcher; its oracle is
+# paged_decode_attention_ref via ops.paged_decode_attention
+# (tests/test_torch_cuda.py)
 def paged_decode_attention_cuda(q, k_pool, v_pool, table, pos, step, *,
                                 window: Optional[int] = None) -> torch.Tensor:
     """q: (B, Hkv, G, hd); k/v_pool: (NB, Hkv, bs, hd), one dtype (fp32 or

@@ -22,6 +22,9 @@ MAX_P = 64
 MAX_N = 128
 
 
+# repro-lint: disable=RL003 the CUDA launcher; its oracle is ssd_intra_ref via
+# ops.ssd_intra and ssd_intra_heads_ref via ops.ssd_intra_heads
+# (tests/test_torch_cuda.py)
 def ssd_intra_cuda(xdt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                    cum: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """xdt (b, c, Q, H, P) fp32 or bf16; Bm, Cm (b, c, Q, H, N) of one dtype

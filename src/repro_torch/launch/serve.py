@@ -280,7 +280,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
               f"{out['routing']['affinity_rate']:.2f})")
     print(f"served {len(out['done'])} requests, {n} {unit} in {dt:.2f}s "
           f"({n / dt:.1f} {unit}/s, "
-          f"{sum(e.ticks for e in out['engines']) / dt:.1f} ticks/s) on "
+          f"{sum(e.health_stats()['ticks'] for e in out['engines']) / dt:.1f}"
+          f" ticks/s) on "
           f"{eng.device}")
     if out["done"]:
         r = out["done"][0]

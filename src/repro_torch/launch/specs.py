@@ -14,7 +14,6 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.configs import base as cb
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.launch import sharding as sh
 from repro_torch.models import make_decode_cache
@@ -63,9 +62,9 @@ def model_batch_spec(cfg: ModelConfig, batch: int, seq: int, *,
 def long_context_cfg(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
     """The long_500k policy: attention architectures without a window get
     an 8,192-token sliding window; SSM runs natively (the reference's)."""
-    if shape.name == "long_500k" and cfg.arch_type != cb.SSM \
+    if shape.name == "long_500k" and not cfg.is_attention_free \
             and cfg.sliding_window is None:
-        return cfg.replace(sliding_window=8192)
+        return cfg.with_sliding_window(8192)
     return cfg
 
 

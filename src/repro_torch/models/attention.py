@@ -69,6 +69,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import sharded
 from repro_torch.kernels import ops
+from repro_torch.models.layers import row_products
 
 NEG_INF = -1e30
 
@@ -81,37 +82,45 @@ class LayerCache(NamedTuple):
 
 
 def project_qkv(x: torch.Tensor, wq, wk, wv, bq=None, bk=None, bv=None,
-                xkv: Optional[torch.Tensor] = None):
+                xkv: Optional[torch.Tensor] = None,
+                rows: Optional[int] = None):
     """x (B, S, d) -> q (B, S, Hq, hd), k and v (B, T, Hkv, hd), k and v
     from ``xkv`` (B, T, d) where given (cross-attention: the encoder's
     memory), else from x; the QKV biases (Hq|Hkv, hd), where given, are
-    added in x's dtype."""
+    added in x's dtype; ``rows`` as ``layers.row_products``'."""
     dt = x.dtype
     d = x.shape[2]
     xkv = x if xkv is None else xkv.to(dt)
     B, T = xkv.shape[:2]
-    q = project_q(x, wq, bq)
-    k = (xkv @ wk.to(dt).reshape(d, -1)).view(B, T, wk.shape[1], wk.shape[2])
-    v = (xkv @ wv.to(dt).reshape(d, -1)).view(B, T, wv.shape[1], wv.shape[2])
+    q = project_q(x, wq, bq, rows)
+    k = row_products(xkv, wk.to(dt).reshape(d, -1), rows).view(
+        B, T, wk.shape[1], wk.shape[2])
+    v = row_products(xkv, wv.to(dt).reshape(d, -1), rows).view(
+        B, T, wv.shape[1], wv.shape[2])
     if bk is not None:
         k = k + bk.to(dt)
         v = v + bv.to(dt)
     return q, k, v
 
 
-def project_q(x: torch.Tensor, wq, bq=None) -> torch.Tensor:
+def project_q(x: torch.Tensor, wq, bq=None,
+              rows: Optional[int] = None) -> torch.Tensor:
     """x (B, S, d) -> q (B, S, Hq, hd), with the bias (Hq, hd) where
-    given, in x's dtype."""
+    given, in x's dtype; ``rows`` as ``layers.row_products``'."""
     dt = x.dtype
     B, S, d = x.shape
-    q = (x @ wq.to(dt).reshape(d, -1)).view(B, S, wq.shape[1], wq.shape[2])
+    q = row_products(x, wq.to(dt).reshape(d, -1), rows).view(
+        B, S, wq.shape[1], wq.shape[2])
     return q if bq is None else q + bq.to(dt)
 
 
-def output_projection(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """o (B, S, Hq, hd) -> (B, S, d)."""
+def output_projection(o: torch.Tensor, wo: torch.Tensor,
+                      rows: Optional[int] = None) -> torch.Tensor:
+    """o (B, S, Hq, hd) -> (B, S, d); ``rows`` as
+    ``layers.row_products``'."""
     B, S = o.shape[:2]
-    return o.reshape(B, S, -1) @ wo.to(o.dtype).reshape(-1, wo.shape[-1])
+    return row_products(o.reshape(B, S, -1),
+                        wo.to(o.dtype).reshape(-1, wo.shape[-1]), rows)
 
 
 def _valid(q_pos, k_pos, causal: bool, window):

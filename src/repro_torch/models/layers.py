@@ -123,20 +123,54 @@ def age_encoding(ages: torch.Tensor, d_model: int, min_scale: float = 1e-3,
     return enc
 
 
-def apply_mlp(x: torch.Tensor, w_fc, b_fc, w_proj, b_proj) -> torch.Tensor:
-    """GELU MLP (the tanh approximation, as ``jax.nn.gelu`` defaults to)."""
+# A serving prefill (``forward``'s prefill mode and ``forward_suffix``'s
+# chunks) multiplies by a layer's weights in products of exactly this many
+# rows, the last one zero-padded.  cuBLAS picks a product's algorithm, and
+# with it any split of the reduction over K, by the row count, so a row's
+# bits would otherwise follow how many rows share its product, and a
+# chunked prefill would part from the monolithic one (ROADMAP C6).  At 256
+# rows a product of a large weight is near its compute bound on the card,
+# and a chunk of up to 256 tokens runs one product, as one of 64 would.
+PREFILL_ROWS = 256
+
+
+def row_products(x: torch.Tensor, w: torch.Tensor,
+                 rows: Optional[int] = None) -> torch.Tensor:
+    """``x @ w`` for x (..., K) and w (K, N); with ``rows``, as products of
+    exactly ``rows`` rows each (the last zero-padded), so that each row's
+    bits do not depend on how many rows x holds.  A DTensor (the sharded
+    step, the dry run) takes one product."""
+    if rows is None or sharded.is_dtensor(x) or x.numel() == 0:
+        return x @ w
+    flat = x.reshape(-1, x.shape[-1]).contiguous()
+    m = flat.shape[0]
+    pad = -m % rows
+    if pad:
+        flat = F.pad(flat, (0, 0, 0, pad))
+    parts = [flat[i:i + rows] @ w for i in range(0, m + pad, rows)]
+    out = parts[0] if len(parts) == 1 else torch.cat(parts)
+    return out[:m].view(*x.shape[:-1], w.shape[-1])
+
+
+def apply_mlp(x: torch.Tensor, w_fc, b_fc, w_proj, b_proj,
+              rows: Optional[int] = None) -> torch.Tensor:
+    """GELU MLP (the tanh approximation, as ``jax.nn.gelu`` defaults to);
+    ``rows`` as :func:`row_products`'."""
     dt = x.dtype
-    h = x @ w_fc.to(dt) + b_fc.to(dt)
+    h = row_products(x, w_fc.to(dt), rows) + b_fc.to(dt)
     h = F.gelu(h, approximate="tanh")
-    return h @ w_proj.to(dt) + b_proj.to(dt)
+    return row_products(h, w_proj.to(dt), rows) + b_proj.to(dt)
 
 
-def apply_swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+def apply_swiglu(x: torch.Tensor, w_gate, w_up, w_down,
+                 rows: Optional[int] = None) -> torch.Tensor:
     """SwiGLU MLP of the llama family: ``(silu(x @ w_gate) * (x @ w_up))
-    @ w_down``, every product and the gate in x's dtype."""
+    @ w_down``, every product and the gate in x's dtype; ``rows`` as
+    :func:`row_products`'."""
     dt = x.dtype
-    h = F.silu(x @ w_gate.to(dt)) * (x @ w_up.to(dt))
-    return h @ w_down.to(dt)
+    h = (F.silu(row_products(x, w_gate.to(dt), rows))
+         * row_products(x, w_up.to(dt), rows))
+    return row_products(h, w_down.to(dt), rows)
 
 
 def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,

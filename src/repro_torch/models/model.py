@@ -88,9 +88,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import LayerCache, PagedCache
-from repro_torch.models.layers import (act_dtype, age_encoding, apply_mlp,
-                                       apply_norm, apply_rope, apply_swiglu,
-                                       embed_tokens, logits_head,
+from repro_torch.models.layers import (PREFILL_ROWS, act_dtype, age_encoding,
+                                       apply_mlp, apply_norm, apply_rope,
+                                       apply_swiglu, embed_tokens, logits_head,
                                        untied_logits_head)
 from repro_torch.models.params import Params, use_dtype
 from repro_torch.models.ssm import SSMCache
@@ -172,10 +172,11 @@ def _remat(fn, cfg: ModelConfig, differentiable: bool):
 
 
 def _mlp_block(blk: Block, x: torch.Tensor, cfg: ModelConfig,
-               moe_impl: str = "dense_scan"):
+               moe_impl: str = "dense_scan", rows: Optional[int] = None):
     """``x + MLP(norm(x))`` and the block's router aux loss (an fp32
     scalar for an MoE block, else None): the experts (dispatched by
-    ``moe_impl``) where the block has a router, else SwiGLU or GELU."""
+    ``moe_impl``) where the block has a router, else SwiGLU or GELU, their
+    products in ``rows``-row pieces where given (``layers.row_products``)."""
     h = sharded.gather_grad(apply_norm(x, blk["mlp_norm/scale"],
                                        blk.get("mlp_norm/bias")))
     if "moe/router" in blk:
@@ -183,10 +184,10 @@ def _mlp_block(blk: Block, x: torch.Tensor, cfg: ModelConfig,
         return x + sharded.reduce_rows(y), aux
     if "mlp/w_gate" in blk:
         y = apply_swiglu(h, blk["mlp/w_gate"], blk["mlp/w_up"],
-                         blk["mlp/w_down"])
+                         blk["mlp/w_down"], rows)
     else:
         y = apply_mlp(h, blk["mlp/w_fc"], blk["mlp/b_fc"], blk["mlp/w_proj"],
-                      blk["mlp/b_proj"])
+                      blk["mlp/b_proj"], rows)
     return x + sharded.reduce_rows(y), None
 
 
@@ -262,15 +263,17 @@ def _sharded_mamba(p, x, h, cfg: ModelConfig, l: int, mode: str, cache,
 
 
 def _qkv(blk: Block, cfg: ModelConfig, x: torch.Tensor,
-         positions: torch.Tensor):
-    """A block's pre-norm and QKV projection (with its biases); with RoPE
-    (``not cfg.age_encoding``) q and k are rotated at the absolute
-    ``positions`` (broadcastable to (B, S)) before any cache write."""
+         positions: torch.Tensor, rows: Optional[int] = None):
+    """A block's pre-norm and QKV projection (with its biases, in
+    ``rows``-row pieces where given); with RoPE (``not cfg.age_encoding``)
+    q and k are rotated at the absolute ``positions`` (broadcastable to
+    (B, S)) before any cache write."""
     h = sharded.gather_grad(apply_norm(x, blk["attn_norm/scale"],
                                        blk.get("attn_norm/bias")))
     q, k, v = attn.project_qkv(h, blk["attn/wq"], blk["attn/wk"],
                                blk["attn/wv"], blk.get("attn/bq"),
-                               blk.get("attn/bk"), blk.get("attn/bv"))
+                               blk.get("attn/bk"), blk.get("attn/bv"),
+                               rows=rows)
     if not cfg.age_encoding:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -280,7 +283,7 @@ def _qkv(blk: Block, cfg: ModelConfig, x: torch.Tensor,
 def _attn_block(blk: Block, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, differentiable: bool, *,
                 causal: bool = True, memory: Optional[torch.Tensor] = None,
-                moe_impl: str = "dense_scan"):
+                moe_impl: str = "dense_scan", rows: Optional[int] = None):
     """A whole pre-norm transformer block over a full sequence: causal
     attention within the config's window (or, with ``causal=False``,
     bidirectional: the encoder's), with ``memory`` (B, M, d) a
@@ -288,8 +291,10 @@ def _attn_block(blk: Block, cfg: ModelConfig, x: torch.Tensor,
     kernel, or ``chunked_attention`` on the training route.  Returns (x, k,
     v, aux, cross): k and v for a prefill's ring, aux the MLP's router loss
     (None without a router), cross the memory's (k, v) for a prefill's
-    cross ring (None without ``memory``)."""
-    q, k, v = _qkv(blk, cfg, x, positions)
+    cross ring (None without ``memory``).  ``rows``: the self-attention's
+    and the MLP's products in pieces of that many rows (a prefill's,
+    ``layers.PREFILL_ROWS``)."""
+    q, k, v = _qkv(blk, cfg, x, positions, rows)
     window = cfg.sliding_window if causal else None
     dist = sharded.is_dtensor(q)
     if dist and cfg.seq_shard_attn:
@@ -305,11 +310,12 @@ def _attn_block(blk: Block, cfg: ModelConfig, x: torch.Tensor,
         o = attn.prefill_attention(q, k, v, window=window)
     else:
         o = attn.full_attention(q, k, v)
-    x = x + sharded.reduce_rows(attn.output_projection(o, blk["attn/wo"]))
+    x = x + sharded.reduce_rows(attn.output_projection(o, blk["attn/wo"],
+                                                       rows))
     cross = None
     if memory is not None:
         x, cross = _cross_block(blk, cfg, x, memory, differentiable)
-    x, aux = _mlp_block(blk, x, cfg, moe_impl)
+    x, aux = _mlp_block(blk, x, cfg, moe_impl, rows)
     return x, k, v, aux, cross
 
 
@@ -450,7 +456,8 @@ def _forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
         cross ring ``i``)."""
         nonlocal aux
         x, k, v, a, kv = block(blk, cfg, x, positions, differentiable,
-                               memory=memory, moe_impl=moe_impl)
+                               memory=memory, moe_impl=moe_impl,
+                               rows=PREFILL_ROWS if prefill else None)
         if a is not None:
             aux = aux + a
         if cache is not None:
@@ -505,7 +512,9 @@ def forward_suffix(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     logits are read.
 
     Returns {"logits": (B, 1, V) fp32, "k"/"v": (L, B, Sc, Hkv, hd)}: the
-    chunk's K/V for the caller's block write.  Attention-cache
+    chunk's K/V for the caller's block write.  The products run in
+    ``PREFILL_ROWS``-row pieces, as :func:`forward`'s prefill runs them, so
+    that each row gets the monolithic prefill's bits.  Attention-cache
     architectures only, as :func:`make_paged_decode_cache` (a VLM's
     chunk is text: the patches sit in the context, as JAX's)."""
     if cfg.arch_type not in ATTENTION_STACKS:
@@ -519,12 +528,12 @@ def forward_suffix(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
         # RoPE at the chunk's absolute positions: its K is byte-compatible
         # with the cached context's
         blk = Block(params, "layers/", l)
-        q, k, v = _qkv(blk, cfg, x, positions)
+        q, k, v = _qkv(blk, cfg, x, positions, PREFILL_ROWS)
         o = attn.suffix_attention(q, k, v, ctx["k"][l], ctx["v"][l],
                                   positions, ctx["pos"],
                                   window=cfg.sliding_window)
-        x = x + attn.output_projection(o, blk["attn/wo"])
-        x, _ = _mlp_block(blk, x, cfg, moe_impl)
+        x = x + attn.output_projection(o, blk["attn/wo"], PREFILL_ROWS)
+        x, _ = _mlp_block(blk, x, cfg, moe_impl, PREFILL_ROWS)
         ks.append(k)
         vs.append(v)
     x = _last_rows(x, last_index)
@@ -571,7 +580,7 @@ def _decode_step(params: Params, cfg: ModelConfig, cache,
     B = x.shape[0]
     step = torch.as_tensor(step, dtype=torch.int32, device=x.device)
     if step.dim() == 0:
-        step = step.expand(B)
+        step = step.expand(B).contiguous()   # the paged kernel reads (B,)
     stack = t in ATTENTION_STACKS or t in ENC_DEC_STACKS
     lc = cache["self"] if stack else cache["attn"]
     cross = cache.get("cross")

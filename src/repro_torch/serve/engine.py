@@ -600,10 +600,12 @@ class BatchedEngine:
             self.cache = make_paged_decode_cache(
                 self._wparams, cfg, slots, max_context, num_blocks=blocks,
                 block_size=block_size)
-            self._table = np.full((slots, self.blocks_per_slot), -1, np.int32)
-            self._table_dirty = False
-            self._fresh_blocks: List[int] = []
-            self._slot_blocks: List[List[int]] = [[] for _ in range(slots)]
+            self._table = np.full(  # guarded-by: engine-thread
+                (slots, self.blocks_per_slot), -1, np.int32)
+            self._table_dirty = False  # guarded-by: engine-thread
+            self._fresh_blocks: List[int] = []  # guarded-by: engine-thread
+            self._slot_blocks: List[List[int]] = [  # guarded-by: engine-thread
+                [] for _ in range(slots)]
         else:
             self.allocator = None
             self.pool = None
@@ -612,7 +614,7 @@ class BatchedEngine:
                                            max_context)
         # host mirror of each slot's next decode-write position (the paged
         # scheduler allocates that block BEFORE the tick writes it)
-        self._slot_pos = np.zeros(slots, np.int64)
+        self._slot_pos = np.zeros(slots, np.int64)  # guarded-by: engine-thread
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         dev = self.device
@@ -624,23 +626,26 @@ class BatchedEngine:
             "max_new": torch.ones((slots,), dtype=torch.int32, device=dev),
             "active": torch.zeros((slots,), dtype=torch.bool, device=dev),
         }
-        self.slot_req: List[Optional[Request]] = [None] * slots
+        self.slot_req: List[Optional[Request]] = \
+            [None] * slots  # guarded-by: engine-thread
         self.pending: List[Request] = []               # guarded-by: _lock
         self.completed: List[Request] = []
         self._by_id: Dict[str, Request] = {}           # guarded-by: _lock
         self._cancel_ids: set = set()                  # guarded-by: _lock
         # queued fork ops (parent, children), applied between ticks
-        self._fork_ops: List[Tuple[Request, List[Request]]] = []  # _lock
-        self._deactivate: List[int] = []
+        self._fork_ops: List[Tuple[Request, List[Request]]] = \
+            []  # guarded-by: _lock
+        self._deactivate: List[int] = []  # guarded-by: engine-thread
         # slot -> (V,) bootstrap logits of a parked (held) parent
-        self._held_logits: Dict[int, torch.Tensor] = {}
+        self._held_logits: Dict[int, torch.Tensor] = \
+            {}  # guarded-by: engine-thread
         # slot -> a parked parent's recurrent state after its prompt: the
         # batched tick advances every row's SSM state, so the fork copies
         # this, not the row the parked ticks went on updating
-        self._held_state: Dict[int, dict] = {}
+        self._held_state: Dict[int, dict] = {}  # guarded-by: engine-thread
         # chunked prefill: slot -> its prompt's progress; such a slot holds
         # a table row but does not tick until its last chunk lands
-        self._prefills: Dict[int, _PrefillProgress] = {}
+        self._prefills: Dict[int, _PrefillProgress] = {}  # guarded-by: _lock
         self._seq_counter = itertools.count(1)
         self._lock = threading.Lock()
         # background loop: ``_wake`` cuts the idle backoff short on new work;
@@ -651,20 +656,23 @@ class BatchedEngine:
         self._thread: Optional[threading.Thread] = None
         self._stop_flag = False
         # instrumentation (asserted on by tests and chip_smoke.py)
-        self.ticks = 0
-        self.host_syncs = 0
-        self.admit_batches = 0
-        self.preemptions = 0
-        self.peak_active = 0
-        self.forks = 0
-        self.chunked_prefills = 0
-        self.prefill_chunks = 0
-        self.suffix_tokens_saved = 0
-        self.prefill_shapes: set = set()
+        self.ticks = 0  # guarded-by: _lock
+        self.host_syncs = 0  # guarded-by: _lock
+        self.admit_batches = 0  # guarded-by: _lock
+        self.preemptions = 0  # guarded-by: _lock
+        self.peak_active = 0  # guarded-by: _lock
+        self.forks = 0  # guarded-by: _lock
+        self.chunked_prefills = 0  # guarded-by: _lock
+        self.prefill_chunks = 0  # guarded-by: _lock
+        self.suffix_tokens_saved = 0  # guarded-by: _lock
+        self.prefill_shapes: set = set()  # guarded-by: engine-thread
 
     # -- device->host boundary (the only one) -------------------------------
+    # repro-lint: engine-thread-only
     def _fetch(self, x: torch.Tensor) -> np.ndarray:
         self.host_syncs += 1
+        # repro-lint: disable=RL006 this is the one budgeted packed sync;
+        # every tick and admission reads the device through here
         return _to_host(x)
 
     def _dev(self, x) -> torch.Tensor:
@@ -882,6 +890,8 @@ class BatchedEngine:
         self._thread = None
         with self._lock:
             queued = bool(self.pending or self._fork_ops)
+        # repro-lint: disable=RL001 the loop thread is joined (or was never
+        # started): this thread is the only one left touching slot state
         inflight = any(r is not None for r in self.slot_req)
         if was_running and (queued or inflight):
             self._fail_inflight(
@@ -902,6 +912,7 @@ class BatchedEngine:
                 self._wake.clear()
                 idle = min(idle * 2.0, idle_max)
 
+    # repro-lint: engine-thread-only
     def _fail_inflight(self, exc: BaseException) -> None:
         """A tick raised: every queued, forking, parked and in-flight
         request ends with ``exc`` (waiters unblock through ``on_done``),
@@ -947,6 +958,8 @@ class BatchedEngine:
         with self._lock:
             pending = len(self.pending)
             ticks = self.ticks
+        # repro-lint: disable=RL001 a GIL-atomic scan of the slot list for a
+        # monitoring count; entries may be mid-swap but never torn
         active = sum(r is not None for r in self.slot_req)
         return {
             "running": self.running,
@@ -1018,6 +1031,7 @@ class BatchedEngine:
             self._table[slot, :] = -1
             self._table_dirty = True
 
+    # repro-lint: engine-thread-only
     def _evict(self, slot: int, *, requeue: bool,
                error: Optional[BaseException] = None) -> None:
         """Take an in-flight request out of its slot: free its blocks, queue
@@ -1034,6 +1048,7 @@ class BatchedEngine:
         else:
             self._finalize(req, error)
 
+    # repro-lint: engine-thread-only
     def _apply_control(self) -> None:
         """Tick-start pass: apply cancellations and expire deadlines, for
         queued, parked, in-flight and not yet landed fork children."""
@@ -1142,6 +1157,7 @@ class BatchedEngine:
             hits = hits[:(m - 1) // self.block_size]
         return "prefill", self._fresh_need(m) - len(hits), hits
 
+    # repro-lint: engine-thread-only
     def _ensure_blocks(self) -> None:
         """Every decoding slot must own, alone, the block its next write
         lands in: an unallocated destination gets a fresh block (its stale
@@ -1182,11 +1198,11 @@ class BatchedEngine:
                 else:
                     try:       # the copy carries valid positions: no reset
                         _cow_block(self.cache, old, new)
+                        self._slot_blocks[slot][
+                            self._slot_blocks[slot].index(old)] = new
                     except BaseException:
-                        self.pool.release([new])   # the copy never landed
+                        self.pool.release([new])   # the slot never took it
                         raise
-                    blocks = self._slot_blocks[slot]
-                    blocks[blocks.index(old)] = new
                     self.pool.release([old])
                     self.pool.cow_copies += 1
                 self._table[slot, jb] = new
@@ -1198,6 +1214,7 @@ class BatchedEngine:
             victim = max(victims, key=lambda s: self.slot_req[s]._seq)
             self._evict(victim, requeue=True)
 
+    # repro-lint: engine-thread-only
     def _flush_slot_updates(self) -> None:
         """Push queued host bookkeeping to the device before the tick:
         evicted and parked slots deactivate, fresh growth blocks lose their
@@ -1230,6 +1247,7 @@ class BatchedEngine:
             self._table_dirty = False
 
     # -- admission: bucketed batched prefill --------------------------------
+    # repro-lint: engine-thread-only holds=_lock
     def _select_admission(self):
         """Pop the next admission off ``pending`` (lock held).  Returns
         (kind, group, slots, injected) or None:
@@ -1306,6 +1324,7 @@ class BatchedEngine:
             return None
         return "prefill", group, free[:len(group)], injected
 
+    # repro-lint: engine-thread-only
     def _admit(self) -> None:
         while True:
             with self._lock:
@@ -1329,6 +1348,7 @@ class BatchedEngine:
             else:
                 self._admit_group(group, slot_ids, injected)
 
+    # repro-lint: engine-thread-only
     def _admit_group(self, group: List[Request], slot_ids: List[int],
                      injected: bool) -> None:
         try:
@@ -1467,6 +1487,7 @@ class BatchedEngine:
                 digests=(pfx[1][:full], self.prefix.aligned_key(pfx[1], full)))
         self.prefix.misses += 1
 
+    # repro-lint: engine-thread-only
     def _admit_ref(self, req: Request, slot: int, injected: bool) -> None:
         """Admission by reference: the whole prompt matched a complete index
         entry, so the request shares the entry's blocks and samples its
@@ -1505,6 +1526,7 @@ class BatchedEngine:
         self._apply_host(req, slot, arr[:, 0])
 
     # -- chunked prefill --------------------------------------------------------
+    # repro-lint: engine-thread-only
     def _admit_chunked(self, req: Request, slot: int) -> None:
         """Stage a chunked prefill: allocate the prompt's blocks, share any
         indexed prefix run by reference, and set the cursor at the matched
@@ -1550,6 +1572,7 @@ class BatchedEngine:
             age0=float(ags[-1]) if ags is not None else 0.0, S=S,
             cursor=cursor)
 
+    # repro-lint: engine-thread-only hot-path
     def _run_prefill_chunks(self) -> bool:
         """Spend this step's chunk budget over the prefills in progress,
         oldest request first.  A prefill whose last chunk lands bootstraps
@@ -1569,6 +1592,7 @@ class BatchedEngine:
             progressed = True
         return progressed
 
+    # repro-lint: engine-thread-only hot-path
     def _run_one_chunk(self, slot: int, st: _PrefillProgress, n: int) -> None:
         arrays = _chunk_arrays(st.tokens, st.ages, st.cursor, n,
                                self.block_size, self._table[slot])
@@ -1583,6 +1607,7 @@ class BatchedEngine:
         if st.cursor >= st.S:
             self._finish_prefill(slot, st, lg[0])
 
+    # repro-lint: engine-thread-only
     def _finish_prefill(self, slot: int, st: _PrefillProgress,
                         logits: torch.Tensor) -> None:
         """The last chunk landed: unmask the slot's table row, index the
@@ -1613,6 +1638,7 @@ class BatchedEngine:
         self._apply_host(req, slot, arr[:, 0])
 
     # -- fork application -----------------------------------------------------
+    # repro-lint: engine-thread-only
     def _apply_forks(self) -> bool:
         """Apply the queued fork ops whose parent is parked in a slot.  A
         parent that finished (cancelled, expired) fails its children; one
@@ -1672,6 +1698,7 @@ class BatchedEngine:
                 self._fork_ops[:0] = deferred
         return progressed
 
+    # repro-lint: engine-thread-only
     def _apply_one_fork(self, parent: Request, kids: List[Request],
                         pslot: int, blocks: List[int], tab,
                         injected: bool) -> None:
@@ -1751,6 +1778,7 @@ class BatchedEngine:
             self._release_slot(slot)     # returns paged blocks to the pool
             self._finalize(req)
 
+    # repro-lint: engine-thread-only hot-path
     def step(self) -> bool:
         """One engine tick: control pass (cancel/timeout), admission, fork
         ops, the chunk budget, paged block growth/COW/preemption, then

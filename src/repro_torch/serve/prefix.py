@@ -53,7 +53,7 @@ class SharedBlockPool:
 
     def __init__(self, allocator):
         self.allocator = allocator
-        self._refs: Dict[int, int] = {}
+        self._refs: Dict[int, int] = {}  # guarded-by: engine-thread
         #: block copies triggered by a write into a shared block
         self.cow_copies = 0
         #: high-water mark of concurrently shared (refcount >= 2) blocks
@@ -95,6 +95,7 @@ class SharedBlockPool:
         return n
 
     # -- ownership ------------------------------------------------------------
+    # repro-lint: engine-thread-only
     def alloc(self, n: int, *, evict: bool = True) -> Optional[List[int]]:
         """n exclusively-owned blocks (refcount 1), or None — after trying
         to make room by LRU-evicting prefix-index entries."""
@@ -106,6 +107,7 @@ class SharedBlockPool:
                 self._refs[i] = 1
         return ids
 
+    # repro-lint: engine-thread-only
     def share(self, ids: List[int]) -> None:
         """Attach one more reference to each block (fork / prefix admit /
         index registration)."""
@@ -116,6 +118,7 @@ class SharedBlockPool:
             self._refs[i] = r + 1
         self.peak_shared = max(self.peak_shared, self.shared_blocks)
 
+    # repro-lint: engine-thread-only
     def release(self, ids: List[int]) -> None:
         """Drop one reference per block; frees into the allocator at 0."""
         for i in ids:
@@ -128,19 +131,20 @@ class SharedBlockPool:
             else:
                 self._refs[i] = r - 1
 
+    # repro-lint: engine-thread-only
     def refcount(self, block_id: int) -> int:
         return self._refs.get(block_id, 0)
 
     @property
     def shared_blocks(self) -> int:
         """Physical blocks currently referenced by more than one owner."""
-      
+        # repro-lint: disable=RL001 GIL-atomic counter scan; the only
         # cross-thread caller is engine.pool_stats, holding the engine lock
         return sum(1 for r in self._refs.values() if r > 1)
 
     @property
     def total_refs(self) -> int:
-      
+        # repro-lint: disable=RL001 GIL-atomic counter scan; the only
         # cross-thread caller is engine.pool_stats, holding the engine lock
         return sum(self._refs.values())
 
@@ -229,8 +233,10 @@ class PrefixIndex:
         self.pool = pool
         self.block_size = block_size
         self.max_entries = max_entries
-        self._entries: "OrderedDict[bytes, _Entry]" = OrderedDict()
-        self._chain: Dict[bytes, Tuple[int, bytes]] = {}
+        self._entries: "OrderedDict[bytes, _Entry]" = \
+            OrderedDict()  # guarded-by: engine-thread
+        self._chain: Dict[bytes, Tuple[int, bytes]] = \
+            {}  # guarded-by: engine-thread
         pool.index = self
         self.hits = 0           # complete-entry (no-prefill) admissions
         self.partial_hits = 0   # admissions that shared >= 1 full block
@@ -249,6 +255,7 @@ class PrefixIndex:
         history is O(S) and admission probes run under the engine lock)."""
         return self._digests(tokens, ages)
 
+    # repro-lint: engine-thread-only
     def match_run(self, full_digests: List[bytes]) -> List[int]:
         """Longest resident run of full-block ids for a digest chain."""
         out: List[int] = []
@@ -263,6 +270,7 @@ class PrefixIndex:
         """Longest resident run of full-block ids for this history."""
         return self.match_run(self._digests(tokens, ages)[0])
 
+    # repro-lint: engine-thread-only
     def lookup_key(self, key: bytes) -> Optional[_Entry]:
         """Complete entry exactly matching a whole-prompt key."""
         e = self._entries.get(key)
@@ -272,6 +280,7 @@ class PrefixIndex:
         """Exact whole-prompt match against a complete entry."""
         return self.lookup_key(self._digests(tokens, ages)[1])
 
+    # repro-lint: engine-thread-only
     def touch(self, entry: _Entry) -> None:
         """An admission actually used this entry: bump MRU + hit count."""
         self._entries.move_to_end(entry.key)
@@ -287,6 +296,7 @@ class PrefixIndex:
         return hashlib.blake2b(prev + S.to_bytes(8, "little"),
                                digest_size=16).digest()
 
+    # repro-lint: engine-thread-only
     def register(self, tokens, ages, blocks: List[int], *, S: int,
                  age0: float, logits=None,
                  digests: Optional[Tuple[List[bytes], bytes]] = None
@@ -318,6 +328,7 @@ class PrefixIndex:
             victim = self._freeing_victim() or next(iter(self._entries))
             self._evict_entry(victim)
 
+    # repro-lint: engine-thread-only
     def _evict_entry(self, key: bytes) -> int:
         e = self._entries.pop(key)
         for d in e.chain:
@@ -329,9 +340,11 @@ class PrefixIndex:
         self.evictions += 1
         return self.pool.free - before
 
+    # repro-lint: engine-thread-only
     def _evict_one(self) -> int:
         return self._evict_entry(next(iter(self._entries)))    # LRU head
 
+    # repro-lint: engine-thread-only
     def _index_block_refs(self) -> Dict[int, int]:
         """block id -> how many index entries hold a reference to it."""
         counts: Dict[int, int] = {}
@@ -340,6 +353,7 @@ class PrefixIndex:
                 counts[b] = counts.get(b, 0) + 1
         return counts
 
+    # repro-lint: engine-thread-only
     def _freeing_victim(self) -> Optional[bytes]:
         """LRU-most entry whose eviction makes progress toward freeing
         memory: some of its blocks are held ONLY by index entries (a block
@@ -355,6 +369,7 @@ class PrefixIndex:
                 return key
         return None
 
+    # repro-lint: engine-thread-only
     def evict(self, need_blocks: Optional[int] = None) -> int:
         """Make room: LRU-evict entries until ``need_blocks`` blocks have
         actually freed, skipping pinned entries (see
@@ -390,13 +405,13 @@ class PrefixIndex:
     # -- stats ---------------------------------------------------------------
     @property
     def entries(self) -> int:
-      
+        # repro-lint: disable=RL001 GIL-atomic counter scan; the only
         # cross-thread caller is engine.pool_stats, holding the engine lock
         return len(self._entries)
 
     @property
     def cached_blocks(self) -> int:
-      
+        # repro-lint: disable=RL001 GIL-atomic counter scan; the only
         # cross-thread caller is engine.pool_stats, holding the engine lock
         return len({b for e in self._entries.values() for b in e.blocks})
 

@@ -24,6 +24,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as pk
 from repro_torch.kernels import ssd_scan as sk
 from repro_torch.kernels import tte_sample as tk
+from repro_torch.models.layers import PREFILL_ROWS, row_products
 
 torch.set_num_threads(2)
 
@@ -976,6 +977,51 @@ def test_ssd_intra_kernel_zamba2_tile_with_shared_bc(gen):
     yr, sr = ref.ssd_intra_ref(xdt.transpose(2, 3), Bm.transpose(2, 3),
                                Cm.transpose(2, 3), cum.transpose(2, 3))
     torch.testing.assert_close(y, yr.transpose(2, 3), atol=1e-4, rtol=0)
+    torch.testing.assert_close(st, sr, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("k,n", [(11008, 4096), (5120, 1024),
+                                 (27648, 5120), (2048, 256)],
+                         ids=["deepseek-7b-down", "qwen2.5-32b-kv",
+                              "qwen2.5-32b-down", "tinyllama-kv"])
+def test_prefill_products_do_not_depend_on_the_row_count(gen, k, n):
+    """bf16 products at the zoo's shapes where cuBLAS, given PyTorch's
+    default workspace, splits the reduction over K at some row counts:
+    through ``row_products`` in a prefill's ``PREFILL_ROWS``-row pieces,
+    each row of a monolithic prefill's bucket (164 tokens in 256 rows, 768
+    in 1,024) has the bits that a chunked prefill gives it, 64 or 16
+    columns a chunk, the last one ragged."""
+    w = (torch.randn((k, n), generator=gen, device="cuda")
+         / k ** 0.5).to(torch.bfloat16)
+    for S, bucket in ((164, 256), (768, 1024)):
+        x = torch.randn((1, bucket, k), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        whole = row_products(x, w, PREFILL_ROWS)[0, :S]
+        for width in (64, 16):
+            chunks = torch.cat([
+                row_products(x[:, c:c + width], w, PREFILL_ROWS)[0]
+                for c in range(0, S, width)])[:S]
+            assert torch.equal(whole, chunks), (S, bucket, width)
+
+
+@pytest.mark.parametrize("shared_bc", [False, True],
+                         ids=["per-head-bc", "stride-0-bc"])
+@pytest.mark.parametrize("H,N", [(48, 128), (64, 64)],
+                         ids=["mamba2-780m", "zamba2-1.2b"])
+def test_ssd_intra_heads_kernel_vs_heads_ref(gen, H, N, shared_bc):
+    """``ops.ssd_intra_heads`` (the model's layout, one launch) against
+    ``ref.ssd_intra_heads_ref`` on the same inputs at a 1024-token prompt
+    (8 chunks of 128), with B/C per head in fp32 or read once per batch
+    row through a stride-0 head axis in bf16; atol 1e-4."""
+    bc_dtype = torch.bfloat16 if shared_bc else torch.float32
+    xdt, Bm, Cm, cum = _ssd_inputs(gen, 1, 8, 128, H, 64, N, torch.float32,
+                                   shared_bc=shared_bc, bc_dtype=bc_dtype)
+    n0 = sk.launches
+    y, st = ops.ssd_intra_heads(xdt, Bm, Cm, cum)
+    assert sk.launches == n0 + 1
+    yr, sr = ref.ssd_intra_heads_ref(xdt, Bm, Cm, cum)
+    assert y.shape == yr.shape and st.shape == sr.shape
+    torch.testing.assert_close(y, yr, atol=1e-4, rtol=0)
     torch.testing.assert_close(st, sr, atol=1e-4, rtol=0)
 
 

@@ -1,8 +1,9 @@
 """Package rules of the PyTorch/CUDA port.
 
-* No file of ``src/repro_torch`` (nor ``chip_smoke.py``) imports ``jax`` or
-  anything of the JAX package ``repro`` (an AST scan: the port keeps its own
-  copies of what it needs).
+* No file of ``src/repro_torch`` (nor ``examples/torch_*.py``,
+  ``scripts/torch_*.py`` or ``chip_smoke.py``) imports ``jax`` or anything
+  of the JAX package ``repro`` (an AST scan: the port keeps its own copies
+  of what it needs).
 * Entry points run on ``cuda`` unless told otherwise, and without a card
   they raise instead of carrying on on the CPU.
 * A kernel wrapper given CPU tensors refuses (the CPU path is the plain
@@ -37,7 +38,8 @@ torch.set_num_threads(2)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "examples").glob("torch_*.py")) + \
+    sorted((ROOT / "scripts").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path):
@@ -144,3 +146,4 @@ def test_importing_the_port_builds_nothing():
     subprocess.run([sys.executable, "-c", code], check=True, env=env)
     assert set(build.SOURCES) == {p.name for p in build.CSRC.glob("*.cu")}
     assert all((build.CSRC / h).exists() for h in build.HEADERS)
+

@@ -114,3 +114,33 @@ def test_logits_head_bf16_product_then_fp32_bias():
     want = (h @ emb.to(torch.bfloat16).T).float() + bias
     assert got.dtype == torch.float32
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [1, 36, 256, 420, 1024])
+def test_row_products_equal_one_product(m):
+    """``row_products`` in ``PREFILL_ROWS``-row pieces (the last
+    zero-padded) computes ``x @ w``: fp32 rounding of the reduction's
+    order, atol 1e-5."""
+    rng = _rng(5)
+    x = torch.from_numpy(rng.standard_normal((1, m, 96)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((96, 40)).astype(np.float32))
+    got = tl.row_products(x, w, tl.PREFILL_ROWS)
+    assert got.shape == (1, m, 40)
+    torch.testing.assert_close(got, x @ w, atol=1e-5, rtol=0)
+    assert torch.equal(tl.row_products(x, w), x @ w)
+
+
+def test_row_products_bits_follow_the_row_not_the_count():
+    """Each row of a 768-token prompt (its bucket of 1,024 rows) gets the
+    same bits in one call as in 64-column chunks: every product has
+    ``PREFILL_ROWS`` rows either way."""
+    rng = _rng(6)
+    x = torch.from_numpy(rng.standard_normal((1, 1024, 96))
+                         .astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((96, 40))
+                         .astype(np.float32)).to(torch.bfloat16)
+    whole = tl.row_products(x, w, tl.PREFILL_ROWS)[0, :768]
+    chunks = torch.cat([tl.row_products(x[:, c:c + 64], w,
+                                        tl.PREFILL_ROWS)[0]
+                        for c in range(0, 768, 64)])[:768]
+    assert torch.equal(whole, chunks)
