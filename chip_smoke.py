@@ -364,7 +364,14 @@ runs these phases; any failure exits non-zero:
    steps on the DTensors themselves == the plain route bit for bit
    (logits, rings), ``flash_attention`` launched 22 times and
    ``paged_decode_attention`` 22 x 8 on that drive, no collective sent,
-   the drive's seconds printed;
+   the drive's seconds printed; then the grouped MoE dispatches (the
+   same ``sharded_drive``): full-width OLMoE-1B-7B at 2 of 16 layers in
+   bf16, the same prefill and decode on DTensors under ``ragged_local``
+   and ``ragged`` == the plain ``ragged`` route bit for bit (logits,
+   rings), 4 flash and 32 paged launches, no collective; one AdamW step
+   (``moe_train_drive``) on DTensors under each against the plain step
+   (the loss and aux within ``MOE_SHARD_LOSS_REL``, the moments within
+   ``MOE_SHARD_GRAD_REL``);
 6j. SeamlessM4T-large-v2 training (after phase 5's rows, as 6k and 3v),
    on the plain route: one fp32 ``lm`` step (TF32 off) at full width cut
    to 2 encoder and 2 decoder layers, 2 x 128 tokens over 16 frames, its
@@ -6718,33 +6725,46 @@ def launch_check_child() -> dict:
                 "leaves": leaves, "logits_equal": equal,
                 "dtensor_head_equal": dt_equal,
                 "dtensor_head_type": type(dt_out).__name__,
-                "all_reduce": float(one), "sharded": sharded_drive(dm)}
+                "all_reduce": float(one),
+                "sharded": sharded_drive(dm, SHARD_ARCH),
+                "moe_sharded": sharded_drive(
+                    dm, MOE_SHARD_ARCH, MOE_SHARD_LAYERS, MOE_SHARD_IMPLS,
+                    "ragged", SEED + 32),
+                "moe_train": moe_train_drive(dm)}
     finally:
         dist.destroy_process_group()
 
 
-# phase 6i's sharded drive: full-width TinyLlama-1.1B in bf16
+# phase 6i's sharded drives: full-width TinyLlama-1.1B in bf16 under the
+# default dispatch; full-width OLMoE-1B-7B cut to 2 of its 16 layers, bf16,
+# under both grouped dispatches against the plain ragged route
 SHARD_ARCH = "tinyllama-1.1b"
 SHARD_BATCH, SHARD_SEQ, SHARD_STEPS = 8, 1024, 8
+MOE_SHARD_ARCH, MOE_SHARD_LAYERS = "olmoe-1b-7b", 2
+MOE_SHARD_IMPLS = ("ragged_local", "ragged")
 
 
-def sharded_drive(dm) -> dict:
+def sharded_drive(dm, arch: str, layers=None,
+                  impls=("dense_scan",), plain_impl: str = "dense_scan",
+                  seed: int = SEED + 29) -> dict:
     """Phase 6i's sharded step on the 1 x 1 ``DeviceMesh`` ``dm`` (its
-    one-rank NCCL group): full-width TinyLlama-1.1B in bf16, parameters,
-    batch and a ring cache placed by ``launch.sharding.distribute_tree``,
-    a prefill of ``SHARD_BATCH`` x ``SHARD_SEQ`` and ``SHARD_STEPS``
-    decode steps run on the DTensors themselves (each rank's shards
-    through ``repro_torch.sharded``'s ``local_map``), against the plain route
-    on the same weights and tokens: every step's logits, the prefill's
-    rings and the rings after the last step equal bit for bit.  The decode
-    starts from the plain prefill's rings (which the DTensor prefill's
-    equal) placed by ``distribute_tree``.  The drive (prefill and decode
-    on DTensors, the collective counter on) launches ``flash_attention``
-    once a layer and ``paged_decode_attention`` once a layer a step,
-    counted from 0 just before it and read just after, and sends no
-    collective (one rank).  The drive is timed with the counter on, and
-    again without it, beside the plain route's prefill and decode after a
-    warm drive of it (each a host clock around work that ends in a
+    one-rank NCCL group): ``arch`` at full width (cut to ``layers`` layers
+    where given) in bf16, parameters, batch and a ring cache placed by
+    ``launch.sharding.distribute_tree``, a prefill of ``SHARD_BATCH`` x
+    ``SHARD_SEQ`` and ``SHARD_STEPS`` decode steps (tokens from ``seed``)
+    run on the DTensors themselves (each rank's shards through
+    ``repro_torch.sharded``'s ``local_map``) under each MoE dispatch of
+    ``impls``, against the plain route under ``plain_impl`` on the same
+    weights and tokens: every step's logits, the prefill's rings and the
+    rings after the last step equal bit for bit.  The decode starts from
+    the plain prefill's rings (which the DTensor prefill's equal) placed
+    by ``distribute_tree``.  The drives (prefill and decode on DTensors,
+    the collective counter on) launch ``flash_attention`` once a layer a
+    prefill and ``paged_decode_attention`` once a layer a step, counted
+    from 0 just before them and read just after, and send no collective
+    (one rank).  Each drive is timed with the counter on, and again
+    without it, beside the plain route's prefill and decode after a warm
+    drive of it (each a host clock around work that ends in a
     synchronise)."""
     import numpy as np
     import torch
@@ -6755,12 +6775,14 @@ def sharded_drive(dm) -> dict:
     from repro_torch.launch.mesh import describe
     from repro_torch.models import decode_step, forward, init_params_on_device
     from repro_torch.models.attention import LayerCache
-    cfg = get_config(SHARD_ARCH)
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
     mesh = describe(dm)
     B, S, n = SHARD_BATCH, SHARD_SEQ, SHARD_STEPS
     W = S + n
     params = init_params_on_device(cfg, seed=SEED, device=DEVICE)
-    rng = np.random.default_rng(SEED + 29)
+    rng = np.random.default_rng(seed)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + n))
                             .astype(np.int32)).to(DEVICE)
     batch = {"tokens": toks[:, :S]}
@@ -6769,12 +6791,12 @@ def sharded_drive(dm) -> dict:
         return {k: LayerCache(*(t.clone() for t in v))
                 for k, v in cache.items()}
 
-    def decode(p, cache):
+    def decode(p, cache, impl):
         out = []
         for i in range(n):
             step = torch.full((B,), S + i, dtype=torch.int32, device=DEVICE)
             d = decode_step(p, cfg, cache, {"tokens": toks[:, S + i:S + i + 1]},
-                            step)
+                            step, moe_impl=impl)
             out.append(d["logits"])
         return out
 
@@ -6786,54 +6808,174 @@ def sharded_drive(dm) -> dict:
         return out, time.perf_counter() - t0
 
     def plain():
-        r = forward(params, cfg, batch, mode="prefill", cache_width=W)
-        return r, clone(r["cache"]), decode(params, r["cache"])
+        r = forward(params, cfg, batch, mode="prefill", cache_width=W,
+                    moe_impl=plain_impl)
+        return r, clone(r["cache"]), decode(params, r["cache"], plain_impl)
 
+    res = {"arch": arch, "layers": cfg.n_layers, "batch": B, "seq": S,
+           "steps": n, "plain_impl": plain_impl, "drives": {}}
     with torch.no_grad():
         plain()                                     # warm
-        (ref, ring0, ref_steps), plain_s = timed(plain)
+        (ref, ring0, ref_steps), res["plain_seconds"] = timed(plain)
         dparams = sh.distribute_tree(params, sh.param_shardings(mesh, params),
                                      dm)
         dbatch = sh.distribute_tree(batch, sh.batch_shardings(mesh, batch),
                                     dm)
 
-        def sharded():
-            out = forward(dparams, cfg, dbatch, mode="prefill", cache_width=W)
+        def sharded(impl):
+            out = forward(dparams, cfg, dbatch, mode="prefill",
+                          cache_width=W, moe_impl=impl)
             dring = sh.distribute_tree(
                 clone(ring0), sh.cache_shardings(mesh, ring0), dm)
-            return out, dring, decode(dparams, dring)
+            return out, dring, decode(dparams, dring, impl)
         ops.reset_launch_counts()
         with CollectiveCounter() as cc:
-            (out, dring, steps), seconds = timed(sharded)
+            for impl in impls:
+                (out, dring, steps), secs = timed(lambda: sharded(impl))
+                local = {k: LayerCache(*(t.to_local() for t in v))
+                         for k, v in out["cache"].items()}
+                res["drives"][impl] = {
+                    "seconds": secs,
+                    "prefill_equal": bool(torch.equal(
+                        out["logits"].to_local(), ref["logits"])),
+                    "prefill_rings_equal": all(
+                        torch.equal(a, b) for k in local
+                        for a, b in zip(local[k], ring0[k])),
+                    "steps_equal": all(torch.equal(a.to_local(), b)
+                                       for a, b in zip(steps, ref_steps)),
+                    "rings_equal": all(
+                        torch.equal(a.to_local(), b) for k in dring
+                        for a, b in zip(dring[k], ref["cache"][k])),
+                    "logits_type": type(out["logits"]).__name__}
+                del out, dring, steps, local
         counts = ops.launch_counts()
-        _, bare_s = timed(sharded)
-    local = {k: LayerCache(*(t.to_local() for t in v))
-             for k, v in out["cache"].items()}
-    prefill_equal = bool(torch.equal(out["logits"].to_local(), ref["logits"]))
-    prefill_rings_equal = all(torch.equal(a, b) for k in local
-                              for a, b in zip(local[k], ring0[k]))
-    steps_equal = all(torch.equal(a.to_local(), b)
-                      for a, b in zip(steps, ref_steps))
-    rings_equal = all(torch.equal(a.to_local(), b) for k in dring
-                      for a, b in zip(dring[k], ref["cache"][k]))
-    want = {"flash_attention": cfg.n_layers,
-            "paged_decode_attention": cfg.n_layers * n}
-    res = {"arch": SHARD_ARCH, "batch": B, "seq": S, "steps": n,
-           "seconds": seconds, "seconds_no_counter": bare_s,
-           "plain_seconds": plain_s, "collective_total": cc.total,
-           "logits_type": type(out["logits"]).__name__,
-           "prefill_equal": prefill_equal,
-           "prefill_rings_equal": prefill_rings_equal,
-           "steps_equal": steps_equal, "rings_equal": rings_equal,
-           "launches": {k: counts[k] for k in want}}
-    if not (prefill_equal and prefill_rings_equal and steps_equal
-            and rings_equal and cc.total == 0
-            and res["launches"] == want
-            and res["logits_type"] == "DTensor"):
-        raise AssertionError(f"sharded drive: {res}, launches wanted "
-                             f"{want}")
-    del params, dparams, out, ref, ring0, dring
-    torch.cuda.empty_cache()
+        for impl in impls:                          # warm, the counter off
+            res["drives"][impl]["seconds_no_counter"] = timed(
+                lambda: sharded(impl))[1]
+    want = {"flash_attention": len(impls) * cfg.n_layers,
+            "paged_decode_attention": len(impls) * cfg.n_layers * n}
+    res["launches"] = {k: counts[k] for k in want}
+    res["collective_total"] = cc.total
+    del params, dparams, ref, ring0, ref_steps
+    free_card()
+    bad = [impl for impl, r in res["drives"].items()
+           if not (r["prefill_equal"] and r["prefill_rings_equal"]
+                   and r["steps_equal"] and r["rings_equal"]
+                   and r["logits_type"] == "DTensor")]
+    if bad or res["launches"] != want or cc.total != 0:
+        raise AssertionError(f"sharded drive of {arch}: {bad} failed; "
+                             f"{res}, launches wanted {want}")
+    return res
+
+
+# phase 6i's MoE train step: one step of MOE_SHARD_TRAIN (batch, tokens)
+# over fp32 masters of the MoE drive's model, the DTensor step under each
+# grouped dispatch against the plain ragged one.  The sharded training
+# route is not the plain one's bits on one rank (its attention is
+# sharded_chunked_attention, and on the CPU a 1 x 1 train step of reduced
+# TinyLlama with dense_scan parts from the plain one too), so the step is
+# held to limits: the loss, CE and aux within MOE_SHARD_LOSS_REL of each,
+# every leaf's AdamW moments within MOE_SHARD_GRAD_REL of the leaf's
+# largest element (the first moment is the clipped gradient times 1 -
+# b1), the largest parameter update difference printed in units of lr.
+# Measured on an H100 (700 W): loss, CE and aux 0.0, moments 1.83e-2 of a
+# leaf's largest (the embedding's second moment; the CPU's reduced OLMoE
+# 1.1e-2), updates 0.020 lr; the limits leave ~3x room for another host's
+# sums
+MOE_SHARD_TRAIN = (2, 256)
+MOE_SHARD_LOSS_REL = 1e-5
+MOE_SHARD_GRAD_REL = 5e-2
+
+
+def moe_train_drive(dm) -> dict:
+    """Phase 6i's MoE train step on the 1 x 1 ``DeviceMesh`` ``dm``:
+    full-width OLMoE-1B-7B cut to ``MOE_SHARD_LAYERS`` layers, one train
+    step (AdamW, bf16 activations over fp32 masters made on the card) on
+    DTensors under each of ``MOE_SHARD_IMPLS`` against the plain
+    ``ragged`` step from the same masters and batch (the first
+    ``MOE_SHARD_TRAIN`` tokens of the MoE serving drive's): the loss, its
+    CE and aux loss within ``MOE_SHARD_LOSS_REL`` (on one rank
+    ``ragged_local``'s mean over the data shards is the global aux), every
+    leaf's moments within ``MOE_SHARD_GRAD_REL`` of its largest element,
+    the largest update difference reported in units of lr.  Each step is
+    timed after a warm one (a host clock around work that ends in a
+    synchronise), beside the plain step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import describe
+    from repro_torch.models import init_params_on_device
+    from repro_torch.train import (OptimizerConfig, init_opt_state,
+                                   make_train_step)
+    cfg = get_config(MOE_SHARD_ARCH).replace(n_layers=MOE_SHARD_LAYERS)
+    mesh = describe(dm)
+    tb, ts = MOE_SHARD_TRAIN
+    rng = np.random.default_rng(SEED + 32)
+    toks = rng.integers(0, cfg.vocab_size, (SHARD_BATCH,
+                                            SHARD_SEQ + SHARD_STEPS))
+    tbatch = {"tokens": torch.from_numpy(toks[:tb, :ts].astype(np.int32))
+              .to(DEVICE)}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    masters = init_params_on_device(cfg.replace(dtype="float32"), seed=SEED,
+                                    device=DEVICE)
+    ocfg = OptimizerConfig()
+    opt = init_opt_state(masters)
+    plain_step = make_train_step(cfg, ocfg, "lm", moe_impl="ragged")
+    plain_step(masters, opt, tbatch)                # warm
+    (want_p, want_o, want_m), plain_s = timed(
+        lambda: plain_step(masters, opt, tbatch))
+    pshard = sh.param_shardings(mesh, masters)
+    dmasters = sh.distribute_tree(masters, pshard, dm)
+    dopt = sh.distribute_tree(opt, sh.opt_state_shardings(mesh, opt, pshard),
+                              dm)
+    dtb = sh.distribute_tree(tbatch, sh.batch_shardings(mesh, tbatch), dm)
+    res = {"plain_seconds": plain_s}
+    lr = float(ocfg.lr)
+
+    def local(t):
+        return (t.to_local() if hasattr(t, "to_local") else t).float()
+
+    def rel(a, b):
+        scale = float(b.float().abs().max())
+        err = float((local(a) - b.float()).abs().max())
+        return err / scale if scale > 0 else err
+    for impl in MOE_SHARD_IMPLS:
+        step = make_train_step(cfg, ocfg, "lm", moe_impl=impl)
+        step(dmasters, dopt, dtb)                   # warm
+        (got_p, got_o, got_m), secs = timed(
+            lambda: step(dmasters, dopt, dtb))
+        moments = {f"{m}/{k}": rel(got_o[m][k], want_o[m][k])
+                   for m in ("mu", "nu") for k in want_o[m]}
+        worst = max(moments, key=moments.get)
+        res[impl] = {
+            "seconds": secs,
+            "loss": float(local(got_m["loss"])),
+            "aux_loss": float(local(got_m["aux_loss"])),
+            "metrics_rel": max(rel(got_m[k], want_m[k])
+                               for k in ("loss", "event_ce", "aux_loss")),
+            "moment_rel": moments[worst], "moment_worst": worst,
+            "update_lr": max(float((local(got_p[k]) - want_p[k].float())
+                                   .abs().max()) for k in want_p) / lr,
+            "bit_equal": all(
+                torch.equal(local(got_p[k]), want_p[k].float())
+                for k in want_p) and max(moments.values()) == 0}
+        del got_p, got_o, got_m
+    res["plain_loss"] = float(want_m["loss"])
+    res["plain_aux_loss"] = float(want_m["aux_loss"])
+    del masters, dmasters, opt, dopt, want_p, want_o
+    free_card()
+    bad = [impl for impl in MOE_SHARD_IMPLS
+           if not (res[impl]["metrics_rel"] <= MOE_SHARD_LOSS_REL
+                   and res[impl]["moment_rel"] <= MOE_SHARD_GRAD_REL)]
+    if bad:
+        raise AssertionError(f"MoE train step: {bad} failed; {res}")
     return res
 
 
@@ -7929,17 +8071,34 @@ def main() -> int:
         f"tied head on the DTensors ({lch['dtensor_head_type']} out) == on "
         f"the plain tensors bit for bit: {lch['dtensor_head_equal']}; "
         f"{lch['wall_s']:.1f}s")
-    shd = lch["sharded"]
-    log(f"  sharded step: {shd['arch']} bf16 on the 1 x 1 mesh, parameters, "
-        f"batch and ring cache placed by distribute_tree; a prefill of "
-        f"{shd['batch']} x {shd['seq']} and {shd['steps']} decode steps on "
-        f"the DTensors ({shd['logits_type']} logits) == the plain route bit "
-        f"for bit: prefill {shd['prefill_equal']}, its rings "
-        f"{shd['prefill_rings_equal']}, steps {shd['steps_equal']}, rings "
-        f"{shd['rings_equal']}; launches {shd['launches']}; collective "
-        f"total {shd['collective_total']} B; the drive {shd['seconds']:.3f}s "
-        f"with the collective counter on, {shd['seconds_no_counter']:.3f}s "
-        f"without, the plain route's {shd['plain_seconds']:.3f}s ({smi})")
+    for key, what in (("sharded", "sharded step"),
+                      ("moe_sharded", "MoE dispatches")):
+        shd = lch[key]
+        log(f"  {what}: {shd['arch']} at {shd['layers']} layers, bf16 on the "
+            f"1 x 1 mesh, parameters, batch and ring cache placed by "
+            f"distribute_tree; a prefill of {shd['batch']} x {shd['seq']} and "
+            f"{shd['steps']} decode steps on the DTensors == the plain "
+            f"{shd['plain_impl']} route bit for bit; launches "
+            f"{shd['launches']}; collective total {shd['collective_total']} "
+            f"B; the plain route's {shd['plain_seconds']:.3f}s ({smi})")
+        for impl, r in shd["drives"].items():
+            log(f"    {impl} ({r['logits_type']} logits): prefill "
+                f"{r['prefill_equal']}, its rings {r['prefill_rings_equal']}, "
+                f"steps {r['steps_equal']}, rings {r['rings_equal']}; "
+                f"{r['seconds']:.3f}s with the collective counter on, "
+                f"{r['seconds_no_counter']:.3f}s without")
+    tr = lch["moe_train"]
+    log(f"  MoE train step (fp32 masters, bf16, {MOE_SHARD_TRAIN[0]} x "
+        f"{MOE_SHARD_TRAIN[1]}): plain loss {tr['plain_loss']:.6f}, aux "
+        f"{tr['plain_aux_loss']:.6f} ({tr['plain_seconds']:.3f}s)")
+    for impl in MOE_SHARD_IMPLS:
+        r = tr[impl]
+        log(f"    {impl} on DTensors: loss {r['loss']:.6f}, aux "
+            f"{r['aux_loss']:.6f}, metrics off by {r['metrics_rel']:.3g} "
+            f"(<= {MOE_SHARD_LOSS_REL}), moments {r['moment_rel']:.3g} of "
+            f"a leaf's largest ({r['moment_worst']}; <= "
+            f"{MOE_SHARD_GRAD_REL}), updates {r['update_lr']:.3g} lr, bit "
+            f"for bit {r['bit_equal']}; {r['seconds']:.3f}s")
     phase_done("6i")
 
     log("== phase 5: times at the main paths' shapes")

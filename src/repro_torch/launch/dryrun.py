@@ -44,11 +44,21 @@ DTensor's global view of them):
 
 ``flops_total`` and ``bytes_total`` are the device's counts times the
 mesh's devices.  ``--variant`` takes the reference's variant names:
-``seqshard`` (``ModelConfig.seq_shard_attn``), ``moe-einsum`` and
-``no-remat``; ``moe-ragged`` and ``moe-ragged-local`` cannot run here:
-their group sizes come from the routed data, and meta tensors hold none,
-so the dry run refuses them by name: it never writes a count it did not
-make.
+``seqshard`` (``ModelConfig.seq_shard_attn``), ``moe-einsum``,
+``moe-ragged``, ``moe-ragged-local`` and ``no-remat``.  The grouped
+dispatches run on the meta DTensors as on the card: the routing's sort
+and the group offsets are shapes without values there, and a grouped
+product (``torch._grouped_mm``) counts 2·M·K·N for M rows, whatever the
+offsets (:func:`grouped_mm_flops`).  A device's M is the top-k rows of
+every token it routes (its own under ``ragged_local``, the whole batch's
+under ``ragged``); where the experts split over ``model`` a device on
+the card multiplies only the rows routed to its own experts, a number
+the data decides, so the count is of the static shapes it runs (no
+routing is invented), an upper bound by up to the model axis's width.
+The record's ``grouped`` says which rows were counted, whether the count
+is exact or that upper bound, and the grouped products' FLOPs a device
+(``flops_per_device`` includes them), which ``launch.roofline`` reads to
+state the compute term with and without them.
 
 Each combination writes one JSON record with the reference's keys where a
 number has a counterpart (``arch``, ``shape``, ``variant``, ``mesh``,
@@ -78,14 +88,12 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.launch import sharding as sh
 from repro_torch.launch.collectives import (CollectiveCounter,
                                             in_shape_propagation)
-from repro_torch.launch.mesh import fake_device_mesh, make_production_mesh
+from repro_torch.launch.mesh import (fake_device_mesh, make_production_mesh,
+                                     model_axis_size)
 from repro_torch.launch.specs import flat_args, input_specs, long_context_cfg
 from repro_torch.models import decode_step, forward
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.trainer import make_train_step
-
-# dispatch routes whose group sizes come from the data
-DATA_DEPENDENT_IMPLS = ("ragged", "ragged_local")
 
 # the reference's variants: (config override, MoE dispatch)
 VARIANTS = {
@@ -96,17 +104,31 @@ VARIANTS = {
     "no-remat": (dict(remat=False), "dense_scan"),
 }
 
+def grouped_mm_flops(a, b, *args, out_val=None, **kwargs) -> int:
+    """FLOPs of ``aten._grouped_mm``, whatever its offsets: every row of
+    the grouped operand meets exactly one group, so rows ``a`` (M, K)
+    against a stack ``b`` (E, K, N) are 2·M·K·N (the routing moves rows
+    between groups, not their number).  The backward's (K, M) x (M, N)
+    product grouped along M, out (E, K, N), is 2·K·M·N; a batched (E, M,
+    K) x (E, K, N) is 2·E·M·K·N."""
+    n = 2 * a.shape[-1] * out_val.numel()
+    return n // out_val.shape[0] if a.dim() == 2 and b.dim() == 2 else n
+
+
 class LocalFlops(TorchDispatchMode):
     """``torch.utils.flop_counter.FlopCounterMode``'s count (its rules,
     and the decomposition of an operation it has no rule for) over the
-    operations one device runs: a DTensor operation is passed on to
-    DTensor (``NotImplemented``), whose local operations come back here,
-    and DTensor's shape propagation is not counted."""
+    operations one device runs, with a rule for the grouped product
+    (:func:`grouped_mm_flops`), which it lacks: a DTensor operation is
+    passed on to DTensor (``NotImplemented``), whose local operations
+    come back here, and DTensor's shape propagation is not counted."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0
-        self.registry = FlopCounterMode(display=False).flop_registry
+        self.grouped_flops = 0
+        self.registry = {**FlopCounterMode(display=False).flop_registry,
+                         torch.ops.aten._grouped_mm: grouped_mm_flops}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -122,8 +144,10 @@ class LocalFlops(TorchDispatchMode):
                     return r
         out = func(*args, **kwargs)
         if packet in self.registry and not in_shape_propagation():
-            self.flops += self.registry[packet](*args, **kwargs,
-                                                out_val=out)
+            n = self.registry[packet](*args, **kwargs, out_val=out)
+            self.flops += n
+            if packet is torch.ops.aten._grouped_mm:
+                self.grouped_flops += n
         return out
 
 
@@ -212,7 +236,9 @@ def count_sharded(step: Callable, args, shardings, mesh,
             out = step(*dargs)
             del out
         del dargs
-    return {"flops": float(flops.flops), "bytes": float(traffic.traffic),
+    return {"flops": float(flops.flops),
+            "grouped_flops": float(flops.grouped_flops),
+            "bytes": float(traffic.traffic),
             "collectives": dict(traffic.bytes),
             "activation_peak": float(traffic.peak),
             "off_meta_bytes": traffic.off_meta_bytes}
@@ -223,11 +249,6 @@ def count_step(cfg: ModelConfig, shape: InputShape, mesh,
     """:func:`count_sharded` of the step of ``shape`` on
     :func:`launch.specs.input_specs`' meta arguments, with the arguments'
     bytes per device by group and the parameter count."""
-    if moe_impl in DATA_DEPENDENT_IMPLS:
-        raise ValueError(
-            f"moe_impl {moe_impl!r} cannot be dry-run: its grouped products "
-            f"take their group sizes from the routed tokens, and meta "
-            f"tensors hold no data; dry-run 'dense_scan' or 'dense_einsum'")
     args, shardings = input_specs(cfg, shape, mesh)
     groups = flat_args(args, shardings, shape.mode)
     arg_bytes = {g: sum(t.numel() * t.element_size()
@@ -277,6 +298,7 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         "collective_bytes_per_device": coll,
         "collective_total": float(sum(coll.values())),
         "off_meta_bytes": c["off_meta_bytes"],
+        "grouped": grouped_term(cfg, mesh, moe_impl, c["grouped_flops"]),
         "memory": {
             "argument_bytes": args_dev,
             "argument_bytes_by_group": c["argument_bytes"],
@@ -291,6 +313,27 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
                   "w") as f:
             json.dump(rec, f, indent=2)
     return rec
+
+
+def grouped_term(cfg: ModelConfig, mesh, moe_impl: str,
+                 flops: float) -> Optional[Dict]:
+    """The record's ``grouped`` (None where no grouped product runs):
+    ``rows``, which rows the grouped products' FLOPs counted; ``exact``,
+    False where the count is an upper bound (the experts split over
+    ``model``: on the card a device multiplies only the rows routed to
+    its own experts); ``flops_per_device``, the grouped products' FLOPs
+    (``aten._grouped_mm``'s, forward and backward), part of the record's
+    ``flops_per_device``."""
+    if not cfg.n_experts or moe_impl not in ("ragged", "ragged_local"):
+        return None
+    tokens = ("every token of the batch" if moe_impl == "ragged"
+              else "each of the device's tokens")
+    m = model_axis_size(mesh)
+    split = m > 1 and cfg.n_experts % m == 0
+    rows = (f"top-k rows for {tokens}, against the device's "
+            f"{cfg.n_experts // m} experts" if split
+            else f"top-k rows for {tokens}, each against its expert")
+    return {"rows": rows, "exact": not split, "flops_per_device": flops}
 
 
 def _tag(arch: str, shape: str, mesh: str, variant: Optional[str],

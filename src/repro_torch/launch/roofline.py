@@ -12,6 +12,13 @@ The collective bytes are the sharded step's own (``launch.collectives``:
 each collective's result bytes on a device, counted as the dry run runs
 the step on DTensors).
 
+Under the grouped MoE dispatches the record's ``grouped`` gives the
+grouped products' share of the FLOPs; where the experts split over the
+model axis that share is an upper bound (``exact`` False: a device on the
+card multiplies only the rows routed to its own experts), and the
+compute term is stated with and without it (``grouped_s``,
+``compute_exact``).
+
 MODEL_FLOPS uses the 6ND (train) / 2ND (inference) convention with N =
 active parameters; the ratio of MODEL_FLOPS to the counted FLOPs exposes
 remat recompute and dispatch waste (the dense MoE dispatch runs every
@@ -83,12 +90,24 @@ def model_flops(cfg: ModelConfig, rec: Dict) -> float:
 
 def terms(rec: Dict) -> Dict[str, float]:
     comp = (rec["flops_per_device"] or 0.0) / PEAK_FLOPS
+    grouped = rec.get("grouped") or {}
     memb = (rec["bytes_per_device"] or 0.0) / HBM_BW
     coll = rec.get("collective_total", 0.0) / LINK_BW
     dominant = max(("compute", comp), ("memory", memb),
                    ("collective", coll), key=lambda kv: kv[1])[0]
     return {"compute_s": comp, "memory_s": memb, "collective_s": coll,
-            "dominant": dominant}
+            "dominant": dominant,
+            "grouped_s": grouped.get("flops_per_device", 0.0) / PEAK_FLOPS,
+            "compute_exact": grouped.get("exact", True)}
+
+
+def _compute(a: Dict) -> str:
+    """The compute term, and where it is an upper bound, the bound's
+    grouped share."""
+    if a["compute_exact"]:
+        return f"{a['compute_s']:.3e}"
+    return (f"<= {a['compute_s']:.3e} (grouped <= {a['grouped_s']:.3e}, "
+            f"rest {a['compute_s'] - a['grouped_s']:.3e})")
 
 
 _SUGGEST = {
@@ -134,7 +153,7 @@ def table(recs: List[Dict]) -> str:
         rows.append(
             f"| {a['arch']} | {a['shape']} | {a['mesh']} "
             f"| {a.get('variant') or '-'} "
-            f"| {a['compute_s']:.3e} | {a['memory_s']:.3e} "
+            f"| {_compute(a)} | {a['memory_s']:.3e} "
             f"| {a['collective_s']:.3e} | **{a['dominant']}** | {ur} "
             f"| {a['memory']['peak_estimate_bytes']/2**30:.2f} |")
     return "\n".join(rows)
@@ -152,7 +171,7 @@ def main(argv=None):
     for rec in recs:
         a = analyse(rec)
         print(f"{a['arch']:24s} {a['shape']:12s} {a['mesh']:8s} "
-              f"comp {a['compute_s']:.3e}s mem {a['memory_s']:.3e}s "
+              f"comp {_compute(a)}s mem {a['memory_s']:.3e}s "
               f"coll {a['collective_s']:.3e}s -> {a['dominant']:10s} "
               f"useful {a['useful_ratio'] if a['useful_ratio'] else 0:.3f}")
 

@@ -32,13 +32,13 @@ Dispatch (:func:`apply_moe`'s ``impl``, the reference's four names):
   axis, which one card does not have, so it runs the batched route above.
 * ``"ragged"`` (:func:`moe_ragged`) runs the routed experts' products
   only, as the reference's ``moe_ragged``: the T·k (token, expert) pairs
-  stably sorted by expert, group offsets from a ``bincount`` kept on the
-  device, the rows gathered, grouped products for gate, up and down (see
-  :func:`grouped_route` for which product runs), each row scaled by its
-  weight, and the sort inverted, each token's k rows summed in a fixed
-  order (no atomics: ``index_add_`` on the card would change the bits from
-  run to run).
-* ``"ragged_local"`` takes ``"ragged"``, as the reference does off a mesh.
+  stably sorted by expert, group offsets from a count of fixed shape
+  ``(E,)`` kept on the device, the rows gathered, grouped products for
+  gate, up and down (see :func:`grouped_route` for which product runs),
+  each row scaled by its weight, and the sort inverted, each token's k
+  rows summed in a fixed order (no atomics: ``index_add_`` on the card
+  would change the bits from run to run).
+* ``"ragged_local"`` takes ``"ragged"`` off a mesh, as the reference does.
 
 Any other name raises ``ValueError`` (the reference's ``else`` takes
 ``dense_scan`` silently).
@@ -50,8 +50,26 @@ the aux loss from the expert shares and mean probabilities summed over
 the data axes), and the expert products run on DTensors in one chunk,
 the experts (or, where their count does not divide the model axis, each
 expert's hidden width) split over ``model`` by ``launch.sharding``'s
-specs, so the combine ends in a partial sum over ``model``.  The ragged
-routes have no sharded route.
+specs, so the combine ends in a partial sum over ``model``.
+
+The ragged routes run :func:`_ragged_sharded`, two ``local_map`` calls
+on the local tensors: the routing (every rank of the model axis routes
+the same rows), then the sort, gather, grouped products and combine on
+the rank's own expert weights, which stay where ``launch.sharding`` put
+them.  Where the experts split over ``model`` a rank sorts its own
+experts' rows first and multiplies only those (the grouped product's
+offsets end at them; the rows past them are zeroed going into every
+grouped product and coming out of it); where their hidden
+width splits, it multiplies every row by its slice of each expert.  The
+output is a partial sum over ``model``, which the block's
+``sharded.reduce_rows`` all-reduces.  ``"ragged_local"`` routes each data
+shard's own rows, and its aux loss is the mean over the data shards of
+each shard's aux, as the reference's ``shard_map`` (``out_specs=P(da)``,
+then the mean); ``"ragged"`` first gathers the tokens over the data axes,
+so that every rank sorts the whole batch and the aux is the one over all
+tokens, as GSPMD partitions the reference's global sort; each rank keeps
+its own rows of the output.  On a mesh of one device both are the plain
+``"ragged"`` route, bit for bit.
 """
 from __future__ import annotations
 
@@ -146,11 +164,17 @@ def grouped_mm(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor, *,
                bounds: Optional[list] = None) -> torch.Tensor:
     """Rows ``x`` (M, K) sorted by group against ``w`` (E, K, N): row r of
     group e (``offs[e-1] <= r < offs[e]``, ``offs`` the int32 cumulative
-    group sizes, ``offs[-1] == M``) times ``w[e]``; (M, N) in x's dtype.
-    ``bounds`` is ``offs`` on the host where the caller already read it
-    (the plain route reads it once a call)."""
+    group sizes) times ``w[e]``; (M, N) in x's dtype.  Rows past
+    ``offs[-1]`` meet no group: the plain loop writes zeros there,
+    ``torch._grouped_mm`` leaves whatever its output held (callers mask
+    them).  ``bounds`` is ``offs`` on the host where the caller already
+    read it (the plain route reads it once a call).  On the meta device
+    (the dry run) the loop cannot read its offsets, and the product is
+    one (M, K) x (K, N): every row meets one expert."""
     if grouped_route(x, w) == "torch._grouped_mm":
         return torch._grouped_mm(x, w, offs=offs)
+    if x.device.type == "meta":
+        return x @ w[0]
     if bounds is None:
         bounds = offs.tolist()
     outs, lo = [], 0
@@ -158,37 +182,56 @@ def grouped_mm(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor, *,
         if hi > lo:
             outs.append(x[lo:hi] @ w[e])
         lo = hi
-    if not outs:
-        return x.new_zeros((x.shape[0], w.shape[-1]))
+    if lo < x.shape[0]:
+        outs.append(x.new_zeros((x.shape[0] - lo, w.shape[-1])))
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
-def moe_ragged(blk, flat: torch.Tensor, cfg: ModelConfig
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference's ``moe_ragged`` on tokens ``flat`` (T, d): (routed
-    experts' output (T, d) in flat's dtype, aux loss).  The (token, expert)
-    pairs are stably sorted by expert, so each expert's rows keep token
-    order; the row count stays T·k and only the group boundaries come
-    from the data."""
+def expert_rows(flat: torch.Tensor, weights: torch.Tensor,
+                experts: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                wd: torch.Tensor, n_experts: int, first: int = 0
+                ) -> torch.Tensor:
+    """The routed experts' output (T, d) in flat's dtype for tokens
+    ``flat`` (T, d) routed to ``experts`` (T, k) with ``weights`` (T, k),
+    through the expert stack ``wg``/``wu`` (E_l, d, f_l), ``wd`` (E_l,
+    f_l, d): experts ``first .. first + E_l - 1`` of ``n_experts`` (all of
+    them, or one rank's share where they split over ``model``; f_l the
+    whole hidden width or a rank's slice of it).  The (token, expert)
+    pairs are stably sorted by expert, counted from ``first`` (so a
+    rank's own experts' rows come first, in expert and token order), the
+    row count stays T·k and only the group boundaries come from the data;
+    rows of another rank's experts meet no group and add zeros."""
     T, d = flat.shape
     dt = flat.dtype
-    E, k = cfg.n_experts, cfg.top_k
-    weights, experts, aux = route(blk["moe/router"], flat, k)
+    k = experts.shape[1]
+    n_local = wg.shape[0]
     flat_expert = experts.reshape(-1)                               # (T k,)
     flat_weight = weights.reshape(-1)
     flat_token = torch.arange(T, device=flat.device).repeat_interleave(k)
-    sorted_expert, order = torch.sort(flat_expert, stable=True)
+    sorted_key, order = torch.sort(
+        torch.remainder(flat_expert - first, n_experts), stable=True)
     sorted_token = flat_token[order]
-    offs = torch.cumsum(torch.bincount(sorted_expert, minlength=E),
-                        0).to(torch.int32)
-    wg, wu, wd = (blk[n].to(dt) for n in ("moe/w_gate", "moe/w_up",
-                                          "moe/w_down"))
-    bounds = None if grouped_route(flat, wg) != "plain" else offs.tolist()
+    counts = torch.zeros(n_experts, dtype=torch.int64,
+                         device=flat.device).scatter_add_(
+        0, sorted_key, torch.ones_like(sorted_key))
+    offs = torch.cumsum(counts[:n_local], 0).to(torch.int32)
+    plain = grouped_route(flat, wg) == "plain" and flat.device.type != "meta"
+    bounds = offs.tolist() if plain else None
     xs = flat[sorted_token]                                         # (T k, d)
-    h = (F.silu(grouped_mm(xs, wg, offs, bounds=bounds))
-         * grouped_mm(xs, wu, offs, bounds=bounds))
-    ys = grouped_mm(h, wd, offs, bounds=bounds)
-    ys = ys * flat_weight[order][:, None].to(dt)
+    mine = (sorted_key < n_local)[:, None] if n_local < n_experts else None
+
+    def own(t):
+        # the rows past the last own group, zero: the grouped product
+        # leaves them unwritten, forward and backward, and a value read
+        # there (a NaN, or an inf times a zero gradient) would reach x's
+        # and the routing weights' gradients
+        return t if mine is None else torch.where(mine, t, 0)
+
+    def product(a, w):
+        return own(grouped_mm(a, w, offs, bounds=bounds))
+    xs = own(xs)
+    h = F.silu(product(xs, wg)) * product(xs, wu)
+    ys = product(h, wd) * flat_weight[order][:, None].to(dt)
     # the sort inverted by a gather, then each token's k rows summed in
     # slot order
     inv = torch.empty_like(order)
@@ -197,7 +240,71 @@ def moe_ragged(blk, flat: torch.Tensor, cfg: ModelConfig
     out = per[:, 0]
     for j in range(1, k):
         out = out + per[:, j]
-    return out.to(dt), aux
+    return out.to(dt)
+
+
+def moe_ragged(blk, flat: torch.Tensor, cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``moe_ragged`` on tokens ``flat`` (T, d): (routed
+    experts' output (T, d) in flat's dtype, aux loss), through
+    :func:`expert_rows` on the whole expert stack."""
+    dt = flat.dtype
+    weights, experts, aux = route(blk["moe/router"], flat, cfg.top_k)
+    wg, wu, wd = (blk[n].to(dt) for n in ("moe/w_gate", "moe/w_up",
+                                          "moe/w_down"))
+    return expert_rows(flat, weights, experts, wg, wu, wd,
+                       cfg.n_experts), aux
+
+
+def _ragged_sharded(blk, flat, cfg: ModelConfig, local: bool):
+    """:func:`moe_ragged` on DTensors (module docstring): ``local`` the
+    reference's ``ragged_local`` (each data shard's rows, the mean of the
+    shards' aux losses), else its ``ragged`` (the tokens gathered over the
+    data axes first, the aux over all of them).  (T, d) in flat's row
+    layout, a partial sum over ``model`` where the experts split there;
+    aux loss."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    dm = flat.device_mesh
+    E, dt = cfg.n_experts, flat.dtype
+    whole = [Replicate()] * dm.ndim
+    own = sharded.batch_placements(flat.placements, dm)
+    rows = own if local else whole
+    flat = sharded.redistribute(flat, rows)
+    summed = [Partial() if p == Shard(0) else Replicate() for p in rows]
+
+    def route_local(router, x):
+        weights, experts, aux = route(router, x, cfg.top_k)
+        return weights, experts, aux.reshape(1)
+    router = sharded.redistribute(blk["moe/router"], whole)
+    weights, experts, aux = local_map(
+        route_local, out_placements=(rows, rows, rows),
+        in_placements=(whole, rows), in_grad_placements=(summed, rows),
+        device_mesh=dm)(router, flat)
+    wg, wu, wd = (blk[n].to(dt) for n in ("moe/w_gate", "moe/w_up",
+                                          "moe/w_down"))
+    # a rank of the model axis holds a split of the experts or of their
+    # hidden width (its output a partial sum), or all of them whole
+    out = [Partial() if ax == sharded.MODEL and isinstance(pw, Shard) else p
+           for ax, pw, p in zip(dm.mesh_dim_names, wg.placements, rows)]
+
+    def grads(w):
+        return [Partial() if s == Shard(0) else p
+                for s, p in zip(rows, w.placements)]
+
+    def experts_local(x, w, e, g, u, d):
+        first = sharded.model_rank(dm) * g.shape[0] if g.shape[0] < E else 0
+        return expert_rows(x, w, e, g, u, d, E, first)
+    y = local_map(
+        experts_local, out_placements=out,
+        in_placements=(rows, rows, rows, wg.placements, wu.placements,
+                       wd.placements),
+        in_grad_placements=(out, out, rows, grads(wg), grads(wu), grads(wd)),
+        device_mesh=dm)(flat, weights, experts, wg, wu, wd)
+    if not local:
+        y = sharded.redistribute(y, [Shard(0) if p == Shard(0) else q
+                                     for p, q in zip(own, out)])
+    return y, aux.mean()
 
 
 def _dense(blk, flat: torch.Tensor, cfg: ModelConfig
@@ -273,10 +380,9 @@ def apply_moe(blk, x: torch.Tensor, cfg: ModelConfig,
     flat = x.reshape(B * S, d)
     if sharded.is_dtensor(flat):
         if impl in ("ragged", "ragged_local"):
-            raise NotImplementedError(f"MoE impl {impl!r} has no sharded "
-                                      f"route: its group sizes come from "
-                                      f"the routed tokens")
-        y, aux = _dense_sharded(blk, flat, cfg)
+            y, aux = _ragged_sharded(blk, flat, cfg, impl == "ragged_local")
+        else:
+            y, aux = _dense_sharded(blk, flat, cfg)
     elif impl in ("ragged", "ragged_local"):
         y, aux = moe_ragged(blk, flat, cfg)
     else:

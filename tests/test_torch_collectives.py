@@ -20,9 +20,10 @@ the JAX package's partitioned-HLO count on the CPU.
   layers, at the four input shapes on 16 x 16 (the dense and MoE LMs:
   ``tests/test_torch_sharded_zoo.py``): counted on the meta device with
   nothing made off it; ``remat`` recomputes the forward's collectives; a
-  Mamba2 layer's gathers by hand; the dry run's CLI takes ``--variant``
-  and refuses the ragged variants by name; the roofline's collective term
-  can now dominate.
+  Mamba2 layer's gathers by hand; the dry run's CLI takes ``--variant``,
+  the two ragged variants included, and refuses an unknown one; the
+  grouped product's FLOP rule; the roofline's collective term can now
+  dominate.
 """
 import functools
 import json
@@ -359,13 +360,63 @@ def test_remat_recomputes_the_forward_collectives():
     assert remat["flops"] > plain["flops"]
 
 
-def test_dry_run_refuses_the_ragged_variants_by_name():
+def test_dry_run_refuses_the_ragged_variants_by_name(tmp_path):
+    """The reference's two grouped variants are counted (full-depth
+    OLMoE-1B-7B's decode_32k on 16 x 16): each record names its variant
+    and dispatch, counts FLOPs and collectives, makes nothing off the
+    meta device, says which rows its grouped products counted and their
+    FLOPs (OLMoE's 64 experts split over the 16-wide model axis: 4 a
+    device, an upper bound, which the roofline states as one) and is
+    written under the variant's name; ``moe-ragged`` gathers the tokens
+    over the data axis, ``moe-ragged-local`` does not.  A name that is not
+    a variant (the dispatch's own, ``ragged``) is refused."""
+    recs = {}
     for variant, impl in (("moe-ragged", "ragged"),
                           ("moe-ragged-local", "ragged_local")):
-        with pytest.raises(ValueError, match=f"moe_impl '{impl}'"):
-            dryrun.dryrun_one("olmoe-1b-7b", "decode_32k", variant=variant)
+        rec = recs[impl] = dryrun.dryrun_one(
+            "olmoe-1b-7b", "decode_32k", variant=variant, out=str(tmp_path))
+        assert rec["variant"] == variant and rec["moe_impl"] == impl
+        assert rec["flops_per_device"] > 0 and rec["off_meta_bytes"] == 0
+        assert rec["collective_total"] > 0
+        g = rec["grouped"]
+        assert g["rows"].endswith("against the device's 4 experts")
+        assert g["exact"] is False
+        assert 0 < g["flops_per_device"] < rec["flops_per_device"]
+        t = roofline.terms(rec)
+        assert t["compute_exact"] is False
+        assert 0 < t["grouped_s"] < t["compute_s"]
+        assert (tmp_path / f"olmoe-1b-7b_decode_32k_16x16_{variant}.json"
+                ).exists()
+    assert recs["ragged"]["collective_bytes_per_device"]["all-gather"] > 0
+    assert "all-gather" not in \
+        recs["ragged_local"]["collective_bytes_per_device"]
+    assert recs["ragged"]["flops_per_device"] \
+        > recs["ragged_local"]["flops_per_device"]
     with pytest.raises(ValueError, match="unknown variant"):
         dryrun.dryrun_one(TINY, "decode_32k", variant="ragged")
+
+
+def test_grouped_mm_counts_every_row_once():
+    """``aten._grouped_mm`` (which ``FlopCounterMode`` has no rule for)
+    counts 2·M·K·N for meta rows (M, K) against a stack (E, K, N), whatever
+    the offsets; its backward's weight product, (K, M) x (M, N) grouped
+    along M into (E, K, N), 2·K·M·N; the input product 2·M·N·K."""
+    M, K, N, E = 48, 64, 32, 3
+    x = torch.empty((M, K), dtype=torch.bfloat16, device="meta",
+                    requires_grad=True)
+    w = torch.empty((E, K, N), dtype=torch.bfloat16, device="meta",
+                    requires_grad=True)
+    offs = torch.empty((E,), dtype=torch.int32, device="meta")
+    with dryrun.LocalFlops() as fl:
+        y = torch._grouped_mm(x, w, offs=offs)
+    assert y.shape == (M, N) and fl.flops == 2 * M * K * N
+    with dryrun.LocalFlops() as fl:
+        y.backward(torch.empty((M, N), dtype=torch.bfloat16, device="meta"))
+    assert fl.flops == 2 * (2 * M * K * N)
+    assert dryrun.grouped_mm_flops(
+        torch.empty((E, M, K), device="meta"),
+        torch.empty((E, K, N), device="meta"),
+        out_val=torch.empty((E, M, N), device="meta")) == 2 * E * M * K * N
 
 
 @pytest.mark.parametrize("variant,field,value", [

@@ -687,6 +687,49 @@ def test_grouped_product_on_card_meets_the_plain_one(gen, arch, dtype):
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-moe-a2.7b"])
+def test_expert_shares_on_card_sum_to_the_whole(gen, arch):
+    """``models.moe.expert_rows`` on one model rank's share of the experts
+    (what a rank of a 4-wide model axis runs where the experts split
+    there: its own experts' rows sorted first, the rows past its last
+    group masked), bf16 through ``torch._grouped_mm``, summed over the 4
+    shares, against the whole stack at the arch's widths (512 tokens,
+    routed by the arch's router, which requires grad, so x's gradient
+    also flows through the routing): the output, x's and the router's
+    gradients within 2e-2 of the whole's largest (bf16 rounding of the
+    partial sums), every share's output and its x, router and weight
+    gradients finite (the grouped product leaves the rows past its last
+    group unwritten)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params_on_device, moe
+    cfg = get_config(arch).replace(n_layers=1)
+    params = init_params_on_device(cfg, seed=4, device="cuda")
+    E = cfg.n_experts
+    x = torch.randn((512, cfg.d_model), generator=gen,
+                    device="cuda").bfloat16()
+    router = params["layers/moe/router"][0]
+    ws = [params[f"layers/moe/{n}"][0] for n in ("w_gate", "w_up", "w_down")]
+    ct = torch.randn(x.shape, generator=gen, device="cuda").bfloat16()
+
+    def run(first, n):
+        xl = x.detach().requires_grad_(True)
+        rl = router.detach().requires_grad_(True)
+        wl = [w[first:first + n].detach().requires_grad_(True) for w in ws]
+        weights, experts, _ = moe.route(rl, xl, cfg.top_k)
+        y = moe.expert_rows(xl, weights, experts, *wl, E, first)
+        (y.float() * ct.float()).sum().backward()
+        for t in (y, xl.grad, rl.grad, *(w.grad for w in wl)):
+            assert bool(torch.isfinite(t).all()), (arch, first)
+        return y.detach().float(), xl.grad.float(), rl.grad.float()
+    whole = run(0, E)
+    n = E // 4
+    parts = [run(r * n, n) for r in range(4)]
+    for i, want in enumerate(whole):
+        got = sum(p[i] for p in parts)
+        assert float((got - want).abs().max()) \
+            <= 2e-2 * float(want.abs().max()), (arch, i)
+
+
 def test_ragged_dispatch_on_card_repeats_its_bits(gen):
     """``apply_moe(impl="ragged")`` at Qwen2-MoE's widths (one layer, bf16
     weights made on the card, 512 tokens): two runs give the same bits

@@ -207,6 +207,7 @@ def test_roofline_terms_use_the_h100():
     np.testing.assert_allclose(t["memory_s"], 1e13 / 3.35e12)
     np.testing.assert_allclose(t["collective_s"], 1e10 / 450e9)
     assert t["dominant"] == "memory"
+    assert t["grouped_s"] == 0 and t["compute_exact"] is True
     a = roofline.analyse(rec)
     assert a["useful_ratio"] == pytest.approx(
         roofline.model_flops(get_config("tinyllama-1.1b"), rec) / 256e15)
@@ -263,7 +264,9 @@ def test_dry_run_allocates_nothing_and_refuses_ragged():
     gathered whole for attention (k and v, every layer); the embedding and
     each layer's MLP (27,648 = 16 x 1,728 wide) end in an all-reduce of
     the 8 local rows; the 40 query heads do not divide 16, so attention
-    repeats on every rank of the axis and needs none."""
+    repeats on every rank of the axis and needs none.  Full-depth
+    OLMoE-1B-7B's decode under both grouped dispatches allocates nothing
+    either."""
     rec = dryrun.dryrun_one("qwen2.5-32b", "decode_32k")
     assert rec["off_meta_bytes"] < 2 ** 20
     assert rec["memory"]["argument_bytes_by_group"]["params"] > 2 ** 30
@@ -275,10 +278,13 @@ def test_dry_run_allocates_nothing_and_refuses_ragged():
         "all-reduce": (L + 1) * rows * cfg.d_model * 2}
     assert rec["flops_per_device"] > 0 and \
         rec["collective_total"] == 2 * L * ring + (L + 1) * rows * 5120 * 2
-    assert rec["n_params"] > 30e9
+    assert rec["n_params"] > 30e9 and rec["grouped"] is None
+    # the grouped dispatches count on meta DTensors too (group sizes are
+    # shapes without values there): nothing made off the meta device
     for impl in ("ragged", "ragged_local"):
-        with pytest.raises(ValueError, match=f"moe_impl '{impl}'"):
-            dryrun.dryrun_one("olmoe-1b-7b", "decode_32k", moe_impl=impl)
+        rec = dryrun.dryrun_one("olmoe-1b-7b", "decode_32k", moe_impl=impl)
+        assert rec["moe_impl"] == impl and rec["off_meta_bytes"] == 0
+        assert rec["flops_per_device"] > 0 and rec["n_params"] > 6e9
 
 
 def test_dry_run_and_roofline_clis(tmp_path):

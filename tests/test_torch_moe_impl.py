@@ -244,6 +244,96 @@ def test_ragged_bf16_route_runs_grouped_mm_and_meets_dense():
         <= GROUPED_BF16_REL * scale
 
 
+class _PoisonedGroupedMM(torch.autograd.Function):
+    """``torch._grouped_mm`` with NaN written into the rows past the last
+    group of its output and of x's gradient: what the product may leave
+    there, since it writes neither (on the CPU they read NaN, inf or a
+    stale value from run to run)."""
+
+    @staticmethod
+    def forward(ctx, x, w, offs):
+        ctx.save_for_backward(x, w, offs)
+        y = _GROUPED_MM(x, w, offs=offs)
+        y[int(offs[-1]):] = float("nan")
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w, offs = ctx.saved_tensors
+        with torch.enable_grad():
+            xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+            gx, gw = torch.autograd.grad(_GROUPED_MM(xr, wr, offs=offs),
+                                         (xr, wr), gy)
+        gx = gx.clone()
+        gx[int(offs[-1]):] = float("nan")
+        return gx, gw, None
+
+
+_GROUPED_MM = getattr(torch, "_grouped_mm", None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_rows_summed_over_expert_shares_equal_the_whole(
+        dtype, monkeypatch):
+    """``expert_rows`` on one model rank's share of the experts (its own
+    experts' rows sorted first, the rest masked: what a rank runs where
+    the experts split over ``model``), summed over the 4 shares of E 16,
+    top-k 4, equals the whole stack's output, and the gradients of x, of
+    the router (the routing weights come from ``route`` on a router that
+    requires grad, so x's gradient also flows through the routing) and of
+    each share's weights equal the whole's, all finite: in fp32 (the
+    plain loop, zeros past the last group) and in bf16, where
+    ``torch._grouped_mm`` leaves the rows past its last group unwritten
+    and the masks must keep them out of every product and of the routing
+    weights' gradient: the product here writes NaN into them, forward and
+    backward.  Within ``MOE_ATOL`` in fp32, ``GROUPED_BF16_REL`` of the
+    largest |y| in bf16."""
+    cfg, _, _, flat, x = _layer("wide")
+    E, k = cfg.n_experts, cfg.top_k
+    if dtype == torch.bfloat16:
+        assert _GROUPED_MM is not None
+        monkeypatch.setattr(torch, "_grouped_mm",
+                            lambda x, w, offs: _PoisonedGroupedMM.apply(
+                                x, w, offs))
+    torch.manual_seed(0)
+    xs = torch.from_numpy(x).reshape(-1, cfg.d_model).to(dtype)
+    ws = {n: flat["moe/" + n].to(dtype) for n in ("w_gate", "w_up",
+                                                 "w_down")}
+    ct = torch.randn(xs.shape).to(dtype)
+
+    def run(first, n):
+        xl = xs.detach().requires_grad_(True)
+        rl = flat["moe/router"].detach().requires_grad_(True)
+        wl = {m: w[first:first + n].detach().requires_grad_(True)
+              for m, w in ws.items()}
+        weights, experts, _ = moe.route(rl, xl, k)
+        y = moe.expert_rows(xl, weights, experts, wl["w_gate"], wl["w_up"],
+                            wl["w_down"], E, first)
+        (y.float() * ct.float()).sum().backward()
+        return (y.detach().float(), xl.grad.float(), rl.grad,
+                {m: w.grad.float() for m, w in wl.items()})
+    y0, gx0, gr0, gw0 = run(0, E)
+    parts = [run(r * E // 4, E // 4) for r in range(4)]
+    y = sum(p[0] for p in parts)
+    gx = sum(p[1] for p in parts)
+    gr = sum(p[2] for p in parts)
+    tol = MOE_ATOL if dtype == torch.float32 else \
+        GROUPED_BF16_REL * float(y0.abs().max())
+    assert all(bool(torch.isfinite(t).all()) for p in parts
+               for t in (p[0], p[1], p[2], *p[3].values()))
+    assert float((y - y0).abs().max()) <= tol
+    assert float((gx - gx0).abs().max()) <= GROUPED_BF16_REL \
+        * float(gx0.abs().max())
+    assert float((gr - gr0).abs().max()) <= GROUPED_BF16_REL \
+        * float(gr0.abs().max())
+    for r, p in enumerate(parts):
+        lo = r * E // 4
+        for m, g in p[3].items():
+            want = gw0[m][lo:lo + E // 4]
+            assert float((g - want).abs().max()) <= GROUPED_BF16_REL \
+                * float(gw0[m].abs().max()), (r, m)
+
+
 # ---------------------------------------------------------------------------
 # moe_impl through the model and the loss
 # ---------------------------------------------------------------------------

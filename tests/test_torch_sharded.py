@@ -17,6 +17,9 @@ step on the same inputs (fp32, reduced configs, no JAX).
   by kind and byte for byte, the count of the same step on meta DTensors
   over a fake process group of the same mesh (``launch.dryrun.
   count_sharded``): the dry run's figure is what the sharded step sends.
+  Reduced OLMoE also under the grouped dispatches ``moe_impl="ragged"``
+  and ``"ragged_local"`` (their parity with the reference:
+  ``tests/test_torch_sharded_moe.py``).
 
 Each process group lives in processes of its own (``torch.multiprocessing``
 spawn, a ``FileStore`` under ``tmp_path``, gloo on the loopback
@@ -86,6 +89,14 @@ def _cases(arch):
     return (False, True) if arch == "tinyllama-1.1b" else (False,)
 
 
+# the grouped MoE dispatches whose collectives the real run also counts
+MOE_IMPLS = ("ragged", "ragged_local")
+
+
+def _moe_impls(arch):
+    return MOE_IMPLS if _cfg(arch).n_experts else ()
+
+
 def _full(tree):
     """DTensors gathered whole (every rank calls this), plain as they
     are."""
@@ -152,6 +163,17 @@ def _worker(rank, store_path, out_path):
                             "logits": _full(logits), "cache": _full(cache),
                             "train_cc": dict(train_cc.bytes),
                             "prefill_cc": dict(prefill_cc.bytes)}
+            for impl in _moe_impls(arch):
+                cfg = _cfg(arch)
+                with CollectiveCounter() as train_cc:
+                    make_train_step(cfg, OCFG, "lm", moe_impl=impl)(dp, do,
+                                                                    db)
+                with CollectiveCounter() as prefill_cc:
+                    with torch.no_grad():
+                        forward(dp, cfg, db, mode="prefill",
+                                cache_width=CACHE, moe_impl=impl)
+                out[f"{arch}:{impl}"] = {"train_cc": dict(train_cc.bytes),
+                                         "prefill_cc": dict(prefill_cc.bytes)}
         if rank == 0:
             torch.save(out, out_path)
     finally:
@@ -163,7 +185,8 @@ _RUNS = {}
 
 
 def _gloo_run(arch, tmp_path_factory):
-    """``arch``'s results from the one gloo run of every architecture."""
+    """``arch``'s results from the one gloo run of every architecture (and
+    under ``"<arch>:<impl>"`` an MoE dispatch's collectives)."""
     if not _RUNS:
         import torch.multiprocessing as mp
         d = tmp_path_factory.mktemp("gloo")
@@ -246,26 +269,35 @@ def _meta(tree):
     return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
 
 
-def test_real_collectives_equal_the_fake_group_count(run):
+def test_real_collectives_equal_the_fake_group_count(run, tmp_path_factory):
     """The collectives of the real train step and prefill, kind by kind
     and byte for byte, against the same steps on meta DTensors over a fake
-    group of the same 2 x 2 mesh.  The fake mesh is a CPU one here, as the
-    gloo group's: DTensor moves a CPU mesh's shards from one dimension to
-    another by an all-gather (gloo has no all-to-all), where the dry run's
-    mesh of the cards' type counts an all-to-all."""
+    group of the same 2 x 2 mesh; for an MoE model also under each grouped
+    dispatch (``ragged`` gathers the tokens over the data axis, so it
+    sends an all-gather; ``ragged_local`` routes each shard's own rows).
+    The fake mesh is a CPU one here, as the gloo group's: DTensor moves a
+    CPU mesh's shards from one dimension to another by an all-gather (gloo
+    has no all-to-all), where the dry run's mesh of the cards' type counts
+    an all-to-all."""
     arch, res = run
     _, params, batch, opt, _ = _inputs(arch)
     ps, os_, bs = _shardings(params, opt, batch)
     mp_, mo, mb = _meta(params), _meta(opt), _meta(batch)
-    for seq, r in res.items():
+    cases = [(seq, "dense_scan", r) for seq, r in res.items()]
+    cases += [(False, impl, _gloo_run(f"{arch}:{impl}", tmp_path_factory))
+              for impl in _moe_impls(arch)]
+    for seq, impl, r in cases:
         cfg = _cfg(arch, seq)
-        fake = count_sharded(make_train_step(cfg, OCFG, "lm"),
+        fake = count_sharded(make_train_step(cfg, OCFG, "lm", moe_impl=impl),
                              (mp_, mo, mb), (ps, os_, bs), MESH, "cpu")
-        assert r["train_cc"] == fake["collectives"], seq
+        assert r["train_cc"] == fake["collectives"], (seq, impl)
         assert r["train_cc"].get("all-reduce", 0) > 0
 
         def prefill(p, b):
             with torch.no_grad():
-                return forward(p, cfg, b, mode="prefill", cache_width=CACHE)
+                return forward(p, cfg, b, mode="prefill", cache_width=CACHE,
+                               moe_impl=impl)
         fake = count_sharded(prefill, (mp_, mb), (ps, bs), MESH, "cpu")
-        assert r["prefill_cc"] == fake["collectives"], seq
+        assert r["prefill_cc"] == fake["collectives"], (seq, impl)
+        if impl == "ragged":
+            assert r["prefill_cc"].get("all-gather", 0) > 0
